@@ -6,18 +6,34 @@
 1. Device: refuses to run without CUDA; prints the card's name and power
    limit (nvidia-smi), the torch and CUDA versions; builds the CUDA kernels
    from mmvqa_tpu_torch/csrc with nvcc and prints the build time.
-2. Kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at the shapes the VQA path gives it, in fp32 and bf16, with the
-   tolerances below; prints both times (CUDA events, median).
-3. Slice: the flagship VQA model (EfficientNetV2-M + RealFormer, hidden 768,
-   4 layers, T=28, 224 px) with seeded random weights answers batches of 16
-   synthetic requests through ``make_vqa_eval_step``, in fp32 and in bf16.
-   The kernels' launch counters must show the token head 5x and the
-   attention 4x per forward; the fp32 logits must match the same model run
-   on the CPU (plain path); the bf16 logits must be as close to those as
-   the same bf16 model run on the CPU; every output must be finite. For
-   each precision it then times each layer with CUDA events and traces the
-   batches with torch.profiler for the device's busy share.
+2. Kernels: each hand-written kernel (token head and RealFormer attention,
+   forward and backward) against its plain PyTorch version on the card, at
+   the shapes the eval and the train path give it, in fp32 and bf16, with
+   the tolerances below; prints the kernel's and the plain version's time
+   (CUDA events, median) beside the least time the card could take (the
+   larger of bytes over memory rate and operations over peak rate); checks
+   that two runs of the backward give identical bits.
+3. Eval slice: the flagship VQA model (EfficientNetV2-M + RealFormer, hidden
+   768, 4 layers, T=28, 224 px) with seeded random weights answers batches
+   of 16 synthetic requests through ``make_vqa_eval_step``, in fp32 and in
+   bf16. The launch counters must show the token head 5x and the attention
+   4x per forward; the fp32 logits must match the same model run on the CPU
+   (plain path); the bf16 logits must be as close to those as the same bf16
+   model run on the CPU; every output must be finite. For each precision it
+   then times each layer with CUDA events and traces the batches with
+   torch.profiler for the device's busy share.
+4. Train slice: the flagship ROCO MLM model (the same trunk and encoder at
+   T=75, vocabulary 30522) with seeded random weights. (a) One fp32 train
+   step (no dropout, fixed augmentation draws) on the card and on the CPU
+   plain path from the same weights and batch: loss, logits, the gradients
+   of a stated set of leaves and a BatchNorm's running variance must agree.
+   (b) The main path: bf16 compute with fp32 parameters, dropout on,
+   ``mlm_epoch`` over a repeated batch of 128 through ``make_mlm_steps``;
+   every loss finite, the last below the first; ms per step, images per
+   second, peak memory. (c) The launch counters must show, per step, the
+   token head 5x forward and 5x backward and the attention 4x and 4x.
+   (d) Where the time goes: forward, backward and optimizer by CUDA events,
+   the four kernels and the device's busy share by torch.profiler.
 
 Prints a JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -27,6 +43,7 @@ that line.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -35,8 +52,12 @@ import time
 
 SEED = 0
 NUM_CLASSES = 1024  # no answer vocabulary ships with the repo; fixed here
-N_BATCHES = 4       # requests of batch 16 per precision (the first warms up)
+N_BATCHES = 3       # requests of batch 16 per precision (the first warms up)
 PAD_LAST = 3        # the last batch is a partial one: 3 padding samples
+TRAIN_B = 128       # the train path's batch
+TRAIN_STEPS = 6     # steps of the main path on one repeated batch
+TRAIN_LR = 1e-4     # so that six steps move the loss beyond dropout's noise
+CHECK_B = 8         # batch of the fp32 train step held against the CPU
 
 # Tolerances, kernel vs plain version on the same card and inputs.
 # fp32: both accumulate in fp32 in another order; the token head's sums run
@@ -50,6 +71,24 @@ TOL_BF16 = dict(rtol=8e-3, atol=2e-3)
 TOL_K2_VALID = dict(rtol=2e-5, atol=2e-5)
 TOL_K2_PADDED = dict(rtol=5e-3, atol=2e-3)
 TOL_K2_CARRY = dict(rtol=2e-5, atol=2e-4)
+# K1 backward, the JAX package's tests/test_token_head.py:44-47: gradients to
+# rtol 1e-4. dx and dW are sums of up to 768 and B * 12544 fp32 terms of
+# both signs, taken in another order, so the absolute term is 1e-4 of the
+# largest entry of the plain result (set per case). In bf16 the kernel and
+# the plain version compute the same fp32 values from the same bf16 inputs
+# (gact is not rounded); dx is then rounded once, so two bf16 ulps (rtol
+# 8e-3) on top of the same absolute term; dW stays fp32.
+RTOL_K1_BWD = 1e-4
+# K2 backward, tests/test_pallas_attention.py:92 (rtol 5e-4, atol 5e-5) for
+# fp32; bf16 outputs are one rounding of the same fp32 values: two ulps.
+TOL_K2_BWD = dict(rtol=5e-4, atol=5e-5)
+TOL_K2_BWD_BF16 = dict(rtol=8e-3, atol=5e-5)
+# train step, fp32 on the card vs the CPU plain path: as TOL_SLICE for the
+# logits; a gradient leaf or running statistic within 2e-3 of its largest
+# entry (convolutions and batch statistics in another order on each device,
+# through 57 trunk blocks forward and back)
+GRAD_NORMWISE = 2e-3
+
 # slice, fp32 logits on the card vs the CPU: convolutions and reductions in
 # another order on each device, over 57 trunk blocks and 4 layers.
 TOL_SLICE = dict(rtol=1e-3, atol=1e-3)
@@ -65,6 +104,18 @@ TAPS = (("stage0", 112, 24), ("stage1", 56, 48), ("stage2", 28, 80),
         ("stage4", 14, 176), ("stage6", 7, 512))
 HIDDEN = 768
 HEADS, HEAD_DIM = 8, 96
+
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
+# memory rate; dense bf16 tensor rate; fp32 rate outside the tensor cores;
+# special-function rate, 16 units an SM x 132 SMs x 1.98 GHz boost clock.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_SFU = 16 * 132 * 1.98e9
+# special-function evaluations per projected element: SERF is exp, log1p
+# and erf forward, and those plus exp(-y^2) and a sigmoid backward; the
+# bf16 polynomial form is one sigmoid (an exp and a reciprocal) both ways
+SFU_PER_ELEMENT = {("serf", "fwd"): 3, ("serf", "bwd"): 6,
+                   ("serf_fast", "fwd"): 2, ("serf_fast", "bwd"): 2}
 
 
 def fail(msg: str) -> None:
@@ -111,92 +162,249 @@ def close(name, got, want, tol) -> float:
     return err.max().item()
 
 
+def close_normwise(name, got, want, rel) -> float:
+    """max |got - want| <= rel * max |want|; returns the error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite output")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if err > rel * scale:
+        fail(f"{name}: max abs err {err:.3e} beyond {rel} x {scale:.3e}")
+    return err
+
+
+def bound(nbytes: float, flops: float, sfu: float, dtype_name: str):
+    """(ms, 'bytes' | 'operations'): the least time the card could take."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(flops / PEAK_FLOPS[dtype_name], sfu / PEAK_SFU)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k1_bound(B, P, K, C, itemsize, act, direction):
+    """Token head: x read (and dx written), W read (dW written in fp32),
+    the (B, C) output or its gradient; one product forward, three backward;
+    the activation's special functions."""
+    name = "bf16" if itemsize == 2 else "fp32"
+    x, w, out = B * P * K * itemsize, K * C * itemsize, B * C * itemsize
+    products = 2.0 * B * P * K * C
+    sfu = SFU_PER_ELEMENT[(act, direction)] * B * P * C
+    if direction == "fwd":
+        return bound(x + w + out, products, sfu, name)
+    return bound(2 * x + w + K * C * 4 + B * C * 4, 3 * products, sfu, name)
+
+
+def k2_bound(B, H, T, E, itemsize, with_prev, with_mask, direction):
+    """Attention core: q, k, v and ctx (their gradients and dctx backward),
+    the fp32 carries; two products forward, four backward; one exp a score."""
+    name = "bf16" if itemsize == 2 else "fp32"
+    qkv, tile = B * T * H * E * itemsize, B * H * T * T * 4
+    product = 2.0 * B * H * T * T * E
+    sfu = B * H * T * T
+    if direction == "fwd":
+        nbytes = 4 * qkv + tile * (2 if with_prev else 1)
+        nbytes += B * T * 4 if with_mask else 0
+        return bound(nbytes, 2 * product, sfu, name)
+    # carry in; dcarry in and dprev out where the layer had a prev
+    nbytes = 7 * qkv + tile * (3 if with_prev else 1)
+    return bound(nbytes, 4 * product, sfu, name)
+
+
+KERNELS = {
+    # name: (source, the pallas_call it replaces, why no single library call)
+    "token_head": (
+        "mmvqa_tpu_torch/csrc/token_head.cu",
+        "mmvqa_tpu/ops/pallas_token_head.py:247",
+        "no single PyTorch call fuses the projection, SERF and the mean"),
+    "token_head_bwd": (
+        "mmvqa_tpu_torch/csrc/token_head_bwd.cu",
+        "mmvqa_tpu/ops/pallas_token_head.py:273",
+        "no single PyTorch call gives dx and dW of the fused head"),
+    "realformer_attention": (
+        "mmvqa_tpu_torch/csrc/realformer_attention.cu",
+        "mmvqa_tpu/ops/pallas_attention.py:146",
+        "scaled_dot_product_attention takes no residual scores and returns "
+        "no score carry"),
+    "realformer_attention_bwd": (
+        "mmvqa_tpu_torch/csrc/realformer_attention_bwd.cu",
+        "mmvqa_tpu/ops/pallas_attention.py:164",
+        "no PyTorch call takes a score carry and its gradient"),
+}
+
+
 def kernel_phase(torch):
+    """Every kernel against its plain version. The summary times are at the
+    train path's shapes, bf16 at B=TRAIN_B: the five taps summed for the
+    token head, one layer at T=75 with prev and padded queries for the
+    attention."""
     from mmvqa_tpu_torch.models.visual_tokens import tap_positions
     from mmvqa_tpu_torch.ops.attention import (
         realformer_attention,
+        realformer_attention_backward,
+        realformer_attention_backward_reference,
         realformer_attention_reference,
     )
     from mmvqa_tpu_torch.ops.token_head import (
         fused_token_head,
+        token_head_backward,
+        token_head_backward_reference,
         token_head_reference,
     )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     results = {name: {"err": {torch.float32: 0.0, torch.bfloat16: 0.0},
-                      "ms": 0.0, "plain_ms": 0.0}
-               for name in ("token_head", "realformer_attention")}
+                      "ms": 0.0, "plain_ms": 0.0, "bounds": []}
+               for name in KERNELS}
 
-    cases = [(16, tap) for tap in TAPS] + [(128, TAPS[0])]
-    for dtype, act, tol in ((torch.float32, "serf", TOL_K1_F32),
-                            (torch.bfloat16, "serf_fast", TOL_BF16)):
-        for B, (name, side, K) in cases:
-            feat = torch.randn(B, side, side, K, device=dev, generator=g)
-            feat = feat.to(dtype).permute(0, 3, 1, 2)  # the trunk's layout
-            x = tap_positions(feat)
-            w = (torch.randn(K, HIDDEN, device=dev, generator=g)
-                 * K ** -0.5).to(dtype)
-            got = fused_token_head(x, w, act)
-            want = token_head_reference(x, w, act)
-            torch.cuda.synchronize()
-            label = f"token_head {name} B={B} P={side * side} K={K} {dtype}"
-            err = close(label, got, want, tol)
-            ms = time_ms(lambda: fused_token_head(x, w, act))
-            plain = time_ms(lambda: token_head_reference(x, w, act))
-            print(f"{label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
-                  f"plain {plain:.4f} ms")
-            r = results["token_head"]
-            r["err"][dtype] = max(r["err"][dtype], err)
-            if B == 16 and dtype == torch.bfloat16:
-                r["ms"] += ms
-                r["plain_ms"] += plain
-            del feat, x, got, want
+    def note(name, dtype, err, summary, ms, plain, bnd):
+        r = results[name]
+        r["err"][dtype] = max(r["err"][dtype], err)
+        if summary:
+            r["ms"] += ms
+            r["plain_ms"] += plain
+            r["bounds"].append(bnd)
 
-    B, H, E = 16, HEADS, HEAD_DIM
-    for dtype in (torch.float32, torch.bfloat16):
-        for T in (28, 75):
-            for with_prev in (False, True):
-                for with_mask in (False, True):
-                    kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g)
-                    k, q, v = kqv.to(dtype).split(E, dim=-1)
-                    prev = (torch.randn(B, H, T, T, device=dev, generator=g)
-                            if with_prev else None)
-                    mask = None
-                    valid = torch.ones(B, T, dtype=torch.bool, device=dev)
-                    if with_mask:
-                        lengths = torch.randint(T // 2, T + 1, (B,), device=dev,
-                                                generator=g)
-                        valid = torch.arange(T, device=dev)[None] < lengths[:, None]
-                        mask = valid.float()
-                    ctx, carry = realformer_attention(q, k, v, prev, mask)
-                    ctx_p, carry_p = realformer_attention_reference(
-                        q, k, v, prev, mask)
-                    torch.cuda.synchronize()
-                    label = (f"realformer_attention T={T} prev={with_prev} "
-                             f"mask={with_mask} {dtype}")
-                    if dtype == torch.float32:
-                        e1 = close(label + " ctx valid", ctx[valid],
-                                   ctx_p[valid], TOL_K2_VALID)
-                        e2 = close(label + " ctx", ctx, ctx_p, TOL_K2_PADDED)
-                    else:
-                        e1 = e2 = close(label + " ctx", ctx, ctx_p, TOL_BF16)
-                    e3 = close(label + " carry", carry, carry_p, TOL_K2_CARRY)
-                    err = max(e1, e2, e3)
-                    ms = time_ms(lambda: realformer_attention(q, k, v, prev, mask))
-                    plain = time_ms(
-                        lambda: realformer_attention_reference(q, k, v, prev, mask))
-                    print(f"{label}: max_abs_err ctx {max(e1, e2):.3e} carry "
-                          f"{e3:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms")
-                    r = results["realformer_attention"]
-                    r["err"][dtype] = max(r["err"][dtype], err)
-                    if (T == 28 and with_prev and with_mask
-                            and dtype == torch.bfloat16):
-                        r["ms"], r["plain_ms"] = ms, plain
+    # ---- K1, forward and backward: the five taps at the eval batch (16) in
+    # both dtypes, at the train batch in bf16, stage 0 at the train batch in
+    # fp32
+    k1_cases = ([(torch.float32, 16, tap) for tap in TAPS]
+                + [(torch.float32, TRAIN_B, TAPS[0])]
+                + [(torch.bfloat16, B, tap) for B in (16, TRAIN_B)
+                   for tap in TAPS])
+    for dtype, B, (name, side, K) in k1_cases:
+        bf16 = dtype == torch.bfloat16
+        act = "serf_fast" if bf16 else "serf"
+        reps = 20 if B == 16 else 5
+        P = side * side
+        feat = torch.randn(B, side, side, K, device=dev, generator=g)
+        feat = feat.to(dtype).permute(0, 3, 1, 2)  # the trunk's layout
+        x = tap_positions(feat)
+        w = (torch.randn(K, HIDDEN, device=dev, generator=g)
+             * K ** -0.5).to(dtype)
+        gout = torch.randn(B, HIDDEN, device=dev, generator=g)
+        summary = bf16 and B == TRAIN_B
+        label = f"{name} B={B} P={P} K={K} {dtype}"
+
+        got = fused_token_head(x, w, act)
+        want = token_head_reference(x, w, act)
+        torch.cuda.synchronize()
+        err = close(f"token_head {label}", got, want,
+                    TOL_BF16 if bf16 else TOL_K1_F32)
+        ms = time_ms(lambda: fused_token_head(x, w, act), reps)
+        plain = time_ms(lambda: token_head_reference(x, w, act), reps)
+        bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "fwd")
+        print(f"token_head {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms"
+              f"  plain {plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+        note("token_head", dtype, err, summary, ms, plain, bnd)
+        del got, want
+
+        dx, dw = token_head_backward(x, w, gout, act)
+        dx2, dw2 = token_head_backward(x, w, gout, act)
+        dx_p, dw_p = token_head_backward_reference(x, w, gout, act)
+        torch.cuda.synchronize()
+        if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
+            fail(f"token_head_bwd {label}: two runs differ")
+        if dx.stride() != x.stride():
+            fail(f"token_head_bwd {label}: dx is not laid out as x")
+        e_dw = close(f"token_head_bwd {label} dW", dw, dw_p, dict(
+            rtol=RTOL_K1_BWD, atol=RTOL_K1_BWD * dw_p.abs().max().item()))
+        dx_tol = dict(rtol=8e-3 if bf16 else RTOL_K1_BWD,
+                      atol=RTOL_K1_BWD * dx_p.float().abs().max().item())
+        e_dx = close(f"token_head_bwd {label} dx", dx, dx_p, dx_tol)
+        del dx, dx2, dw2, dx_p, dw_p
+        ms = time_ms(lambda: token_head_backward(x, w, gout, act), reps)
+        plain = time_ms(
+            lambda: token_head_backward_reference(x, w, gout, act), reps)
+        bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "bwd")
+        print(f"token_head_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
+              f"{e_dw:.3e}, two runs identical  kernel {ms:.4f} ms  plain "
+              f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+        note("token_head_bwd", dtype, max(e_dx, e_dw), summary, ms, plain, bnd)
+        del feat, x
+
+    # ---- K2, forward and backward
+    H, E = HEADS, HEAD_DIM
+    k2_cases = [(dtype, 16, T, wp, wm)
+                for dtype in (torch.float32, torch.bfloat16)
+                for T in (28, 75) for wp in (False, True)
+                for wm in (False, True)]
+    k2_cases += [(torch.bfloat16, TRAIN_B, 75, wp, True)
+                 for wp in (False, True)]
+    for dtype, B, T, with_prev, with_mask in k2_cases:
+        bf16 = dtype == torch.bfloat16
+        kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g).to(dtype)
+        k, q, v = kqv.split(E, dim=-1)
+        prev = (torch.randn(B, H, T, T, device=dev, generator=g)
+                if with_prev else None)
+        mask = None
+        valid = torch.ones(B, T, dtype=torch.bool, device=dev)
+        if with_mask:
+            lengths = torch.randint(T // 2, T + 1, (B,), device=dev,
+                                    generator=g)
+            valid = torch.arange(T, device=dev)[None] < lengths[:, None]
+            mask = valid.float()
+        summary = bf16 and B == TRAIN_B and with_prev
+        label = (f"B={B} T={T} prev={with_prev} mask={with_mask} {dtype}")
+
+        ctx, carry = realformer_attention(q, k, v, prev, mask)
+        ctx_p, carry_p = realformer_attention_reference(q, k, v, prev, mask)
+        torch.cuda.synchronize()
+        name = f"realformer_attention {label}"
+        if bf16:
+            e1 = e2 = close(name + " ctx", ctx, ctx_p, TOL_BF16)
+        else:
+            e1 = close(name + " ctx valid", ctx[valid], ctx_p[valid],
+                       TOL_K2_VALID)
+            e2 = close(name + " ctx", ctx, ctx_p, TOL_K2_PADDED)
+        e3 = close(name + " carry", carry, carry_p, TOL_K2_CARRY)
+        ms = time_ms(lambda: realformer_attention(q, k, v, prev, mask))
+        plain = time_ms(
+            lambda: realformer_attention_reference(q, k, v, prev, mask))
+        bnd = k2_bound(B, H, T, E, kqv.element_size(), with_prev, with_mask,
+                       "fwd")
+        print(f"{name}: max_abs_err ctx {max(e1, e2):.3e} carry {e3:.3e}  "
+              f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})")
+        note("realformer_attention", dtype, max(e1, e2, e3), summary, ms,
+             plain, bnd)
+
+        # the backward from the kernel's own carry; a layer with a prev also
+        # gets a gradient for its carry, a last layer (here: no prev) none
+        dctx = torch.randn(B, T, H, E, device=dev, generator=g).to(dtype)
+        dcarry = (0.1 * torch.randn(B, H, T, T, device=dev, generator=g)
+                  if with_prev else None)
+        dkqv, dprev = realformer_attention_backward(kqv, carry, dctx, dcarry,
+                                                    with_prev)
+        dq_p, dk_p, dv_p, ds_p = realformer_attention_backward_reference(
+            q, k, v, carry, dctx, dcarry)
+        torch.cuda.synchronize()
+        name = f"realformer_attention_bwd {label}"
+        want = torch.cat([dk_p, dq_p, dv_p], dim=-1)
+        e1 = close(name + " dkqv", dkqv, want,
+                   TOL_K2_BWD_BF16 if bf16 else TOL_K2_BWD)
+        e2 = (close(name + " dprev", dprev, ds_p, TOL_K2_BWD)
+              if with_prev else 0.0)
+        ms = time_ms(lambda: realformer_attention_backward(
+            kqv, carry, dctx, dcarry, with_prev))
+        plain = time_ms(lambda: realformer_attention_backward_reference(
+            q, k, v, carry, dctx, dcarry))
+        bnd = k2_bound(B, H, T, E, kqv.element_size(), with_prev, with_mask,
+                       "bwd")
+        print(f"{name}: max_abs_err dkqv {e1:.3e} dprev {e2:.3e}  kernel "
+              f"{ms:.4f} ms  plain {plain:.4f} ms  bound {bnd[0]:.4f} ms "
+              f"({bnd[1]})")
+        note("realformer_attention_bwd", dtype, max(e1, e2), summary, ms,
+             plain, bnd)
+
     for name, r in results.items():
         print(f"kernel {name}: max_abs_err fp32 "
               f"{r['err'][torch.float32]:.3e}, bf16 "
-              f"{r['err'][torch.bfloat16]:.3e}")
+              f"{r['err'][torch.bfloat16]:.3e}; library_ms null: "
+              f"{KERNELS[name][2]}")
     return results
 
 
@@ -372,6 +580,270 @@ def slice_phase(torch):
     return launches
 
 
+def flagship_mlm_config(**over):
+    from mmvqa_tpu_torch.core.config import pretrain_config
+
+    return pretrain_config(cnn_encoder="tf_efficientnetv2_m",
+                           transformer_model="realformer", **over)
+
+
+def reset_counts() -> None:
+    from mmvqa_tpu_torch.ops.attention import realformer_attention
+    from mmvqa_tpu_torch.ops.token_head import fused_token_head
+
+    fused_token_head.launches = fused_token_head.backward_launches = 0
+    realformer_attention.launches = 0
+    realformer_attention.backward_launches = 0
+
+
+def read_counts() -> dict:
+    from mmvqa_tpu_torch.ops.attention import realformer_attention
+    from mmvqa_tpu_torch.ops.token_head import fused_token_head
+
+    return {"token_head": fused_token_head.launches,
+            "token_head_bwd": fused_token_head.backward_launches,
+            "realformer_attention": realformer_attention.launches,
+            "realformer_attention_bwd": realformer_attention.backward_launches}
+
+
+# leaves whose gradients the fp32 check compares, and the statistic
+CHECK_LEAVES = ([f"trans.token_conv_{i}.weight" for i in range(5)]
+                + ["encoder.block_0.kqv.weight", "encoder.block_3.kqv.weight",
+                   "trans.trunk.stem_conv.weight",
+                   "trans.trunk.stage6_block4.pw_proj.weight",
+                   "bert_embedding.word_embeddings.weight",
+                   "classifier_2.weight"])
+CHECK_STATS = ["trans.trunk.stem_bn.running_var",
+               "trans.trunk.stem_bn.running_mean",
+               "trans.trunk.stage4_block13.bn2.running_var"]
+
+
+def checked_train_step(torch, model, cfg, batch, draws):
+    """One train step through ``make_mlm_steps`` with hooks that keep the
+    logits and the gradients of CHECK_LEAVES."""
+    from mmvqa_tpu_torch.train.state import create_train_state
+    from mmvqa_tpu_torch.train.steps import make_mlm_steps
+
+    kept = {}
+    params = dict(model.named_parameters())
+    hooks = [params[name].register_hook(
+        lambda g, name=name: kept.__setitem__(name, g.detach().clone()))
+        for name in CHECK_LEAVES]
+    hooks.append(model.register_forward_hook(
+        lambda _m, _a, out: kept.__setitem__("logits", out.detach())))
+    try:
+        train_step, _ = make_mlm_steps(model, cfg)
+        state, metrics = train_step(create_train_state(model, cfg.lr), batch,
+                                    draws=draws)
+    finally:
+        for h in hooks:
+            h.remove()
+    kept["loss"] = metrics["loss"]
+    sd = model.state_dict()
+    kept.update({name: sd[name].clone() for name in CHECK_STATS})
+    return kept
+
+
+def train_check_fp32(torch):
+    """(a) one fp32 train step, card against CPU plain path."""
+    import copy
+
+    from mmvqa_tpu_torch.data.images import PRETRAIN_AUG, sample_draws
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches
+    from mmvqa_tpu_torch.models import MMBert
+
+    cfg = flagship_mlm_config(batch_size=CHECK_B, dropout_override=0.0)
+    batch = mlm_batches(cfg, 1, SEED)[0]
+    draws = sample_draws(CHECK_B, cfg.image_size,
+                         torch.Generator().manual_seed(SEED), PRETRAIN_AUG)
+    cpu_model = MMBert(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(SEED))
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    t0 = time.perf_counter()
+    want = checked_train_step(torch, cpu_model, cfg, batch, draws)
+    print(f"train fp32 check: CPU reference step (plain path, B={CHECK_B}) "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    del cpu_model
+    got = checked_train_step(torch, card_model, cfg, batch, draws)
+    torch.cuda.synchronize()
+    del card_model
+
+    loss_err = abs(got["loss"].item() - want["loss"].item())
+    if not loss_err <= 1e-4 * abs(want["loss"].item()):
+        fail(f"train fp32 loss: card {got['loss'].item():.6f}, CPU "
+             f"{want['loss'].item():.6f}")
+    err = close("train fp32 logits vs CPU", got["logits"].cpu(),
+                want["logits"], TOL_SLICE)
+    print(f"train fp32 check: loss card {got['loss'].item():.6f} CPU "
+          f"{want['loss'].item():.6f} (err {loss_err:.3e}); logits "
+          f"max_abs_err {err:.3e}")
+    for name in CHECK_LEAVES + CHECK_STATS:
+        e = close_normwise(f"train fp32 {name}", got[name].cpu(), want[name],
+                           GRAD_NORMWISE)
+        kind = "stat" if name in CHECK_STATS else "grad"
+        print(f"train fp32 check: {kind} {name}: max_abs_err {e:.3e} of "
+              f"max {want[name].abs().max().item():.3e}")
+
+
+def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
+    """(d) where a train step's time goes: the step's own phases written out
+    (augment, forward, backward, optimizer) between CUDA events with a
+    synchronise after each, then ``n`` whole steps under torch.profiler for
+    the four kernels and the device's busy share."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from mmvqa_tpu_torch.data.images import process_batch
+    from mmvqa_tpu_torch.ops.losses import weighted_token_nll
+    from mmvqa_tpu_torch.train.steps import make_mlm_steps
+
+    dev = model.device
+    b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    phases = {"augment": [], "forward": [], "backward": [], "optimizer": []}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        z.record()
+        z.synchronize()
+        phases[name].append(a.elapsed_time(z))
+        return out
+
+    model.set_mode(deterministic=False)
+    for _ in range(n):
+        with torch.no_grad():
+            img = timed("augment", lambda: process_batch(
+                b["image"], gen, augment=True))
+        loss = timed("forward", lambda: weighted_token_nll(
+            model(img, b["tokens"], b["segment_ids"], b["input_mask"]),
+            b["labels"], b["weights"]))
+        timed("backward", loss.backward)
+        timed("optimizer", state.apply_gradients)
+        del img, loss
+    print(f"train bf16 B={TRAIN_B}: ms per phase (CUDA events, synchronised "
+          f"between phases, median of {n}): " + ", ".join(
+              f"{k} {statistics.median(v):.2f}" for k, v in phases.items()))
+
+    train_step, _ = make_mlm_steps(model, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
+    busy = sum(a.self_device_time_total for a in kernels) / 1e3
+    if busy <= 0:
+        print("train: device busy share not measured (the profiler saw no "
+              "device time)")
+        return
+    print(f"train bf16 B={TRAIN_B}: traced {n} steps, wall {wall / n:.2f} "
+          f"ms/step, device busy {busy / n:.2f} ms/step "
+          f"({100 * busy / wall:.1f}%)")
+    ours = ("token_head_partial", "token_head_finalize", "token_head_bwd",
+            "token_head_dw_reduce", "realformer_attn_fwd",
+            "realformer_attn_bwd")
+    for tag in ours:
+        hit = [a for a in kernels if tag in a.key]
+        print(f"  {sum(a.self_device_time_total for a in hit) / 1e3 / n:9.4f}"
+              f" ms/step {sum(a.count for a in hit) // n:5d} calls  {tag}")
+    for a in kernels[:10]:
+        print(f"  {a.self_device_time_total / 1e3 / n:9.4f} ms/step "
+              f"{a.count // n:5d} calls  {a.key[:80]}")
+
+
+def train_phase(torch):
+    """(b), (c): the main path of the train slice; returns its launches."""
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.models.mmbert import compute_dtype_of
+    from mmvqa_tpu_torch.train.state import create_train_state
+    from mmvqa_tpu_torch.train.steps import make_mlm_steps
+    from mmvqa_tpu_torch.train.trainer import mlm_epoch
+
+    train_check_fp32(torch)
+
+    cfg = flagship_mlm_config(batch_size=TRAIN_B, mixed_precision=True,
+                              lr=TRAIN_LR, seed=SEED)
+    model = MMBert(cfg, compute_dtype=compute_dtype_of(cfg),
+                   generator=torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"train: MMBert MLM {cfg.cnn_encoder} + {cfg.transformer_model}, "
+          f"hidden {cfg.hidden_size}, {cfg.n_layers} layers, T="
+          f"{cfg.max_position_embeddings}, vocab {cfg.vocab_size}, "
+          f"{cfg.image_size} px, {n_params / 1e6:.2f} M fp32 parameters, "
+          f"compute {model.dtype}, B={TRAIN_B}, lr {cfg.lr}, on "
+          f"{model.device}")
+    state = create_train_state(model, cfg.lr, clip=cfg.clip)
+    train_step, eval_step = make_mlm_steps(model, cfg)
+    batch = mlm_batches(cfg, 1, SEED)[0]
+    loader = [batch] * TRAIN_STEPS
+
+    # per-step times and losses: the step wrapped in a host clock that ends
+    # in a synchronise
+    times, losses = [], []
+
+    def clocked(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+        return state, m
+
+    torch.cuda.reset_peak_memory_stats()
+    state, first = mlm_epoch(clocked, state, loader, True)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    losses = [x.item() for x in losses]
+    step_ms = statistics.median(times[1:])
+    print(f"train bf16 B={TRAIN_B}: ms per step {['%.1f' % t for t in times]} "
+          f"(median after the first {step_ms:.2f}, "
+          f"{TRAIN_B / step_ms * 1e3:.1f} images/s); peak memory "
+          f"{peak:.1f} MiB; losses {['%.4f' % x for x in losses]}; epoch "
+          f"{first}")
+
+    # the main path, undisturbed: one epoch through mlm_epoch, counters read
+    # around it
+    reset_counts()
+    state, second = mlm_epoch(train_step, state, loader, True)
+    launches = read_counts()
+    print(f"train bf16 B={TRAIN_B}: mlm_epoch of {TRAIN_STEPS} steps: "
+          f"{second}; launches {launches}")
+    want = {"token_head": 5 * TRAIN_STEPS, "token_head_bwd": 5 * TRAIN_STEPS,
+            "realformer_attention": cfg.n_layers * TRAIN_STEPS,
+            "realformer_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    if launches != want:
+        fail(f"train launches {launches}, want {want}")
+    for name, m in (("first", first), ("second", second)):
+        if not all(math.isfinite(v) for v in m.values()):
+            fail(f"train: non-finite metric in the {name} epoch: {m}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: loss did not fall on a repeated batch: {losses}")
+    if not second["loss"] < first["loss"]:
+        fail(f"train: the second epoch's loss {second['loss']} is not below "
+             f"the first's {first['loss']}")
+    if state.step != 2 * TRAIN_STEPS:
+        fail(f"train: state.step {state.step}, want {2 * TRAIN_STEPS}")
+
+    _, ev = mlm_epoch(eval_step, state, loader[:1], False)
+    print(f"train: eval step on the trained batch: {ev}")
+    if not math.isfinite(ev["loss"]):
+        fail(f"train: eval loss {ev['loss']}")
+
+    train_breakdown(torch, model, cfg, state, batch, 3)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -397,23 +869,24 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = kernel_phase(torch)
-    launches = slice_phase(torch)
+    eval_launches = slice_phase(torch)
+    train_launches = train_phase(torch)
 
-    replaces = {
-        "token_head": ("mmvqa_tpu_torch/csrc/token_head.cu",
-                       "mmvqa_tpu/ops/pallas_token_head.py:247"),
-        "realformer_attention": ("mmvqa_tpu_torch/csrc/realformer_attention.cu",
-                                 "mmvqa_tpu/ops/pallas_attention.py:146"),
-    }
-    # ms / plain_ms: one bf16 forward's worth at B=16 -- the five token-head
-    # taps summed, one attention layer (T=28, with prev and padded queries)
+    # launches: the counts read after each main path's run, counters set to
+    # 0 just before it (the eval slice's forwards, then the train epoch).
+    # ms, plain_ms, bound_ms: at the train path's shapes in bf16, B=TRAIN_B,
+    # summed over the calls of one pass; bound_by: what binds the largest.
     summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": replaces[name][0],
-         "replaces": replaces[name][1], "launches": launches[name],
-         "max_abs_err": max(kernels[name]["err"].values()),
-         "ms": kernels[name]["ms"],
-         "plain_ms": kernels[name]["plain_ms"]}
-        for name in ("token_head", "realformer_attention")
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1],
+         "launches": eval_launches.get(name, 0) + train_launches[name],
+         "launches_eval": eval_launches.get(name, 0),
+         "launches_train": train_launches[name],
+         "max_abs_err": max(r["err"].values()),
+         "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": sum(ms for ms, _ in r["bounds"]),
+         "bound_by": max(r["bounds"])[1], "library_ms": None}
+        for name, r in kernels.items()
     ]}
     print(json.dumps(summary))
     print(card)

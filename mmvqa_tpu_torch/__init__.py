@@ -4,8 +4,11 @@ Modules mirror mmvqa_tpu's names. This package imports torch and never jax,
 flax or mmvqa_tpu; the JAX package stays the numerical reference, and the
 tests (tests/test_torch_*.py) hold each ported module against it.
 
-Ported so far: VQA-Med inference of EfficientNetV2 + RealFormer
-(``train.steps.make_vqa_eval_step``), with hand-written CUDA kernels for the
-visual-token head (``ops.token_head``) and the RealFormer attention core
-(``ops.attention``), built from ``csrc/`` on first use (``native.loader``).
+Ported so far, for EfficientNetV2 + RealFormer: VQA-Med inference
+(``train.steps.make_vqa_eval_step``) and ROCO MLM pretraining
+(``train.steps.make_mlm_steps``, ``train.state``, ``train.trainer``), with
+hand-written CUDA kernels, forward and backward, for the visual-token head
+(``ops.token_head``) and the RealFormer attention core (``ops.attention``),
+built from ``csrc/`` on first use (``native.loader``). Models are built on
+the CUDA card unless the caller names another device.
 """

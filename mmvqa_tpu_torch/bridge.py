@@ -16,6 +16,9 @@ and a leaf name and layout fixed by the module type:
 * ``token_conv_<i>/kernel`` (1, 1, K, C) -> the K1 weight (K, C);
 * ``bias`` and raw params (``position_embeddings``) as they are.
 
+``to_flax`` is the way back, for parameters and running statistics after a
+train step; ``grads_to_flax`` carries the parameters' gradients the same way.
+
 The bridge raises on a Flax leaf that no entry takes, on one that two
 entries take, on a missing leaf and on a shape that does not fit.
 """
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mmvqa_tpu_torch.models.effnetv2 import FrozenBatchNorm2d
+from mmvqa_tpu_torch.models.effnetv2 import BatchNorm2d
 from mmvqa_tpu_torch.models.visual_tokens import TokenHead
 
 Array = np.ndarray
@@ -79,7 +82,7 @@ def _entry(key: str, module: nn.Module) -> Entry:
             return Entry(key, ("params", *flax, "kernel"), _t, _t)
         if isinstance(module, nn.Embedding):
             return Entry(key, ("params", *flax, "embedding"), _same, _same)
-        if isinstance(module, (nn.LayerNorm, FrozenBatchNorm2d)):
+        if isinstance(module, (nn.LayerNorm, BatchNorm2d)):
             return Entry(key, ("params", *flax, "scale"), _same, _same)
         if isinstance(module, TokenHead):
             return Entry(key, ("params", *flax, "kernel"),
@@ -140,11 +143,25 @@ def to_state_dict(variables: Mapping, model: nn.Module) -> Dict[str, torch.Tenso
 def to_flax(state_dict: Mapping[str, torch.Tensor], model: nn.Module) -> Dict:
     """The inverse: a state_dict of ``model`` -> Flax variables of numpy
     arrays (fp32)."""
+    return _to_tree(state_dict, mapping(model))
+
+
+def _to_tree(tensors: Mapping[str, torch.Tensor], entries: List[Entry]) -> Dict:
     tree: Dict = {}
-    for e in mapping(model):
-        arr = e.to_flax(state_dict[e.key].detach().float().cpu().numpy())
+    for e in entries:
+        arr = e.to_flax(tensors[e.key].detach().float().cpu().numpy())
         node = tree
         for part in e.path[:-1]:
             node = node.setdefault(part, {})
-        node[e.path[-1]] = np.ascontiguousarray(arr)
+        node[e.path[-1]] = np.array(arr)  # a copy: the tensors live on
     return tree
+
+
+def grads_to_flax(model: nn.Module) -> Dict:
+    """The ``.grad`` of every parameter of ``model`` as a Flax ``params``
+    tree of numpy arrays (fp32), laid out as ``jax.grad`` of the JAX model's
+    loss gives it; a parameter without a gradient gives zeros."""
+    grads = {name: (torch.zeros_like(p) if p.grad is None else p.grad)
+             for name, p in model.named_parameters()}
+    entries = [e for e in mapping(model) if e.path[0] == "params"]
+    return _to_tree({e.key: grads[e.key] for e in entries}, entries)["params"]

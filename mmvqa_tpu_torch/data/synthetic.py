@@ -1,7 +1,8 @@
-"""Seeded synthetic VQA-Med eval batches with the JAX loader's keys.
+"""Seeded synthetic VQA-Med eval batches and ROCO MLM batches with the JAX
+loader's keys.
 
-No dataset ships with the repository; the smoke run and the profiler feed
-the eval step with these. Images are uniform uint8 noise, questions are
+No dataset ships with the repository; the smoke run feeds the steps with
+these. Images are uniform uint8 noise, questions are
 random token ids with ``[CLS]`` first, ``[SEP]`` last and zero-padded tails
 of random length, answers are uniform over ``num_classes``.
 """
@@ -14,7 +15,7 @@ import numpy as np
 
 from mmvqa_tpu_torch.core.config import Config
 
-CLS_ID, SEP_ID = 101, 102
+CLS_ID, SEP_ID, MASK_ID = 101, 102, 103
 
 
 def vqa_batches(cfg: Config, n_batches: int, num_classes: int, seed: int = 0,
@@ -40,6 +41,45 @@ def vqa_batches(cfg: Config, n_batches: int, num_classes: int, seed: int = 0,
             "segment_ids": np.zeros((B, T), np.int32),
             "input_mask": mask,
             "answer": rng.integers(0, num_classes, size=B).astype(np.int32),
+            "weights": weights,
+        })
+    return batches
+
+
+def mlm_batches(cfg: Config, n_batches: int, seed: int = 0,
+                pad_last: int = 0) -> List[Dict[str, np.ndarray]]:
+    """``n_batches`` ROCO MLM batches of ``cfg.batch_size``: captions of
+    random ids and random length behind the ``cfg.num_vis`` visual slots,
+    ``cfg.mlm_prob`` of the caption tokens replaced by ``[MASK]`` with the
+    original id as the label (0 = not masked); the last batch carries
+    ``pad_last`` padding samples (weight 0)."""
+    rng = np.random.default_rng(seed)
+    B, T, S = cfg.batch_size, cfg.max_position_embeddings, cfg.image_size
+    first = cfg.num_vis + 1  # visual slots, then [CLS]
+    batches = []
+    for i in range(n_batches):
+        lengths = rng.integers(first + 2, T + 1, size=B)
+        pos = np.arange(T)[None]
+        mask = (pos < lengths[:, None]).astype(np.float32)
+        low = min(1000, cfg.vocab_size // 2)  # past BERT's special ids
+        tokens = rng.integers(low, cfg.vocab_size, size=(B, T))
+        tokens[:, :first] = CLS_ID
+        tokens[np.arange(B), lengths - 1] = SEP_ID
+        tokens = (tokens * mask).astype(np.int32)
+        caption = (pos >= first) & (pos < lengths[:, None] - 1)
+        masked = caption & (rng.random((B, T)) < cfg.mlm_prob)
+        labels = np.where(masked, tokens, 0).astype(np.int32)
+        tokens = np.where(masked, min(MASK_ID, cfg.vocab_size - 1),
+                          tokens).astype(np.int32)
+        weights = np.ones(B, np.float32)
+        if i == n_batches - 1 and pad_last:
+            weights[B - pad_last:] = 0.0
+        batches.append({
+            "image": rng.integers(0, 256, size=(B, S, S, 3), dtype=np.uint8),
+            "tokens": tokens,
+            "segment_ids": np.zeros((B, T), np.int32),
+            "input_mask": mask,
+            "labels": labels,
             "weights": weights,
         })
     return batches

@@ -1,4 +1,4 @@
-"""EfficientNetV2-M trunk with per-stage feature taps, inference only.
+"""EfficientNetV2-M trunk with per-stage feature taps.
 
 Counterpart of mmvqa_tpu/models/effnetv2.py; module and parameter names
 follow the Flax tree so that ``bridge.py`` maps one onto the other.
@@ -9,8 +9,8 @@ What the port has to get right:
 * TF-SAME padding. For stride 2 on an even map the pad is 0 before and 1
   after (224 -> 112), which a symmetric ``padding=1`` gets wrong, so the
   pads are computed from the input size and applied with ``F.pad``.
-* BatchNorm with eps 1e-3, in inference form only (running statistics;
-  there is no training-mode BN until the trainer is ported).
+* BatchNorm with eps 1e-3 and Flax's training semantics (``BatchNorm2d``
+  below): the running variance is updated with the BIASED batch variance.
 * Squeeze-excite reduces relative to the block INPUT channels.
 * The residual is added only when stride is 1 and in == out channels.
 """
@@ -22,6 +22,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mmvqa_tpu_torch.models.layers import Conv2d
 
 # (block_type, repeats, kernel, stride, expand, out_ch, se_ratio)
 V2_M_ARCH = (
@@ -39,6 +41,7 @@ FIVE_TAP_STAGES = (0, 1, 2, 4, 6)
 TINY_EFFNET_ARCH = tuple((b, 1, k, s, e, c, se) for (b, _, k, s, e, c, se) in V2_M_ARCH)
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.1  # torch's convention; Flax's momentum 0.9
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -48,8 +51,8 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class SameConv2d(nn.Conv2d):
-    """nn.Conv2d with TF-SAME padding worked out per input size."""
+class SameConv2d(Conv2d):
+    """Conv2d with TF-SAME padding worked out per input size."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = False):
@@ -60,35 +63,61 @@ class SameConv2d(nn.Conv2d):
         k, s = self.kernel_size[0], self.stride[0]
         top, bottom = same_pads(x.shape[2], k, s)
         left, right = same_pads(x.shape[3], k, s)
+        weight = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
         if top == bottom and left == right:
-            return F.conv2d(x, self.weight, self.bias, s, (top, left),
+            return F.conv2d(x, weight, bias, s, (top, left),
                             groups=self.groups)
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias, s, 0, groups=self.groups)
+        return F.conv2d(x, weight, bias, s, 0, groups=self.groups)
 
 
-class FrozenBatchNorm2d(nn.Module):
-    """BatchNorm from running statistics only (Flax
-    ``use_running_average=True``)."""
+class BatchNorm2d(nn.Module):
+    """BatchNorm with the semantics of the JAX package's Flax BatchNorm
+    (mmvqa_tpu/models/effnetv2.py::_bn): eps 1e-3, Flax momentum 0.9.
 
-    def __init__(self, ch: int, eps: float = BN_EPS):
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch statistics, reduced in fp32 whatever the input's dtype
+    (the library's batch-norm kernel does the normalisation and its
+    backward), and updates the running statistics in place, the variance
+    with the BIASED batch variance as Flax does; ``nn.BatchNorm2d`` would
+    use the unbiased one. Parameters and statistics stay fp32."""
+
+    def __init__(self, ch: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # with momentum 1 the kernel leaves the batch mean and the UNBIASED
+        # batch variance in the buffers it is given
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(
+                (var * ((n - 1) / n)).to(self.running_var.dtype),
+                self.momentum)
+        return y
 
 
 class SqueezeExcite(nn.Module):
     def __init__(self, ch: int, reduced_ch: int):
         super().__init__()
-        self.reduce = nn.Conv2d(ch, reduced_ch, 1)
-        self.expand = nn.Conv2d(reduced_ch, ch, 1)
+        self.reduce = Conv2d(ch, reduced_ch, 1)
+        self.expand = Conv2d(reduced_ch, ch, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3), keepdim=True)
@@ -101,14 +130,14 @@ class MBConv(nn.Module):
                  expand: int, se_ratio: float):
         super().__init__()
         mid = in_ch * expand
-        self.pw_exp = nn.Conv2d(in_ch, mid, 1, bias=False)
-        self.bn1 = FrozenBatchNorm2d(mid)
+        self.pw_exp = Conv2d(in_ch, mid, 1, bias=False)
+        self.bn1 = BatchNorm2d(mid)
         self.dw = SameConv2d(mid, mid, kernel, stride, groups=mid)
-        self.bn2 = FrozenBatchNorm2d(mid)
+        self.bn2 = BatchNorm2d(mid)
         self.se = (SqueezeExcite(mid, max(1, int(in_ch * se_ratio)))
                    if se_ratio > 0 else None)
-        self.pw_proj = nn.Conv2d(mid, out_ch, 1, bias=False)
-        self.bn3 = FrozenBatchNorm2d(out_ch)
+        self.pw_proj = Conv2d(mid, out_ch, 1, bias=False)
+        self.bn3 = BatchNorm2d(out_ch)
         self.residual = stride == 1 and in_ch == out_ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -128,13 +157,13 @@ class FusedMBConv(nn.Module):
         if expand == 1:
             # one conv3x3 -> bn -> silu (timm's FusedMBConv e1 form)
             self.conv = SameConv2d(in_ch, out_ch, kernel, stride)
-            self.bn1 = FrozenBatchNorm2d(out_ch)
+            self.bn1 = BatchNorm2d(out_ch)
         else:
             mid = in_ch * expand
             self.conv_exp = SameConv2d(in_ch, mid, kernel, stride)
-            self.bn1 = FrozenBatchNorm2d(mid)
-            self.pw_proj = nn.Conv2d(mid, out_ch, 1, bias=False)
-            self.bn2 = FrozenBatchNorm2d(out_ch)
+            self.bn1 = BatchNorm2d(mid)
+            self.pw_proj = Conv2d(mid, out_ch, 1, bias=False)
+            self.bn2 = BatchNorm2d(out_ch)
         self.residual = stride == 1 and in_ch == out_ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +181,7 @@ class EffNetV2Features(nn.Module):
     def __init__(self, arch: Sequence = V2_M_ARCH, stem_ch: int = V2_M_STEM):
         super().__init__()
         self.stem_conv = SameConv2d(3, stem_ch, 3, 2)
-        self.stem_bn = FrozenBatchNorm2d(stem_ch)
+        self.stem_bn = BatchNorm2d(stem_ch)
         self.stages: List[List[str]] = []
         in_ch = stem_ch
         for si, (btype, reps, k, s, e, c, se) in enumerate(arch):

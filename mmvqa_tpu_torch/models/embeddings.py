@@ -2,14 +2,20 @@
 
 Word + position + token-type embeddings, then LayerNorm with eps 1e-12.
 ``MMBert`` does not pass ``max_position_embeddings`` to the JAX module, so
-the position table keeps BERT's 512 rows whatever the config says.
-Inference only: no dropout.
+the position table keeps BERT's 512 rows whatever the config says. Dropout
+(BERT's 0.1 unless the config overrides it) follows the LayerNorm. The sum
+and the LayerNorm run in the tables' dtype; the model casts the result to
+its compute dtype.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+from mmvqa_tpu_torch.models.layers import Dropout, DropoutRng, LayerNorm
 
 BERT_MAX_POSITIONS = 512
 
@@ -17,13 +23,15 @@ BERT_MAX_POSITIONS = 512
 class BertEmbeddings(nn.Module):
     def __init__(self, vocab_size: int = 30522, hidden_size: int = 768,
                  max_position_embeddings: int = BERT_MAX_POSITIONS,
-                 type_vocab_size: int = 2):
+                 type_vocab_size: int = 2, dropout_rate: float = 0.1,
+                 rng: Optional[DropoutRng] = None):
         super().__init__()
         self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
         self.position_embeddings = nn.Parameter(
             torch.empty(max_position_embeddings, hidden_size))
         self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden_size)
-        self.layer_norm = nn.LayerNorm(hidden_size, eps=1e-12)
+        self.layer_norm = LayerNorm(hidden_size, eps=1e-12)
+        self.dropout = Dropout(dropout_rate, rng or DropoutRng(0))
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: torch.Tensor) -> torch.Tensor:
@@ -31,4 +39,4 @@ class BertEmbeddings(nn.Module):
         x = (self.word_embeddings(input_ids.long())
              + self.position_embeddings[:T][None]
              + self.token_type_embeddings(token_type_ids.long()))
-        return self.layer_norm(x)
+        return self.dropout(self.layer_norm(x))

@@ -1,5 +1,5 @@
-"""Top-level multimodal model (counterpart of mmvqa_tpu/models/mmbert.py),
-for inference: EfficientNetV2 visual tokens, BERT embeddings, RealFormer.
+"""Top-level multimodal model (counterpart of mmvqa_tpu/models/mmbert.py):
+EfficientNetV2 visual tokens, BERT embeddings, RealFormer.
 
 Text tokens are embedded BERT-style; the visual tokens then OVERWRITE
 embedded positions 0..num_vis-1, [CLS] included (the reference's fusion
@@ -10,7 +10,23 @@ Dense.
 
 Weights are drawn from an explicit ``torch.Generator`` (on the CPU, so a
 seed gives the same model on every device) or carried over from a Flax tree
-by ``mmvqa_tpu_torch.bridge``.
+by ``mmvqa_tpu_torch.bridge``. The model is built on the CUDA card unless
+the caller names another device.
+
+Modes. The JAX package's ``deterministic`` and ``train_cnn`` arguments are
+module modes here: ``set_mode(deterministic, train_cnn)`` puts the dropouts
+in eval or train mode and the trunk's BatchNorms in running-statistics or
+batch-statistics mode (``train_cnn`` defaults to ``not deterministic``, as
+in the JAX package). A new model is deterministic.
+
+Mixed precision is by explicit casts, not ``torch.autocast``
+(``models/layers.py``): parameters, BatchNorm statistics and Adam state stay
+in ``dtype`` (fp32), and with ``compute_dtype=torch.bfloat16`` (the
+counterpart of ``cfg.mixed_precision``, see ``compute_dtype_of``) the image
+and the embedding output are cast to bf16 and every layer computes in its
+input's dtype. Dropout rates are the reference's 0.1 unless
+``cfg.dropout_override`` pins them all; the masks come from the model's
+``dropout_rng``, seeded with ``cfg.seed``.
 """
 
 from __future__ import annotations
@@ -21,8 +37,9 @@ import torch
 from torch import nn
 
 from mmvqa_tpu_torch.core.config import Config
-from mmvqa_tpu_torch.models.effnetv2 import FrozenBatchNorm2d
+from mmvqa_tpu_torch.models.effnetv2 import BatchNorm2d
 from mmvqa_tpu_torch.models.embeddings import BertEmbeddings
+from mmvqa_tpu_torch.models.layers import DropoutRng, LayerNorm, Linear
 from mmvqa_tpu_torch.models.realformer import RealFormerEncoder
 from mmvqa_tpu_torch.models.visual_tokens import TokenHead, VisualTokenizer
 from mmvqa_tpu_torch.ops.activations import serf
@@ -53,7 +70,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             normal(mod.weight, 0.02)
         elif isinstance(mod, BertEmbeddings):
             normal(mod.position_embeddings, 0.02)
-        elif isinstance(mod, (nn.LayerNorm, FrozenBatchNorm2d)):
+        elif isinstance(mod, (nn.LayerNorm, BatchNorm2d)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
 
@@ -65,10 +82,28 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+def compute_dtype_of(cfg: Config) -> torch.dtype:
+    """bf16 compute under ``cfg.mixed_precision``, else fp32 (the choice of
+    mmvqa_tpu/cli/common.py:262)."""
+    return torch.bfloat16 if cfg.mixed_precision else torch.float32
+
+
+def default_device() -> torch.device:
+    """The CUDA card; raises where there is none. The port's entry points
+    run there unless the caller asks for another device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "mmvqa_tpu_torch runs on a CUDA device and found none; pass "
+            "device='cpu' to run the plain paths on the host"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 class MMBert(nn.Module):
     def __init__(self, cfg: Config, *,
-                 device: Union[str, torch.device] = "cpu",
+                 device: Union[str, torch.device, None] = None,
                  dtype: torch.dtype = torch.float32,
+                 compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if "realformer" not in cfg.transformer_model:
@@ -81,24 +116,35 @@ class MMBert(nn.Module):
             raise NotImplementedError(cfg.dataset)
         if cfg.pp_size > 1:
             raise _not_ported("pipeline parallelism", "10")
+        device = default_device() if device is None else torch.device(device)
         self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.dropout_rng = DropoutRng(cfg.seed)
+
+        def dp(rate: float) -> float:
+            return (rate if cfg.dropout_override is None
+                    else cfg.dropout_override)
+
         H = cfg.hidden_size
         self.bert_embedding = BertEmbeddings(
             vocab_size=cfg.vocab_size, hidden_size=H,
-            type_vocab_size=cfg.type_vocab_size,
+            type_vocab_size=cfg.type_vocab_size, dropout_rate=dp(0.1),
+            rng=self.dropout_rng,
         )
         self.trans = VisualTokenizer(
             cnn_encoder=cfg.cnn_encoder, num_vis=cfg.num_vis, hidden_size=H,
             use_relu=cfg.use_relu, tiny=cfg.tiny_cnn,
         )
-        self.encoder = RealFormerEncoder(H, cfg.n_layers, head_cnt=cfg.head_count)
-        self.fc1 = nn.Linear(H, H)
-        self.classifier_0 = nn.Linear(H, H)
-        self.classifier_ln = nn.LayerNorm(H, eps=1e-12)
+        self.encoder = RealFormerEncoder(
+            H, cfg.n_layers, head_cnt=cfg.head_count, dp1=dp(0.1),
+            dp2=dp(0.1), rng=self.dropout_rng)
+        self.fc1 = Linear(H, H)
+        self.classifier_0 = Linear(H, H)
+        self.classifier_ln = LayerNorm(H, eps=1e-12)
         out_dim = (cfg.num_classes
                    if cfg.dataset == "VQA-Med" and cfg.num_classes > 0
                    else cfg.vocab_size)
-        self.classifier_2 = nn.Linear(H, out_dim)
+        self.classifier_2 = Linear(H, out_dim)
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         init_weights(self, generator)
@@ -107,7 +153,15 @@ class MMBert(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.fc1.weight.dtype
+        """The dtype activations are computed in."""
+        return self.compute_dtype or self.fc1.weight.dtype
+
+    def set_mode(self, deterministic: bool,
+                 train_cnn: Optional[bool] = None) -> "MMBert":
+        self.train(not deterministic)
+        self.trans.trunk.train(
+            (not deterministic) if train_cnn is None else train_cnn)
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -120,7 +174,7 @@ class MMBert(nn.Module):
                segment_ids: torch.Tensor,
                input_mask: torch.Tensor) -> torch.Tensor:
         tokens = self.trans(img.to(self.dtype))
-        h = self.bert_embedding(input_ids, segment_ids)
+        h = self.bert_embedding(input_ids, segment_ids).to(self.dtype)
         vis = torch.stack([t.to(h.dtype) for t in tokens], dim=1)
         h = torch.cat([vis, h[:, vis.shape[1]:]], dim=1)
         return self.encoder(h, input_mask)

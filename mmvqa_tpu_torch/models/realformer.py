@@ -1,12 +1,13 @@
 """RealFormer: residual-attention encoder (counterpart of
-mmvqa_tpu/models/realformer.py). Inference only: no dropout.
+mmvqa_tpu/models/realformer.py).
 
 Each block hands its fp32 score carry, head-major (B, H, T, T), to the next.
 Quirks kept from the reference:
 
 * the k/q/v projection is ONE bias-free Linear(emb_s, 3 * emb_s) applied to
   every head with shared weights, split in (k, q, v) order;
-* the output projection is bias-free;
+* the output projection is bias-free; dropout dp1 follows it, dropout dp2
+  follows the FFN, and the attention probabilities get none;
 * post-norm with LayerNorm eps 1e-5: ``x = ln1(x + mha); x = ln2(x + ff)``;
 * the FFN is ``ff1 -> serf -> ff2``;
 * the padding mask hits the QUERY axis of the scores (ops/attention.py).
@@ -19,31 +20,41 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from mmvqa_tpu_torch.models.layers import (
+    Dropout,
+    DropoutRng,
+    LayerNorm,
+    Linear,
+)
 from mmvqa_tpu_torch.ops.activations import serf
-from mmvqa_tpu_torch.ops.attention import realformer_attention
+from mmvqa_tpu_torch.ops.attention import realformer_attention_packed
 
 
 class ResEncoderBlock(nn.Module):
-    def __init__(self, hidden_size: int, head_cnt: int = 8):
+    def __init__(self, hidden_size: int, head_cnt: int = 8, dp1: float = 0.1,
+                 dp2: float = 0.1, rng: Optional[DropoutRng] = None):
         super().__init__()
+        rng = rng or DropoutRng(0)
         self.head_cnt = head_cnt
         self.emb_s = hidden_size // head_cnt
-        self.kqv = nn.Linear(self.emb_s, 3 * self.emb_s, bias=False)
-        self.proj = nn.Linear(hidden_size, hidden_size, bias=False)
-        self.ln1 = nn.LayerNorm(hidden_size, eps=1e-5)
-        self.ff1 = nn.Linear(hidden_size, 4 * hidden_size)
-        self.ff2 = nn.Linear(4 * hidden_size, hidden_size)
-        self.ln2 = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.kqv = Linear(self.emb_s, 3 * self.emb_s, bias=False)
+        self.proj = Linear(hidden_size, hidden_size, bias=False)
+        self.drop1 = Dropout(dp1, rng)
+        self.ln1 = LayerNorm(hidden_size, eps=1e-5)
+        self.ff1 = Linear(hidden_size, 4 * hidden_size)
+        self.ff2 = Linear(4 * hidden_size, hidden_size)
+        self.drop2 = Dropout(dp2, rng)
+        self.ln2 = LayerNorm(hidden_size, eps=1e-5)
 
     def forward(self, x: torch.Tensor, prev: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         B, T, emb = x.shape
+        # (k, q, v) side by side; the kernels read the slices by strides
         kqv = self.kqv(x.reshape(B, T, self.head_cnt, self.emb_s))
-        k, q, v = kqv.split(self.emb_s, dim=-1)  # strided views
-        ctx, new_prev = realformer_attention(q, k, v, prev, mask)
-        x = self.ln1(x + self.proj(ctx.reshape(B, T, emb)))
-        x = self.ln2(x + self.ff2(serf(self.ff1(x))))
+        ctx, new_prev = realformer_attention_packed(kqv, prev, mask)
+        x = self.ln1(x + self.drop1(self.proj(ctx.reshape(B, T, emb))))
+        x = self.ln2(x + self.drop2(self.ff2(serf(self.ff1(x)))))
         return x, new_prev
 
 
@@ -51,11 +62,14 @@ class RealFormerEncoder(nn.Module):
     """Stack of ResEncoderBlocks threading (h, prev). 8 heads regardless of
     the --heads flag (Config.head_count)."""
 
-    def __init__(self, hidden_size: int, n_layers: int, head_cnt: int = 8):
+    def __init__(self, hidden_size: int, n_layers: int, head_cnt: int = 8,
+                 dp1: float = 0.1, dp2: float = 0.1,
+                 rng: Optional[DropoutRng] = None):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
-            self.add_module(f"block_{i}", ResEncoderBlock(hidden_size, head_cnt))
+            self.add_module(f"block_{i}", ResEncoderBlock(
+                hidden_size, head_cnt, dp1, dp2, rng))
 
     def forward(self, h: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:

@@ -48,6 +48,8 @@ class TokenHead(nn.Module):
         act = self.act
         if act == "serf" and x.dtype == torch.bfloat16:
             act = "serf_fast"  # the bf16 numerics of ops.activations.serf
+        # an fp32 master weight goes in as it is: K1 casts it, and its fp32
+        # dW comes back unrounded
         return fused_token_head(x, self.weight, act)
 
 

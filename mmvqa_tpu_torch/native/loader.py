@@ -1,6 +1,7 @@
 """Build-on-first-use ctypes loader for the hand-written CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+``nvcc`` compiles every ``csrc/*.cu`` (one compiler process per source, all
+started together) and links them into one shared library with a plain C
 interface, for Hopper (``sm_90a``), into ``mmvqa_tpu_torch/_build/<hash>/``,
 where the hash covers the sources and the flags; the library is loaded with
 ctypes. Unlike ``mmvqa_tpu/native/loader.py`` there is no fallback: a
@@ -21,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import torch
@@ -31,7 +33,7 @@ BUILD_ROOT = os.path.join(PKG_DIR, "_build")
 LIB_NAME = "libmmvqa_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -69,31 +71,41 @@ def find_nvcc() -> str:
     return found
 
 
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+
+
+def _require(proc: subprocess.CompletedProcess) -> None:
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+
+
 def build() -> str:
     """Compile the kernels if this source hash has no library yet; return
-    the library's path. Concurrent builders each write a temporary file and
-    rename it into place."""
+    the library's path. Every source is compiled by its own nvcc process,
+    all at once; concurrent builds each work in a temporary directory and
+    rename the library into place."""
     out_dir = os.path.join(BUILD_ROOT, source_hash())
     out = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(out):
         return out
     nvcc = find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
     cu = [p for p in sources() if p.endswith(".cu")]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p)[:-3] + ".o") for p in cu]
+        with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+            procs = list(pool.map(
+                lambda po: _run([nvcc, *NVCC_FLAGS, "-c", "-o", po[1], po[0]]),
+                zip(cu, objs)))
+        for proc in procs:
+            _require(proc)
+        lib = os.path.join(tmp, LIB_NAME)
+        _require(_run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]))
+        os.replace(lib, out)
     return out
 
 
@@ -108,11 +120,29 @@ def _bind(lib: ctypes.CDLL) -> None:
         _i, _i,                     # chunk, nchunks
         _p,                         # stream
     ]
+    lib.token_head_bwd.restype = _i
+    lib.token_head_bwd.argtypes = [
+        _p, _i, _ll, _ll, _ll,      # x, dtype, strides (b, p, k)
+        _p, _p,                     # w, g
+        _p, _ll, _ll, _ll,          # dx, strides (b, p, k)
+        _p, _p,                     # dwpart, dw
+        _i, _i, _i, _i, _i,         # B, P, K, C, act
+        _i, _i,                     # items_per_block, nblocks
+        _p,                         # stream
+    ]
     lib.realformer_attn_fwd.restype = _i
     lib.realformer_attn_fwd.argtypes = [
         _p, _p, _p, _p, _p,         # q, k, v, prev, mask
         _p, _p,                     # scores, ctx
         ctypes.POINTER(_ll),        # 16 strides
+        _i, _i, _i, _i, _i,         # dtype, B, H, T, E
+        _p,                         # stream
+    ]
+    lib.realformer_attn_bwd.restype = _i
+    lib.realformer_attn_bwd.argtypes = [
+        _p, _p, _p, _p, _p, _p,     # q, k, v, carry, dctx, dcarry
+        _p, _p, _p, _p,             # dq, dk, dv, dprev
+        ctypes.POINTER(_ll),        # 28 strides
         _i, _i, _i, _i, _i,         # dtype, B, H, T, E
         _p,                         # stream
     ]

@@ -1,14 +1,19 @@
 """K2: the RealFormer residual-attention core.
 
 Counterpart of mmvqa_tpu/ops/attention.py::realformer_attention and
-mmvqa_tpu/ops/pallas_attention.py (forward only). The CUDA kernel is
-``csrc/realformer_attention.cu``; this module holds its wrapper and its plain
-PyTorch version.
+mmvqa_tpu/ops/pallas_attention.py. The CUDA kernels are
+``csrc/realformer_attention.cu`` (forward) and
+``csrc/realformer_attention_bwd.cu`` (backward); this module holds their
+wrappers, the ``torch.autograd.Function`` that joins them, and their plain
+PyTorch versions.
 
 Semantics are the XLA path's (mmvqa_tpu/ops/attention.py:131-142): the
 carried scores are ``q k^T / sqrt(E) (+ prev) - 10000 (1 - mask_q)`` and the
 softmax is taken over those stored scores. The carry is fp32 and head-major,
 (B, H, T, T), as in the Pallas kernel; the XLA path's carry is (B, T, T, H).
+
+The backward recomputes the softmax from the stored carry, which with these
+semantics is exactly the forward's softmax input. The mask gets no gradient.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.
@@ -53,6 +58,10 @@ def realformer_attention_reference(
     return ctx, s
 
 
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
 def _launch(q, k, v, prev, query_mask):
     B, T, H, E = q.shape
     if T > MAX_T:
@@ -79,11 +88,9 @@ def _launch(q, k, v, prev, query_mask):
         *q.stride(), *k.stride(), *v.stride(), *ctx.stride()
     )
 
-    def ptr(t):
-        return ctypes.c_void_p(None if t is None else t.data_ptr())
-
     code = loader.library().realformer_attn_fwd(
-        ptr(q), ptr(k), ptr(v), ptr(prev), ptr(mask), ptr(scores), ptr(ctx),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(prev), _ptr(mask), _ptr(scores),
+        _ptr(ctx),
         strides, loader.DTYPE_CODES[q.dtype], B, H, T, E,
         loader.stream_ptr(),
     )
@@ -91,17 +98,79 @@ def _launch(q, k, v, prev, query_mask):
     return ctx, scores
 
 
-def realformer_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    prev: Optional[torch.Tensor], query_mask: Optional[torch.Tensor],
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q, k, v: (B, T, H, E), any strides. Returns (ctx (B, T, H, E), carry
-    (B, H, T, T) fp32) with the semantics in the module docstring."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"realformer_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)} are not all (B, T, H, E)"
-        )
+def realformer_attention_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, carry: torch.Tensor,
+    dctx: Optional[torch.Tensor], dcarry: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward. q, k, v: (B, T, H, E); carry: the
+    forward's fp32 (B, H, T, T) scores; dctx (B, T, H, E) and dcarry
+    (B, H, T, T): the gradients of the forward's outputs, None for zero.
+    Returns dq, dk, dv (B, T, H, E) in q's dtype and ds (B, H, T, T) fp32,
+    the gradient of ``prev`` where the layer had one."""
+    E = q.shape[-1]
+    qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    p = torch.softmax(carry, dim=-1)
+    if dctx is None:
+        dch = torch.zeros_like(qh)
+    else:
+        dch = dctx.float().permute(0, 2, 1, 3)
+    dp = torch.matmul(dch, vh.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if dcarry is not None:
+        ds = ds + dcarry
+    scale = 1.0 / math.sqrt(E)
+    dq = torch.matmul(ds, kh) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dch)
+    dq, dk, dv = (t.permute(0, 2, 1, 3).to(q.dtype) for t in (dq, dk, dv))
+    return dq, dk, dv, ds
+
+
+def _launch_backward(kqv, carry, dctx, dcarry, want_dprev):
+    B, T, H, E3 = kqv.shape
+    E = E3 // 3
+    k, q, v = kqv.split(E, dim=-1)
+    loader.require_cuda("realformer_attention backward", kqv, carry)
+    dkqv = torch.empty((B, T, H, E3), device=kqv.device, dtype=kqv.dtype)
+    dk, dq, dv = dkqv.split(E, dim=-1)
+    dprev = torch.empty_like(carry) if want_dprev else None
+    if dctx is not None:
+        loader.require_cuda("realformer_attention backward", dctx)
+        if dctx.dtype != kqv.dtype:
+            dctx = dctx.to(kqv.dtype)
+    if dcarry is not None:
+        loader.require_cuda("realformer_attention backward", dcarry)
+        dcarry = dcarry.to(torch.float32).contiguous()
+    dctx_strides = dctx.stride() if dctx is not None else (0, 0, 0, 0)
+    strides = (ctypes.c_longlong * 28)(
+        *q.stride(), *k.stride(), *v.stride(), *dctx_strides,
+        *dq.stride(), *dk.stride(), *dv.stride()
+    )
+    code = loader.library().realformer_attn_bwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(carry), _ptr(dctx), _ptr(dcarry),
+        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dprev),
+        strides, loader.DTYPE_CODES[kqv.dtype], B, H, T, E,
+        loader.stream_ptr(),
+    )
+    loader.check(code, "realformer_attn_bwd")
+    return dkqv, dprev
+
+
+def realformer_attention_backward(kqv, carry, dctx, dcarry, want_dprev):
+    """Gradient of ``realformer_attention_packed``: (dkqv (B, T, H, 3E) in
+    (k, q, v) order, dprev (B, H, T, T) fp32 or None)."""
+    if kqv.device.type == "cpu":
+        E = kqv.shape[-1] // 3
+        k, q, v = kqv.split(E, dim=-1)
+        dq, dk, dv, ds = realformer_attention_backward_reference(
+            q, k, v, carry, dctx, dcarry)
+        return torch.cat([dk, dq, dv], dim=-1), (ds if want_dprev else None)
+    out = _launch_backward(kqv, carry, dctx, dcarry, want_dprev)
+    realformer_attention.backward_launches += 1
+    return out
+
+
+def _forward(q, k, v, prev, query_mask):
     if q.device.type == "cpu":
         return realformer_attention_reference(q, k, v, prev, query_mask)
     out = _launch(q, k, v, prev, query_mask)
@@ -109,4 +178,73 @@ def realformer_attention(
     return out
 
 
+class _PackedAttention(torch.autograd.Function):
+    """Saves the packed projection and the carry; the probabilities are
+    recomputed. A missing output gradient (the last layer's carry has no
+    consumer) arrives as None and costs nothing."""
+
+    @staticmethod
+    def forward(ctx, kqv, prev, query_mask):
+        E = kqv.shape[-1] // 3
+        k, q, v = kqv.split(E, dim=-1)
+        out, carry = _forward(q, k, v, prev, query_mask)
+        ctx.save_for_backward(kqv, carry)
+        ctx.had_prev = prev is not None
+        ctx.set_materialize_grads(False)
+        return out, carry
+
+    @staticmethod
+    def backward(ctx, dctx, dcarry):
+        kqv, carry = ctx.saved_tensors
+        want_dprev = ctx.had_prev and ctx.needs_input_grad[1]
+        dkqv, dprev = realformer_attention_backward(
+            kqv, carry, dctx, dcarry, want_dprev)
+        return dkqv, dprev, None
+
+
+def _check_packed(kqv: torch.Tensor) -> None:
+    if kqv.dim() != 4 or kqv.shape[-1] % 3:
+        raise ValueError(
+            f"realformer_attention: kqv {tuple(kqv.shape)} is not "
+            "(B, T, H, 3E)"
+        )
+
+
+def realformer_attention_packed(
+    kqv: torch.Tensor, prev: Optional[torch.Tensor],
+    query_mask: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The core on the shared projection's output as it stands: kqv
+    (B, T, H, 3E) in (k, q, v) order. Its gradient comes back as one tensor
+    of that shape, so no concatenation follows the backward kernel."""
+    _check_packed(kqv)
+    needs_grad = kqv.requires_grad or (prev is not None and prev.requires_grad)
+    if torch.is_grad_enabled() and needs_grad:
+        return _PackedAttention.apply(kqv, prev, query_mask)
+    k, q, v = kqv.split(kqv.shape[-1] // 3, dim=-1)
+    return _forward(q, k, v, prev, query_mask)
+
+
+def realformer_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    prev: Optional[torch.Tensor], query_mask: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k, v: (B, T, H, E), any strides. Returns (ctx (B, T, H, E), carry
+    (B, H, T, T) fp32) with the semantics in the module docstring. Where a
+    gradient is wanted, q, k and v are packed (one copy) and go through
+    ``realformer_attention_packed``."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"realformer_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} are not all (B, T, H, E)"
+        )
+    needs_grad = any(t is not None and t.requires_grad
+                     for t in (q, k, v, prev))
+    if torch.is_grad_enabled() and needs_grad:
+        return _PackedAttention.apply(torch.cat([k, q, v], dim=-1), prev,
+                                      query_mask)
+    return _forward(q, k, v, prev, query_mask)
+
+
 realformer_attention.launches = 0
+realformer_attention.backward_launches = 0

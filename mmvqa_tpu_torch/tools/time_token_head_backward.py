@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Time the token head's backward kernel (K1-bwd) of one checkout on the card.
+
+    python3 mmvqa_tpu_torch/tools/time_token_head_backward.py [CHECKOUT]
+
+Imports ``mmvqa_tpu_torch`` from CHECKOUT (default: the checkout this file
+lies in), builds its kernels, checks the backward against the plain version at
+B=16 and prints the kernel's time (CUDA events, median of 10) at the five
+flagship taps for bf16 and fp32 at B=128 and B=16, each with its sum. To
+compare two versions of the kernel, unpack the other one (``git archive``)
+into a directory and run this script on both checkouts in turns within one
+job on one card: A, B, B, A.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import sys
+
+TAPS = ((112, 24), (56, 48), (28, 80), (14, 176), (7, 512))  # (side, K)
+HIDDEN = 768
+
+
+def time_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> None:
+    here = os.path.dirname(os.path.abspath(__file__))
+    checkout = os.path.abspath(
+        sys.argv[1] if len(sys.argv) > 1 else os.path.join(here, "..", ".."))
+    sys.path.insert(0, checkout)
+    import torch
+
+    from mmvqa_tpu_torch.models.visual_tokens import tap_positions
+    from mmvqa_tpu_torch.ops.token_head import (
+        token_head_backward,
+        token_head_backward_reference,
+    )
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    print(f"{checkout} on {torch.cuda.get_device_name(0)}")
+    for dtype, act in ((torch.bfloat16, "serf_fast"), (torch.float32, "serf")):
+        for B in (128, 16):
+            times = []
+            for side, K in TAPS:
+                feat = torch.randn(B, side, side, K, device=dev, generator=g)
+                x = tap_positions(feat.to(dtype).permute(0, 3, 1, 2))
+                w = (torch.randn(K, HIDDEN, device=dev, generator=g)
+                     * K ** -0.5).to(dtype)
+                gout = torch.randn(B, HIDDEN, device=dev, generator=g)
+                if B == 16:
+                    dx, dw = token_head_backward(x, w, gout, act)
+                    dx_p, dw_p = token_head_backward_reference(x, w, gout, act)
+                    # a bf16 ulp is up to 2^-7 of its value
+                    rel = 8e-3 if dtype == torch.bfloat16 else 1e-4
+                    for got, want, tol in ((dx, dx_p, rel), (dw, dw_p, 1e-4)):
+                        err = (got.float() - want.float()).abs().max().item()
+                        if err > tol * want.float().abs().max().item():
+                            sys.exit(f"K1-bwd disagrees at B={B} K={K} "
+                                     f"{dtype}: {err:.3e}")
+                times.append(time_ms(
+                    torch, lambda: token_head_backward(x, w, gout, act)))
+            print(f"  {str(dtype):15s} B={B:3d} ms per tap "
+                  + " ".join(f"{t:.3f}" for t in times)
+                  + f"  sum {sum(times):.3f}")
+
+
+if __name__ == "__main__":
+    main()

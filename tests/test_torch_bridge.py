@@ -87,7 +87,7 @@ def trees():
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_every_leaf_mapped_once_and_round_trips(trees, case):
     cfg, variables = trees[case]
-    model = MMBert(cfg)
+    model = MMBert(cfg, device="cpu")
     sd = bridge.to_state_dict(variables, model)
     leaves = _leaves(variables)
     assert len(sd) == len(leaves) == len(model.state_dict())
@@ -103,7 +103,7 @@ def test_every_leaf_mapped_once_and_round_trips(trees, case):
 
 def test_layouts_of_each_module_type(trees):
     cfg, variables = trees["vqa5"]
-    sd = bridge.to_state_dict(variables, MMBert(cfg))
+    sd = bridge.to_state_dict(variables, MMBert(cfg, device="cpu"))
     p, bs = variables["params"], variables["batch_stats"]
     trunk = p["trans"]["trunk"]
 
@@ -140,7 +140,7 @@ def test_layouts_of_each_module_type(trees):
 def test_refuses_unmapped_missing_misshaped_and_twice_mapped(trees,
                                                              monkeypatch):
     cfg, variables = trees["vqa5"]
-    model = MMBert(cfg)
+    model = MMBert(cfg, device="cpu")
 
     extra = jax.tree.map(lambda a: a, variables)
     extra["params"]["fc1"]["stray"] = np.zeros(3, np.float32)
@@ -165,6 +165,6 @@ def test_refuses_unmapped_missing_misshaped_and_twice_mapped(trees,
 
 def test_bridged_tensors_keep_the_model_dtype(trees):
     cfg, variables = trees["vqa5"]
-    model = MMBert(cfg, dtype=torch.bfloat16)
+    model = MMBert(cfg, device="cpu", dtype=torch.bfloat16)
     sd = bridge.to_state_dict(variables, model)
     assert {t.dtype for t in sd.values()} == {torch.bfloat16}

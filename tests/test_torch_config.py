@@ -79,7 +79,7 @@ batch = {"image": np.zeros((2, 32, 32, 3), np.uint8),
          "segment_ids": np.zeros((2, T), np.int32),
          "input_mask": np.ones((2, T), np.float32),
          "answer": np.zeros(2, np.int32), "weights": np.ones(2, np.float32)}
-out = make_vqa_eval_step(MMBert(cfg), cfg)(batch)
+out = make_vqa_eval_step(MMBert(cfg, device="cpu"), cfg)(batch)
 assert out["logits"].shape == (2, 4)
 print("FORBIDDEN", sorted(m for m in sys.modules
       if m.split(".")[0] in ("jax", "jaxlib", "flax", "mmvqa_tpu")))

@@ -45,7 +45,7 @@ def _batch(cfg, rng, size):
 
 
 def _bridged(cfg, variables):
-    model = MMBert(cfg)
+    model = MMBert(cfg, device="cpu")
     model.load_state_dict(bridge.to_state_dict(variables, model), strict=True)
     return model
 
@@ -127,7 +127,7 @@ def test_eval_step_matches_jax(rng, loss):
 def test_cpu_forward_launches_no_kernel(rng):
     cfg, _ = configs("vqa5")
     before = (fused_token_head.launches, realformer_attention.launches)
-    make_vqa_eval_step(MMBert(cfg), cfg)(_batch(cfg, rng, 32))
+    make_vqa_eval_step(MMBert(cfg, device="cpu"), cfg)(_batch(cfg, rng, 32))
     assert (fused_token_head.launches,
             realformer_attention.launches) == before
 
@@ -147,9 +147,9 @@ def test_token_head_takes_serf_fast_in_bf16(rng):
 
 def test_weights_come_from_the_generator():
     cfg, _ = configs("vqa5")
-    a = MMBert(cfg, generator=torch.Generator().manual_seed(1)).state_dict()
-    b = MMBert(cfg, generator=torch.Generator().manual_seed(1)).state_dict()
-    c = MMBert(cfg, generator=torch.Generator().manual_seed(2)).state_dict()
+    a = MMBert(cfg, device="cpu", generator=torch.Generator().manual_seed(1)).state_dict()
+    b = MMBert(cfg, device="cpu", generator=torch.Generator().manual_seed(1)).state_dict()
+    c = MMBert(cfg, device="cpu", generator=torch.Generator().manual_seed(2)).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["fc1.weight"], c["fc1.weight"])
 
@@ -162,10 +162,10 @@ def test_weights_come_from_the_generator():
 def test_unported_parts_name_the_roadmap(over, what):
     cfg, _ = configs("vqa5", **over)
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
-        MMBert(cfg)
+        MMBert(cfg, device="cpu")
 
 
 def test_distillation_task_is_not_ported():
     cfg, _ = configs("mlm", task="distillation")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MMBert(cfg)
+        MMBert(cfg, device="cpu")
