@@ -6,20 +6,23 @@
 1. Device: refuses to run without CUDA; prints the card's name and power
    limit (nvidia-smi), the torch and CUDA versions; builds the CUDA kernels
    from mmvqa_tpu_torch/csrc with nvcc and prints the build time.
-2. Kernels: each hand-written kernel (token head and RealFormer attention,
-   forward and backward) against its plain PyTorch version on the card, at
-   the shapes the eval and the train path give it, in fp32 and bf16, with
-   the tolerances below; prints the kernel's and the plain version's time
-   (CUDA events, median) beside the least time the card could take (the
-   larger of bytes over memory rate and operations over peak rate); checks
-   that two runs of the backward give identical bits.
+2. Kernels: each of the eight hand-written kernels (token head and
+   RealFormer attention, forward and backward; the trunk's depthwise 3x3,
+   forward and backward, conv1x1 + BN statistics and BN-backward sums)
+   against its plain PyTorch version on the card, at the shapes the eval
+   and the train path give it, in fp32 and bf16, with the tolerances below;
+   prints the kernel's and the plain version's time (CUDA events, median)
+   beside the least time the card could take (the larger of bytes over
+   memory rate and operations over peak rate) and, where one PyTorch call
+   computes the same function, that call's time; checks that two runs of
+   every kernel that sums across blocks give identical bits.
 3. Eval slice: the flagship VQA model (EfficientNetV2-M + RealFormer, hidden
    768, 4 layers, T=28, 224 px) with seeded random weights answers batches
    of 16 synthetic requests through ``make_vqa_eval_step``, in fp32 and in
-   bf16. The launch counters must show the token head 5x and the attention
-   4x per forward; the fp32 logits must match the same model run on the CPU
-   (plain path); the bf16 logits must be as close to those as the same bf16
-   model run on the CPU; every output must be finite. For each precision it
+   bf16. The launch counters must show the token head 5x, the attention
+   4x and the depthwise 3x3 42x per forward; the fp32 logits must match the
+   same model run on the CPU (plain path); the bf16 logits must be as close
+   to those as the same bf16 model run on the CPU; every output must be finite. For each precision it
    then times each layer with CUDA events and traces the batches with
    torch.profiler for the device's busy share.
 4. Train slice: the flagship ROCO MLM model (the same trunk and encoder at
@@ -31,9 +34,12 @@
    ``mlm_epoch`` over a repeated batch of 128 through ``make_mlm_steps``;
    every loss finite, the last below the first; ms per step, images per
    second, peak memory. (c) The launch counters must show, per step, the
-   token head 5x forward and 5x backward and the attention 4x and 4x.
-   (d) Where the time goes: forward, backward and optimizer by CUDA events,
-   the four kernels and the device's busy share by torch.profiler.
+   token head 5x forward and 5x backward, the attention 4x and 4x, the
+   depthwise 3x3 42x and 42x, conv1x1 + statistics 98x and the BN-backward
+   sums 156x. (d) Where the time goes: forward, backward and optimizer by
+   CUDA events, the eight kernels, what is left of the library's batch-norm
+   and depthwise kernels, and the device's busy share by torch.profiler; a
+   library batch-norm kernel in the train step fails the run.
 
 Prints a JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -83,6 +89,22 @@ RTOL_K1_BWD = 1e-4
 # fp32; bf16 outputs are one rounding of the same fp32 values: two ulps.
 TOL_K2_BWD = dict(rtol=5e-4, atol=5e-5)
 TOL_K2_BWD_BF16 = dict(rtol=8e-3, atol=5e-5)
+# K3, the JAX package's tests/test_pallas_depthwise.py: forward 2e-5 / 1e-5
+# in fp32; gradients rtol 1e-4 with an absolute term scaled to the largest
+# entry of the plain result (1e-4 for dx, a sum of 9 terms; 1e-3 for dW, a
+# sum over every position of every image). bf16 y and dx are one rounding of
+# the same fp32 value on each side: two ulps.
+TOL_K3_F32 = dict(rtol=2e-5, atol=1e-5)
+RTOL_K3_BWD, ATOL_K3_DX, ATOL_K3_DW = 1e-4, 1e-4, 1e-3
+# K4, tests/test_conv_bn.py: y 2e-5 in fp32 (the absolute term for sums of up
+# to 3072 products in another order); the sums to 1e-4 of their largest
+# entry, in bf16 too: kernel and plain version both sum the unrounded fp32
+# products of the same bf16 inputs. bf16 y: two ulps.
+TOL_K4_F32 = dict(rtol=2e-5, atol=2e-5)
+REL_K4_SUMS = 1e-4
+# K5: fp32 sums of the same fp32 terms in another order, over up to 1.6 M
+# rows: 1e-4 of the largest entry.
+REL_K5 = 1e-4
 # train step, fp32 on the card vs the CPU plain path: as TOL_SLICE for the
 # logits; a gradient leaf or running statistic within 2e-3 of its largest
 # entry (convolutions and batch statistics in another order on each device,
@@ -110,7 +132,8 @@ HEADS, HEAD_DIM = 8, 96
 # special-function rate, 16 units an SM x 132 SMs x 1.98 GHz boost clock.
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
-PEAK_SFU = 16 * 132 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
+PEAK_SFU = 16 * 132 * SM_CLOCK_HZ
 # special-function evaluations per projected element: SERF is exp, log1p
 # and erf forward, and those plus exp(-y^2) and a sigmoid backward; the
 # bf16 polynomial form is one sigmoid (an exp and a reciprocal) both ways
@@ -131,14 +154,25 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
+    """Median device time of ``fn`` (CUDA events). With ``flush``, a buffer
+    larger than the L2 cache, the call is timed as a step would find it: the
+    buffer is overwritten first, so that ``fn`` reads its inputs from device
+    memory, and the device is put to sleep while the host queues the call,
+    so that the host's time to launch a small kernel does not count."""
     import torch
 
+    host = 0.0
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host = time.perf_counter() - t0
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+            torch.cuda._sleep(int((2 * host + 1e-4) * SM_CLOCK_HZ))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -232,7 +266,28 @@ KERNELS = {
         "mmvqa_tpu_torch/csrc/realformer_attention_bwd.cu",
         "mmvqa_tpu/ops/pallas_attention.py:164",
         "no PyTorch call takes a score carry and its gradient"),
+    "depthwise3x3": (
+        "mmvqa_tpu_torch/csrc/depthwise3x3.cu",
+        "mmvqa_tpu/ops/pallas_depthwise.py:145",
+        "F.conv2d(groups=C) on the channels-last map"),
+    "depthwise3x3_bwd": (
+        "mmvqa_tpu_torch/csrc/depthwise3x3_bwd.cu",
+        "mmvqa_tpu/ops/pallas_depthwise.py:166",
+        "torch.ops.aten.convolution_backward (dx and dW)"),
+    "conv1x1_stats": (
+        "mmvqa_tpu_torch/csrc/conv1x1_stats.cu",
+        "mmvqa_tpu/ops/pallas_conv_bn.py:81",
+        "no single PyTorch call returns a product and the sums of its "
+        "output; the two calls F.conv2d + torch.batch_norm_stats are timed "
+        "as context"),
+    "bn_backward_sums": (
+        "mmvqa_tpu_torch/csrc/bn_backward_sums.cu",
+        "tools/bn_probe.py:73",
+        "torch.batch_norm_backward_reduce, which returns sum dy, "
+        "sum dy (x - mean) and that times inv_std"),
 }
+# kernels whose library_ms is a number, not null
+WITH_LIBRARY = ("depthwise3x3", "depthwise3x3_bwd", "bn_backward_sums")
 
 
 def kernel_phase(torch):
@@ -257,7 +312,8 @@ def kernel_phase(torch):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     results = {name: {"err": {torch.float32: 0.0, torch.bfloat16: 0.0},
-                      "ms": 0.0, "plain_ms": 0.0, "bounds": []}
+                      "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                      "bounds": []}
                for name in KERNELS}
 
     def note(name, dtype, err, summary, ms, plain, bnd):
@@ -400,12 +456,246 @@ def kernel_phase(torch):
         note("realformer_attention_bwd", dtype, max(e1, e2), summary, ms,
              plain, bnd)
 
+    trunk_kernel_phase(torch, results)
     for name, r in results.items():
+        library = (f"library_ms {r['library_ms']:.4f}: "
+                   if name in WITH_LIBRARY else "library_ms null: ")
         print(f"kernel {name}: max_abs_err fp32 "
               f"{r['err'][torch.float32]:.3e}, bf16 "
-              f"{r['err'][torch.bfloat16]:.3e}; library_ms null: "
-              f"{KERNELS[name][2]}")
+              f"{r['err'][torch.bfloat16]:.3e}; {library}{KERNELS[name][2]}")
     return results
+
+
+def trunk_sites(B: int, size: int = 224):
+    """The flagship trunk's kernel sites at batch ``B``: three counters,
+    K3 (H, W, C), K4 (N, K, C), K5 (N, C) -> how many sites have that
+    shape. Follows models/effnetv2.py block by block."""
+    from collections import Counter
+
+    from mmvqa_tpu_torch.models.effnetv2 import V2_M_ARCH, V2_M_STEM
+
+    k3, k4, k5 = Counter(), Counter(), Counter()
+    s = -(-size // 2)
+    k5[(B * s * s, V2_M_STEM)] += 1
+    in_ch = V2_M_STEM
+    for btype, reps, _k, stride, e, c, _se in V2_M_ARCH:
+        for bi in range(reps):
+            so = -(-s // (stride if bi == 0 else 1))
+            mid = in_ch * e
+            if btype == "fused" and e == 1:
+                k5[(B * so * so, c)] += 1
+            elif btype == "fused":
+                k5[(B * so * so, mid)] += 1
+                k4[(B * so * so, mid, c)] += 1
+                k5[(B * so * so, c)] += 1
+            else:
+                k4[(B * s * s, in_ch, mid)] += 1
+                k5[(B * s * s, mid)] += 1
+                if so == s:
+                    k3[(so, so, mid)] += 1
+                k5[(B * so * so, mid)] += 1
+                k4[(B * so * so, mid, c)] += 1
+                k5[(B * so * so, c)] += 1
+            s, in_ch = so, c
+    return k3, k4, k5
+
+
+def trunk_kernel_phase(torch, results):
+    """K3 (forward, backward), K4 and K5 against their plain versions at
+    every distinct site shape of the flagship trunk at B=TRAIN_B, fp32 and
+    bf16. The summary times are bf16, each shape's time multiplied by the
+    number of sites that have it: one train step's worth. Every timed call
+    finds its inputs in device memory (the L2 cache is overwritten before
+    it), as in a step, where a map of tens of MB does not survive until its
+    next reader."""
+    import torch.nn.functional as F
+
+    from mmvqa_tpu_torch.ops.bn_sums import (
+        bn_backward_sums,
+        bn_backward_sums_reference,
+    )
+    from mmvqa_tpu_torch.ops.conv_bn import (
+        conv1x1_stats,
+        conv1x1_stats_reference,
+    )
+    from mmvqa_tpu_torch.ops.depthwise import (
+        depthwise3x3,
+        depthwise3x3_backward,
+        depthwise3x3_backward_reference,
+        depthwise3x3_reference,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    k3_sites, k4_sites, k5_sites = trunk_sites(TRAIN_B)
+    if (sum(k3_sites.values()), sum(k4_sites.values()),
+            sum(k5_sites.values())) != (42, 98, 156):
+        fail(f"trunk sites: {k3_sites} {k4_sites} {k5_sites}")
+    B = TRAIN_B
+    dtypes = (torch.float32, torch.bfloat16)
+
+    def timed(fn):
+        return time_ms(fn, 5, 2, flush)
+
+    def note(name, dtype, err, count, ms, plain, library, bnd):
+        r = results[name]
+        r["err"][dtype] = max(r["err"][dtype], err)
+        if dtype == torch.bfloat16:
+            r["ms"] += count * ms
+            r["plain_ms"] += count * plain
+            r["library_ms"] += count * library
+            r["bounds"] += [bnd] * count
+
+    def maxabs(t):
+        return t.float().abs().max().item()
+
+    # ---- K3: the weight is the convolution's fp32 (C, 1, 3, 3) master, as
+    # the trunk hands it over; operations at the fp32 rate (no tensor cores
+    # in a depthwise product)
+    for (H, W, C), count in sorted(k3_sites.items()):
+        for dtype in dtypes:
+            bf16 = dtype == torch.bfloat16
+            size = B * H * W * C
+            x = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+            dy = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+            w4 = torch.randn(C, 1, 3, 3, device=dev, generator=g) / 3
+            w = w4[:, 0].permute(1, 2, 0)
+            wc = w4.to(dtype)
+            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            label = f"B={B} {H}x{W}x{C} {dtype} ({count} sites)"
+            x_bytes = size * x.element_size()
+
+            y = depthwise3x3(x, w)
+            y_p = depthwise3x3_reference(x, w)
+            torch.cuda.synchronize()
+            err = close(f"depthwise3x3 {label}", y, y_p,
+                        TOL_BF16 if bf16 else TOL_K3_F32)
+            ms = timed(lambda: depthwise3x3(x, w))
+            plain = timed(lambda: depthwise3x3_reference(x, w))
+            lib = timed(lambda: F.conv2d(xn, wc, padding=1, groups=C))
+            bnd = bound(2 * x_bytes + 36 * C, 18.0 * size, 0, "fp32")
+            print(f"depthwise3x3 {label}: max_abs_err {err:.3e}  kernel "
+                  f"{ms:.4f} ms  plain {plain:.4f} ms  library {lib:.4f} ms  "
+                  f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            note("depthwise3x3", dtype, err, count, ms, plain, lib, bnd)
+            del y, y_p
+
+            dx, dw = depthwise3x3_backward(x, w, dy)
+            dx2, dw2 = depthwise3x3_backward(x, w, dy)
+            dx_p, dw_p = depthwise3x3_backward_reference(x, w, dy)
+            torch.cuda.synchronize()
+            if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+                fail(f"depthwise3x3_bwd {label}: two runs differ")
+            e_dx = close(f"depthwise3x3_bwd {label} dx", dx, dx_p, dict(
+                rtol=8e-3 if bf16 else RTOL_K3_BWD,
+                atol=ATOL_K3_DX * maxabs(dx_p)))
+            e_dw = close(f"depthwise3x3_bwd {label} dW", dw, dw_p, dict(
+                rtol=RTOL_K3_BWD, atol=ATOL_K3_DW * maxabs(dw_p)))
+            del dx, dx2, dw2, dx_p, dw_p
+            ms = timed(lambda: depthwise3x3_backward(x, w, dy))
+            plain = timed(lambda: depthwise3x3_backward_reference(x, w, dy))
+            lib = timed(lambda: torch.ops.aten.convolution_backward(
+                dyn, xn, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0], C,
+                [True, True, False]))
+            bnd = bound(3 * x_bytes + 72 * C, 36.0 * size, 0, "fp32")
+            print(f"depthwise3x3_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
+                  f"{e_dw:.3e}, two runs identical  kernel {ms:.4f} ms  plain "
+                  f"{plain:.4f} ms  library {lib:.4f} ms  bound {bnd[0]:.4f} "
+                  f"ms ({bnd[1]})")
+            note("depthwise3x3_bwd", dtype, max(e_dx, e_dw), count, ms, plain,
+                 lib, bnd)
+            del x, dy, xn, dyn
+
+    # ---- K4: w is the convolution's (C, K) weight as its (K, C) view
+    two_call_ms = 0.0
+    for (N, K, C), count in sorted(k4_sites.items()):
+        for dtype in dtypes:
+            bf16 = dtype == torch.bfloat16
+            x = torch.randn(N, K, device=dev, generator=g).to(dtype)
+            wt = (torch.randn(C, K, device=dev, generator=g)
+                  * K ** -0.5).to(dtype)
+            w = wt.t()
+            label = f"N={N} K={K} C={C} {dtype} ({count} sites)"
+            y, st = conv1x1_stats(x, w)
+            y2, st2 = conv1x1_stats(x, w)
+            y_p, st_p = conv1x1_stats_reference(x, w)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                fail(f"conv1x1_stats {label}: two runs differ")
+            e_y = close(f"conv1x1_stats {label} y", y, y_p,
+                        TOL_BF16 if bf16 else TOL_K4_F32)
+            e_s = max(close_normwise(f"conv1x1_stats {label} sums[{i}]",
+                                     st[i], st_p[i], REL_K4_SUMS)
+                      for i in (0, 1))
+            del y, y2, y_p
+            ms = timed(lambda: conv1x1_stats(x, w))
+            plain = timed(lambda: conv1x1_stats_reference(x, w))
+            # context, not a yardstick: the library's convolution followed by
+            # its statistics reduction, two calls
+            xn = x.view(B, N // B, 1, K).permute(0, 3, 1, 2)
+            w4 = wt.view(C, K, 1, 1)
+            two = timed(lambda: torch.batch_norm_stats(F.conv2d(xn, w4),
+                                                       1e-3))
+            size = x.element_size()
+            bnd = bound((N * K + K * C + N * C) * size + 8 * C,
+                        2.0 * N * K * C + 3.0 * N * C, 0,
+                        "bf16" if bf16 else "fp32")
+            print(f"conv1x1_stats {label}: max_abs_err y {e_y:.3e} sums "
+                  f"{e_s:.3e} (of max {maxabs(st_p):.3e}), two runs "
+                  f"identical  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                  f"bound {bnd[0]:.4f} ms ({bnd[1]})  [conv2d + "
+                  f"batch_norm_stats {two:.4f} ms]")
+            note("conv1x1_stats", dtype, e_y, count, ms, plain, 0.0, bnd)
+            if bf16:
+                two_call_ms += count * two
+            del x, xn
+
+    # ---- K5; the library's call takes the (B, C, H, W) view of the same
+    # channels-last map
+    for (N, C), count in sorted(k5_sites.items()):
+        for dtype in dtypes:
+            x = (torch.randn(N, C, device=dev, generator=g) * 2 + 1).to(dtype)
+            dy = torch.randn(N, C, device=dev, generator=g).to(dtype)
+            mean = torch.randn(C, device=dev, generator=g)
+            inv_std = 1 + torch.rand(C, device=dev, generator=g)
+            label = f"N={N} C={C} {dtype} ({count} sites)"
+            s1, s2 = bn_backward_sums(x, dy, mean, inv_std)
+            r1, r2 = bn_backward_sums(x, dy, mean, inv_std)
+            p1, p2 = bn_backward_sums_reference(x, dy, mean, inv_std)
+            xn = x.view(B, N // B, 1, C).permute(0, 3, 1, 2)
+            dyn = dy.view(B, N // B, 1, C).permute(0, 3, 1, 2)
+            ones = torch.ones(C, device=dev)
+
+            def library():
+                return torch.batch_norm_backward_reduce(
+                    dyn, xn, mean, inv_std, ones, True, True, True)
+
+            l1, _, l2, _ = library()
+            torch.cuda.synchronize()
+            if not (torch.equal(s1, r1) and torch.equal(s2, r2)):
+                fail(f"bn_backward_sums {label}: two runs differ")
+            err = max(
+                close_normwise(f"bn_backward_sums {label} s1", s1, p1, REL_K5),
+                close_normwise(f"bn_backward_sums {label} s2", s2, p2, REL_K5))
+            close_normwise(f"bn_backward_sums {label} s1 vs library", s1, l1,
+                           REL_K5)
+            close_normwise(f"bn_backward_sums {label} s2 vs library", s2, l2,
+                           REL_K5)
+            ms = timed(lambda: bn_backward_sums(x, dy, mean, inv_std))
+            plain = timed(
+                lambda: bn_backward_sums_reference(x, dy, mean, inv_std))
+            lib = timed(library)
+            bnd = bound(2 * N * C * x.element_size() + 16 * C, 5.0 * N * C, 0,
+                        "fp32")
+            print(f"bn_backward_sums {label}: max_abs_err {err:.3e} (of max "
+                  f"{max(maxabs(p1), maxabs(p2)):.3e}), two runs identical  "
+                  f"kernel {ms:.4f} ms  plain {plain:.4f} ms  library "
+                  f"{lib:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+            note("bn_backward_sums", dtype, err, count, ms, plain, lib, bnd)
+            del x, dy, xn, dyn
+    print(f"conv1x1_stats: the two library calls (conv2d + batch_norm_stats) "
+          f"take {two_call_ms:.4f} ms over the 98 sites, bf16")
 
 
 def check_outputs(torch, outs, label):
@@ -508,8 +798,6 @@ def slice_phase(torch):
     from mmvqa_tpu_torch.core.config import vqa_config
     from mmvqa_tpu_torch.data.synthetic import vqa_batches
     from mmvqa_tpu_torch.models import MMBert
-    from mmvqa_tpu_torch.ops.attention import realformer_attention
-    from mmvqa_tpu_torch.ops.token_head import fused_token_head
     from mmvqa_tpu_torch.train.steps import make_vqa_eval_step
 
     cfg = vqa_config(cnn_encoder="tf_efficientnetv2_m",
@@ -534,8 +822,7 @@ def slice_phase(torch):
         del cpu_model
 
     model.to("cuda")
-    fused_token_head.launches = 0
-    realformer_attention.launches = 0
+    reset_counts()
     outs, forwards = {}, 0
     for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         model.to(dtype)
@@ -544,14 +831,14 @@ def slice_phase(torch):
         time_layers(torch, model, step, batches[1:], label)
         trace_batches(torch, step, batches[1:], label)
         forwards += len(batches) + 2 * len(batches[1:])
-    launches = {"token_head": fused_token_head.launches,
-                "realformer_attention": realformer_attention.launches}
+    launches = read_counts()
     print(f"slice: launches over {forwards} forwards: {launches}")
-    if launches["token_head"] != 5 * forwards:
-        fail(f"token head launched {launches['token_head']}x, want {5 * forwards}")
-    if launches["realformer_attention"] != cfg.n_layers * forwards:
-        fail(f"attention launched {launches['realformer_attention']}x, "
-             f"want {cfg.n_layers * forwards}")
+    want = dict.fromkeys(launches, 0)
+    want.update(token_head=5 * forwards,
+                realformer_attention=cfg.n_layers * forwards,
+                depthwise3x3=42 * forwards)
+    if launches != want:
+        fail(f"eval launches {launches}, want {want}")
 
     ref32, ref16 = refs["fp32"], refs["bf16"]
     out32, out16 = outs["fp32"][0], outs["bf16"][0]
@@ -587,23 +874,42 @@ def flagship_mlm_config(**over):
                            transformer_model="realformer", **over)
 
 
-def reset_counts() -> None:
+def _counters():
+    """(kernel name, wrapper, attribute) of every launch counter."""
     from mmvqa_tpu_torch.ops.attention import realformer_attention
+    from mmvqa_tpu_torch.ops.bn_sums import bn_backward_sums
+    from mmvqa_tpu_torch.ops.conv_bn import conv1x1_stats
+    from mmvqa_tpu_torch.ops.depthwise import depthwise3x3
     from mmvqa_tpu_torch.ops.token_head import fused_token_head
 
-    fused_token_head.launches = fused_token_head.backward_launches = 0
-    realformer_attention.launches = 0
-    realformer_attention.backward_launches = 0
+    return (("token_head", fused_token_head, "launches"),
+            ("token_head_bwd", fused_token_head, "backward_launches"),
+            ("realformer_attention", realformer_attention, "launches"),
+            ("realformer_attention_bwd", realformer_attention,
+             "backward_launches"),
+            ("depthwise3x3", depthwise3x3, "launches"),
+            ("depthwise3x3_bwd", depthwise3x3, "backward_launches"),
+            ("conv1x1_stats", conv1x1_stats, "launches"),
+            ("bn_backward_sums", bn_backward_sums, "launches"))
+
+
+def reset_counts() -> None:
+    for _, fn, attr in _counters():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    from mmvqa_tpu_torch.ops.attention import realformer_attention
-    from mmvqa_tpu_torch.ops.token_head import fused_token_head
+    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
 
-    return {"token_head": fused_token_head.launches,
-            "token_head_bwd": fused_token_head.backward_launches,
-            "realformer_attention": realformer_attention.launches,
-            "realformer_attention_bwd": realformer_attention.backward_launches}
+
+def gradient_copies() -> dict:
+    """Gradients that reached a kernel site in another layout than its map
+    and were copied into it (autograd promises none); expected 0."""
+    from mmvqa_tpu_torch.models.effnetv2 import BatchNorm2d
+    from mmvqa_tpu_torch.ops.depthwise import depthwise3x3
+
+    return {"batchnorm": BatchNorm2d.gradient_copies,
+            "depthwise3x3": depthwise3x3.gradient_copies}
 
 
 # leaves whose gradients the fp32 check compares, and the statistic
@@ -611,6 +917,10 @@ CHECK_LEAVES = ([f"trans.token_conv_{i}.weight" for i in range(5)]
                 + ["encoder.block_0.kqv.weight", "encoder.block_3.kqv.weight",
                    "trans.trunk.stem_conv.weight",
                    "trans.trunk.stage6_block4.pw_proj.weight",
+                   "trans.trunk.stage4_block13.dw.weight",
+                   "trans.trunk.stage4_block13.pw_exp.weight",
+                   "trans.trunk.stage4_block13.bn1.weight",
+                   "trans.trunk.stage1_block2.bn2.bias",
                    "bert_embedding.word_embeddings.weight",
                    "classifier_2.weight"])
 CHECK_STATS = ["trans.trunk.stem_bn.running_var",
@@ -749,12 +1059,38 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
           f"({100 * busy / wall:.1f}%)")
     ours = ("token_head_partial", "token_head_finalize", "token_head_bwd",
             "token_head_dw_reduce", "realformer_attn_fwd",
-            "realformer_attn_bwd")
+            "realformer_attn_bwd", "depthwise3x3_fwd", "depthwise3x3_bwd",
+            "depthwise3x3_dw_reduce", "conv1x1_stats_bf16",
+            "conv1x1_stats_reduce", "bn_backward_sums_kernel",
+            "bn_backward_sums_reduce")
+
+    def total(hit):
+        return (sum(a.self_device_time_total for a in hit) / 1e3 / n,
+                sum(a.count for a in hit) / n)
+
     for tag in ours:
-        hit = [a for a in kernels if tag in a.key]
-        print(f"  {sum(a.self_device_time_total for a in hit) / 1e3 / n:9.4f}"
-              f" ms/step {sum(a.count for a in hit) // n:5d} calls  {tag}")
-    for a in kernels[:10]:
+        ms, calls = total([a for a in kernels if tag in a.key])
+        print(f"  {ms:9.4f} ms/step {calls:7.1f} calls  {tag}")
+    # what is left of the library's kernels at the routed sites: no batch
+    # norm at all in training; depthwise only at the two stride-2 sites
+    mine = [a for a in kernels if "mmvqa" in a.key]
+    rest = [a for a in kernels if "mmvqa" not in a.key]
+    bn = [a for a in rest if any(t in a.key.lower() for t in (
+        "batch_norm", "batchnorm", "bn_fw", "bn_bw"))]
+    dw = [a for a in rest if any(t in a.key.lower() for t in (
+        "depthwise", "dwise", "dgrad2d_c1_k1", "wgrad2d_c1_k1",
+        "conv2d_c1_k1"))]
+    for tag, hit in (("library batch-norm kernels", bn),
+                     ("library depthwise kernels (2 stride-2 sites)", dw),
+                     ("all hand-written kernels", mine)):
+        ms, calls = total(hit)
+        print(f"  {ms:9.4f} ms/step {calls:7.1f} calls  {tag}")
+        for a in hit if hit is not mine else ():
+            print(f"      {a.count / n:7.1f} calls  {a.key[:90]}")
+    if bn:
+        fail("a library batch-norm kernel ran in the train step: "
+             + ", ".join(a.key[:60] for a in bn))
+    for a in kernels[:14]:
         print(f"  {a.self_device_time_total / 1e3 / n:9.4f} ms/step "
               f"{a.count // n:5d} calls  {a.key[:80]}")
 
@@ -817,11 +1153,16 @@ def train_phase(torch):
     launches = read_counts()
     print(f"train bf16 B={TRAIN_B}: mlm_epoch of {TRAIN_STEPS} steps: "
           f"{second}; launches {launches}")
-    want = {"token_head": 5 * TRAIN_STEPS, "token_head_bwd": 5 * TRAIN_STEPS,
-            "realformer_attention": cfg.n_layers * TRAIN_STEPS,
-            "realformer_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    per_step = {"token_head": 5, "token_head_bwd": 5,
+                "realformer_attention": cfg.n_layers,
+                "realformer_attention_bwd": cfg.n_layers,
+                "depthwise3x3": 42, "depthwise3x3_bwd": 42,
+                "conv1x1_stats": 98, "bn_backward_sums": 156}
+    want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
     if launches != want:
         fail(f"train launches {launches}, want {want}")
+    print(f"train: gradients copied into their map's layout: "
+          f"{gradient_copies()}")
     for name, m in (("first", first), ("second", second)):
         if not all(math.isfinite(v) for v in m.values()):
             fail(f"train: non-finite metric in the {name} epoch: {m}")
@@ -874,8 +1215,10 @@ def main() -> None:
 
     # launches: the counts read after each main path's run, counters set to
     # 0 just before it (the eval slice's forwards, then the train epoch).
-    # ms, plain_ms, bound_ms: at the train path's shapes in bf16, B=TRAIN_B,
-    # summed over the calls of one pass; bound_by: what binds the largest.
+    # ms, plain_ms, bound_ms, library_ms: at the train path's shapes in bf16,
+    # B=TRAIN_B, summed over the calls of one pass (the trunk's kernels:
+    # every site of a step, inputs not in the L2 cache); bound_by: what
+    # binds the largest.
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
@@ -885,7 +1228,8 @@ def main() -> None:
          "max_abs_err": max(r["err"].values()),
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": sum(ms for ms, _ in r["bounds"]),
-         "bound_by": max(r["bounds"])[1], "library_ms": None}
+         "bound_by": max(r["bounds"])[1],
+         "library_ms": r["library_ms"] if name in WITH_LIBRARY else None}
         for name, r in kernels.items()
     ]}
     print(json.dumps(summary))

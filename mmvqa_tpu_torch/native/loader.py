@@ -146,6 +146,44 @@ def _bind(lib: ctypes.CDLL) -> None:
         _i, _i, _i, _i, _i,         # dtype, B, H, T, E
         _p,                         # stream
     ]
+    # the channel plan of ops/tiling.py: vec, lanes, ctiles, row_groups,
+    # rows_per_block, nrb
+    plan = [_i, _i, _i, _i, _i, _i]
+    lib.depthwise3x3_fwd.restype = _i
+    lib.depthwise3x3_fwd.argtypes = [
+        _p, _i,                     # x, dtype
+        _p, _i, _ll, _ll,           # w (9, C), dtype, strides (tap, channel)
+        _p,                         # y
+        _i, _i, _i, _i,             # B, H, W, C
+        *plan,
+        _p,                         # stream
+    ]
+    lib.depthwise3x3_bwd.restype = _i
+    lib.depthwise3x3_bwd.argtypes = [
+        _p, _i, _p,                 # x, dtype, dy
+        _p, _i, _ll, _ll,           # w (9, C), dtype, strides (tap, channel)
+        _p, _p, _p,                 # dx, dwpart, dw
+        _i, _i, _i, _i,             # B, H, W, C
+        *plan,
+        _p,                         # stream
+    ]
+    lib.conv1x1_stats.restype = _i
+    lib.conv1x1_stats.argtypes = [
+        _p, _i,                     # x, dtype
+        _p, _ll, _ll,               # w, strides (k, c)
+        _p, _p, _p,                 # y, partial, stats
+        _i, _i, _i, _i,             # N, K, C, nrb
+        _p,                         # stream
+    ]
+    lib.bn_backward_sums.restype = _i
+    lib.bn_backward_sums.argtypes = [
+        _p, _p, _i,                 # x, dy, dtype
+        _p, _p,                     # mean, inv_std
+        _p, _p,                     # partial, out
+        _ll, _i,                    # rows, C
+        *plan,
+        _p,                         # stream
+    ]
 
 
 def library() -> ctypes.CDLL:

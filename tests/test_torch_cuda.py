@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels, forward and backward, against their plain
 versions on the card, at the ragged shapes the flagship path does not reach (K not a multiple of 4,
 P not a multiple of the register group, C not a multiple of the channel
-tile, T up to the 128 cap). Skips without a card. On the GPU machine, which
+tile, T up to the 128 cap; odd planes, channel counts that are no multiple
+of a vector or a warp, row counts that are no multiple of a tile). Skips without a card. On the GPU machine, which
 has no JAX, run it without the JAX test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -15,6 +16,21 @@ from mmvqa_tpu_torch.ops.attention import (
     realformer_attention_backward,
     realformer_attention_packed,
     realformer_attention_reference,
+)
+from mmvqa_tpu_torch.models import effnetv2
+from mmvqa_tpu_torch.ops.bn_sums import (
+    bn_backward_sums,
+    bn_backward_sums_reference,
+)
+from mmvqa_tpu_torch.ops.conv_bn import (
+    conv1x1_stats,
+    conv1x1_stats_reference,
+)
+from mmvqa_tpu_torch.ops.depthwise import (
+    depthwise3x3,
+    depthwise3x3_backward,
+    depthwise3x3_backward_reference,
+    depthwise3x3_reference,
 )
 from mmvqa_tpu_torch.ops.token_head import (
     fused_token_head,
@@ -31,6 +47,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -284,3 +301,190 @@ def test_attention_backward_shared_memory_refusal_raises_and_clears(dev):
     dkqv, dprev = realformer_attention_backward(
         kqv, torch.zeros(1, 1, 28, 28, device=dev), None, None, False)
     assert dprev is None and not dkqv.any()
+
+
+# ------------------------------------------- the trunk's kernels ----
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("master", [False, True])
+@pytest.mark.parametrize("B,H,W,C", [
+    (1, 1, 1, 1), (2, 5, 7, 33), (3, 7, 7, 100), (2, 14, 14, 1056),
+    (5, 3, 9, 130), (2, 1, 6, 64),
+])
+def test_depthwise_kernels_match_plain(dev, dtype, master, B, H, W, C):
+    """Forward and backward; ``master``: the fp32 weight of a convolution,
+    (C, 1, 3, 3), handed over as its (3, 3, C) view."""
+    g = _gen(dev)
+    x = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+    dy = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+    if master:
+        w = (torch.randn(C, 1, 3, 3, device=dev, generator=g)
+             * 0.3)[:, 0].permute(1, 2, 0)
+    else:
+        w = (torch.randn(3, 3, C, device=dev, generator=g) * 0.3).to(dtype)
+    counts = (depthwise3x3.launches, depthwise3x3.backward_launches)
+    y = depthwise3x3(x, w)
+    dx, dw = depthwise3x3_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert (depthwise3x3.launches, depthwise3x3.backward_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    # the plain versions in fp32 from the same (rounded) inputs; cuDNN's own
+    # bf16 convolution would add its roundings
+    xf, wf = x.float(), w.to(dtype).float()
+    y_p = depthwise3x3_reference(xf, wf)
+    dx_p, dw_p = depthwise3x3_backward_reference(xf, wf, dy.float())
+    # tests/test_pallas_depthwise.py: 2e-5 / 1e-5 forward; bf16 two ulps
+    tol = (dict(rtol=2e-5, atol=1e-5) if dtype == torch.float32
+           else TOL[torch.bfloat16])
+    torch.testing.assert_close(y.float(), y_p, **tol)
+    _normwise(dx, dx_p, 1e-4 if dtype == torch.float32 else 8e-3)
+    _normwise(dw, dw_p, 1e-4)
+    again = depthwise3x3_backward(x, w, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+def test_depthwise_corner_impulse_on_the_card(dev):
+    x = torch.zeros(1, 7, 7, 128, device=dev)
+    x[0, 0, 0] = 1.0
+    y = depthwise3x3(x, torch.ones(3, 3, 128, device=dev))
+    assert y[0, :2, :2, 0].sum().item() == 4.0
+    assert not y[0, 2:].any() and not y[0, :, 2:].any()
+    dx, dw = depthwise3x3_backward(x, torch.ones(3, 3, 128, device=dev), x)
+    assert dx[0, :2, :2, 0].sum().item() == 4.0
+    assert not dx[0, 2:].any() and not dx[0, :, 2:].any()
+    assert dw[1, 1, 0].item() == 1.0 and dw.sum().item() == 128.0
+
+
+def test_trunk_kernels_refuse_strided_maps(dev):
+    """A map that is not dense channels-last is refused, not copied."""
+    nchw = torch.zeros(2, 8, 4, 4, device=dev)  # dense NCHW
+    w = torch.zeros(3, 3, 8, device=dev)
+    before = (depthwise3x3.launches, conv1x1_stats.launches,
+              bn_backward_sums.launches)
+    with pytest.raises(ValueError, match="dense"):
+        depthwise3x3(nchw.permute(0, 2, 3, 1), w)
+    with pytest.raises(ValueError, match="dense"):
+        conv1x1_stats(torch.zeros(8, 16, device=dev).t(),
+                      torch.zeros(8, 4, device=dev))
+    m = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="dense"):
+        bn_backward_sums(nchw.permute(0, 2, 3, 1), nchw.permute(0, 2, 3, 1),
+                         m, m)
+    with pytest.raises(ValueError, match="dense"):
+        effnetv2.channels_last(nchw)
+    with pytest.raises(ValueError, match="dtype"):
+        depthwise3x3(torch.zeros(1, 2, 2, 8, device=dev).half(), w.half())
+    with pytest.raises(ValueError, match="x is"):
+        conv1x1_stats(torch.zeros(4, 8, device=dev),
+                      torch.zeros(8, 4, device=dev).bfloat16())
+    assert before == (depthwise3x3.launches, conv1x1_stats.launches,
+                      bn_backward_sums.launches)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,K,C,wt", [
+    (1, 1, 1, False), (700, 24, 64, False), (700, 24, 64, True),
+    (513, 176, 1056, True), (300, 35, 77, True), (300, 35, 77, False),
+    (129, 304, 65, True), (4099, 96, 48, True), (64, 1000, 130, True),
+])
+def test_conv1x1_stats_kernel_matches_plain(dev, dtype, N, K, C, wt):
+    """``wt``: w as the trunk passes it, the (C, K) weight's (K, C) view."""
+    g = _gen(dev)
+    x = torch.randn(N, K, device=dev, generator=g).to(dtype)
+    if wt:
+        w = (torch.randn(C, K, device=dev, generator=g) * K ** -0.5).to(dtype).t()
+    else:
+        w = (torch.randn(K, C, device=dev, generator=g) * K ** -0.5).to(dtype)
+    before = conv1x1_stats.launches
+    y, stats = conv1x1_stats(x, w)
+    torch.cuda.synchronize()
+    assert conv1x1_stats.launches == before + 1
+    assert y.dtype == dtype and stats.dtype == torch.float32
+    assert y.shape == (N, C) and stats.shape == (2, C)
+    y_p, stats_p = conv1x1_stats_reference(x, w)
+    # tests/test_conv_bn.py: y 2e-5, sums 1e-4 in fp32 (sums of up to 4099
+    # terms: relative to the largest); bf16 y two ulps, the sums are fp32
+    # sums of the same unrounded products
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+           else TOL[torch.bfloat16])
+    torch.testing.assert_close(y.float(), y_p.float(), **tol)
+    _normwise(stats[0], stats_p[0], 1e-4)
+    _normwise(stats[1], stats_p[1], 1e-4)
+    y2, stats2 = conv1x1_stats(x, w)
+    assert torch.equal(y2, y) and torch.equal(stats2, stats)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    (1, 1), (37, 33), (2, 5, 7, 24), (4, 28, 28, 80), (3, 7, 7, 1000),
+    (100000, 3), (2, 3, 3, 304),
+])
+def test_bn_backward_sums_kernel_matches_plain(dev, dtype, shape):
+    g = _gen(dev)
+    C = shape[-1]
+    x = (torch.randn(shape, device=dev, generator=g) * 2 + 1).to(dtype)
+    dy = torch.randn(shape, device=dev, generator=g).to(dtype)
+    mean = torch.randn(C, device=dev, generator=g)
+    inv_std = 1 + torch.rand(C, device=dev, generator=g)
+    before = bn_backward_sums.launches
+    s1, s2 = bn_backward_sums(x, dy, mean, inv_std)
+    torch.cuda.synchronize()
+    assert bn_backward_sums.launches == before + 1
+    p1, p2 = bn_backward_sums_reference(x, dy, mean, inv_std)
+    # fp32 sums of the same fp32 terms in another order, over up to 1e5 rows
+    _normwise(s1, p1, 1e-4)
+    _normwise(s2, p2, 1e-4)
+    again = bn_backward_sums(x, dy, mean, inv_std)
+    assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["mb", "fused"])
+def test_training_block_autograd_goes_through_the_kernels(dev, dtype, kind):
+    """One training-mode block on the card, fp32 masters under a ``dtype``
+    map, against the same block on the CPU (plain paths): K3 1/1, K4 2 (or
+    1), K5 3 (or 2) launches; output, gradients and running statistics."""
+    torch.manual_seed(0)
+    if kind == "mb":
+        block = effnetv2.MBConv(24, 24, 3, 1, 4, 0.25)
+        want_counts = (1, 1, 2, 3)
+    else:
+        block = effnetv2.FusedMBConv(24, 24, 3, 1, 4)
+        want_counts = (0, 0, 1, 2)
+    block.train()
+    import copy
+    card = copy.deepcopy(block).to(dev)
+    x = torch.randn(4, 9, 9, 24).to(dtype).permute(0, 3, 1, 2)
+    gout = torch.randn(4, 9, 9, 24).permute(0, 3, 1, 2)
+
+    def run(b, device):
+        xin = x.to(device).requires_grad_()
+        y = b(xin)
+        (y.float() * gout.to(device)).sum().backward()
+        return y, xin.grad
+
+    def counts():
+        return (depthwise3x3.launches, depthwise3x3.backward_launches,
+                conv1x1_stats.launches, bn_backward_sums.launches)
+
+    before = counts()
+    copies = (effnetv2.BatchNorm2d.gradient_copies,
+              depthwise3x3.gradient_copies)
+    y, dx = run(card, dev)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == want_counts
+    assert copies == (effnetv2.BatchNorm2d.gradient_copies,
+                      depthwise3x3.gradient_copies)
+    y_p, dx_p = run(block, "cpu")
+    rel = 2e-3 if dtype == torch.float32 else 4e-2
+    _normwise(y.cpu(), y_p, rel)
+    _normwise(dx.cpu(), dx_p, rel)
+    for (name, p), q in zip(card.named_parameters(), block.parameters()):
+        assert p.grad.dtype == torch.float32, name
+        _normwise(p.grad.cpu(), q.grad, rel)
+    for (name, b), c in zip(card.named_buffers(), block.buffers()):
+        _normwise(b.cpu(), c, rel)
