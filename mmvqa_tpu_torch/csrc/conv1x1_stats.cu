@@ -232,10 +232,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ------------------------------------------------------------------ fp32 ----
 constexpr int kFM = 64, kFN = 64, kFK = 16;  // tile; 16 x 16 threads, 4 x 4 each
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    conv1x1_stats_fma_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                             long long swk, long long swc, T* __restrict__ y,
+    conv1x1_stats_fma_kernel(const float* __restrict__ x,
+                             const float* __restrict__ w, long long swk,
+                             long long swc, float* __restrict__ y,
                              float* __restrict__ partial, int N, int K, int C,
                              int mtiles) {
   __shared__ __align__(16) float As[kFK][kFM + 4];  // [k][row]
@@ -262,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = tid; i < kFM * kFK; i += kThreads) {
         const int row = i / kFK, k = i % kFK;  // K is x's unit-stride axis
         As[k][row] = (m0 + row < N && k0 + k < K)
-                         ? to_f32(x[(long long)(m0 + row) * K + k0 + k])
+                         ? x[(long long)(m0 + row) * K + k0 + k]
                          : 0.0f;
       }
       for (int i = tid; i < kFN * kFK; i += kThreads) {
@@ -275,8 +275,7 @@ __global__ void __launch_bounds__(kThreads)
           k = i % kFK;
         }
         Bs[k][n] = (c0 + n < C && k0 + k < K)
-                       ? to_f32(w[(long long)(k0 + k) * swk +
-                                  (long long)(c0 + n) * swc])
+                       ? w[(long long)(k0 + k) * swk + (long long)(c0 + n) * swc]
                        : 0.0f;
       }
       __syncthreads();
@@ -301,7 +300,7 @@ __global__ void __launch_bounds__(kThreads)
         cs[j] += acc[i][j];
         cq[j] = fmaf(acc[i][j], acc[i][j], cq[j]);
         if (row < N && col < C)
-          y[(long long)row * C + col] = from_f32<T>(acc[i][j]);
+          y[(long long)row * C + col] = acc[i][j];
       }
     }
   }
@@ -350,7 +349,7 @@ extern "C" int conv1x1_stats(const void* x, int dtype, const void* w,
   if (dtype == kFloat32) {
     const int mtiles = (N + kFM - 1) / kFM;
     const dim3 grid((C + kFN - 1) / kFN, nrb);
-    conv1x1_stats_fma_kernel<float><<<grid, kThreads, 0, s>>>(
+    conv1x1_stats_fma_kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), swk, swc,
         static_cast<float*>(y), part, N, K, C, mtiles);
   } else if (dtype == kBFloat16) {

@@ -221,5 +221,9 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: dtype {t.dtype} not supported")
 
 
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
 def stream_ptr() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

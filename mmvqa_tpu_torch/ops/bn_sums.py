@@ -17,7 +17,6 @@ version, a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -59,10 +58,7 @@ def _launch(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
     partial = torch.empty((plan.nrb, 2, C), device=x.device,
                           dtype=torch.float32)
     out = torch.empty((2, C), device=x.device, dtype=torch.float32)
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
-
+    ptr = loader.ptr
     code = loader.library().bn_backward_sums(
         ptr(x), ptr(dy), loader.DTYPE_CODES[x.dtype], ptr(mean), ptr(inv_std),
         ptr(partial), ptr(out), rows, C, *plan, loader.stream_ptr())

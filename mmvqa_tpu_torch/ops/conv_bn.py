@@ -27,7 +27,6 @@ version, a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -37,10 +36,6 @@ from mmvqa_tpu_torch.ops import tiling
 
 TILE_M = {torch.bfloat16: 128, torch.float32: 64}  # kBM, kFM of the source
 BLOCKS_PER_SM = 4  # two resident, two waves
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def _tile_n(dtype: torch.dtype, C: int) -> int:
@@ -57,9 +52,9 @@ def launch_plan(N: int, K: int, C: int, dtype: torch.dtype, sms: int) -> int:
         raise ValueError(f"conv1x1_stats: empty shape N={N} K={K} C={C}")
     if max(N, K, C) > 2**31 - 1 - 128:
         raise ValueError(f"conv1x1_stats: N={N} K={K} C={C} beyond int32")
-    mtiles = _cdiv(N, TILE_M[dtype])
-    ctiles = _cdiv(C, _tile_n(dtype, C))
-    nrb = max(1, min(mtiles, _cdiv(BLOCKS_PER_SM * sms, ctiles)))
+    mtiles = tiling.cdiv(N, TILE_M[dtype])
+    ctiles = tiling.cdiv(C, _tile_n(dtype, C))
+    nrb = max(1, min(mtiles, tiling.cdiv(BLOCKS_PER_SM * sms, ctiles)))
     if nrb > 65535:
         raise ValueError(f"conv1x1_stats: grid too large for N={N}, C={C}")
     return nrb
@@ -82,13 +77,11 @@ def conv1x1_stats_backward(
     dstats: Optional[torch.Tensor], need_dx: bool = True,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """(dx, dW) of ``conv1x1_stats`` for the cotangents ``dy`` (N, C) and
-    ``dstats`` (2, C), either of which may be None (zero)
+    ``dstats`` (2, C), one of which may be None (zero)
     (mmvqa_tpu/ops/pallas_conv_bn.py::_vjp_bwd). d s1 / dy = 1 and
     d s2 / dy = 2 y. ``need_dx=False`` leaves dx out (None), for a map that
     wants no gradient."""
     if dstats is None:
-        if dy is None:
-            return torch.zeros_like(x), torch.zeros_like(w)
         dy = dy.to(x.dtype)
         return (dy @ w.t() if need_dx else None), x.t() @ dy
     g = dstats[0][None, :] + 2.0 * y.float() * dstats[1][None, :]
@@ -110,10 +103,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     y = torch.empty((N, C), device=x.device, dtype=x.dtype)
     partial = torch.empty((nrb, 2, C), device=x.device, dtype=torch.float32)
     stats = torch.empty((2, C), device=x.device, dtype=torch.float32)
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
-
+    ptr = loader.ptr
     code = loader.library().conv1x1_stats(
         ptr(x), loader.DTYPE_CODES[x.dtype], ptr(w), *w.stride(), ptr(y),
         ptr(partial), ptr(stats), N, K, C, nrb, loader.stream_ptr())

@@ -23,7 +23,6 @@ fp32 dW reaches the master unrounded.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -92,10 +91,6 @@ def _weight_rows(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(9, w.shape[2])
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     loader.require_cuda("depthwise3x3", x, w)
     tiling.require_dense("depthwise3x3", x)
@@ -103,9 +98,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w9 = _weight_rows(w)
     y = torch.empty_like(x)
     plan = _plan(x, y)
+    ptr = loader.ptr
     code = loader.library().depthwise3x3_fwd(
-        _ptr(x), loader.DTYPE_CODES[x.dtype], _ptr(w9),
-        loader.DTYPE_CODES[w9.dtype], *w9.stride(), _ptr(y), B, H, W, C,
+        ptr(x), loader.DTYPE_CODES[x.dtype], ptr(w9),
+        loader.DTYPE_CODES[w9.dtype], *w9.stride(), ptr(y), B, H, W, C,
         *plan, loader.stream_ptr())
     loader.check(code, "depthwise3x3_fwd")
     return y
@@ -127,10 +123,11 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor,
     dwpart = torch.empty((plan.nrb, 9, C), device=x.device,
                          dtype=torch.float32)
     dw = torch.empty((3, 3, C), device=x.device, dtype=torch.float32)
+    ptr = loader.ptr
     code = loader.library().depthwise3x3_bwd(
-        _ptr(x), loader.DTYPE_CODES[x.dtype], _ptr(dy), _ptr(w9),
-        loader.DTYPE_CODES[w9.dtype], *w9.stride(), _ptr(dx), _ptr(dwpart),
-        _ptr(dw), B, H, W, C, *plan, loader.stream_ptr())
+        ptr(x), loader.DTYPE_CODES[x.dtype], ptr(dy), ptr(w9),
+        loader.DTYPE_CODES[w9.dtype], *w9.stride(), ptr(dx), ptr(dwpart),
+        ptr(dw), B, H, W, C, *plan, loader.stream_ptr())
     loader.check(code, "depthwise3x3_bwd")
     return dx, dw
 

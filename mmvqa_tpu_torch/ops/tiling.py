@@ -28,7 +28,7 @@ class ChannelPlan(NamedTuple):
     nrb: int             # gridDim.y
 
 
-def _cdiv(a: int, b: int) -> int:
+def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
@@ -48,13 +48,13 @@ def channel_plan(rows: int, C: int, vec: int, blocks: int) -> ChannelPlan:
     shapes the grid cannot take. No block is left without rows."""
     if rows < 1 or C < 1:
         raise ValueError(f"empty map: rows={rows} C={C}")
-    nvec = _cdiv(C, vec)
-    ctiles = _cdiv(nvec, MAX_LANES)
-    lanes = _cdiv(nvec, ctiles)
+    nvec = cdiv(C, vec)
+    ctiles = cdiv(nvec, MAX_LANES)
+    lanes = cdiv(nvec, ctiles)
     row_groups = max(1, min(MAX_THREADS // lanes, rows))
-    nrb = max(1, min(_cdiv(blocks, ctiles), _cdiv(rows, row_groups)))
-    rows_per_block = _cdiv(_cdiv(rows, nrb), row_groups) * row_groups
-    nrb = _cdiv(rows, rows_per_block)
+    nrb = max(1, min(cdiv(blocks, ctiles), cdiv(rows, row_groups)))
+    rows_per_block = cdiv(cdiv(rows, nrb), row_groups) * row_groups
+    nrb = cdiv(rows, rows_per_block)
     if nrb > 65535 or rows_per_block > 2**31 - 1 or ctiles > 2**31 - 1:
         raise ValueError(f"grid too large for rows={rows}, C={C}")
     return ChannelPlan(vec, lanes, ctiles, row_groups, rows_per_block, nrb)
