@@ -58,7 +58,8 @@ import time
 
 SEED = 0
 NUM_CLASSES = 1024  # no answer vocabulary ships with the repo; fixed here
-N_BATCHES = 3       # requests of batch 16 per precision (the first warms up)
+EVAL_B = 16         # the eval path's batch (vqa_config's batch_size)
+N_BATCHES = 3       # requests of EVAL_B per precision (the first warms up)
 PAD_LAST = 3        # the last batch is a partial one: 3 padding samples
 TRAIN_B = 128       # the train path's batch
 TRAIN_STEPS = 6     # steps of the main path on one repeated batch
@@ -327,14 +328,14 @@ def kernel_phase(torch):
     # ---- K1, forward and backward: the five taps at the eval batch (16) in
     # both dtypes, at the train batch in bf16, stage 0 at the train batch in
     # fp32
-    k1_cases = ([(torch.float32, 16, tap) for tap in TAPS]
+    k1_cases = ([(torch.float32, EVAL_B, tap) for tap in TAPS]
                 + [(torch.float32, TRAIN_B, TAPS[0])]
-                + [(torch.bfloat16, B, tap) for B in (16, TRAIN_B)
+                + [(torch.bfloat16, B, tap) for B in (EVAL_B, TRAIN_B)
                    for tap in TAPS])
     for dtype, B, (name, side, K) in k1_cases:
         bf16 = dtype == torch.bfloat16
         act = "serf_fast" if bf16 else "serf"
-        reps = 20 if B == 16 else 5
+        reps = 20 if B == EVAL_B else 5
         P = side * side
         feat = torch.randn(B, side, side, K, device=dev, generator=g)
         feat = feat.to(dtype).permute(0, 3, 1, 2)  # the trunk's layout
@@ -384,7 +385,7 @@ def kernel_phase(torch):
 
     # ---- K2, forward and backward
     H, E = HEADS, HEAD_DIM
-    k2_cases = [(dtype, 16, T, wp, wm)
+    k2_cases = [(dtype, EVAL_B, T, wp, wm)
                 for dtype in (torch.float32, torch.bfloat16)
                 for T in (28, 75) for wp in (False, True)
                 for wm in (False, True)]
@@ -503,8 +504,11 @@ def trunk_sites(B: int, size: int = 224):
 def trunk_kernel_phase(torch, results):
     """K3 (forward, backward), K4 and K5 against their plain versions at
     every distinct site shape of the flagship trunk at B=TRAIN_B, fp32 and
-    bf16. The summary times are bf16, each shape's time multiplied by the
-    number of sites that have it: one train step's worth. Every timed call
+    bf16, and untimed at the other batches the paths below give them: K3's
+    forward at EVAL_B in both dtypes with the weight in x's dtype, as the
+    eval model holds it, and all four in fp32 at CHECK_B, the fp32 train
+    check's batch. The summary times are bf16, each shape's time multiplied
+    by the number of sites that have it: one train step's worth. Every timed call
     finds its inputs in device memory (the L2 cache is overwritten before
     it), as in a step, where a map of tens of MB does not survive until its
     next reader."""
@@ -550,6 +554,59 @@ def trunk_kernel_phase(torch, results):
     def maxabs(t):
         return t.float().abs().max().item()
 
+    def check_k3_bwd(label, x, w, dy, bf16):
+        """dx and dW against the plain backward, two runs bit for bit."""
+        dx, dw = depthwise3x3_backward(x, w, dy)
+        dx2, dw2 = depthwise3x3_backward(x, w, dy)
+        dx_p, dw_p = depthwise3x3_backward_reference(x, w, dy)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            fail(f"depthwise3x3_bwd {label}: two runs differ")
+        e_dx = close(f"depthwise3x3_bwd {label} dx", dx, dx_p, dict(
+            rtol=8e-3 if bf16 else RTOL_K3_BWD,
+            atol=ATOL_K3_DX * maxabs(dx_p)))
+        e_dw = close(f"depthwise3x3_bwd {label} dW", dw, dw_p, dict(
+            rtol=RTOL_K3_BWD, atol=ATOL_K3_DW * maxabs(dw_p)))
+        return e_dx, e_dw
+
+    def check_k4(label, x, w, bf16):
+        """y and the sums against the plain version, two runs bit for bit;
+        returns the errors and the largest plain sum."""
+        y, st = conv1x1_stats(x, w)
+        y2, st2 = conv1x1_stats(x, w)
+        y_p, st_p = conv1x1_stats_reference(x, w)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            fail(f"conv1x1_stats {label}: two runs differ")
+        e_y = close(f"conv1x1_stats {label} y", y, y_p,
+                    TOL_BF16 if bf16 else TOL_K4_F32)
+        e_s = max(close_normwise(f"conv1x1_stats {label} sums[{i}]",
+                                 st[i], st_p[i], REL_K4_SUMS)
+                  for i in (0, 1))
+        return e_y, e_s, maxabs(st_p)
+
+    def check_k5(label, x, dy, mean, inv_std):
+        """Both sums against the plain version, two runs bit for bit;
+        returns the kernel's sums, the error and the largest plain sum."""
+        s1, s2 = bn_backward_sums(x, dy, mean, inv_std)
+        r1, r2 = bn_backward_sums(x, dy, mean, inv_std)
+        p1, p2 = bn_backward_sums_reference(x, dy, mean, inv_std)
+        torch.cuda.synchronize()
+        if not (torch.equal(s1, r1) and torch.equal(s2, r2)):
+            fail(f"bn_backward_sums {label}: two runs differ")
+        err = max(
+            close_normwise(f"bn_backward_sums {label} s1", s1, p1, REL_K5),
+            close_normwise(f"bn_backward_sums {label} s2", s2, p2, REL_K5))
+        return s1, s2, err, max(maxabs(p1), maxabs(p2))
+
+    small = {name: 0 for name in ("depthwise3x3", "depthwise3x3_bwd",
+                                  "conv1x1_stats", "bn_backward_sums")}
+
+    def note_small(name, dtype, err):
+        r = results[name]
+        r["err"][dtype] = max(r["err"][dtype], err)
+        small[name] += 1
+
     # ---- K3: the weight is the convolution's fp32 (C, 1, 3, 3) master, as
     # the trunk hands it over; operations at the fp32 rate (no tensor cores
     # in a depthwise product)
@@ -581,18 +638,7 @@ def trunk_kernel_phase(torch, results):
             note("depthwise3x3", dtype, err, count, ms, plain, lib, bnd)
             del y, y_p
 
-            dx, dw = depthwise3x3_backward(x, w, dy)
-            dx2, dw2 = depthwise3x3_backward(x, w, dy)
-            dx_p, dw_p = depthwise3x3_backward_reference(x, w, dy)
-            torch.cuda.synchronize()
-            if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
-                fail(f"depthwise3x3_bwd {label}: two runs differ")
-            e_dx = close(f"depthwise3x3_bwd {label} dx", dx, dx_p, dict(
-                rtol=8e-3 if bf16 else RTOL_K3_BWD,
-                atol=ATOL_K3_DX * maxabs(dx_p)))
-            e_dw = close(f"depthwise3x3_bwd {label} dW", dw, dw_p, dict(
-                rtol=RTOL_K3_BWD, atol=ATOL_K3_DW * maxabs(dw_p)))
-            del dx, dx2, dw2, dx_p, dw_p
+            e_dx, e_dw = check_k3_bwd(label, x, w, dy, bf16)
             ms = timed(lambda: depthwise3x3_backward(x, w, dy))
             plain = timed(lambda: depthwise3x3_backward_reference(x, w, dy))
             lib = timed(lambda: torch.ops.aten.convolution_backward(
@@ -605,6 +651,23 @@ def trunk_kernel_phase(torch, results):
                   f"ms ({bnd[1]})")
             note("depthwise3x3_bwd", dtype, max(e_dx, e_dw), count, ms, plain,
                  lib, bnd)
+
+            # the eval path: another batch, so another launch plan, and the
+            # weight in x's dtype (the bf16 model holds a bf16 weight)
+            xe, we = x[:EVAL_B], wc[:, 0].permute(1, 2, 0)
+            lab = f"B={EVAL_B} {H}x{W}x{C} {dtype}, {we.dtype} weight"
+            note_small("depthwise3x3", dtype, close(
+                f"depthwise3x3 {lab}", depthwise3x3(xe, we),
+                depthwise3x3_reference(xe, we),
+                TOL_BF16 if bf16 else TOL_K3_F32))
+            if not bf16:  # the fp32 train check
+                xs, dys = x[:CHECK_B], dy[:CHECK_B]
+                lab = f"B={CHECK_B} {H}x{W}x{C} {dtype}"
+                note_small("depthwise3x3", dtype, close(
+                    f"depthwise3x3 {lab}", depthwise3x3(xs, w),
+                    depthwise3x3_reference(xs, w), TOL_K3_F32))
+                note_small("depthwise3x3_bwd", dtype,
+                           max(check_k3_bwd(lab, xs, w, dys, bf16)))
             del x, dy, xn, dyn
 
     # ---- K4: w is the convolution's (C, K) weight as its (K, C) view
@@ -617,18 +680,7 @@ def trunk_kernel_phase(torch, results):
                   * K ** -0.5).to(dtype)
             w = wt.t()
             label = f"N={N} K={K} C={C} {dtype} ({count} sites)"
-            y, st = conv1x1_stats(x, w)
-            y2, st2 = conv1x1_stats(x, w)
-            y_p, st_p = conv1x1_stats_reference(x, w)
-            torch.cuda.synchronize()
-            if not (torch.equal(y, y2) and torch.equal(st, st2)):
-                fail(f"conv1x1_stats {label}: two runs differ")
-            e_y = close(f"conv1x1_stats {label} y", y, y_p,
-                        TOL_BF16 if bf16 else TOL_K4_F32)
-            e_s = max(close_normwise(f"conv1x1_stats {label} sums[{i}]",
-                                     st[i], st_p[i], REL_K4_SUMS)
-                      for i in (0, 1))
-            del y, y2, y_p
+            e_y, e_s, s_max = check_k4(label, x, w, bf16)
             ms = timed(lambda: conv1x1_stats(x, w))
             plain = timed(lambda: conv1x1_stats_reference(x, w))
             # context, not a yardstick: the library's convolution followed by
@@ -642,13 +694,17 @@ def trunk_kernel_phase(torch, results):
                         2.0 * N * K * C + 3.0 * N * C, 0,
                         "bf16" if bf16 else "fp32")
             print(f"conv1x1_stats {label}: max_abs_err y {e_y:.3e} sums "
-                  f"{e_s:.3e} (of max {maxabs(st_p):.3e}), two runs "
+                  f"{e_s:.3e} (of max {s_max:.3e}), two runs "
                   f"identical  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
                   f"bound {bnd[0]:.4f} ms ({bnd[1]})  [conv2d + "
                   f"batch_norm_stats {two:.4f} ms]")
             note("conv1x1_stats", dtype, e_y, count, ms, plain, 0.0, bnd)
             if bf16:
                 two_call_ms += count * two
+            else:  # the fp32 train check's rows
+                ns = N // B * CHECK_B
+                note_small("conv1x1_stats", dtype, check_k4(
+                    f"N={ns} K={K} C={C} {dtype}", x[:ns], w, bf16)[0])
             del x, xn
 
     # ---- K5; the library's call takes the (B, C, H, W) view of the same
@@ -660,9 +716,7 @@ def trunk_kernel_phase(torch, results):
             mean = torch.randn(C, device=dev, generator=g)
             inv_std = 1 + torch.rand(C, device=dev, generator=g)
             label = f"N={N} C={C} {dtype} ({count} sites)"
-            s1, s2 = bn_backward_sums(x, dy, mean, inv_std)
-            r1, r2 = bn_backward_sums(x, dy, mean, inv_std)
-            p1, p2 = bn_backward_sums_reference(x, dy, mean, inv_std)
+            s1, s2, err, s_max = check_k5(label, x, dy, mean, inv_std)
             xn = x.view(B, N // B, 1, C).permute(0, 3, 1, 2)
             dyn = dy.view(B, N // B, 1, C).permute(0, 3, 1, 2)
             ones = torch.ones(C, device=dev)
@@ -673,11 +727,6 @@ def trunk_kernel_phase(torch, results):
 
             l1, _, l2, _ = library()
             torch.cuda.synchronize()
-            if not (torch.equal(s1, r1) and torch.equal(s2, r2)):
-                fail(f"bn_backward_sums {label}: two runs differ")
-            err = max(
-                close_normwise(f"bn_backward_sums {label} s1", s1, p1, REL_K5),
-                close_normwise(f"bn_backward_sums {label} s2", s2, p2, REL_K5))
             close_normwise(f"bn_backward_sums {label} s1 vs library", s1, l1,
                            REL_K5)
             close_normwise(f"bn_backward_sums {label} s2 vs library", s2, l2,
@@ -689,13 +738,22 @@ def trunk_kernel_phase(torch, results):
             bnd = bound(2 * N * C * x.element_size() + 16 * C, 5.0 * N * C, 0,
                         "fp32")
             print(f"bn_backward_sums {label}: max_abs_err {err:.3e} (of max "
-                  f"{max(maxabs(p1), maxabs(p2)):.3e}), two runs identical  "
+                  f"{s_max:.3e}), two runs identical  "
                   f"kernel {ms:.4f} ms  plain {plain:.4f} ms  library "
                   f"{lib:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
             note("bn_backward_sums", dtype, err, count, ms, plain, lib, bnd)
+            if dtype == torch.float32:  # the fp32 train check's rows
+                ns = N // B * CHECK_B
+                note_small("bn_backward_sums", dtype, check_k5(
+                    f"N={ns} C={C} {dtype}", x[:ns], dy[:ns], mean,
+                    inv_std)[2])
             del x, dy, xn, dyn
     print(f"conv1x1_stats: the two library calls (conv2d + batch_norm_stats) "
           f"take {two_call_ms:.4f} ms over the 98 sites, bf16")
+    print(f"trunk kernels at the eval batch {EVAL_B} (depthwise3x3 forward, "
+          f"fp32 and bf16 with the weight in x's dtype) and at the fp32 "
+          f"train check's batch {CHECK_B}: cases within the same limits "
+          f"{small}")
 
 
 def check_outputs(torch, outs, label):
@@ -1161,8 +1219,11 @@ def train_phase(torch):
     want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
     if launches != want:
         fail(f"train launches {launches}, want {want}")
-    print(f"train: gradients copied into their map's layout: "
-          f"{gradient_copies()}")
+    copies = gradient_copies()
+    print(f"train: gradients copied into their map's layout: {copies}")
+    if any(copies.values()):
+        fail(f"train: a gradient reached a kernel site in another layout "
+             f"than its map and was copied: {copies}")
     for name, m in (("first", first), ("second", second)):
         if not all(math.isfinite(v) for v in m.values()):
             fail(f"train: non-finite metric in the {name} epoch: {m}")

@@ -163,7 +163,7 @@ class _BatchNormTrain(torch.autograd.Function):
         C = x.shape[1]
         n = x.numel() // C
         dy = dy.to(x.dtype)
-        if x.device.type != "cpu" and dy.stride() != x.stride():
+        if x.device.type != "cpu" and not tiling.laid_out_as(dy, x):
             # autograd promises no layout for a gradient; K5 reads dy as x
             # lies
             dy = dy.contiguous(memory_format=torch.channels_last)

@@ -84,6 +84,9 @@ def conv1x1_stats_backward(
     if dstats is None:
         dy = dy.to(x.dtype)
         return (dy @ w.t() if need_dx else None), x.t() @ dy
+    # Only the parity tests against the JAX function reach the rest: the
+    # trunk's BatchNorm returns the full gradient itself and hands the sums
+    # no cotangent. Written for clarity in fp32, not for speed.
     g = dstats[0][None, :] + 2.0 * y.float() * dstats[1][None, :]
     if dy is not None:
         g = g + dy.float()

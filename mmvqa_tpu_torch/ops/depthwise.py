@@ -164,9 +164,9 @@ class _Depthwise3x3(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dy = dy.to(x.dtype)
-        if x.device.type != "cpu" and not dy.is_contiguous():
+        if x.device.type != "cpu" and not tiling.laid_out_as(dy, x):
             # autograd promises no layout for a gradient; the kernel reads
-            # dy as x lies
+            # dy as x lies (dense, or _launch would have refused x)
             dy = dy.contiguous()
             depthwise3x3.gradient_copies += 1
         dx, dw = depthwise3x3_backward(x, w, dy)

@@ -70,5 +70,14 @@ def require_dense(name: str, t: torch.Tensor) -> None:
         )
 
 
+def laid_out_as(t: torch.Tensor, x: torch.Tensor) -> bool:
+    """Whether ``t`` lies in memory as ``x`` does: the same shape and the
+    same stride on every axis longer than 1. The one test a backward makes
+    before it hands a gradient to a kernel that reads it beside ``x``."""
+    return t.shape == x.shape and all(
+        st == sx for n, st, sx in zip(x.shape, t.stride(), x.stride())
+        if n > 1)
+
+
 def sm_count(t: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the ways to write a training BatchNorm's two elementwise passes as
-tensor code, on the card:
+"""Time a training BatchNorm's two elementwise passes as the trunk writes
+them (``models/effnetv2.py::_BatchNormTrain``), on the card:
 
     python3 mmvqa_tpu_torch/tools/time_bn_tensor_code.py
 
@@ -8,14 +8,12 @@ forward   out = x * a + b                  (a, b per channel, fp32)
 backward  dx  = a * dy + p * x + q         (a, p, q per channel, fp32)
 
 over a channels-last bf16 map, at three of the flagship trunk's shapes,
-B=128. Every variant computes the same function; they differ in the dtype of
-the coefficients and of the temporary, and in whether the map is seen as
-(B, C, H, W) or as its (N, C) rows. ``models/effnetv2.py::_BatchNormTrain``
-uses the fastest one that rounds the result once. The library's
-``batch_norm_elemt`` / ``batch_norm_backward_elemt`` are timed beside them as
-a yardstick; the port does not call them. Device time by CUDA events, each
-call queued behind a sleeping device so that host time does not count, the
-L2 cache overwritten before it.
+B=128: one ``addcmul`` forward, two with an fp32 temporary backward, each
+result rounded once. The library's ``batch_norm_elemt`` /
+``batch_norm_backward_elemt`` are timed beside them as a yardstick; the port
+does not call them. Device time by CUDA events, each call queued behind a
+sleeping device so that host time does not count, the L2 cache overwritten
+before it.
 """
 
 from __future__ import annotations
@@ -65,48 +63,28 @@ def main() -> None:
         x = torch.randn(B, H, W, C, device=dev, generator=g).bfloat16()
         dy = torch.randn(B, H, W, C, device=dev, generator=g).bfloat16()
         x4, dy4 = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-        x2, dy2 = x.view(-1, C), dy.view(-1, C)
         a, b, p, q = (torch.randn(C, device=dev, generator=g)
                       for _ in range(4))
         a4, b4, p4, q4 = (t.view(1, C, 1, 1) for t in (a, b, p, q))
-        h = [t.bfloat16() for t in (a, b, p, q)]
-        h4 = [t.view(1, C, 1, 1) for t in h]
-        out4, out2 = torch.empty_like(x4), torch.empty_like(x2)
+        out4 = torch.empty_like(x4)
         ones = torch.ones(C, device=dev)
         zeros = torch.zeros(C, device=dev)
+        count = torch.tensor([B * H * W], dtype=torch.int32, device=dev)
 
-        def bwd_fp32_tmp(xx, dd, aa, pp, qq, out):
-            t = torch.addcmul(qq, xx, pp)
-            return torch.addcmul(t, dd, aa, out=out)
-
-        def bwd_bf16(xx, dd, aa, pp, qq):
-            return torch.addcmul(torch.addcmul(qq, xx, pp), dd, aa)
+        def backward():
+            t = torch.addcmul(q4, x4, p4)  # fp32
+            return torch.addcmul(t, dy4, a4, out=out4)
 
         variants = {
-            "fwd 4-D, fp32 coefficients, out=bf16":
+            "fwd the trunk's addcmul":
                 lambda: torch.addcmul(b4, x4, a4, out=out4),
-            "fwd rows, fp32 coefficients, out=bf16":
-                lambda: torch.addcmul(b, x2, a, out=out2),
-            "fwd 4-D, bf16 coefficients":
-                lambda: torch.addcmul(h4[1], x4, h4[0]),
-            "fwd rows, bf16 coefficients":
-                lambda: torch.addcmul(h[1], x2, h[0]),
-            "fwd rows, fp32 copy, fp32 addcmul, cast":
-                lambda: torch.addcmul(b, x2.float(), a).bfloat16(),
             "fwd library batch_norm_elemt (yardstick)":
                 lambda: torch.batch_norm_elemt(x4, ones, zeros, b, a, 0.0),
-            "bwd 4-D, fp32 coefficients, fp32 temporary":
-                lambda: bwd_fp32_tmp(x4, dy4, a4, p4, q4, out4),
-            "bwd rows, fp32 coefficients, fp32 temporary":
-                lambda: bwd_fp32_tmp(x2, dy2, a, p, q, out2),
-            "bwd 4-D, bf16 coefficients and temporary":
-                lambda: bwd_bf16(x4, dy4, h4[0], h4[2], h4[3]),
-            "bwd rows, bf16 coefficients and temporary":
-                lambda: bwd_bf16(x2, dy2, h[0], h[2], h[3]),
+            "bwd the trunk's two addcmuls":
+                backward,
             "bwd library batch_norm_backward_elemt (yardstick)":
                 lambda: torch.batch_norm_backward_elemt(
-                    dy4, x4, b, a, ones, zeros, zeros,
-                    torch.tensor([B * H * W], dtype=torch.int32, device=dev)),
+                    dy4, x4, b, a, ones, zeros, zeros, count),
         }
         n = x.numel()
         print(f"map (B, C, H, W) = {(B, C, H, W)}, bf16, {n / 1e6:.2f} M "

@@ -488,3 +488,42 @@ def test_training_block_autograd_goes_through_the_kernels(dev, dtype, kind):
         _normwise(p.grad.cpu(), q.grad, rel)
     for (name, b), c in zip(card.named_buffers(), block.buffers()):
         _normwise(b.cpu(), c, rel)
+
+
+def test_a_gradient_in_another_layout_is_copied_and_counted(dev):
+    """autograd promises no layout for a gradient: one that arrives as NCHW
+    (or broadcast) at a site whose map lies channels last is copied into the
+    map's layout, counted, and gives the result of the dense one."""
+    torch.manual_seed(0)
+    bn = effnetv2.BatchNorm2d(24).to(dev).train()
+    x = torch.randn(4, 9, 9, 24, device=dev).permute(0, 3, 1, 2)
+    g = torch.randn(4, 9, 9, 24, device=dev).permute(0, 3, 1, 2)
+    w = torch.randn(3, 3, 24, device=dev)
+
+    def grads(gout):
+        xin = x.clone(memory_format=torch.preserve_format).requires_grad_()
+        y = depthwise3x3(effnetv2.channels_last(bn(xin)), w)
+        y.permute(0, 3, 1, 2).backward(gout)
+        return xin.grad
+
+    def copies():
+        return (effnetv2.BatchNorm2d.gradient_copies,
+                depthwise3x3.gradient_copies)
+
+    before = copies()
+    want = grads(g)
+    assert copies() == before
+    got = grads(g.contiguous())  # NCHW
+    assert copies() == (before[0], before[1] + 1)
+    assert torch.equal(got, want)
+
+    def bn_grad(gout):
+        xin = x.clone(memory_format=torch.preserve_format).requires_grad_()
+        bn(xin).backward(gout)
+        return xin.grad
+
+    want = bn_grad(g)
+    assert copies() == (before[0], before[1] + 1)
+    got = bn_grad(g.contiguous())
+    assert copies() == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)

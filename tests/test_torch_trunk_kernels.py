@@ -284,6 +284,18 @@ def test_vector_width_needs_divisible_channels_and_aligned_rows():
         tiling.channel_plan(0, 4, 1, 8)
 
 
+def test_laid_out_as_compares_strides_of_the_axes_that_count():
+    x = torch.zeros(2, 5, 5, 8).permute(0, 3, 1, 2)   # channels last
+    assert tiling.laid_out_as(torch.zeros_like(x), x)
+    assert not tiling.laid_out_as(x.contiguous(), x)  # the same map, NCHW
+    assert not tiling.laid_out_as(x.expand(2, 8, 5, 5)[:, :4], x)
+    assert not tiling.laid_out_as(torch.zeros(()).expand(2, 8, 5, 5), x)
+    # an axis of length 1 has no stride to speak of
+    one = torch.zeros(1, 5, 5, 8).permute(0, 3, 1, 2)
+    assert tiling.laid_out_as(
+        torch.zeros(5, 5, 8).permute(2, 0, 1).unsqueeze(0), one)
+
+
 # ------------------------------------------------- BatchNorm and K4 ----
 
 def test_batchnorm_from_k4_sums_is_batchnorm_of_the_map(rng):
