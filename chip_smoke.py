@@ -219,6 +219,13 @@ def bound(nbytes: float, flops: float, sfu: float, dtype_name: str):
                                        else "operations")
 
 
+def rate(nbytes: float, ms: float, bound_ms: float) -> str:
+    """The bytes a function must move over its time, and its bound's share
+    of that time."""
+    return (f"{nbytes / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f}% of "
+            f"the bound")
+
+
 def k1_bound(B, P, K, C, itemsize, act, direction):
     """Token head: x read (and dx written), W read (dW written in fp32),
     the (B, C) output or its gradient; one product forward, three backward;
@@ -631,10 +638,12 @@ def trunk_kernel_phase(torch, results):
             ms = timed(lambda: depthwise3x3(x, w))
             plain = timed(lambda: depthwise3x3_reference(x, w))
             lib = timed(lambda: F.conv2d(xn, wc, padding=1, groups=C))
-            bnd = bound(2 * x_bytes + 36 * C, 18.0 * size, 0, "fp32")
+            nbytes = 2 * x_bytes + 36 * C
+            bnd = bound(nbytes, 18.0 * size, 0, "fp32")
             print(f"depthwise3x3 {label}: max_abs_err {err:.3e}  kernel "
                   f"{ms:.4f} ms  plain {plain:.4f} ms  library {lib:.4f} ms  "
-                  f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+                  f"bound {bnd[0]:.4f} ms ({bnd[1]}); "
+                  f"{rate(nbytes, ms, bnd[0])}")
             note("depthwise3x3", dtype, err, count, ms, plain, lib, bnd)
             del y, y_p
 
@@ -644,11 +653,12 @@ def trunk_kernel_phase(torch, results):
             lib = timed(lambda: torch.ops.aten.convolution_backward(
                 dyn, xn, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0], C,
                 [True, True, False]))
-            bnd = bound(3 * x_bytes + 72 * C, 36.0 * size, 0, "fp32")
+            nbytes = 3 * x_bytes + 72 * C
+            bnd = bound(nbytes, 36.0 * size, 0, "fp32")
             print(f"depthwise3x3_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
                   f"{e_dw:.3e}, two runs identical  kernel {ms:.4f} ms  plain "
                   f"{plain:.4f} ms  library {lib:.4f} ms  bound {bnd[0]:.4f} "
-                  f"ms ({bnd[1]})")
+                  f"ms ({bnd[1]}); {rate(nbytes, ms, bnd[0])}")
             note("depthwise3x3_bwd", dtype, max(e_dx, e_dw), count, ms, plain,
                  lib, bnd)
 
@@ -1118,7 +1128,7 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
     ours = ("token_head_partial", "token_head_finalize", "token_head_bwd",
             "token_head_dw_reduce", "realformer_attn_fwd",
             "realformer_attn_bwd", "depthwise3x3_fwd", "depthwise3x3_bwd",
-            "depthwise3x3_dw_reduce", "conv1x1_stats_bf16",
+            "conv1x1_stats_bf16",
             "conv1x1_stats_reduce", "bn_backward_sums_kernel",
             "bn_backward_sums_reduce")
 
@@ -1148,6 +1158,10 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
     if bn:
         fail("a library batch-norm kernel ran in the train step: "
              + ", ".join(a.key[:60] for a in bn))
+    # the depthwise backward adds its dW partials itself
+    second = [a.key for a in mine if "depthwise" in a.key and "reduce" in a.key]
+    if second:
+        fail(f"a second depthwise kernel ran in the train step: {second}")
     for a in kernels[:14]:
         print(f"  {a.self_device_time_total / 1e3 / n:9.4f} ms/step "
               f"{a.count // n:5d} calls  {a.key[:80]}")

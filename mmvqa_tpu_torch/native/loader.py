@@ -149,24 +149,31 @@ def _bind(lib: ctypes.CDLL) -> None:
     # the channel plan of ops/tiling.py: vec, lanes, ctiles, row_groups,
     # rows_per_block, nrb
     plan = [_i, _i, _i, _i, _i, _i]
+    # ops/tiling.py::DepthwisePlan: copy, vec, ct, tw, s, p, steps, ncol,
+    # nstrip, groups, threads, smem
+    dw_plan = [_i] * 12
     lib.depthwise3x3_fwd.restype = _i
     lib.depthwise3x3_fwd.argtypes = [
         _p, _i,                     # x, dtype
         _p, _i, _ll, _ll,           # w (9, C), dtype, strides (tap, channel)
         _p,                         # y
         _i, _i, _i, _i,             # B, H, W, C
-        *plan,
+        *dw_plan,
         _p,                         # stream
     ]
     lib.depthwise3x3_bwd.restype = _i
     lib.depthwise3x3_bwd.argtypes = [
         _p, _i, _p,                 # x, dtype, dy
         _p, _i, _ll, _ll,           # w (9, C), dtype, strides (tap, channel)
-        _p, _p, _p,                 # dx, dwpart, dw
+        _p, _p, _p, _p,             # dx, partials, dw, tile counters
         _i, _i, _i, _i,             # B, H, W, C
-        *plan,
+        *dw_plan,
         _p,                         # stream
     ]
+    for fn in (lib.depthwise3x3_fwd_occupancy, lib.depthwise3x3_bwd_occupancy):
+        fn.restype = _i
+        fn.argtypes = [_i, _i, _i, _i,    # dtype, copy, threads, smem
+                       ctypes.POINTER(_i)]  # blocks an SM holds
     lib.conv1x1_stats.restype = _i
     lib.conv1x1_stats.argtypes = [
         _p, _i,                     # x, dtype

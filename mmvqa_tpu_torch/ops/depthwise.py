@@ -2,8 +2,12 @@
 
 Counterpart of mmvqa_tpu/ops/pallas_depthwise.py. The CUDA kernels are
 ``csrc/depthwise3x3.cu`` (forward) and ``csrc/depthwise3x3_bwd.cu`` (dx and
-dW in one pass); this module holds their wrappers, the
-``torch.autograd.Function`` that joins them, and their plain PyTorch versions.
+dW in one pass, the blocks' dW partials added by the last block of each
+channel tile); both stage halo tiles of the map in shared memory
+(``csrc/depthwise3x3_tile.cuh``, launch plan ``ops/tiling.py::
+depthwise_plan``). This module holds their wrappers, the
+``torch.autograd.Function`` that joins them, and their plain PyTorch
+versions.
 
 Layout, as the JAX function: ``x`` is (B, H, W, C), channels last, and ``w``
 is (3, 3, C). The trunk's (B, C, H, W) maps lie channels-last in memory, so
@@ -23,16 +27,14 @@ fp32 dW reaches the master unrounded.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from mmvqa_tpu_torch.native import loader
 from mmvqa_tpu_torch.ops import tiling
-
-VEC = 4            # channels per thread where C and the addresses allow it
-BLOCKS_PER_SM = 8  # blocks the launch aims at, per multiprocessor
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -78,11 +80,32 @@ def depthwise3x3_backward_reference(
     return dx.to(x.dtype), dw
 
 
-def _plan(x: torch.Tensor, *others: torch.Tensor) -> tiling.ChannelPlan:
+_PLANS: Dict[tuple, tiling.DepthwisePlan] = {}
+
+
+def _plan(x: torch.Tensor, *others: torch.Tensor, backward: bool = False,
+          copy: Optional[int] = None) -> tiling.DepthwisePlan:
+    """The launch plan for x's shape, sized to the blocks of that kernel an
+    SM of x's card holds (asked once per shape, then kept)."""
     B, H, W, C = x.shape
-    vec = tiling.vector_width(C, VEC, x, *others)
-    return tiling.channel_plan(B * H * W, C, vec,
-                               BLOCKS_PER_SM * tiling.sm_count(x))
+    aligned = tiling.sixteen_byte_rows(C, x, *others)
+    key = (x.device, x.dtype, B, H, W, C, backward, aligned, copy)
+    plan = _PLANS.get(key)
+    if plan is None:
+        args = (B, H, W, C, x.element_size(), tiling.sm_count(x), backward,
+                aligned, copy)
+        draft = tiling.depthwise_plan(*args)
+        occupancy = (loader.library().depthwise3x3_bwd_occupancy if backward
+                     else loader.library().depthwise3x3_fwd_occupancy)
+        slots = ctypes.c_int(0)
+        loader.check(occupancy(loader.DTYPE_CODES[x.dtype], draft.copy,
+                               draft.threads, draft.smem, ctypes.byref(slots)),
+                     "depthwise3x3 occupancy")
+        if slots.value < 1:
+            raise RuntimeError(f"depthwise3x3: no block of {draft.threads} "
+                               f"threads and {draft.smem} bytes fits an SM")
+        plan = _PLANS[key] = tiling.depthwise_plan(*args, slots=slots.value)
+    return plan
 
 
 def _weight_rows(w: torch.Tensor) -> torch.Tensor:
@@ -91,13 +114,28 @@ def _weight_rows(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(9, w.shape[2])
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The backward's per-channel-tile arrival counters on ``device``: zero
+    between calls (the last block of a tile sets its counter back), so they
+    are made once. Calls on one stream at a time share them."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            copy: Optional[int] = None) -> torch.Tensor:
     loader.require_cuda("depthwise3x3", x, w)
     tiling.require_dense("depthwise3x3", x)
     B, H, W, C = x.shape
     w9 = _weight_rows(w)
     y = torch.empty_like(x)
-    plan = _plan(x, y)
+    plan = _plan(x, y, copy=copy)
     ptr = loader.ptr
     code = loader.library().depthwise3x3_fwd(
         ptr(x), loader.DTYPE_CODES[x.dtype], ptr(w9),
@@ -107,8 +145,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _launch_backward(x: torch.Tensor, w: torch.Tensor,
-                     dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                     copy: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     name = "depthwise3x3 backward"
     loader.require_cuda(name, x, w, dy)
     tiling.require_dense(name, x)
@@ -119,15 +158,16 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor,
     B, H, W, C = x.shape
     w9 = _weight_rows(w)
     dx = torch.empty_like(x)
-    plan = _plan(x, dy, dx)
-    dwpart = torch.empty((plan.nrb, 9, C), device=x.device,
-                         dtype=torch.float32)
+    plan = _plan(x, dy, dx, backward=True, copy=copy)
+    part = torch.empty((tiling.depthwise_partials(plan), 9, C),
+                       device=x.device, dtype=torch.float32)
     dw = torch.empty((3, 3, C), device=x.device, dtype=torch.float32)
+    counter = _tile_counters(x.device, tiling.depthwise_grid(plan, C)[0])
     ptr = loader.ptr
     code = loader.library().depthwise3x3_bwd(
         ptr(x), loader.DTYPE_CODES[x.dtype], ptr(dy), ptr(w9),
-        loader.DTYPE_CODES[w9.dtype], *w9.stride(), ptr(dx), ptr(dwpart),
-        ptr(dw), B, H, W, C, *plan, loader.stream_ptr())
+        loader.DTYPE_CODES[w9.dtype], *w9.stride(), ptr(dx), ptr(part),
+        ptr(dw), ptr(counter), B, H, W, C, *plan, loader.stream_ptr())
     loader.check(code, "depthwise3x3_bwd")
     return dx, dw
 

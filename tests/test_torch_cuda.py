@@ -347,6 +347,91 @@ def test_depthwise_kernels_match_plain(dev, dtype, master, B, H, W, C):
     assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
 
 
+def _depthwise_inputs(dev, dtype, weight, B, H, W, C):
+    g = _gen(dev)
+    x = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+    dy = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+    if weight == "master":  # the convolution's fp32 (C, 1, 3, 3), as a view
+        w = (torch.randn(C, 1, 3, 3, device=dev, generator=g)
+             * 0.3)[:, 0].permute(1, 2, 0)
+    else:                   # a dense bf16 (3, 3, C)
+        w = (torch.randn(3, 3, C, device=dev, generator=g)
+             * 0.3).bfloat16()
+    return x, w, dy
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("weight", ["master", "bf16"])
+@pytest.mark.parametrize("B,H,W,C", [
+    (2, 5, 3, 24), (3, 5, 3, 36), (2, 5, 3, 100), (2, 56, 56, 36),
+    (2, 56, 56, 100), (2, 112, 112, 24),
+])
+def test_depthwise_halo_tiles_match_plain(dev, dtype, weight, B, H, W, C):
+    """Ragged channel counts (16-byte rows or not), a plane narrower than
+    the stencil, and a plane that the plan cuts into strips; two backward
+    runs give the same bits."""
+    from mmvqa_tpu_torch.ops import tiling
+
+    x, w, dy = _depthwise_inputs(dev, dtype, weight, B, H, W, C)
+    if (H, W) == (112, 112):
+        plan = tiling.depthwise_plan(B, H, W, C, x.element_size(),
+                                     tiling.sm_count(x), True)
+        assert plan.nstrip > 1
+    y = depthwise3x3(x, w)
+    dx, dw = depthwise3x3_backward(x, w, dy)
+    again = depthwise3x3_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    xf, wf = x.float(), w.to(dtype).float()
+    tol = (dict(rtol=2e-5, atol=1e-5) if dtype == torch.float32
+           else TOL[torch.bfloat16])
+    torch.testing.assert_close(y.float(), depthwise3x3_reference(xf, wf),
+                               **tol)
+    dx_p, dw_p = depthwise3x3_backward_reference(xf, wf, dy.float())
+    _normwise(dx, dx_p, 1e-4 if dtype == torch.float32 else 8e-3)
+    _normwise(dw, dw_p, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,W,C", [
+    (4, 14, 14, 1056), (5, 7, 7, 1824), (2, 112, 112, 24), (3, 9, 20, 64),
+])
+def test_depthwise_copy_paths_give_the_same_bits(dev, dtype, B, H, W, C):
+    """TMA, 16-byte cp.async and element copies stage the same halo tiles:
+    the same outputs, bit for bit, forward and backward."""
+    from mmvqa_tpu_torch.ops import depthwise, tiling
+
+    x, w, dy = _depthwise_inputs(dev, dtype, "master", B, H, W, C)
+    copies = (tiling.COPY_TMA, tiling.COPY_ASYNC16, tiling.COPY_ELEMENTS)
+    ys = [depthwise._launch(x, w, c) for c in copies]
+    grads = [depthwise._launch_backward(x, w, dy, c) for c in copies]
+    torch.cuda.synchronize()
+    for y, (dx, dw) in zip(ys[1:], grads[1:]):
+        assert torch.equal(y, ys[0])
+        assert torch.equal(dx, grads[0][0]) and torch.equal(dw, grads[0][1])
+
+
+def test_depthwise_backward_is_one_kernel(dev):
+    """dW's partials are added inside the backward kernel: no second kernel
+    runs, and the tile counters are back at zero after the call."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from mmvqa_tpu_torch.ops import depthwise
+
+    x, w, dy = _depthwise_inputs(dev, torch.bfloat16, "master", 16, 14, 14,
+                                 1056)
+    depthwise3x3_backward(x, w, dy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        depthwise3x3_backward(x, w, dy)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert any("depthwise3x3_bwd" in n for n in names), names
+    assert not any("dw_reduce" in n for n in names), names
+    assert not depthwise._COUNTERS[x.device].any()
+
+
 def test_depthwise_corner_impulse_on_the_card(dev):
     x = torch.zeros(1, 7, 7, 128, device=dev)
     x[0, 0, 0] = 1.0

@@ -273,6 +273,172 @@ def test_channel_plan_covers_the_map_once(rows, C, vec):
         assert p.ctiles * p.nrb >= 132
 
 
+# K3's halo-tile plan: the five stride-1 site shapes of the flagship trunk at
+# the train, eval and fp32-check batches, and ragged shapes (channel counts
+# whose rows are not 16 bytes, planes that are cut into strips or are
+# narrower than the stencil)
+K3_SITES = [(14, 14, 640), (14, 14, 960), (14, 14, 1056), (7, 7, 1824),
+            (7, 7, 3072)]
+K3_PLAN_CASES = ([(B, *site) for B in (128, 16, 8) for site in K3_SITES]
+                 + [(2, H, W, C) for H, W in ((112, 112), (56, 56), (5, 3))
+                    for C in (24, 36, 100)])
+SMS = 132
+
+
+def _k3_blocks(plan, B, H, W, C):
+    """Every stage of every block as the kernels take them: (channel tile,
+    partial index, c0, h0, w0, first image, rows)."""
+    ctiles, gy, gz = tiling.depthwise_grid(plan, C)
+    for x in range(ctiles):
+        for z in range(gz):
+            for y in range(gy):
+                h0 = (y // plan.ncol) * plan.s
+                w0 = (y % plan.ncol) * plan.tw
+                for st in range(plan.steps):
+                    yield (x, z * gy + y, x * plan.ct, h0, w0,
+                           (z * plan.steps + st) * plan.p, min(plan.s, H - h0))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("B,H,W,C", K3_PLAN_CASES)
+def test_depthwise_plan_covers_every_output_once(B, H, W, C, itemsize,
+                                                 backward):
+    aligned = (C * itemsize) % 16 == 0
+    plan = tiling.depthwise_plan(B, H, W, C, itemsize, SMS, backward, aligned)
+    ctiles, gy, gz = tiling.depthwise_grid(plan, C)
+    lanes = plan.ct // plan.vec
+    # a block's threads: lanes x columns x images of a stage
+    assert plan.threads == lanes * plan.tw * plan.p <= tiling.DW_MAX_THREADS
+    assert plan.ct % (16 // itemsize) == 0 and lanes * plan.vec == plan.ct
+    # 16-byte copies and vectors only where C allows them
+    assert plan.copy == (tiling.COPY_TMA if aligned else tiling.COPY_ELEMENTS)
+    assert plan.vec * itemsize <= 16
+    # every (b, h, w) of every channel tile written once; no tile empty
+    seen = np.zeros((B, H, W, ctiles), np.int16)
+    parts = {x: set() for x in range(ctiles)}
+    for x, part, c0, h0, w0, b0, rows in _k3_blocks(plan, B, H, W, C):
+        assert c0 < C and h0 < H and w0 < W and rows >= 1
+        parts[x].add(part)
+        seen[b0:b0 + plan.p, h0:h0 + rows, w0:w0 + plan.tw, x] += 1
+        # the halo box, rows [h0 - 1, h0 + s + 1) and columns
+        # [w0 - 1, w0 + tw + 1), holds the 3 x 3 neighbourhood of every
+        # output of the stage and fits the tensor map's box limits; what of
+        # it lies outside the plane is zero-filled (_stage below models it)
+        assert h0 >= 0 and w0 >= 0 and rows <= plan.s
+        assert max(plan.tw + 2, plan.s + 2, plan.p, plan.ct) <= tiling.MAX_BOX
+    assert (seen == 1).all()
+    # the backward's (9, C) partials: one a block of each channel tile
+    assert all(len(p) == tiling.depthwise_partials(plan) for p in parts.values())
+    # shared memory: what the kernels lay out, within the card's limit
+    pos = plan.ct * itemsize
+    halo = -(-plan.p * (plan.s + 2) * (plan.tw + 2) * pos // 128) * 128
+    centre = -(-plan.p * plan.s * plan.tw * pos // 128) * 128
+    stage = halo + (centre if backward else 0)
+    red = -(-plan.threads * plan.vec * 4 // 128) * 128 if backward else 0
+    assert plan.smem == max(2 * stage, red) + 9 * plan.ct * 4 + 32
+    assert plan.smem <= tiling.SMEM_LIMIT
+    # the flagship shapes give the card at least two blocks a multiprocessor
+    if (H, W, C) in K3_SITES:
+        assert ctiles * gy * gz >= 2 * SMS
+
+
+def _stage(a, b0, h0, w0, c0, p, rows, cols, ct):
+    """The (p, rows, cols, ct) box of ``a`` that starts at (b0, h0, w0, c0),
+    zeros where it leaves the map: what TMA's out-of-bounds fill and the
+    other copies' zero-fill give."""
+    B, H, W, C = a.shape
+    out = np.zeros((p, rows, cols, ct), a.dtype)
+    lo = [max(0, -v) for v in (b0, h0, w0, c0)]
+    hi = [min(n, dim - v) for n, dim, v in zip((p, rows, cols, ct),
+                                                 (B, H, W, C),
+                                                 (b0, h0, w0, c0))]
+    if all(h > l for l, h in zip(lo, hi)):
+        out[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2], lo[3]:hi[3]] = a[
+            b0 + lo[0]:b0 + hi[0], h0 + lo[1]:h0 + hi[1],
+            w0 + lo[2]:w0 + hi[2], c0 + lo[3]:c0 + hi[3]]
+    return out
+
+
+def _emulate_k3(plan, x, k, dy=None):
+    """The kernels' arithmetic in float64, block by block and stage by stage
+    through the plan: a column's window d_a[j] = map[h - 1 + a, w - 1 + j]
+    pairs with tap (a, j) forward and (2 - a, 2 - j) backward; dW as one
+    partial a block, added in partial order."""
+    B, H, W, C = x.shape
+    k9 = np.zeros((9, -(-C // plan.ct) * plan.ct))
+    k9[:, :C] = k.reshape(9, C)
+    out = np.zeros_like(x)
+    parts = np.zeros((tiling.depthwise_partials(plan), 9, k9.shape[1]))
+    for _, part, c0, h0, w0, b0, rows in _k3_blocks(plan, B, H, W, C):
+        tile = _stage(x if dy is None else dy, b0, h0 - 1, w0 - 1, c0, plan.p,
+                      plan.s + 2, plan.tw + 2, plan.ct)
+        kt = k9[:, c0:c0 + plan.ct]
+        res = np.zeros((plan.p, rows, plan.tw, plan.ct))
+        if dy is not None:
+            xc = _stage(x, b0, h0, w0, c0, plan.p, plan.s, plan.tw,
+                        plan.ct)[:, :rows]
+        for a in range(3):
+            for j in range(3):
+                win = tile[:, a:a + rows, j:j + plan.tw]
+                t = a * 3 + j if dy is None else (2 - a) * 3 + (2 - j)
+                res += win * kt[t]
+                if dy is not None:
+                    parts[part, t, c0:c0 + plan.ct] += (xc * win).sum((0, 1, 2))
+        nb = min(plan.p, B - b0)
+        nw = min(plan.tw, W - w0)
+        nc = min(plan.ct, C - c0)
+        if nb > 0:
+            out[b0:b0 + nb, h0:h0 + rows, w0:w0 + nw, c0:c0 + nc] = \
+                res[:nb, :, :nw, :nc]
+    if dy is None:
+        return out
+    return out, parts.sum(0)[:, :C].reshape(3, 3, C)
+
+
+@pytest.mark.parametrize("B,H,W,C", [
+    (3, 14, 14, 72), (5, 7, 7, 40), (2, 5, 3, 24), (2, 5, 3, 36),
+    (1, 56, 56, 100), (1, 112, 112, 24),
+])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_depthwise_plan_emulated_matches_the_plain_versions(rng, B, H, W, C,
+                                                            itemsize):
+    """The plan's halo tiles, with their zero fill, give the plain
+    convolution and its gradients (any misplaced tap or position would be
+    off by O(1)); a card of 4 multiprocessors makes the plan cut strips,
+    images and stages at these small shapes."""
+    x = rng.normal(size=(B, H, W, C))
+    k = rng.normal(size=(3, 3, C))
+    dy = rng.normal(size=(B, H, W, C))
+    aligned = (C * itemsize) % 16 == 0
+    fwd = tiling.depthwise_plan(B, H, W, C, itemsize, 4, False, aligned)
+    bwd = tiling.depthwise_plan(B, H, W, C, itemsize, 4, True, aligned)
+    xt, kt, dyt = (torch.from_numpy(a) for a in (x, k, dy))
+    np.testing.assert_allclose(_emulate_k3(fwd, x, k),
+                               depthwise3x3_reference(xt, kt).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    # the plain backward sums in fp32: dW over up to 12544 positions, to
+    # 1e-5 of its largest entry
+    dx, dw = _emulate_k3(bwd, x, k, dy)
+    dx_p, dw_p = (a.double().numpy()
+                  for a in depthwise3x3_backward_reference(xt, kt, dyt))
+    np.testing.assert_allclose(dx, dx_p, rtol=1e-5, atol=1e-5)
+    assert np.abs(dw - dw_p).max() <= 1e-5 * np.abs(dw_p).max()
+
+
+def test_depthwise_plan_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError, match="empty"):
+        tiling.depthwise_plan(0, 14, 14, 64, 2, SMS)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tiling.depthwise_plan(2, 14, 14, 36, 2, SMS, aligned=False,
+                              copy=tiling.COPY_TMA)
+    # a position that no 16-byte copy can start: C = 36 bf16 is 72 bytes
+    x = torch.zeros(2, 5, 5, 36, dtype=torch.bfloat16)
+    assert not tiling.sixteen_byte_rows(36, x)
+    assert tiling.sixteen_byte_rows(64, x.new_zeros(2, 5, 5, 64))
+    assert not tiling.sixteen_byte_rows(64, x.new_zeros(2 * 5 * 5 * 64 + 1)[1:])
+
+
 def test_vector_width_needs_divisible_channels_and_aligned_rows():
     x = torch.zeros(4, 64)
     assert tiling.vector_width(64, 4, x) == 4
