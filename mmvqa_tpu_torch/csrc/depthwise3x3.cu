@@ -6,7 +6,7 @@
 // a row block in VMEM. The Hopper counterpart: a whole plane (or a strip of
 // it) of one channel tile per block in shared memory, fed by asynchronous
 // copies (depthwise3x3_tile.cuh: TMA where the map is 16-byte aligned,
-// cp.async or element copies elsewhere), two stages in flight.
+// element copies elsewhere), two stages in flight.
 //
 // Layout: channels last, x and y dense (B, H, W, C), as the trunk keeps its
 // maps. What bounds it on an H100: bytes (nine multiply-adds an element

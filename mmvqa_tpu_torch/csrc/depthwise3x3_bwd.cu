@@ -24,8 +24,9 @@
 // fp32 partial, written to `part` (one per strip, column tile and image
 // group). Then the last block of a channel tile to finish (a counter per
 // channel tile, after a fence) adds the partials in a fixed order and
-// writes dW, and sets its counter back to 0 for the next call. No float
-// atomics and no second kernel: two runs give identical bits.
+// writes dW. The counter counts with atomicInc, which wraps to 0 at the last
+// arrival, so it is zero again for the next call with no store of its own.
+// No float atomics and no second kernel: two runs give identical bits.
 #include "depthwise3x3_tile.cuh"
 
 namespace mmvqa {
@@ -176,7 +177,8 @@ __global__ void __launch_bounds__(dw3::kMaxThreads)
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
-    *last = atomicAdd(&counter[blockIdx.x], 1u) == (unsigned)(nparts - 1);
+    *last = atomicInc(&counter[blockIdx.x], (unsigned)(nparts - 1)) ==
+            (unsigned)(nparts - 1);
   __syncthreads();
   if (!*last) return;
   __threadfence();
@@ -188,7 +190,6 @@ __global__ void __launch_bounds__(dw3::kMaxThreads)
       s += __ldcg(&part[((long long)q * 9 + t) * pl.C + cc]);
     dw[(long long)t * pl.C + cc] = s;
   }
-  if (threadIdx.x == 0) counter[blockIdx.x] = 0;
 }
 
 template <typename T, int COPY>
@@ -203,8 +204,8 @@ int& granted() {  // the shared memory this kernel variant may use
 // x, dy, dx: (B, H, W, C) dense, x's dtype; w: (9, C) fp32 or bf16 by
 // element strides; part: (ncol * nstrip * groups, 9, C) fp32 scratch; dw:
 // (9, C) fp32 out; counter: ceil(C / ct) unsigned ints, zero on entry and
-// on exit (the wrapper owns it, one per device). The plan as for
-// depthwise3x3_fwd.
+// on exit (the wrapper owns them, one buffer per stream: calls on two
+// streams must not share one). The plan as for depthwise3x3_fwd.
 extern "C" int depthwise3x3_bwd(const void* x, int dtype, const void* dy,
                                 const void* w, int wdtype, long long swt,
                                 long long swc, void* dx, void* part, void* dw,

@@ -20,12 +20,9 @@
 //              hardware fills what lies outside with zeros and reports to an
 //              mbarrier. Needs the base address and C * bytes to be
 //              multiples of 16 bytes.
-//   kAsync16   the same boxes by 16-byte cp.async copies with zero-fill,
-//              every thread its share (same alignment; kept to check the TMA
-//              path against on the card).
 //   kElements  where the rows are not 16-byte aligned no 16-byte copy is
-//              possible: element copies, cp.async of 4 bytes for fp32, plain
-//              2-byte loads for bf16, zeros outside.
+//              possible: element copies, every thread its share, cp.async of
+//              4 bytes for fp32, plain 2-byte loads for bf16, zeros outside.
 // The tensor map is encoded on the host per call; cuTensorMapEncodeTiled is
 // reached through cudaGetDriverEntryPoint, so the library links no -lcuda.
 #pragma once
@@ -52,7 +49,7 @@ constexpr int kTileAlign = 128;  // TMA's shared-memory destination
 // would take 216 registers.
 constexpr int kVec = 4;
 
-enum Copy : int { kTma = 0, kAsync16 = 1, kElements = 2 };
+enum Copy : int { kTma = 0, kElements = 1 };
 
 // ops/tiling.py::DepthwisePlan, less what the grid and block already say.
 struct Plan {
@@ -128,19 +125,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-template <int BYTES>
+// 4 bytes from global to shared memory, or 4 zero bytes where !in.
 __device__ __forceinline__ void cp_async(void* dst, const void* src, bool in) {
-  const int n = in ? BYTES : 0;  // 0: the copy writes zeros
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(BYTES), "r"(n)
-                 : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
@@ -154,30 +144,27 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// The copies of the non-TMA paths: the (p, rows, cols, ct) box of src that
-// starts at (b0, h0, w0, c0), every thread its share, zeros outside.
-template <typename T, int COPY>
+// The element copies: the (p, rows, cols, ct) box of src that starts at
+// (b0, h0, w0, c0), every thread its share, zeros outside.
+template <typename T>
 __device__ __forceinline__ void copy_box(const T* __restrict__ src, T* dst,
                                          const Plan& pl, int c0, int h0,
                                          int w0, int b0, int rows, int cols) {
-  constexpr int E = COPY == kAsync16 ? 16 / (int)sizeof(T) : 1;
-  constexpr int BYTES = E * (int)sizeof(T);
-  const int per_pos = pl.ct / E;
-  const int n = pl.p * rows * cols * per_pos;
+  const int n = pl.p * rows * cols * pl.ct;
   for (int q = threadIdx.x; q < n; q += blockDim.x) {
-    const int e = q % per_pos;
-    const int pos = q / per_pos;
+    const int e = q % pl.ct;
+    const int pos = q / pl.ct;
     const int j = pos % cols;
     const int i = (pos / cols) % rows;
     const int img = pos / (cols * rows);
-    const int c = c0 + e * E, w = w0 + j, h = h0 + i, b = b0 + img;
+    const int c = c0 + e, w = w0 + j, h = h0 + i, b = b0 + img;
     const bool in =
         c < pl.C && w >= 0 && w < pl.W && h >= 0 && h < pl.H && b < pl.B;
     const T* from =
         in ? src + (((long long)b * pl.H + h) * pl.W + w) * pl.C + c : src;
-    T* to = dst + pos * pl.ct + e * E;
-    if constexpr (BYTES >= 4)
-      cp_async<BYTES>(to, from, in);
+    T* to = dst + pos * pl.ct + e;
+    if constexpr (sizeof(T) == 4)
+      cp_async(to, from, in);
     else
       *to = in ? *from : from_f32<T>(0.0f);
   }
@@ -186,7 +173,8 @@ __device__ __forceinline__ void copy_box(const T* __restrict__ src, T* dst,
 // Stage images [b0, b0 + p): the halo box of `halo` (map: hmap) into dst
 // and, where `centre` is given (the backward's x; map: cmap), its centre box
 // right after. With kTma thread 0 issues the copies, which complete on *bar;
-// otherwise every thread copies its share and commits one cp.async group.
+// otherwise every thread copies its share and commits one cp.async group
+// (empty for bf16, whose plain loads are done when the wait comes).
 template <typename T, int COPY>
 __device__ __forceinline__ void issue_stage(
     const CUtensorMap* hmap, const T* __restrict__ halo,
@@ -209,10 +197,8 @@ __device__ __forceinline__ void issue_stage(
       if (centre) tma_box(cdst, cmap, bar, c0, w0, h0, b0);
     }
   } else {
-    copy_box<T, COPY>(halo, dst, pl, c0, h0 - 1, w0 - 1, b0, pl.s + 2,
-                      pl.tw + 2);
-    if (centre)
-      copy_box<T, COPY>(centre, cdst, pl, c0, h0, w0, b0, pl.s, pl.tw);
+    copy_box<T>(halo, dst, pl, c0, h0 - 1, w0 - 1, b0, pl.s + 2, pl.tw + 2);
+    if (centre) copy_box<T>(centre, cdst, pl, c0, h0, w0, b0, pl.s, pl.tw);
     asm volatile("cp.async.commit_group;" ::: "memory");
   }
 }
@@ -336,8 +322,6 @@ inline cudaError_t dispatch(int dtype, int copy, F&& f) {
     switch (copy) {
       case kTma:
         return f(t, Int<kTma>{});
-      case kAsync16:
-        return f(t, Int<kAsync16>{});
       case kElements:
         return f(t, Int<kElements>{});
     }
@@ -373,7 +357,7 @@ inline bool plan_ok(const Plan& pl, int vec, int tile_vec, int copy,
          pl.tw > 0 && pl.s > 0 && pl.p > 0 && pl.steps > 0 && pl.ncol > 0 &&
          nstrip > 0 && groups > 0 &&
          threads == pl.ct / vec * pl.tw * pl.p && threads <= kMaxThreads &&
-         (copy == kTma || copy == kAsync16 || copy == kElements) &&
+         (copy == kTma || copy == kElements) &&
          pl.ncol * nstrip <= 65535 && groups <= 65535 &&
          covers(pl.ncol, pl.tw, pl.W) && covers(nstrip, pl.s, pl.H) &&
          covers(groups, pl.steps * pl.p, pl.B) && smem <= kSmemLimit &&

@@ -28,7 +28,7 @@ fp32 dW reaches the master unrounded.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,17 +83,17 @@ def depthwise3x3_backward_reference(
 _PLANS: Dict[tuple, tiling.DepthwisePlan] = {}
 
 
-def _plan(x: torch.Tensor, *others: torch.Tensor, backward: bool = False,
-          copy: Optional[int] = None) -> tiling.DepthwisePlan:
+def _plan(x: torch.Tensor, *others: torch.Tensor,
+          backward: bool = False) -> tiling.DepthwisePlan:
     """The launch plan for x's shape, sized to the blocks of that kernel an
     SM of x's card holds (asked once per shape, then kept)."""
     B, H, W, C = x.shape
     aligned = tiling.sixteen_byte_rows(C, x, *others)
-    key = (x.device, x.dtype, B, H, W, C, backward, aligned, copy)
+    key = (x.device, x.dtype, B, H, W, C, backward, aligned)
     plan = _PLANS.get(key)
     if plan is None:
         args = (B, H, W, C, x.element_size(), tiling.sm_count(x), backward,
-                aligned, copy)
+                aligned)
         draft = tiling.depthwise_plan(*args)
         occupancy = (loader.library().depthwise3x3_bwd_occupancy if backward
                      else loader.library().depthwise3x3_fwd_occupancy)
@@ -114,28 +114,30 @@ def _weight_rows(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(9, w.shape[2])
 
 
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
-    """The backward's per-channel-tile arrival counters on ``device``: zero
-    between calls (the last block of a tile sets its counter back), so they
-    are made once. Calls on one stream at a time share them."""
-    buf = _COUNTERS.get(device)
+    """The backward's per-channel-tile arrival counters for the current
+    stream on ``device``: zero between calls (the last block of a tile wraps
+    its counter back to 0), so they are made once. One buffer a stream:
+    calls in one stream run one after the other, calls on two streams could
+    run at once and must not count into one buffer."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
+        _COUNTERS[key] = buf
     return buf
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor,
-            copy: Optional[int] = None) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     loader.require_cuda("depthwise3x3", x, w)
     tiling.require_dense("depthwise3x3", x)
     B, H, W, C = x.shape
     w9 = _weight_rows(w)
     y = torch.empty_like(x)
-    plan = _plan(x, y, copy=copy)
+    plan = _plan(x, y)
     ptr = loader.ptr
     code = loader.library().depthwise3x3_fwd(
         ptr(x), loader.DTYPE_CODES[x.dtype], ptr(w9),
@@ -145,9 +147,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-def _launch_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
-                     copy: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch_backward(x: torch.Tensor, w: torch.Tensor,
+                     dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     name = "depthwise3x3 backward"
     loader.require_cuda(name, x, w, dy)
     tiling.require_dense(name, x)
@@ -158,7 +159,7 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     B, H, W, C = x.shape
     w9 = _weight_rows(w)
     dx = torch.empty_like(x)
-    plan = _plan(x, dy, dx, backward=True, copy=copy)
+    plan = _plan(x, dy, dx, backward=True)
     part = torch.empty((tiling.depthwise_partials(plan), 9, C),
                        device=x.device, dtype=torch.float32)
     dw = torch.empty((3, 3, C), device=x.device, dtype=torch.float32)

@@ -72,7 +72,7 @@ def channel_plan(rows: int, C: int, vec: int, blocks: int) -> ChannelPlan:
     return ChannelPlan(vec, lanes, ctiles, row_groups, rows_per_block, nrb)
 
 
-COPY_TMA, COPY_ASYNC16, COPY_ELEMENTS = 0, 1, 2  # dw3::Copy
+COPY_TMA, COPY_ELEMENTS = 0, 1  # dw3::Copy
 DW_MAX_THREADS = 128    # a block's threads (dw3::kMaxThreads)
 VEC = 4                 # channels a thread owns (dw3::kVec)
 TILE_LANES = 8          # threads across a channel tile: 32 channels
@@ -91,7 +91,7 @@ class DepthwisePlan(NamedTuple):
     stage of ``p`` images after the other. Its thread t owns channels
     (t % lanes) * vec.. of the tile, column (t // lanes) % tw and image
     t // (lanes * tw) of each stage, lanes = ct // vec."""
-    copy: int       # COPY_TMA, COPY_ASYNC16 or COPY_ELEMENTS
+    copy: int       # COPY_TMA or COPY_ELEMENTS
     vec: int        # channels a thread owns
     ct: int         # channels of a tile: a multiple of 16 bytes
     tw: int         # columns of a tile
@@ -117,13 +117,12 @@ def depthwise_partials(plan: DepthwisePlan) -> int:
 
 def depthwise_plan(B: int, H: int, W: int, C: int, itemsize: int, sms: int,
                    backward: bool = False, aligned: bool = True,
-                   copy: int | None = None,
                    slots: int = MIN_BLOCKS_PER_SM) -> DepthwisePlan:
     """Cut a (B, H, W, C) map of ``itemsize``-byte elements into halo tiles
     for a card of ``sms`` multiprocessors that hold ``slots`` blocks each.
     ``aligned``: C * itemsize and every base address are multiples of 16
-    bytes, so that stages arrive by 16-byte copies (TMA unless ``copy``
-    says otherwise) and threads move vectors; else by element copies.
+    bytes, so that stages arrive by TMA and threads store vectors; else by
+    element copies.
 
     The whole plane if its halo tile fits a stage, else strips; images per
     stage and then strips are cut until there are ``MIN_BLOCKS_PER_SM``
@@ -136,11 +135,7 @@ def depthwise_plan(B: int, H: int, W: int, C: int, itemsize: int, sms: int,
     again. Raises on what the kernels cannot take."""
     if min(B, H, W, C) < 1:
         raise ValueError(f"empty map: {(B, H, W, C)}")
-    if copy is None:
-        copy = COPY_TMA if aligned else COPY_ELEMENTS
-    if copy != COPY_ELEMENTS and not aligned:
-        raise ValueError("16-byte copies need C * itemsize and the base "
-                         "addresses to be multiples of 16 bytes")
+    copy = COPY_TMA if aligned else COPY_ELEMENTS
     tile_vec = 16 // itemsize
     ct = min(TILE_LANES * VEC, cdiv(C, tile_vec) * tile_vec)
     lanes = ct // VEC

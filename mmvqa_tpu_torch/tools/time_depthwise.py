@@ -11,7 +11,11 @@ the flagship trunk at B=128, bf16 and fp32: CUDA events, median of 10, each
 call queued behind a sleeping device with the L2 cache overwritten first (as
 ``chip_smoke.py`` times them), then the sums over one train step's 42 sites.
 The library's calls for the same functions (``F.conv2d(groups=C)``,
-``aten.convolution_backward``) are timed beside them. To compare two
+``aten.convolution_backward``) are timed beside them. Then the host's
+cost of a call: microseconds per call on the host clock over 200 calls
+queued back to back with no sleep and no synchronise, at the eval batch
+B=16 (where the card finishes a call sooner than the host issues the
+next), for the wrappers and the library's calls. To compare two
 versions, unpack the other one (``git archive``) into a directory and run
 this script on both checkouts in turns within one job on one card: A, B, B,
 A.
@@ -50,6 +54,20 @@ def time_ms(torch, fn, flush, reps: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(torch, fn, reps: int = 200, warmup: int = 20) -> float:
+    """Microseconds of host time per call of fn, calls queued back to back
+    (the synchronise comes after the clock stops)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e6
 
 
 def main() -> None:
@@ -110,6 +128,27 @@ def main() -> None:
             print(f"  {str(dtype):15s} {name:12s} ms per site shape "
                   + " ".join(f"{t:.4f}" for t in times)
                   + f"  per step (42 sites) {step:.3f}")
+        host = {"fwd": [], "bwd": [], "library fwd": [], "library bwd": []}
+        for (H, W, C), count in SITES.items():
+            x = torch.randn(16, H, W, C, device=dev, generator=g).to(dtype)
+            dy = torch.randn(16, H, W, C, device=dev, generator=g).to(dtype)
+            w4 = torch.randn(C, 1, 3, 3, device=dev, generator=g) / 3
+            w, wc = w4[:, 0].permute(1, 2, 0), w4.to(dtype)
+            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            host["fwd"].append(host_us(torch, lambda: depthwise3x3(x, w)))
+            host["bwd"].append(host_us(
+                torch, lambda: depthwise3x3_backward(x, w, dy)))
+            host["library fwd"].append(host_us(
+                torch, lambda: F.conv2d(xn, wc, padding=1, groups=C)))
+            host["library bwd"].append(host_us(
+                torch, lambda: torch.ops.aten.convolution_backward(
+                    dyn, xn, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                    C, [True, True, False])))
+        for name, us in host.items():
+            step = sum(t * n for t, n in zip(us, counts))
+            print(f"  {str(dtype):15s} {name:12s} host us per call, B=16 "
+                  + " ".join(f"{t:.2f}" for t in us)
+                  + f"  per step (42 sites) {step / 1e3:.3f} ms")
 
 
 if __name__ == "__main__":

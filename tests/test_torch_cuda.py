@@ -392,23 +392,35 @@ def test_depthwise_halo_tiles_match_plain(dev, dtype, weight, B, H, W, C):
     _normwise(dw, dw_p, 1e-4)
 
 
+def _unaligned(t):
+    """t's values in a dense map whose base lies one element past a 16-byte
+    boundary: no 16-byte copy can start its rows."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,W,C", [
     (4, 14, 14, 1056), (5, 7, 7, 1824), (2, 112, 112, 24), (3, 9, 20, 64),
 ])
 def test_depthwise_copy_paths_give_the_same_bits(dev, dtype, B, H, W, C):
-    """TMA, 16-byte cp.async and element copies stage the same halo tiles:
-    the same outputs, bit for bit, forward and backward."""
+    """TMA (aligned maps) and element copies (a map whose base is not
+    16-byte aligned) stage the same halo tiles: the same outputs, bit for
+    bit, forward and backward."""
     from mmvqa_tpu_torch.ops import depthwise, tiling
 
     x, w, dy = _depthwise_inputs(dev, dtype, "master", B, H, W, C)
-    copies = (tiling.COPY_TMA, tiling.COPY_ASYNC16, tiling.COPY_ELEMENTS)
-    ys = [depthwise._launch(x, w, c) for c in copies]
-    grads = [depthwise._launch_backward(x, w, dy, c) for c in copies]
+    xu, dyu = _unaligned(x), _unaligned(dy)
+    assert depthwise._plan(x, x).copy == tiling.COPY_TMA
+    assert depthwise._plan(xu, x).copy == tiling.COPY_ELEMENTS
+    y, yu = depthwise3x3(x, w), depthwise3x3(xu, w)
+    dx, dw = depthwise3x3_backward(x, w, dy)
+    dxu, dwu = depthwise3x3_backward(xu, w, dyu)
     torch.cuda.synchronize()
-    for y, (dx, dw) in zip(ys[1:], grads[1:]):
-        assert torch.equal(y, ys[0])
-        assert torch.equal(dx, grads[0][0]) and torch.equal(dw, grads[0][1])
+    assert torch.equal(y, yu)
+    assert torch.equal(dx, dxu) and torch.equal(dw, dwu)
 
 
 def test_depthwise_backward_is_one_kernel(dev):
@@ -429,7 +441,35 @@ def test_depthwise_backward_is_one_kernel(dev):
              if e.device_type == DeviceType.CUDA]
     assert any("depthwise3x3_bwd" in n for n in names), names
     assert not any("dw_reduce" in n for n in names), names
-    assert not depthwise._COUNTERS[x.device].any()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    assert not depthwise._COUNTERS[(x.device, stream)].any()
+
+
+def test_depthwise_backward_on_two_streams_at_once(dev):
+    """Backward calls queued on two streams at once each count their
+    blocks in their own stream's counters: every dW is the one a call on
+    the default stream gives, bit for bit, and every counter ends at 0."""
+    from mmvqa_tpu_torch.ops import depthwise
+
+    shapes = [(64, 14, 14, 1056), (128, 7, 7, 1824)]
+    cases = [_depthwise_inputs(dev, torch.bfloat16, "master", *shape)
+             for shape in shapes]
+    want = [depthwise3x3_backward(*case) for case in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    got = [[], []]
+    for _ in range(4):
+        for i, (stream, case) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(1000)
+                got[i].append(depthwise3x3_backward(*case))
+    torch.cuda.synchronize()
+    for (dx, dw), runs in zip(want, got):
+        for rdx, rdw in runs:
+            assert torch.equal(rdx, dx) and torch.equal(rdw, dw)
+    device = cases[0][0].device
+    for s in streams:
+        assert not depthwise._COUNTERS[(device, s.cuda_stream)].any()
 
 
 def test_depthwise_corner_impulse_on_the_card(dev):

@@ -9,6 +9,8 @@ tests/test_pallas_depthwise.py and tests/test_conv_bn.py unless a line says
 otherwise.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -285,27 +287,37 @@ K3_PLAN_CASES = ([(B, *site) for B in (128, 16, 8) for site in K3_SITES]
 SMS = 132
 
 
-def _k3_blocks(plan, B, H, W, C):
-    """Every stage of every block as the kernels take them: (channel tile,
-    partial index, c0, h0, w0, first image, rows)."""
+SLOTS = [1, 2, 4, 8, 16]  # blocks an SM holds, as the card's occupancy query says
+
+
+def _k3_stages(plan, B, H, W, C):
+    """Every stage of every block as the kernels take them, as arrays in
+    launch order: channel tile, partial index, c0, h0, w0, first image,
+    rows."""
     ctiles, gy, gz = tiling.depthwise_grid(plan, C)
-    for x in range(ctiles):
-        for z in range(gz):
-            for y in range(gy):
-                h0 = (y // plan.ncol) * plan.s
-                w0 = (y % plan.ncol) * plan.tw
-                for st in range(plan.steps):
-                    yield (x, z * gy + y, x * plan.ct, h0, w0,
-                           (z * plan.steps + st) * plan.p, min(plan.s, H - h0))
+    x, z, y, st = (a.ravel() for a in np.meshgrid(
+        np.arange(ctiles), np.arange(gz), np.arange(gy),
+        np.arange(plan.steps), indexing="ij"))
+    h0 = (y // plan.ncol) * plan.s
+    w0 = (y % plan.ncol) * plan.tw
+    return (x, z * gy + y, x * plan.ct, h0, w0,
+            (z * plan.steps + st) * plan.p, np.minimum(plan.s, H - h0))
 
 
+def _k3_blocks(plan, B, H, W, C):
+    """The stages of _k3_stages one at a time, as Python ints."""
+    return zip(*(a.tolist() for a in _k3_stages(plan, B, H, W, C)))
+
+
+@pytest.mark.parametrize("slots", SLOTS)
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("B,H,W,C", K3_PLAN_CASES)
 def test_depthwise_plan_covers_every_output_once(B, H, W, C, itemsize,
-                                                 backward):
+                                                 backward, slots):
     aligned = (C * itemsize) % 16 == 0
-    plan = tiling.depthwise_plan(B, H, W, C, itemsize, SMS, backward, aligned)
+    plan = tiling.depthwise_plan(B, H, W, C, itemsize, SMS, backward, aligned,
+                                 slots=slots)
     ctiles, gy, gz = tiling.depthwise_grid(plan, C)
     lanes = plan.ct // plan.vec
     # a block's threads: lanes x columns x images of a stage
@@ -314,22 +326,37 @@ def test_depthwise_plan_covers_every_output_once(B, H, W, C, itemsize,
     # 16-byte copies and vectors only where C allows them
     assert plan.copy == (tiling.COPY_TMA if aligned else tiling.COPY_ELEMENTS)
     assert plan.vec * itemsize <= 16
-    # every (b, h, w) of every channel tile written once; no tile empty
-    seen = np.zeros((B, H, W, ctiles), np.int16)
-    parts = {x: set() for x in range(ctiles)}
-    for x, part, c0, h0, w0, b0, rows in _k3_blocks(plan, B, H, W, C):
-        assert c0 < C and h0 < H and w0 < W and rows >= 1
-        parts[x].add(part)
-        seen[b0:b0 + plan.p, h0:h0 + rows, w0:w0 + plan.tw, x] += 1
-        # the halo box, rows [h0 - 1, h0 + s + 1) and columns
-        # [w0 - 1, w0 + tw + 1), holds the 3 x 3 neighbourhood of every
-        # output of the stage and fits the tensor map's box limits; what of
-        # it lies outside the plane is zero-filled (_stage below models it)
-        assert h0 >= 0 and w0 >= 0 and rows <= plan.s
-        assert max(plan.tw + 2, plan.s + 2, plan.p, plan.ct) <= tiling.MAX_BOX
+    # threads and shared memory do not depend on slots: the wrapper plans,
+    # asks the card how many such blocks an SM holds, and plans again
+    draft = tiling.depthwise_plan(B, H, W, C, itemsize, SMS, backward, aligned)
+    assert (plan.threads, plan.smem) == (draft.threads, draft.smem)
+    x, part, c0, h0, w0, b0, rows = _k3_stages(plan, B, H, W, C)
+    assert (c0 < C).all() and (h0 < H).all() and (w0 < W).all()
+    assert (rows >= 1).all() and (rows <= plan.s).all()
+    # the halo box, rows [h0 - 1, h0 + s + 1) and columns
+    # [w0 - 1, w0 + tw + 1), holds the 3 x 3 neighbourhood of every output
+    # of the stage and fits the tensor map's box limits; what of it lies
+    # outside the plane is zero-filled (_stage below models it)
+    assert max(plan.tw + 2, plan.s + 2, plan.p, plan.ct) <= tiling.MAX_BOX
+    # every (b, h, w) of every channel tile written once (images beyond B
+    # and columns beyond W are not stored: a block's last stages may hold
+    # none); no block without a position
+    b = b0[:, None, None, None] + np.arange(plan.p)[:, None, None]
+    i = np.arange(plan.s)[:, None]
+    h = h0[:, None, None, None] + i
+    w = w0[:, None, None, None] + np.arange(plan.tw)
+    keep = (b < B) & (i < rows[:, None, None, None]) & (w < W)
+    flat = ((b * H + h) * W + w) * ctiles + x[:, None, None, None]
+    seen = np.bincount(np.broadcast_to(flat, keep.shape)[keep],
+                       minlength=B * H * W * ctiles)
     assert (seen == 1).all()
+    stored = np.zeros((ctiles, tiling.depthwise_partials(plan)), bool)
+    np.logical_or.at(stored, (x, part), keep.reshape(len(b0), -1).any(1))
+    assert stored.all()
     # the backward's (9, C) partials: one a block of each channel tile
-    assert all(len(p) == tiling.depthwise_partials(plan) for p in parts.values())
+    nparts = tiling.depthwise_partials(plan)
+    assert part.min() == 0 and part.max() == nparts - 1
+    assert len(np.unique(x * nparts + part)) == ctiles * nparts
     # shared memory: what the kernels lay out, within the card's limit
     pos = plan.ct * itemsize
     halo = -(-plan.p * (plan.s + 2) * (plan.tw + 2) * pos // 128) * 128
@@ -401,42 +428,56 @@ def _emulate_k3(plan, x, k, dy=None):
     (1, 56, 56, 100), (1, 112, 112, 24),
 ])
 @pytest.mark.parametrize("itemsize", [2, 4])
-def test_depthwise_plan_emulated_matches_the_plain_versions(rng, B, H, W, C,
-                                                            itemsize):
+@pytest.mark.parametrize("slots", SLOTS)
+def test_depthwise_plan_emulated_matches_the_plain_versions(B, H, W, C,
+                                                            itemsize, slots):
     """The plan's halo tiles, with their zero fill, give the plain
     convolution and its gradients (any misplaced tap or position would be
     off by O(1)); a card of 4 multiprocessors makes the plan cut strips,
-    images and stages at these small shapes."""
-    x = rng.normal(size=(B, H, W, C))
-    k = rng.normal(size=(3, 3, C))
-    dy = rng.normal(size=(B, H, W, C))
+    images and stages at these small shapes, and ``slots`` changes the
+    stages a block walks and so the partials and their order."""
+    x, k, dy, y_p, dx_p, dw_p = _k3_case(B, H, W, C)
     aligned = (C * itemsize) % 16 == 0
-    fwd = tiling.depthwise_plan(B, H, W, C, itemsize, 4, False, aligned)
-    bwd = tiling.depthwise_plan(B, H, W, C, itemsize, 4, True, aligned)
-    xt, kt, dyt = (torch.from_numpy(a) for a in (x, k, dy))
-    np.testing.assert_allclose(_emulate_k3(fwd, x, k),
-                               depthwise3x3_reference(xt, kt).numpy(),
+    fwd = tiling.depthwise_plan(B, H, W, C, itemsize, 4, False, aligned,
+                                slots=slots)
+    bwd = tiling.depthwise_plan(B, H, W, C, itemsize, 4, True, aligned,
+                                slots=slots)
+    np.testing.assert_allclose(_emulate_k3(fwd, x, k), y_p,
                                rtol=1e-12, atol=1e-12)
     # the plain backward sums in fp32: dW over up to 12544 positions, to
     # 1e-5 of its largest entry
     dx, dw = _emulate_k3(bwd, x, k, dy)
-    dx_p, dw_p = (a.double().numpy()
-                  for a in depthwise3x3_backward_reference(xt, kt, dyt))
     np.testing.assert_allclose(dx, dx_p, rtol=1e-5, atol=1e-5)
     assert np.abs(dw - dw_p).max() <= 1e-5 * np.abs(dw_p).max()
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_case(B, H, W, C):
+    """Inputs from seed 0 and the plain versions' outputs, in float64: one
+    shape's cases share them."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(B, H, W, C))
+    k = rng.normal(size=(3, 3, C))
+    dy = rng.normal(size=(B, H, W, C))
+    xt, kt, dyt = (torch.from_numpy(a) for a in (x, k, dy))
+    dx_p, dw_p = (a.double().numpy()
+                  for a in depthwise3x3_backward_reference(xt, kt, dyt))
+    return x, k, dy, depthwise3x3_reference(xt, kt).numpy(), dx_p, dw_p
 
 
 def test_depthwise_plan_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="empty"):
         tiling.depthwise_plan(0, 14, 14, 64, 2, SMS)
-    with pytest.raises(ValueError, match="16 bytes"):
-        tiling.depthwise_plan(2, 14, 14, 36, 2, SMS, aligned=False,
-                              copy=tiling.COPY_TMA)
-    # a position that no 16-byte copy can start: C = 36 bf16 is 72 bytes
+    with pytest.raises(ValueError, match="cannot tile"):
+        tiling.depthwise_plan(1, 3000, 100000, 64, 2, SMS)  # > 65535 tiles
+    # a position that no 16-byte copy can start: C = 36 bf16 is 72 bytes,
+    # so its stages arrive by element copies
     x = torch.zeros(2, 5, 5, 36, dtype=torch.bfloat16)
     assert not tiling.sixteen_byte_rows(36, x)
     assert tiling.sixteen_byte_rows(64, x.new_zeros(2, 5, 5, 64))
     assert not tiling.sixteen_byte_rows(64, x.new_zeros(2 * 5 * 5 * 64 + 1)[1:])
+    assert tiling.depthwise_plan(2, 5, 5, 36, 2, SMS, aligned=False).copy == \
+        tiling.COPY_ELEMENTS
 
 
 def test_vector_width_needs_divisible_channels_and_aligned_rows():
