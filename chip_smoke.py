@@ -15,7 +15,10 @@
    beside the least time the card could take (the larger of bytes over
    memory rate and operations over peak rate) and, where one PyTorch call
    computes the same function, that call's time; checks that two runs of
-   every kernel that sums across blocks give identical bits.
+   every kernel that sums across blocks give identical bits. Beyond the
+   main path's shapes: the token head's backward at K=2048 (the ResNet-152
+   trunk's last tap) and the attention, forward and backward, at T=128 and
+   T=512 (its tiled kernels).
 3. Eval slice: the flagship VQA model (EfficientNetV2-M + RealFormer, hidden
    768, 4 layers, T=28, 224 px) with seeded random weights answers batches
    of 16 synthetic requests through ``make_vqa_eval_step``, in fp32 and in
@@ -39,7 +42,9 @@
    sums 156x. (d) Where the time goes: forward, backward and optimizer by
    CUDA events, the eight kernels, what is left of the library's batch-norm
    and depthwise kernels, and the device's busy share by torch.profiler; a
-   library batch-norm kernel in the train step fails the run.
+   library batch-norm kernel in the train step fails the run, and so does a
+   second pass (a reduce kernel) of the token head's or the depthwise
+   backward.
 
 Prints a JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -82,10 +87,32 @@ TOL_K2_CARRY = dict(rtol=2e-5, atol=2e-4)
 # rtol 1e-4. dx and dW are sums of up to 768 and B * 12544 fp32 terms of
 # both signs, taken in another order, so the absolute term is 1e-4 of the
 # largest entry of the plain result (set per case). In bf16 the kernel and
-# the plain version compute the same fp32 values from the same bf16 inputs
-# (gact is not rounded); dx is then rounded once, so two bf16 ulps (rtol
-# 8e-3) on top of the same absolute term; dW stays fp32.
+# the plain version both round gact to bf16 before the products, as the
+# reference's kernel does; where their fp32 s differ in the last bits a
+# gact lands one bf16 ulp apart, which moves a dx entry (a sum of 768 such
+# terms) by up to 6.2e-4 of dx's largest entry: measured on the CPU between
+# the plain version and the reference's kernel in interpret mode
+# (tests/test_torch_train.py::
+# test_token_head_bf16_backward_matches_the_reference_kernel, which holds
+# dx to 1e-3 of its largest entry). So bf16 dx is held to two bf16 ulps
+# (rtol 8e-3) on top of ATOL_K1_BWD_DX_BF16 of its largest entry. bf16 dW,
+# fp32 sums of those terms, moves by up to half of ATOL_K1_BWD_DW_BF16 of its
+# largest entry when only the order of s's sums changes (the plain version
+# against itself with s summed in fp64, on the CPU at B=16 and K from 176
+# to 2048: tests/test_torch_train.py::
+# test_token_head_bf16_dw_moves_with_the_order_of_s): rtol RTOL_K1_BWD on
+# top of ATOL_K1_BWD_DW_BF16 of its largest entry. At those long sums a
+# kernel that kept gact in fp32 moves dW by 1.0e-3 to 1.9e-3, not always
+# beyond the limit; so the rounding itself is held at the CPU test's short
+# sum (B=2, P=700, K=24, C=64), where the plain version meets the
+# reference's kernel in interpret mode within ATOL_K1_BWD_DW_ROUNDING of
+# dW's largest entry (read 1.4e-5; tests/test_torch_train.py::
+# test_token_head_bf16_backward_matches_the_reference_kernel) and the
+# fp32-gact control must miss it.
 RTOL_K1_BWD = 1e-4
+ATOL_K1_BWD_DX_BF16 = 1e-3
+ATOL_K1_BWD_DW_BF16 = 1e-3
+ATOL_K1_BWD_DW_ROUNDING = 5e-5
 # K2 backward, tests/test_pallas_attention.py:92 (rtol 5e-4, atol 5e-5) for
 # fp32; bf16 outputs are one rounding of the same fp32 values: two ulps.
 TOL_K2_BWD = dict(rtol=5e-4, atol=5e-5)
@@ -239,6 +266,27 @@ def k1_bound(B, P, K, C, itemsize, act, direction):
     return bound(2 * x + w + K * C * 4 + B * C * 4, 3 * products, sfu, name)
 
 
+def k1_bwd_rate(B, P, K, C, ms, bound_ms) -> str:
+    """The three products' rate and the bound's share of the time."""
+    return (f"{3 * 2.0 * B * P * K * C / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * bound_ms / ms:.1f}% of the bound")
+
+
+def check_k1_bwd(label, x, dx, dw, dx_p, dw_p):
+    """K1-bwd against its plain version: (dx error, dW error)."""
+    bf16 = x.element_size() == 2
+    if dx.stride() != x.stride():
+        fail(f"token_head_bwd {label}: dx is not laid out as x")
+    e_dw = close(f"token_head_bwd {label} dW", dw, dw_p, dict(
+        rtol=RTOL_K1_BWD,
+        atol=(ATOL_K1_BWD_DW_BF16 if bf16 else RTOL_K1_BWD)
+        * dw_p.abs().max().item()))
+    scale = dx_p.float().abs().max().item()
+    dx_tol = (dict(rtol=8e-3, atol=ATOL_K1_BWD_DX_BF16 * scale) if bf16
+              else dict(rtol=RTOL_K1_BWD, atol=RTOL_K1_BWD * scale))
+    return close(f"token_head_bwd {label} dx", dx, dx_p, dx_tol), e_dw
+
+
 def k2_bound(B, H, T, E, itemsize, with_prev, with_mask, direction):
     """Attention core: q, k, v and ctx (their gradients and dctx backward),
     the fp32 carries; two products forward, four backward; one exp a score."""
@@ -372,13 +420,7 @@ def kernel_phase(torch):
         torch.cuda.synchronize()
         if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
             fail(f"token_head_bwd {label}: two runs differ")
-        if dx.stride() != x.stride():
-            fail(f"token_head_bwd {label}: dx is not laid out as x")
-        e_dw = close(f"token_head_bwd {label} dW", dw, dw_p, dict(
-            rtol=RTOL_K1_BWD, atol=RTOL_K1_BWD * dw_p.abs().max().item()))
-        dx_tol = dict(rtol=8e-3 if bf16 else RTOL_K1_BWD,
-                      atol=RTOL_K1_BWD * dx_p.float().abs().max().item())
-        e_dx = close(f"token_head_bwd {label} dx", dx, dx_p, dx_tol)
+        e_dx, e_dw = check_k1_bwd(label, x, dx, dw, dx_p, dw_p)
         del dx, dx2, dw2, dx_p, dw_p
         ms = time_ms(lambda: token_head_backward(x, w, gout, act), reps)
         plain = time_ms(
@@ -386,9 +428,74 @@ def kernel_phase(torch):
         bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "bwd")
         print(f"token_head_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
               f"{e_dw:.3e}, two runs identical  kernel {ms:.4f} ms  plain "
-              f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+              f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})  "
+              f"{k1_bwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
         note("token_head_bwd", dtype, max(e_dx, e_dw), summary, ms, plain, bnd)
         del feat, x
+
+    # ---- K1 backward at K=2048, the ResNet-152 trunk's last tap (7x7),
+    # which the flagship path does not reach: one row a dtype
+    for dtype, B in ((torch.float32, EVAL_B), (torch.bfloat16, TRAIN_B)):
+        bf16 = dtype == torch.bfloat16
+        act = "serf_fast" if bf16 else "serf"
+        P, K = 7 * 7, 2048
+        feat = torch.randn(B, 7, 7, K, device=dev, generator=g)
+        x = tap_positions(feat.to(dtype).permute(0, 3, 1, 2))
+        w = (torch.randn(K, HIDDEN, device=dev, generator=g)
+             * K ** -0.5).to(dtype)
+        gout = torch.randn(B, HIDDEN, device=dev, generator=g)
+        label = f"resnet_tap B={B} P={P} K={K} {dtype}"
+        dx, dw = token_head_backward(x, w, gout, act)
+        dx2, dw2 = token_head_backward(x, w, gout, act)
+        dx_p, dw_p = token_head_backward_reference(x, w, gout, act)
+        torch.cuda.synchronize()
+        if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
+            fail(f"token_head_bwd {label}: two runs differ")
+        e_dx, e_dw = check_k1_bwd(label, x, dx, dw, dx_p, dw_p)
+        del dx, dx2, dw2, dx_p, dw_p
+        ms = time_ms(lambda: token_head_backward(x, w, gout, act), 5)
+        plain = time_ms(
+            lambda: token_head_backward_reference(x, w, gout, act), 5)
+        bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "bwd")
+        print(f"token_head_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
+              f"{e_dw:.3e}, two runs identical  kernel {ms:.4f} ms  plain "
+              f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})  "
+              f"{k1_bwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
+        note("token_head_bwd", dtype, max(e_dx, e_dw), False, ms, plain, bnd)
+        del feat, x
+
+    # ---- K1 backward rounds gact to bf16 as the reference's kernel does:
+    # at a short sum the kernel meets the plain version within
+    # ATOL_K1_BWD_DW_ROUNDING, and the plain version that keeps gact in
+    # fp32 misses it
+    from mmvqa_tpu_torch.ops.token_head import _act_grad
+
+    gc = torch.Generator().manual_seed(SEED)
+    B, P, K, C = 2, 700, 24, 64
+    x = torch.randn(B, P, K, generator=gc).bfloat16().to(dev)
+    w = (torch.randn(K, C, generator=gc) * 0.1).bfloat16().to(dev)
+    gout = torch.randn(B, C, generator=gc).to(dev)
+    for act in ("serf", "serf_fast", "relu"):
+        label = f"gact rounding B={B} P={P} K={K} C={C} {act}"
+        dx, dw = token_head_backward(x, w, gout, act)
+        dx_p, dw_p = token_head_backward_reference(x, w, gout, act)
+        s32 = torch.einsum("bpk,kc->bpc", x.float(), w.float())
+        gact = _act_grad(s32, act) * (gout / P)[:, None, :]
+        dw_f = torch.einsum("bpk,bpc->kc", x.float(), gact)
+        torch.cuda.synchronize()
+        lim = ATOL_K1_BWD_DW_ROUNDING * dw_p.abs().max().item()
+        e_dw = (dw - dw_p).abs().max().item()
+        e_f = (dw_f - dw_p).abs().max().item()
+        if not e_dw <= lim < e_f:
+            fail(f"token_head_bwd {label}: dW err {e_dw:.3e}, fp32-gact "
+                 f"control {e_f:.3e}, limit {lim:.3e}")
+        e_dx = close(f"token_head_bwd {label} dx", dx, dx_p, dict(
+            rtol=8e-3, atol=ATOL_K1_BWD_DX_BF16
+            * dx_p.float().abs().max().item()))
+        print(f"token_head_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
+              f"{e_dw:.3e} (limit {lim:.3e}; fp32-gact control {e_f:.3e})")
+        note("token_head_bwd", torch.bfloat16, max(e_dx, e_dw), False, 0.0,
+             0.0, None)
 
     # ---- K2, forward and backward
     H, E = HEADS, HEAD_DIM
@@ -398,6 +505,11 @@ def kernel_phase(torch):
                 for wm in (False, True)]
     k2_cases += [(torch.bfloat16, TRAIN_B, 75, wp, True)
                  for wp in (False, True)]
+    # sequences longer than one block's tiles hold (the tiled kernels): T=128
+    # (forward in one block, backward tiled) and T=512 (both tiled)
+    k2_cases += [(dtype, EVAL_B, T, True, True)
+                 for dtype in (torch.float32, torch.bfloat16)
+                 for T in (128, 512)]
     for dtype, B, T, with_prev, with_mask in k2_cases:
         bf16 = dtype == torch.bfloat16
         kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g).to(dtype)
@@ -1126,7 +1238,7 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
           f"ms/step, device busy {busy / n:.2f} ms/step "
           f"({100 * busy / wall:.1f}%)")
     ours = ("token_head_partial", "token_head_finalize", "token_head_bwd",
-            "token_head_dw_reduce", "realformer_attn_fwd",
+            "realformer_attn_fwd",
             "realformer_attn_bwd", "depthwise3x3_fwd", "depthwise3x3_bwd",
             "conv1x1_stats_bf16",
             "conv1x1_stats_reduce", "bn_backward_sums_kernel",
@@ -1158,10 +1270,12 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
     if bn:
         fail("a library batch-norm kernel ran in the train step: "
              + ", ".join(a.key[:60] for a in bn))
-    # the depthwise backward adds its dW partials itself
-    second = [a.key for a in mine if "depthwise" in a.key and "reduce" in a.key]
+    # the depthwise and token-head backwards add their dW partials themselves
+    second = [a.key for a in mine if ("depthwise" in a.key or "token_head" in
+                                      a.key) and "reduce" in a.key]
     if second:
-        fail(f"a second depthwise kernel ran in the train step: {second}")
+        fail(f"a second depthwise or token-head backward kernel ran in the "
+             f"train step: {second}")
     for a in kernels[:14]:
         print(f"  {a.self_device_time_total / 1e3 / n:9.4f} ms/step "
               f"{a.count // n:5d} calls  {a.key[:80]}")

@@ -109,6 +109,21 @@ def build() -> str:
     return out
 
 
+BWD_ARGTYPES = [
+    _p, _i, _ll, _ll, _ll,      # x, dtype, strides (b, p, k)
+    _p, _p,                     # w, g
+    _p, _ll, _ll, _ll,          # dx, strides (b, p, k)
+    _p, _p, _p,                 # partials, dw, barrier counters
+    _i, _i, _i, _i, _i,         # B, P, K, C, act
+    _i, _i, _i, _i, _i,         # ops/token_head.py::BwdPlan
+    _p,                         # stream
+]
+BWD_OCCUPANCY_ARGTYPES = [
+    _i, _i, _i, _i, _i,         # dtype, act, tile rows, mode, smem
+    ctypes.POINTER(_i),         # blocks an SM holds
+]
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.mmvqa_error_string.restype = ctypes.c_char_p
     lib.mmvqa_error_string.argtypes = [_i]
@@ -121,29 +136,24 @@ def _bind(lib: ctypes.CDLL) -> None:
         _p,                         # stream
     ]
     lib.token_head_bwd.restype = _i
-    lib.token_head_bwd.argtypes = [
-        _p, _i, _ll, _ll, _ll,      # x, dtype, strides (b, p, k)
-        _p, _p,                     # w, g
-        _p, _ll, _ll, _ll,          # dx, strides (b, p, k)
-        _p, _p,                     # dwpart, dw
-        _i, _i, _i, _i, _i,         # B, P, K, C, act
-        _i, _i,                     # items_per_block, nblocks
-        _p,                         # stream
-    ]
+    lib.token_head_bwd.argtypes = BWD_ARGTYPES
+    lib.token_head_bwd_occupancy.restype = _i
+    lib.token_head_bwd_occupancy.argtypes = BWD_OCCUPANCY_ARGTYPES
     lib.realformer_attn_fwd.restype = _i
     lib.realformer_attn_fwd.argtypes = [
         _p, _p, _p, _p, _p,         # q, k, v, prev, mask
         _p, _p,                     # scores, ctx
         ctypes.POINTER(_ll),        # 16 strides
-        _i, _i, _i, _i, _i,         # dtype, B, H, T, E
+        _i, _i, _i, _i, _i, _i,     # dtype, B, H, T, E, tiled
         _p,                         # stream
     ]
     lib.realformer_attn_bwd.restype = _i
     lib.realformer_attn_bwd.argtypes = [
         _p, _p, _p, _p, _p, _p,     # q, k, v, carry, dctx, dcarry
         _p, _p, _p, _p,             # dq, dk, dv, dprev
+        _p, _p,                     # ds scratch, row statistics
         ctypes.POINTER(_ll),        # 28 strides
-        _i, _i, _i, _i, _i,         # dtype, B, H, T, E
+        _i, _i, _i, _i, _i, _i,     # dtype, B, H, T, E, tiled
         _p,                         # stream
     ]
     # the channel plan of ops/tiling.py: vec, lanes, ctiles, row_groups,

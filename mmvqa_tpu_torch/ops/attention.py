@@ -15,6 +15,10 @@ softmax is taken over those stored scores. The carry is fp32 and head-major,
 The backward recomputes the softmax from the stored carry, which with these
 semantics is exactly the forward's softmax input. The mask gets no gradient.
 
+Each direction has a kernel that holds a head's tiles in one block's shared
+memory (the flagship T=75 and T=28), and tiled kernels for any longer T,
+chosen by T and E alone (``fits_one_block``).
+
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.
 """
@@ -30,9 +34,50 @@ import torch
 from mmvqa_tpu_torch.native import loader
 
 NEG_BIG = 10000.0
-# one block holds a head's q, k, v and scores in shared memory; a request
-# the card cannot grant fails the launch and raises through loader.check
-MAX_T = 128
+SMEM_LIMIT = 232448  # shared memory one block can have on an H100 (227 KB)
+TILE = 32            # query rows or keys a block of the tiled kernels owns
+
+
+def _one_block_bytes(T: int, E: int, backward: bool) -> int:
+    """Shared memory of the one-block kernels: attn_smem_bytes in
+    csrc/realformer_attention.cu, smem_bytes in
+    csrc/realformer_attention_bwd.cu."""
+    if backward:
+        return 4 * (3 * T * E + T * (E + 1) + 2 * T * T)
+    return 4 * (T * E + T * (E + 1) + T * E + T * T + T)
+
+
+def _tiled_bytes(E: int, backward: bool) -> int:
+    """The largest shared memory of the tiled kernels: the forward's, or the
+    backward's two (rows_smem_bytes, cols_smem_bytes)."""
+    tile = TILE * (TILE + 1)
+    if backward:
+        return 4 * max(2 * TILE * E + TILE * (E + 1) + 2 * tile + 3 * TILE,
+                       4 * TILE * E + 2 * tile)
+    return 4 * (2 * TILE * E + TILE * (E + 1) + tile + 3 * TILE)
+
+
+def fits_one_block(T: int, E: int, backward: bool) -> bool:
+    """Whether a head's tiles fit one block's shared memory, so that the
+    one-block kernel runs; else the tiled kernels do. Raises where neither
+    can: a head too wide for the tiled kernels' 32-row tiles."""
+    if _one_block_bytes(T, E, backward) <= SMEM_LIMIT:
+        return True
+    if _tiled_bytes(E, backward) > SMEM_LIMIT:
+        raise ValueError(
+            f"realformer_attention: a head of E={E} needs "
+            f"{_tiled_bytes(E, backward)} bytes of shared memory for its "
+            f"{TILE}-row tiles, a block has {SMEM_LIMIT}")
+    return False
+
+
+def _require_memory(name: str, t: torch.Tensor, nbytes: int) -> None:
+    """A ValueError, not an allocator failure, for buffers the card cannot
+    hold at all."""
+    total = torch.cuda.get_device_properties(t.device).total_memory
+    if nbytes > total:
+        raise ValueError(f"{name}: needs {nbytes} bytes of (B, H, T, T) "
+                         f"buffers, the card has {total}")
 
 
 def _neg(query_mask: torch.Tensor) -> torch.Tensor:
@@ -64,12 +109,10 @@ def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 
 def _launch(q, k, v, prev, query_mask):
     B, T, H, E = q.shape
-    if T > MAX_T:
-        raise ValueError(
-            f"realformer_attention: T={T} > {MAX_T}; long sequences are "
-            "ring attention's job"
-        )
     loader.require_cuda("realformer_attention", q, k, v)
+    tiled = not fits_one_block(T, E, backward=False)
+    _require_memory("realformer_attention", q,
+                    4 * B * H * T * T * (2 if prev is not None else 1))
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("realformer_attention: q, k, v dtypes differ")
     if prev is not None:
@@ -91,7 +134,7 @@ def _launch(q, k, v, prev, query_mask):
     code = loader.library().realformer_attn_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(prev), _ptr(mask), _ptr(scores),
         _ptr(ctx),
-        strides, loader.DTYPE_CODES[q.dtype], B, H, T, E,
+        strides, loader.DTYPE_CODES[q.dtype], B, H, T, E, int(tiled),
         loader.stream_ptr(),
     )
     loader.check(code, "realformer_attn_fwd")
@@ -131,9 +174,20 @@ def _launch_backward(kqv, carry, dctx, dcarry, want_dprev):
     E = E3 // 3
     k, q, v = kqv.split(E, dim=-1)
     loader.require_cuda("realformer_attention backward", kqv, carry)
+    tiled = not fits_one_block(T, E, backward=True)
+    _require_memory("realformer_attention backward", kqv,
+                    4 * B * H * T * T * (4 if tiled else 3))
     dkqv = torch.empty((B, T, H, E3), device=kqv.device, dtype=kqv.dtype)
     dk, dq, dv = dkqv.split(E, dim=-1)
     dprev = torch.empty_like(carry) if want_dprev else None
+    ds_scratch = stats = None
+    if tiled:
+        # the tiled kernels keep ds in device memory: in dprev where it is
+        # wanted, else in a scratch of its shape
+        if dprev is None:
+            ds_scratch = torch.empty_like(carry)
+        stats = torch.empty((B, H, T, 2), device=kqv.device,
+                            dtype=torch.float32)
     if dctx is not None:
         loader.require_cuda("realformer_attention backward", dctx)
         if dctx.dtype != kqv.dtype:
@@ -148,9 +202,9 @@ def _launch_backward(kqv, carry, dctx, dcarry, want_dprev):
     )
     code = loader.library().realformer_attn_bwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(carry), _ptr(dctx), _ptr(dcarry),
-        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dprev),
-        strides, loader.DTYPE_CODES[kqv.dtype], B, H, T, E,
-        loader.stream_ptr(),
+        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dprev), _ptr(ds_scratch),
+        _ptr(stats), strides, loader.DTYPE_CODES[kqv.dtype], B, H, T, E,
+        int(tiled), loader.stream_ptr(),
     )
     loader.check(code, "realformer_attn_bwd")
     return dkqv, dprev

@@ -11,17 +11,17 @@ fallback.
 
 Mixed precision: ``w`` may be the fp32 master weight while ``x`` is bf16. The
 forward then takes the bf16 cast of ``w`` and the backward hands the kernel's
-fp32 dW to the master unrounded. ``gact = act'(s) g / P`` stays fp32 inside
-the backward kernel (the TPU kernel rounds it to the input dtype before the
-two gradient products), so in bf16 only dx, rounded once on the way out,
-differs from the fp32 result.
+fp32 dW to the master unrounded. ``gact = act'(s) g / P`` is taken in fp32
+and rounded to x's dtype before the two gradient products, as the TPU kernel
+does (mmvqa_tpu/ops/pallas_token_head.py, ``GACT_MM = "input"``); the
+products sum in fp32. In fp32 the rounding changes nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -40,14 +40,29 @@ TILE_C = 128              # kTileC: output channels per block
 BLOCKS_PER_SM = 3         # kMinBlocks: the register cap fits three per SM
 WAVES = 4                 # blocks in flight per SM slot; one wave measured
                           # slower (PERF.md)
-BWD_BLOCKS_PER_SM = 2     # __launch_bounds__ of csrc/token_head_bwd.cu
-BWD_WAVES = 2
-SMEM_PER_SM = 227 * 1024  # shared memory the blocks of one SM can use
+SMEM_LIMIT = 232448       # shared memory one block can have on an H100
+SMEM_PER_SM = 233472      # an SM's, of which each block reserves 1 KB
+# (rows of a tile, W resident) of the bf16 backward, the first that fits:
+# W resident beside gact with 64 or 32 rows (the narrow taps; faster there on
+# the card, PERF.md), else the widest tile with W streamed
+BWD_TILES = ((64, 1), (32, 1), (64, 0), (32, 0), (16, 0))
+BARRIER_WORDS = 2         # the backward's arrival and departure counters
 
 
 class Plan(NamedTuple):
     chunk: int     # positions per block, a multiple of TILE_P
     nchunks: int   # blocks along P
+
+
+class BwdPlan(NamedTuple):
+    """The backward launch; the fields in the order of the C entry point's
+    plan arguments."""
+    tp: int        # rows (of the B * P positions) a tile
+    per_block: int  # consecutive tiles a block walks
+    nblocks: int   # blocks, all resident at once; none is left empty
+    mode: int      # bf16: W resident in shared memory (1) or streamed (0);
+                   # fp32: dx summed in a shared tile (1) or in dx (0)
+    smem: int      # dynamic shared memory, bytes
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -74,33 +89,73 @@ def launch_plan(B: int, P: int, K: int, C: int, sms: int) -> Plan:
     return Plan(chunk, nchunks)
 
 
-def backward_plan(B: int, P: int, K: int, C: int, sms: int) -> Plan:
-    """How the backward launch shares the ``B * ceil(P / TILE_P)`` (batch
-    row, position tile) work items among blocks: ``chunk`` items a block,
-    ``nchunks`` blocks, none left empty. A block needs ``bwd_smem_bytes(K)``
-    of shared memory and keeps a (K, C) fp32 partial of dW, so there are no
-    more blocks than fill the card BWD_WAVES times."""
+def mma_smem_bytes(tp: int, K: int, C: int, resident: bool) -> int:
+    """mma_smem_bytes in csrc/token_head_bwd.cu: the bf16 gact of a tile for
+    every channel (rows padded to 128 channels and 16 bytes more); then W
+    whole (K in 32s, rows as gact's) and two x tiles (K in 32s and 16 bytes)
+    where W is resident, else six stages of an x chunk (tp x 32) and a W
+    chunk (32 x 128), rows padded by 16 bytes; then each row's dx offset and
+    image, and g / P of the two images a tile spans."""
+    row = _cdiv(C, 128) * 128 + 8
+    kr = _cdiv(K, 32) * 32
+    ring = (kr * row + 2 * tp * (kr + 8) if resident
+            else 6 * (tp * 40 + 32 * 136))
+    return 2 * (tp * row + ring) + tp * 12 + _g_cache_bytes(C)
+
+
+def _g_cache_bytes(C: int) -> int:
+    """g_cache_floats in csrc/token_head_bwd.cu, in bytes."""
+    return 4 * 2 * _cdiv(C, 4) * 4
+
+
+def fma_smem_bytes(K: int, C: int, dx_tile: bool) -> int:
+    """fma_smem_bytes in csrc/token_head_bwd.cu: two stages of x and W
+    chunks and the gact tile in fp32, the (64, K + 1) dx tile where it is
+    used, each row's offsets, and g / P of the two images a tile spans."""
+    return (4 * (2 * (32 * 64 + 32 * 132) + 64 * 132
+                 + (64 * (K + 1) if dx_tile else 0)) + 64 * 20
+            + _g_cache_bytes(C))
+
+
+def backward_tile(K: int, C: int, itemsize: int) -> Tuple[int, int, int]:
+    """(rows a tile, mode, dynamic shared memory) of the backward kernel.
+
+    bf16 (``itemsize`` 2) parks a tile's gact for all C channels in shared
+    memory, with the first (rows, W resident) of BWD_TILES that fits; the
+    streamed tiles take any K. Raises for a C that not even 16 rows fit.
+    fp32 takes 64 rows and any C; its dx tile is used where it fits."""
+    if itemsize == 2:
+        fits = [(tp, mode) for tp, mode in BWD_TILES
+                if mma_smem_bytes(tp, K, C, bool(mode)) <= SMEM_LIMIT]
+        if not fits:
+            raise ValueError(
+                f"token head backward: C={C} needs "
+                f"{mma_smem_bytes(16, K, C, False)} bytes of shared memory "
+                f"for 16 rows of gact, a block has {SMEM_LIMIT}")
+        tp, mode = fits[0]
+        return tp, mode, mma_smem_bytes(tp, K, C, bool(mode))
+    mode = int(fma_smem_bytes(K, C, True) <= SMEM_LIMIT)
+    return TILE_P, mode, fma_smem_bytes(K, C, bool(mode))
+
+
+def backward_plan(B: int, P: int, K: int, C: int, itemsize: int, sms: int,
+                  slots: int) -> BwdPlan:
+    """How the backward launch shares the ``ceil(B * P / tp)`` row tiles
+    among ``nblocks`` blocks of ``per_block`` consecutive tiles, on a card of
+    ``sms`` multiprocessors that hold ``slots`` such blocks each (the
+    wrapper asks the card). The launch is cooperative, so there are no more
+    blocks than fit at once. The tile is ``backward_tile``'s."""
     if min(B, P, K, C) < 1:
         raise ValueError(f"token head: empty shape B={B} P={P} K={K} C={C}")
-    if bwd_smem_bytes(K) > SMEM_PER_SM:
-        raise ValueError(
-            f"token head backward: K={K} needs {bwd_smem_bytes(K)} bytes of "
-            f"shared memory for its dx tile, a block has {SMEM_PER_SM}"
-        )
-    items = B * _cdiv(P, TILE_P)
-    per_sm = min(BWD_BLOCKS_PER_SM, SMEM_PER_SM // bwd_smem_bytes(K))
-    per_block = _cdiv(items, BWD_WAVES * per_sm * sms)
+    if slots < 1:
+        raise ValueError(f"token head backward: {slots} blocks an SM")
+    tp, mode, smem = backward_tile(K, C, itemsize)
+    items = _cdiv(B * P, tp)
+    per_block = _cdiv(items, slots * sms)
     nblocks = _cdiv(items, per_block)
-    if nblocks > 2**31 - 1:
+    if items > 2**31 - 1 or K * C >= 2**31:
         raise ValueError(f"token head: grid too large for B={B}, P={P}")
-    return Plan(per_block, nblocks)
-
-
-def bwd_smem_bytes(K: int) -> int:
-    """smem_floats in csrc/token_head_bwd.cu, in bytes."""
-    chunk_k, row_c = 32, TILE_C + 4
-    return 4 * (chunk_k * TILE_P + chunk_k * row_c + TILE_P * row_c + TILE_C
-                + TILE_P * (K + 1))
+    return BwdPlan(tp, per_block, nblocks, mode, smem)
 
 
 def _activate(s: torch.Tensor, act: str) -> torch.Tensor:
@@ -142,10 +197,12 @@ def token_head_backward_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the backward: x (B, P, K), w (K, C), g (B, C) the
     gradient of the output. Returns dx (B, P, K) in x's dtype and dW (K, C)
-    in fp32. Materializes the (B, P, C) map."""
+    in fp32. Materializes the (B, P, C) map; gact is rounded to x's dtype
+    before both products, which sum in fp32."""
     xf, wf = x.float(), w.float()
     s = torch.einsum("bpk,kc->bpc", xf, wf)
     gact = _act_grad(s, act) * (g.float() / x.shape[1])[:, None, :]
+    gact = gact.to(x.dtype).float()  # the products' operand in x's dtype
     dx = torch.einsum("bpc,kc->bpk", gact, wf).to(x.dtype)
     dw = torch.einsum("bpk,bpc->kc", xf, gact)
     return dx, dw
@@ -184,21 +241,57 @@ def _launch(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
     return out
 
 
+_BWD_SLOTS: Dict[tuple, int] = {}
+_BARRIERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _backward_plan(x: torch.Tensor, K: int, C: int, act: str) -> BwdPlan:
+    """The plan with the blocks an SM of this card holds, asked once per
+    kernel and shared memory size."""
+    B, P = x.shape[0], x.shape[1]
+    tp, mode, smem = backward_tile(K, C, x.element_size())
+    key = (x.device, x.dtype, act, tp, mode, smem)
+    slots = _BWD_SLOTS.get(key)
+    if slots is None:
+        n = ctypes.c_int(0)
+        loader.check(loader.library().token_head_bwd_occupancy(
+            loader.DTYPE_CODES[x.dtype], ACTS[act], tp, mode, smem,
+            ctypes.byref(n)), "token_head_bwd occupancy")
+        if n.value < 1:
+            raise RuntimeError(f"token head backward: no block with "
+                               f"{smem} bytes of shared memory fits an SM")
+        slots = _BWD_SLOTS[key] = n.value
+    return backward_plan(B, P, K, C, x.element_size(), _sms(x), slots)
+
+
+def _barrier(device: torch.device) -> torch.Tensor:
+    """The backward's two barrier counters for the current stream on
+    ``device``: zero between calls (the kernel sets both back), so they are
+    made once. One pair a stream: calls in one stream run one after the
+    other, calls on two streams could run at once."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _BARRIERS.get(key)
+    if buf is None:
+        buf = _BARRIERS[key] = torch.zeros(BARRIER_WORDS, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def _launch_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                      act: str) -> Tuple[torch.Tensor, torch.Tensor]:
     B, P, K = x.shape
     C = w.shape[1]
     _check_launch("fused_token_head backward", x, w)
     loader.require_cuda("fused_token_head backward", g)
-    plan = backward_plan(B, P, K, C, _sms(x))
+    plan = _backward_plan(x, K, C, act)
     w = w.contiguous()
     g = g.to(torch.float32).contiguous()
     # x's own layout where it is dense, so that the gradient goes back
     # through the views that made x (models/visual_tokens.py::tap_positions)
     # without a copy
     dx = torch.empty_like(x)
-    dwpart = torch.empty((plan.nchunks, K, C), device=x.device,
-                         dtype=torch.float32)
+    part = torch.empty((plan.nblocks, K, C), device=x.device,
+                       dtype=torch.float32)
     dw = torch.empty((K, C), device=x.device, dtype=torch.float32)
 
     def ptr(t):
@@ -206,8 +299,8 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
     code = loader.library().token_head_bwd(
         ptr(x), loader.DTYPE_CODES[x.dtype], *x.stride(), ptr(w), ptr(g),
-        ptr(dx), *dx.stride(), ptr(dwpart), ptr(dw),
-        B, P, K, C, ACTS[act], plan.chunk, plan.nchunks, loader.stream_ptr(),
+        ptr(dx), *dx.stride(), ptr(part), ptr(dw), ptr(_barrier(x.device)),
+        B, P, K, C, ACTS[act], *plan, loader.stream_ptr(),
     )
     loader.check(code, "token_head_bwd")
     return dx, dw

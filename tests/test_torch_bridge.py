@@ -17,6 +17,9 @@ from mmvqa_tpu_torch import bridge
 from mmvqa_tpu_torch.core.config import pretrain_config, vqa_config
 from mmvqa_tpu_torch.models import MMBert
 
+# tier-1 runs six test workers on eight cores: one torch thread each
+torch.set_num_threads(1)
+
 S = 32
 
 CASES = {

@@ -16,6 +16,9 @@ from mmvqa_tpu_torch.core import config
 from mmvqa_tpu_torch.native import loader
 from mmvqa_tpu_torch.ops import attention, token_head
 
+# tier-1 runs six test workers on eight cores: one torch thread each
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

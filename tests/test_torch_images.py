@@ -17,6 +17,9 @@ from mmvqa_tpu.data import images as jax_images
 
 from mmvqa_tpu_torch.data import images
 
+# tier-1 runs six test workers on eight cores: one torch thread each
+torch.set_num_threads(1)
+
 S, B = 24, 3
 
 

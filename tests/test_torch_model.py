@@ -22,6 +22,9 @@ from mmvqa_tpu_torch.train.steps import make_vqa_eval_step
 
 from test_torch_bridge import configs, jax_variables
 
+# tier-1 runs six test workers on eight cores: one torch thread each
+torch.set_num_threads(1)
+
 B = 3
 # conv sums run in another order in XLA and in torch over about 20 layers
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -59,44 +62,51 @@ MODEL_CASES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(MODEL_CASES))
-def test_logits_match_jax(rng, name):
-    case, size, over = MODEL_CASES[name]
-    cfg, jcfg = configs(case, image_size=size, **over)
-    variables = jax_variables(jcfg)
-    batch = _batch(cfg, rng, size)
-    img = (batch["image"].astype(np.float32) / 255.0 - 0.5) / 0.5
-    args = (img, batch["tokens"], batch["segment_ids"], batch["input_mask"])
+@pytest.fixture(scope="module")
+def jax_case():
+    """A MODEL_CASES case's configs, JAX variables, inputs (the batch the
+    ``rng`` fixture's seed gives) and the JAX package's fp32 logits, built
+    and run once for the module's tests."""
+    built = {}
 
-    want = jax.jit(lambda v, *a: JaxMMBert(jcfg).apply(
-        v, *a, deterministic=True))(variables, *map(jnp.asarray, args))
+    def get(name):
+        if name not in built:
+            case, size, over = MODEL_CASES[name]
+            cfg, jcfg = configs(case, image_size=size, **over)
+            variables = jax_variables(jcfg)
+            batch = _batch(cfg, np.random.default_rng(0), size)
+            img = (batch["image"].astype(np.float32) / 255.0 - 0.5) / 0.5
+            args = (img, batch["tokens"], batch["segment_ids"],
+                    batch["input_mask"])
+            want = jax.jit(lambda v, *a: JaxMMBert(jcfg).apply(
+                v, *a, deterministic=True))(variables, *map(jnp.asarray, args))
+            built[name] = (cfg, jcfg, variables, args, np.asarray(want))
+        return built[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CASES))
+def test_logits_match_jax(jax_case, name):
+    cfg, _, variables, args, want = jax_case(name)
     model = _bridged(cfg, variables)
     with torch.inference_mode():
         got = model(*map(torch.from_numpy, args))
     assert got.shape == want.shape
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("name", sorted(MODEL_CASES))
-def test_bf16_logits_within_the_jax_packages_bf16_error(rng, name):
+def test_bf16_logits_within_the_jax_packages_bf16_error(jax_case, name):
     """The port cast to bf16 is at most twice as far from the fp32 logits as
     the JAX package's own bf16 model (``MMBert(dtype=bfloat16)``) is. Both
     round one network to bf16 at other places, so their errors are of one
     size (the port's is 1.2-1.3x at the VQA cases); rounding the attention
     carry to bf16, a fault, takes it to 2.8-5.7x."""
-    case, size, over = MODEL_CASES[name]
-    cfg, jcfg = configs(case, image_size=size, **over)
-    variables = jax_variables(jcfg)
-    batch = _batch(cfg, rng, size)
-    img = (batch["image"].astype(np.float32) / 255.0 - 0.5) / 0.5
-    args = (img, batch["tokens"], batch["segment_ids"], batch["input_mask"])
-
-    def jax_logits(dtype):
-        out = jax.jit(lambda v, *a: JaxMMBert(jcfg, dtype=dtype).apply(
-            v, *a, deterministic=True))(variables, *map(jnp.asarray, args))
-        return np.asarray(out.astype(jnp.float32))
-
-    want32, jax16 = jax_logits(jnp.float32), jax_logits(jnp.bfloat16)
+    cfg, jcfg, variables, args, want32 = jax_case(name)
+    jax16 = jax.jit(lambda v, *a: JaxMMBert(jcfg, dtype=jnp.bfloat16).apply(
+        v, *a, deterministic=True))(variables, *map(jnp.asarray, args))
+    jax16 = np.asarray(jax16.astype(jnp.float32))
     model = _bridged(cfg, variables).to(torch.bfloat16)
     with torch.inference_mode():
         got = model(*map(torch.from_numpy, args))

@@ -27,7 +27,11 @@ from mmvqa_tpu.train.steps import make_vqa_steps
 from mmvqa_tpu_torch.core.config import vqa_config
 from mmvqa_tpu_torch.data.images import process_batch
 from mmvqa_tpu_torch.ops import activations, losses
-from mmvqa_tpu_torch.ops.attention import MAX_T, realformer_attention
+from mmvqa_tpu_torch.ops.attention import (
+    fits_one_block,
+    realformer_attention,
+    realformer_attention_backward_reference,
+)
 from mmvqa_tpu_torch.ops.token_head import (
     TILE_P,
     fused_token_head,
@@ -35,6 +39,9 @@ from mmvqa_tpu_torch.ops.token_head import (
     token_head_reference,
 )
 from mmvqa_tpu_torch.train.steps import make_vqa_eval_step
+
+# tier-1 runs six test workers on eight cores: one torch thread each
+torch.set_num_threads(1)
 
 
 def _serf_inputs(rng):
@@ -192,13 +199,71 @@ def test_realformer_attention_takes_kqv_split_views(rng):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_realformer_attention_shared_memory_bound():
-    """T=128 is the longest sequence one block takes; the launch refuses
-    longer ones before touching the card (a shared-memory request the card
-    cannot grant fails the launch itself, tests/test_torch_cuda.py)."""
-    q = torch.zeros(1, MAX_T + 1, 1, 8, device="meta")
-    with pytest.raises(ValueError, match="ring attention"):
-        realformer_attention(q, q, q, None, None)
+@pytest.mark.parametrize("with_prev,with_mask", [(False, False), (True, True)])
+def test_realformer_attention_at_t200_matches_jax_xla_path(rng, with_prev,
+                                                          with_mask):
+    """T=200, beyond what one block of the card holds (the tiled kernels'
+    length): the port's forward and its written-out backward against the
+    XLA path and its autograd, at the widths of tests/test_pallas_attention.py."""
+    Bl, T, H, E = 1, 200, 2, 8
+    q, k, v = (rng.normal(size=(Bl, T, H, E)).astype(np.float32)
+               for _ in range(3))
+    prev = (rng.normal(size=(Bl, H, T, T)).astype(np.float32)
+            if with_prev else None)
+    mask = None
+    if with_mask:
+        mask = np.ones((Bl, T), np.float32)
+        mask[0, 150:] = 0.0
+    dctx = rng.normal(size=(Bl, T, H, E)).astype(np.float32)
+    dcarry = (rng.normal(size=(Bl, H, T, T)).astype(np.float32) * 0.1
+              if with_prev else None)
+    ctx, carry = realformer_attention(_t(q), _t(k), _t(v), _t(prev), _t(mask))
+    dq, dk, dv, ds = realformer_attention_backward_reference(
+        _t(q), _t(k), _t(v), carry, _t(dctx), _t(dcarry))
+
+    def xla(q, k, v, prev):
+        prev_x = None if prev is None else jnp.transpose(prev, (0, 2, 3, 1))
+        c, s = jax_attention(q, k, v, prev_x,
+                             None if mask is None else jnp.asarray(mask),
+                             impl="xla")
+        return c, jnp.transpose(s, (0, 3, 1, 2))
+
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    args.append(None if prev is None else jnp.asarray(prev))
+    (ctx_x, carry_x), vjp = jax.vjp(xla, *args)
+    grads = vjp((jnp.asarray(dctx),
+                 jnp.zeros_like(carry_x) if dcarry is None
+                 else jnp.asarray(dcarry)))
+    np.testing.assert_allclose(ctx.numpy(), np.asarray(ctx_x),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(carry.numpy(), np.asarray(carry_x),
+                               rtol=2e-5, atol=2e-4)
+    # tests/test_pallas_attention.py:92, the gradients' tolerance
+    for got, want in zip((dq, dk, dv), grads[:3]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=5e-4, atol=5e-5)
+    if with_prev:
+        np.testing.assert_allclose(ds.numpy(), np.asarray(grads[3]),
+                                   rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("T,E,forward,backward", [
+    (28, 96, True, True), (75, 96, True, True), (99, 96, True, True),
+    (100, 96, True, False), (128, 96, True, False), (200, 96, False, False),
+    (512, 96, False, False), (128, 256, False, False),
+])
+def test_realformer_attention_path_follows_t_and_e(T, E, forward, backward):
+    """The one-block kernels where a head's tiles fit 227 KB of shared
+    memory (the flagship T=75 and T=28 keep theirs), the tiled kernels
+    beyond."""
+    assert fits_one_block(T, E, backward=False) == forward
+    assert fits_one_block(T, E, backward=True) == backward
+
+
+def test_realformer_attention_refuses_a_head_too_wide_for_its_tiles():
+    assert not fits_one_block(4096, 384, backward=False)
+    with pytest.raises(ValueError, match="shared memory"):
+        fits_one_block(4096, 512, backward=True)
 
 
 # ------------------------------------------------------ eval criterion ----

@@ -8,6 +8,7 @@ them, and the JAX attention takes its XLA path.
 """
 
 import copy
+import itertools
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from mmvqa_tpu.models.mmbert import MMBert as JaxMMBert
 from mmvqa_tpu.ops import losses as jax_losses
 from mmvqa_tpu.ops.attention import realformer_attention as jax_attention
 from mmvqa_tpu.ops.pallas_token_head import (
+    _bwd_call as jax_token_head_bwd_kernel,
     fused_token_head as jax_fused_token_head,
 )
 from mmvqa_tpu.train import steps as jax_steps
@@ -42,8 +44,10 @@ from mmvqa_tpu_torch.ops.attention import (
     realformer_attention_reference,
 )
 from mmvqa_tpu_torch.ops.token_head import (
+    SMEM_LIMIT,
+    _act_grad,
     backward_plan,
-    bwd_smem_bytes,
+    backward_tile,
     fused_token_head,
     token_head_backward_reference,
     token_head_reference,
@@ -53,6 +57,10 @@ from mmvqa_tpu_torch.train.steps import make_mlm_steps
 from mmvqa_tpu_torch.train.trainer import mlm_epoch
 
 from test_torch_bridge import configs, jax_variables
+from test_torch_cuda import _backward_keeping_gact_fp32
+
+# tier-1 runs six test workers on eight cores: one torch thread each
+torch.set_num_threads(1)
 
 
 def _t(a, grad=False):
@@ -120,31 +128,152 @@ def test_token_head_hands_the_fp32_master_an_fp32_gradient(rng):
     assert not torch.equal(w.grad, w.grad.bfloat16().float())
 
 
+@pytest.mark.parametrize("act", ["serf", "serf_fast", "relu"])
+def test_token_head_bf16_backward_matches_the_reference_kernel(rng, act):
+    """bf16 inputs: the port's plain backward (what a CPU tensor takes and
+    what the card's kernel is held against) against the TPU kernel's
+    backward in interpret mode. Both take gact in fp32, round it to bf16 and
+    sum the two products in fp32, so dx agrees to the bf16 rounding of one
+    fp32 value (two ulps, 8e-3 relative; the absolute term 1e-3 of the
+    largest entry, for entries near 0 summed in another order) and dW, a sum
+    of 1400 products of the same bf16 operands, to 5e-5 of its largest entry:
+    gact's bf16 rounding lands on the other side where the two act'(s)
+    differ in their last fp32 bits, most under SERF, whose erf the reference
+    takes from a rational approximation (pallas_token_head.py:_erf_approx;
+    measured 1.4e-5, and 2.5e-7 for serf_fast and relu). A plain version
+    that kept gact in fp32 misses both: dW by 6e-4 to 1.9e-3 of its largest
+    entry, dx beyond two ulps at 0.02-0.2% of its entries."""
+    B, P, K, C = 2, 700, 24, 64  # a padded position tail, as above
+    x = rng.normal(size=(B, P, K)).astype(np.float32)
+    w = (rng.normal(size=(K, C)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(B, C)).astype(np.float32)
+    want_dx, want_dw = jax_token_head_bwd_kernel(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+        jnp.asarray(g), act)
+    want_dx = np.asarray(want_dx.astype(jnp.float32))
+    want_dw = np.asarray(want_dw)
+    dx, dw = token_head_backward_reference(
+        _t(x).bfloat16(), _t(w).bfloat16(), _t(g), act)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    np.testing.assert_allclose(dx.float().numpy(), want_dx, rtol=8e-3,
+                               atol=1e-3 * np.abs(want_dx).max())
+    np.testing.assert_allclose(dw.numpy(), want_dw, rtol=0,
+                               atol=5e-5 * np.abs(want_dw).max())
+    _, dw_f = _backward_keeping_gact_fp32(
+        _t(x).bfloat16(), _t(w).bfloat16(), _t(g), act)
+    assert np.abs(dw_f.numpy() - want_dw).max() > 5e-5 * np.abs(want_dw).max()
+
+
+@pytest.mark.parametrize("P,K", [(14 * 14, 176), (7 * 7, 512), (14 * 14, 1024),
+                                 (7 * 7, 2048)])
+def test_token_head_bf16_dw_moves_with_the_order_of_s(rng, P, K):
+    """Why bf16 dW is held on the card at long sums to 1e-3 of its largest
+    entry (tests/test_torch_cuda.py, chip_smoke.py's ATOL_K1_BWD_DW_BF16):
+    kernel and plain version sum s in other orders, and a last-bit
+    difference of s can move gact's bf16 rounding by an ulp. The plain
+    version with s summed in fp64 instead of fp32 moves dW by up to half
+    that limit (read 5.1e-5 to 1.7e-4 of its largest entry). Keeping gact
+    in fp32 moves it further (read 1.0e-3 to 1.9e-3), but not always beyond
+    the limit: that the kernel rounds gact is held at a short sum instead
+    (tests/test_torch_cuda.py::
+    test_token_head_bf16_backward_rounds_gact_as_the_plain_version). B=16
+    and the widths of the wide taps, SERF's bf16 polynomial."""
+    B, C = 16, 768
+    x = _t(rng.normal(size=(B, P, K)).astype(np.float32)).bfloat16()
+    w = _t((rng.normal(size=(K, C)) * K ** -0.5).astype(np.float32)).bfloat16()
+    g = _t(rng.normal(size=(B, C)).astype(np.float32))
+    _, dw = token_head_backward_reference(x, w, g, "serf_fast")
+    s = torch.einsum("bpk,kc->bpc", x.double(), w.double()).float()
+    gact = (_act_grad(s, "serf_fast") * (g / P)[:, None, :]).bfloat16()
+    dw_s64 = torch.einsum("bpk,bpc->kc", x.float(), gact.float())
+    _, dw_f = _backward_keeping_gact_fp32(x, w, g, "serf_fast")
+    scale = dw.abs().max().item()
+    order = (dw_s64 - dw).abs().max().item()
+    assert order <= 5e-4 * scale
+    assert (dw_f - dw).abs().max().item() > 2 * order
+
+
+@pytest.mark.parametrize("P,K", [(49, 2048), (196, 2048), (49, 1024),
+                                 (196, 1024)])
+def test_token_head_grads_match_jax_at_resnet_widths(rng, P, K):
+    """K = 2048 and 1024, the ResNet-152 taps' channels
+    (mmvqa_tpu/models/visual_tokens.py:10), which the backward kernel takes
+    like any other K; fp32, tests/test_token_head.py's tolerances."""
+    B, C = 1, 64
+    x = rng.normal(size=(B, P, K)).astype(np.float32)
+    w = (rng.normal(size=(K, C)) * K ** -0.5).astype(np.float32)
+    g = rng.normal(size=(B, C)).astype(np.float32)
+    want_dx, want_dw = jax.grad(
+        lambda x, w: jnp.sum(jax_fused_token_head(x, w, "serf") * g),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    xt, wt = _t(x, True), _t(w, True)
+    (fused_token_head(xt, wt, "serf") * _t(g)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(want_dw),
+                               rtol=1e-4, atol=1e-4)
+
+
 SM_COUNTS = (1, 114, 132)
+TAP_SHAPES = ((112 * 112, 24), (56 * 56, 48), (28 * 28, 80), (14 * 14, 176),
+              (7 * 7, 512))
 
 
 @pytest.mark.parametrize("B,P,K", [
-    (128, 112 * 112, 24), (128, 56 * 56, 48), (128, 28 * 28, 80),
-    (128, 14 * 14, 176), (128, 7 * 7, 512), (16, 7 * 7, 512), (2, 700, 24),
-    (1, 1, 1),
+    *((B, P, K) for B in (128, 16) for P, K in TAP_SHAPES),
+    (128, 14 * 14, 1024), (128, 7 * 7, 2048), (16, 14 * 14, 1024),
+    (16, 7 * 7, 2048), (2, 700, 24), (1, 1, 1),
 ])
 def test_token_head_backward_plan_covers_every_item(B, P, K):
-    """The backward launch's share-out, checked where the CPU can reach it:
-    every (batch row, position tile) item goes to exactly one block, no
-    block is empty, and a block's shared memory fits an H100's 227 KB."""
-    items = B * -(-P // 64)
-    for sms in SM_COUNTS:
-        plan = backward_plan(B, P, K, 768, sms)
-        assert plan.chunk * plan.nchunks >= items
-        assert plan.chunk * (plan.nchunks - 1) < items
-        assert plan.nchunks <= max(1, 4 * sms)
-    assert bwd_smem_bytes(K) <= 227 * 1024
+    """The backward launch's share-out, walked block by block where the CPU
+    can reach it, for both dtypes, the hidden sizes 768, 1024 and 2048,
+    cards of 1, 114 and 132 SMs and 1, 2 or 3 blocks an SM (the wrapper asks
+    the card how many): the row tiles of the B * P positions (each (batch
+    row, position) once) go to the blocks in order, none twice and none left
+    out; no block is empty; the blocks fit the card at once (the launch is
+    cooperative); a block's shared memory fits an H100's 227 KB; and the
+    partials, one (K, C) a block, are as many as the blocks."""
+    N = B * P
+    for itemsize in (2, 4):
+        for C in (768, 1024, 2048):
+            tp, mode, smem = backward_tile(K, C, itemsize)
+            assert smem <= SMEM_LIMIT == 227 * 1024
+            assert tp in ((64,) if itemsize == 4 else (64, 32, 16))
+            for sms, slots in itertools.product(SM_COUNTS, (1, 2, 3)):
+                plan = backward_plan(B, P, K, C, itemsize, sms, slots)
+                assert (plan.tp, plan.mode, plan.smem) == (tp, mode, smem)
+                assert plan.nblocks <= slots * sms
+                tiles = -(-N // plan.tp)
+                assert plan.nblocks == -(-tiles // plan.per_block)
+                covered = 0
+                for j in range(plan.nblocks):
+                    lo = j * plan.per_block
+                    hi = min(tiles, lo + plan.per_block)
+                    assert lo < hi  # not empty
+                    first, last = lo * plan.tp, min(N, hi * plan.tp)
+                    assert first == covered  # in order, no gap or overlap
+                    covered = last
+                assert covered == N
+    with pytest.raises(ValueError, match="blocks an SM"):
+        backward_plan(B, P, K, 768, 2, 132, 0)
 
 
-def test_token_head_backward_plan_refuses_a_k_beyond_its_dx_tile():
-    assert backward_plan(1, 64, 675, 768, 132).nchunks == 1
-    with pytest.raises(ValueError, match="shared memory for its dx tile"):
-        backward_plan(1, 64, 676, 768, 132)
+def test_token_head_backward_plan_takes_any_k_and_refuses_only_too_wide_a_c():
+    """bf16 parks 64 rows of gact for C up to 1024 (the reference's hidden
+    768 and 1024), 32 rows up to 2176 (2048), 16 rows up to 4224; K never
+    limits it, and W is resident beside gact for the narrow taps. fp32 sums
+    dx in a shared tile up to K = 550 (at C = 768) and in dx itself beyond."""
+    for C, tp in ((768, 64), (1024, 64), (1025, 32), (2048, 32), (2176, 32),
+                  (2177, 16), (4224, 16)):
+        assert backward_tile(100000, C, 2)[:2] == (tp, 0)
+    with pytest.raises(ValueError, match="16 rows of gact"):
+        backward_tile(24, 4225, 2)
+    for K, tp, mode in ((24, 64, 1), (48, 64, 1), (80, 32, 1), (176, 64, 0),
+                        (512, 64, 0)):
+        assert backward_tile(K, 768, 2)[:2] == (tp, mode)
+    assert backward_tile(550, 768, 4)[1] == 1
+    assert backward_tile(551, 768, 4)[1] == 0
+    assert backward_tile(2048, 8192, 4)[2] <= SMEM_LIMIT
 
 
 # ---------------------------------------------------------------- K2 ----

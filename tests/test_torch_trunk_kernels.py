@@ -41,6 +41,9 @@ from mmvqa_tpu_torch.ops.depthwise import (
     depthwise3x3_reference,
 )
 
+# tier-1 runs six test workers on eight cores: one torch thread each
+torch.set_num_threads(1)
+
 
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.array(a, np.float32)).to(dtype)
