@@ -18,7 +18,10 @@
    every kernel that sums across blocks give identical bits. Beyond the
    main path's shapes: the token head's backward at K=2048 (the ResNet-152
    trunk's last tap) and the attention, forward and backward, at T=128 and
-   T=512 (its tiled kernels).
+   T=512 (its tiled kernels). The token head's forward prints its rate
+   (TFLOP/s of its products) and its share of the bound per tap at B=128
+   and B=16; conv1x1 + statistics must take its TMA + wgmma path at every
+   bf16 trunk site shape.
 3. Eval slice: the flagship VQA model (EfficientNetV2-M + RealFormer, hidden
    768, 4 layers, T=28, 224 px) with seeded random weights answers batches
    of 16 synthetic requests through ``make_vqa_eval_step``, in fp32 and in
@@ -38,13 +41,14 @@
    every loss finite, the last below the first; ms per step, images per
    second, peak memory. (c) The launch counters must show, per step, the
    token head 5x forward and 5x backward, the attention 4x and 4x, the
-   depthwise 3x3 42x and 42x, conv1x1 + statistics 98x and the BN-backward
-   sums 156x. (d) Where the time goes: forward, backward and optimizer by
-   CUDA events, the eight kernels, what is left of the library's batch-norm
-   and depthwise kernels, and the device's busy share by torch.profiler; a
+   depthwise 3x3 42x and 42x, conv1x1 + statistics 98x (all of them on its
+   TMA path) and the BN-backward sums 156x. (d) Where the time goes:
+   forward, backward and optimizer by CUDA events, the eight kernels, what
+   is left of the library's batch-norm and depthwise kernels, and the
+   device's busy share by torch.profiler; a
    library batch-norm kernel in the train step fails the run, and so does a
-   second pass (a reduce kernel) of the token head's or the depthwise
-   backward.
+   second pass (a reduce or finalize kernel) of the token head, forward or
+   backward, of the depthwise backward or of conv1x1 + statistics.
 
 Prints a JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -266,6 +270,12 @@ def k1_bound(B, P, K, C, itemsize, act, direction):
     return bound(2 * x + w + K * C * 4 + B * C * 4, 3 * products, sfu, name)
 
 
+def k1_fwd_rate(B, P, K, C, ms, bound_ms) -> str:
+    """The product's rate and the bound's share of the time."""
+    return (f"{2.0 * B * P * K * C / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * bound_ms / ms:.1f}% of the bound")
+
+
 def k1_bwd_rate(B, P, K, C, ms, bound_ms) -> str:
     """The three products' rate and the bound's share of the time."""
     return (f"{3 * 2.0 * B * P * K * C / ms / 1e9:.1f} TFLOP/s, "
@@ -350,7 +360,9 @@ def kernel_phase(torch):
     """Every kernel against its plain version. The summary times are at the
     train path's shapes, bf16 at B=TRAIN_B: the five taps summed for the
     token head, one layer at T=75 with prev and padded queries for the
-    attention."""
+    attention. The token head is timed as the trunk's kernels are: each call
+    finds its inputs in device memory and queues behind a sleeping device,
+    so that its time is the card's, not the host's."""
     from mmvqa_tpu_torch.models.visual_tokens import tap_positions
     from mmvqa_tpu_torch.ops.attention import (
         realformer_attention,
@@ -367,6 +379,7 @@ def kernel_phase(torch):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     results = {name: {"err": {torch.float32: 0.0, torch.bfloat16: 0.0},
                       "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                       "bounds": []}
@@ -406,11 +419,13 @@ def kernel_phase(torch):
         torch.cuda.synchronize()
         err = close(f"token_head {label}", got, want,
                     TOL_BF16 if bf16 else TOL_K1_F32)
-        ms = time_ms(lambda: fused_token_head(x, w, act), reps)
-        plain = time_ms(lambda: token_head_reference(x, w, act), reps)
+        ms = time_ms(lambda: fused_token_head(x, w, act), reps, flush=flush)
+        plain = time_ms(lambda: token_head_reference(x, w, act), reps,
+                        flush=flush)
         bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "fwd")
         print(f"token_head {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms"
-              f"  plain {plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+              f"  plain {plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})  "
+              f"{k1_fwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
         note("token_head", dtype, err, summary, ms, plain, bnd)
         del got, want
 
@@ -422,9 +437,11 @@ def kernel_phase(torch):
             fail(f"token_head_bwd {label}: two runs differ")
         e_dx, e_dw = check_k1_bwd(label, x, dx, dw, dx_p, dw_p)
         del dx, dx2, dw2, dx_p, dw_p
-        ms = time_ms(lambda: token_head_backward(x, w, gout, act), reps)
+        ms = time_ms(lambda: token_head_backward(x, w, gout, act), reps,
+                     flush=flush)
         plain = time_ms(
-            lambda: token_head_backward_reference(x, w, gout, act), reps)
+            lambda: token_head_backward_reference(x, w, gout, act), reps,
+            flush=flush)
         bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "bwd")
         print(f"token_head_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
               f"{e_dw:.3e}, two runs identical  kernel {ms:.4f} ms  plain "
@@ -453,9 +470,11 @@ def kernel_phase(torch):
             fail(f"token_head_bwd {label}: two runs differ")
         e_dx, e_dw = check_k1_bwd(label, x, dx, dw, dx_p, dw_p)
         del dx, dx2, dw2, dx_p, dw_p
-        ms = time_ms(lambda: token_head_backward(x, w, gout, act), 5)
+        ms = time_ms(lambda: token_head_backward(x, w, gout, act), 5,
+                     flush=flush)
         plain = time_ms(
-            lambda: token_head_backward_reference(x, w, gout, act), 5)
+            lambda: token_head_backward_reference(x, w, gout, act), 5,
+            flush=flush)
         bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "bwd")
         print(f"token_head_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
               f"{e_dw:.3e}, two runs identical  kernel {ms:.4f} ms  plain "
@@ -689,10 +708,15 @@ def trunk_kernel_phase(torch, results):
         return e_dx, e_dw
 
     def check_k4(label, x, w, bf16):
-        """y and the sums against the plain version, two runs bit for bit;
-        returns the errors and the largest plain sum."""
+        """y and the sums against the plain version, two runs bit for bit,
+        bf16 through the TMA path; returns the errors and the largest plain
+        sum."""
+        tma = conv1x1_stats.tma_launches
         y, st = conv1x1_stats(x, w)
         y2, st2 = conv1x1_stats(x, w)
+        if bf16 and conv1x1_stats.tma_launches != tma + 2:
+            fail(f"conv1x1_stats {label}: a trunk shape took the mma.sync "
+                 f"path")
         y_p, st_p = conv1x1_stats_reference(x, w)
         torch.cuda.synchronize()
         if not (torch.equal(y, y2) and torch.equal(st, st2)):
@@ -1070,6 +1094,7 @@ def _counters():
             ("depthwise3x3", depthwise3x3, "launches"),
             ("depthwise3x3_bwd", depthwise3x3, "backward_launches"),
             ("conv1x1_stats", conv1x1_stats, "launches"),
+            ("conv1x1_stats_tma", conv1x1_stats, "tma_launches"),
             ("bn_backward_sums", bn_backward_sums, "launches"))
 
 
@@ -1237,10 +1262,10 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
     print(f"train bf16 B={TRAIN_B}: traced {n} steps, wall {wall / n:.2f} "
           f"ms/step, device busy {busy / n:.2f} ms/step "
           f"({100 * busy / wall:.1f}%)")
-    ours = ("token_head_partial", "token_head_finalize", "token_head_bwd",
-            "realformer_attn_fwd",
+    ours = ("token_head_fwd_mma", "token_head_partial", "token_head_finalize",
+            "token_head_bwd", "realformer_attn_fwd",
             "realformer_attn_bwd", "depthwise3x3_fwd", "depthwise3x3_bwd",
-            "conv1x1_stats_bf16",
+            "conv1x1_stats_tma", "conv1x1_stats_bf16",
             "conv1x1_stats_reduce", "bn_backward_sums_kernel",
             "bn_backward_sums_reduce")
 
@@ -1270,12 +1295,14 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
     if bn:
         fail("a library batch-norm kernel ran in the train step: "
              + ", ".join(a.key[:60] for a in bn))
-    # the depthwise and token-head backwards add their dW partials themselves
-    second = [a.key for a in mine if ("depthwise" in a.key or "token_head" in
-                                      a.key) and "reduce" in a.key]
+    # the depthwise backward and the token head, both ways, and conv1x1 +
+    # statistics add their partials themselves
+    second = [a.key for a in mine if "reduce" in a.key and any(
+        t in a.key for t in ("depthwise", "token_head", "conv1x1"))
+              or "token_head_finalize" in a.key]
     if second:
-        fail(f"a second depthwise or token-head backward kernel ran in the "
-             f"train step: {second}")
+        fail(f"a second pass of the depthwise backward, the token head or "
+             f"conv1x1 + statistics ran in the train step: {second}")
     for a in kernels[:14]:
         print(f"  {a.self_device_time_total / 1e3 / n:9.4f} ms/step "
               f"{a.count // n:5d} calls  {a.key[:80]}")
@@ -1343,8 +1370,13 @@ def train_phase(torch):
                 "realformer_attention": cfg.n_layers,
                 "realformer_attention_bwd": cfg.n_layers,
                 "depthwise3x3": 42, "depthwise3x3_bwd": 42,
-                "conv1x1_stats": 98, "bn_backward_sums": 156}
+                "conv1x1_stats": 98, "conv1x1_stats_tma": 98,
+                "bn_backward_sums": 156}
     want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
+    other = launches["conv1x1_stats"] - launches["conv1x1_stats_tma"]
+    if other:
+        fail(f"train: {other} conv1x1 + statistics launches took the "
+             f"mma.sync path")
     if launches != want:
         fail(f"train launches {launches}, want {want}")
     copies = gradient_copies()

@@ -10,28 +10,46 @@
 // Layout: as the TPU kernel, x is the channels-last map flattened to rows,
 // (N, K) with K the unit-stride axis, and y is (N, C). W is read by strides:
 // the trunk hands over the convolution's (C, K) weight as its (K, C) view,
-// whose unit stride on K is what the tensor-core path wants for its "col"
-// operand; a dense (K, C) goes in as well.
+// K-major, which is what both tensor-core paths want for their B operand.
 //
-// What bounds it on an H100: at the MBConv sites (K and C from 160 to 3072)
-// operations, at the FusedMBConv sites (N = 401408, C = 48) bytes. So the
-// bf16 path is a tensor-core product: a block owns 128 rows and 128 (or 64)
-// columns, K is staged 32 deep through shared memory (rows padded to 40
-// halves, which makes every fragment load conflict-free) with the next
-// stage's loads in flight during the products, and each of 8 warps issues
-// mma.sync.m16n8k16 on a 32 x 64 (32 x 32) tile with fp32 accumulators. The
-// fp32 path is a register-tiled product on CUDA cores in full fp32, never
-// TF32: it is the path held against the CPU. K and C are ragged against the
-// tiles (176, 304, 1056, 1824): edges are zero-filled on the way into shared
-// memory and masked on the way out, and zero rows add nothing to the sums.
+// What bounds it on an H100: bytes at 15 of the flagship trunk's 18 site
+// shapes (32-250 operations a byte against the card's 295), operations at
+// the three with K or C of 1824 and 3072.
 //
-// The sums cross blocks (the TPU kernel carries them in scratch over a
-// sequential grid). A block walks over several row tiles and keeps the sums
-// of its columns: each thread adds its accumulators' columns, the rows of
-// a warp are added by shuffles and the warps in shared memory, all in a
-// fixed order; the block writes one (2, C) fp32 partial and a second kernel
-// adds the partials in block order. No float atomics: two runs give
-// identical bits.
+// bf16, TMA + wgmma (conv1x1_stats_tma_kernel; x dense with K % 8 = 0, W a
+// K-major view with its row stride a multiple of 8, C % 8 = 0, 16-byte
+// aligned bases: every site of the trunk). Persistent blocks, one an SM, each
+// owning a column tile of BN channels (64, 128 or 192: C <= 192 in one tile,
+// so that x is read once) and walking every nrb-th 192-row tile. One
+// producer thread feeds a ring of 4-6 stages through the Tensor Memory
+// Accelerator: a stage is a 192 x 64 box of x and a BN x 64 box of W,
+// 128-byte swizzled, K zero-filled past its end and rows past N too (zero
+// rows add nothing to the sums), full and empty mbarriers a stage. Three
+// consumer warpgroups (setmaxnreg gives them the registers) each issue
+// wgmma.mma_async.m64nBNk16 on their 64 rows, A and B from shared memory,
+// keeping one k-step's group in flight. The loads hold the kernel at most
+// shapes (tools/probe_conv_bn.py): W's box is staged again for every row
+// tile, so the rows a tile takes (three warpgroups' worth, not two) set how
+// often. The epilogue of a tile runs while the producer loads the next
+// tile's stages: the sums and the sums of squares of each column from the
+// fp32 accumulators, added over the 8 row lanes by a reduce-scatter of
+// shuffles and kept in registers across the block's tiles; y rounded to
+// bf16, staged per warp in 16 x 64 swizzled boxes and stored by TMA. At the
+// end the 12 warps' sums are added in order into the block's (2, BN)
+// partial, and the last block of each column tile (an atomicInc counter
+// that wraps to 0, one buffer a stream) adds the partials in block order:
+// one launch, no float atomics, two runs give identical bits.
+//
+// bf16, other shapes (conv1x1_stats_bf16_kernel): a block owns 128 rows and
+// 128 (or 64) columns, K staged 32 deep through shared memory by register
+// loads (rows padded to 40 halves), each of 8 warps issuing
+// mma.sync.m16n8k16 on a 32 x 64 (32 x 32) tile; a path chosen by shape,
+// as K3's element copies are. fp32: a register-tiled product on CUDA cores
+// in full fp32, never TF32: it is the path held against the CPU. Both walk
+// several row tiles a block, keep their columns' sums, write one (2, C)
+// partial a block, and a second kernel adds the partials in block order.
+#include <cuda.h>
+
 #include <cstdint>
 
 #include "common.cuh"
@@ -327,6 +345,429 @@ __global__ void conv1x1_stats_reduce_kernel(const float* __restrict__ part,
   sum_partials(part, out, n, nparts);
 }
 
+
+// -------------------------------------------------- bf16: TMA and wgmma ----
+namespace tma {
+
+constexpr int kConsumerGroups = 3;     // consumer warpgroups, 64 rows each
+constexpr int kBM = 64 * kConsumerGroups;  // rows of a tile
+constexpr int kBK = 64;                // k's of a stage: a 128-byte row
+constexpr int kConsumerThreads = 128 * kConsumerGroups;
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+constexpr int kThreads = 128 + kConsumerThreads;  // and the producer's
+// registers a thread of the producer warpgroup and of a consumer one, all
+// of the SM's 65536 between them: a consumer holds BN / 2 accumulators
+constexpr int kProducerRegs = 24, kConsumerRegs = 160;
+static_assert(128 * kProducerRegs + kConsumerThreads * kConsumerRegs <= 65536,
+              "registers");
+constexpr int kYBox = 64;              // columns of a y store box: 128 bytes
+constexpr int kTileBytesA = kBM * kBK * 2;
+constexpr int kYWarpBytes = 16 * kYBox * 2;  // a warp's y box
+
+// Shared memory from a 1024-byte boundary (what the 128-byte swizzle's atoms
+// need): the ring's stages (x box, W box), a y box a consumer warp, full and
+// empty mbarriers a stage, the last-block flag; and 1024 bytes to find the
+// boundary in. At the end the ring holds the warps' (2, BN) sums.
+__host__ __device__ inline int smem_bytes(int bn, int stages) {
+  return 1024 + stages * (kTileBytesA + bn * kBK * 2) +
+         kConsumerWarps * kYWarpBytes + 2 * stages * 8 + 16;
+}
+
+// the wgmma descriptor of a K-major tile of 64-k rows (128 bytes each),
+// 128-byte swizzle: start address, leading byte offset 16 (unused by this
+// layout), 1024 bytes between groups of eight rows
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accesses of the accumulators across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " setp.ne.b32 p, %98, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  if constexpr (BN == 64) wgmma_n64(d, da, db, scale_d);
+  else if constexpr (BN == 128) wgmma_n128(d, da, db, scale_d);
+  else wgmma_n192(d, da, db, scale_d);
+}
+
+__device__ __forceinline__ void expect_tx(uint64_t* bar,
+                                          unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
+                                         int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void store_box(const CUtensorMap* map, int c0,
+                                          int c1, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// the y box's shared memory may be written again / every store is done
+__device__ __forceinline__ void stores_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void stores_done() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// One step of a reduce-scatter over the lanes `bit` apart: each keeps the
+// half of v[0, 2H) its bit selects, with its partner's copy added, in v[0, H).
+template <int H>
+__device__ __forceinline__ void halve(float* v, int lane, int bit) {
+  const bool up = lane & bit;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+  }
+}
+
+__device__ __forceinline__ void named_sync() {  // the consumer warpgroups
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
+}
+
+// grid (ceil(C / BN), nrb), block kThreads, one block an SM. Block (ct, r)
+// owns columns [ct * BN, + BN) of the row tiles r, r + nrb, ...
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv1x1_stats_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                             const __grid_constant__ CUtensorMap map_w,
+                             const __grid_constant__ CUtensorMap map_y,
+                             float* __restrict__ part,
+                             float* __restrict__ stats,
+                             unsigned* __restrict__ counter, int N, int K,
+                             int C, int stages) {
+  constexpr int kTileBytesB = BN * kBK * 2;
+  constexpr int R = BN / 2;  // accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  unsigned char* ring = base;
+  unsigned char* ybox = ring + stages * (kTileBytesA + kTileBytesB);
+  auto* full = reinterpret_cast<uint64_t*>(
+      ybox + kConsumerWarps * kYWarpBytes);
+  auto* empty = full + stages;
+  int* flag = reinterpret_cast<int*>(empty + stages);
+
+  const int ct = blockIdx.x, nrb = gridDim.y;
+  const int c0 = ct * BN;
+  const int mtiles = (N + kBM - 1) / kBM;
+  const int nkb = (K + kBK - 1) / kBK;
+  auto tile_a = [&](int s) { return ring + s * (kTileBytesA + kTileBytesB); };
+  auto tile_b = [&](int s) { return tile_a(s) + kTileBytesA; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- the producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      int i = 0;
+      for (int m = blockIdx.y; m < mtiles; m += nrb) {
+        for (int kb = 0; kb < nkb; ++kb, ++i) {
+          const int s = i % stages;
+          if (i >= stages) mbar_wait(&empty[s], (i / stages - 1) & 1);
+          expect_tx(&full[s], kTileBytesA + kTileBytesB);
+          load_box(tile_a(s), &map_x, kb * kBK, m * kBM, &full[s]);
+          load_box(tile_b(s), &map_w, kb * kBK, c0, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups, 64 rows each
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int ctid = threadIdx.x - 128;
+  const int group = ctid / 128;            // rows [64 group, + 64) of a tile
+  const int cwarp = ctid / 32;
+  const int lane = ctid % 32;
+  const int lr = lane / 4, lc = (lane % 4) * 2;
+  const int g = lane / 4;                  // the reduce-scatter's slice
+  unsigned char* mybox = ybox + cwarp * kYWarpBytes;
+  // the running sums of this lane's slice of each 64 columns, across the
+  // block's tiles: values g * 4 .. g * 4 + 3 of the slice's 32 (below)
+  float run[BN / 64][4];
+#pragma unroll
+  for (int q = 0; q < BN / 64; ++q)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) run[q][k] = 0.0f;
+
+  int i = 0;
+  for (int m = blockIdx.y; m < mtiles; m += nrb) {
+    float acc[R];
+    for (int kb = 0; kb < nkb; ++kb, ++i) {
+      const int s = i % stages;
+      mbar_wait(&full[s], (i / stages) & 1);
+      const uint32_t a = smem_u32(tile_a(s)) + group * 64 * 128;
+      const uint32_t b = smem_u32(tile_b(s));
+      fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks)
+        wgmma<BN>(acc, desc(a + ks * 32), desc(b + ks * 32), kb + ks > 0);
+      commit();
+      if (kb > 0) {  // the previous stage's products are done
+        wait<1>();
+        mbar_arrive(&empty[(i - 1) % stages]);
+      }
+    }
+    wait<0>();
+    fence_operands(acc);
+    mbar_arrive(&empty[(i - 1) % stages]);
+
+    // ---- the epilogue, 64 columns at a time: the column sums of the warp's
+    // 16 rows into its running sums, then y through its box
+    const int row0 = m * kBM + group * 64 + (cwarp % 4) * 16;
+#pragma unroll
+    for (int q = 0; q < BN / 64; ++q) {
+      // v[stat * 16 + jj * 2 + e]: column q * 64 + jj * 8 + lc + e
+      float v[32];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float y0 = acc[(q * 8 + jj) * 4 + e];
+          const float y1 = acc[(q * 8 + jj) * 4 + 2 + e];
+          v[jj * 2 + e] = y0 + y1;
+          v[16 + jj * 2 + e] = fmaf(y0, y0, y1 * y1);
+        }
+      halve<16>(v, lane, 16);
+      halve<8>(v, lane, 8);
+      halve<4>(v, lane, 4);
+      // v[0, 4) is slice g: values g * 4 .. g * 4 + 3 of the 32
+#pragma unroll
+      for (int k = 0; k < 4; ++k) run[q][k] += v[k];
+
+      if (lane == 0) stores_read();  // the box's previous store has read it
+      __syncwarp();
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = lr + 8 * h;  // swizzled: 16-byte chunk jj ^ (r % 8)
+          *reinterpret_cast<__nv_bfloat162*>(
+              mybox + r * 128 + ((jj ^ (r % 8)) << 4) + lc * 2) =
+              __floats2bfloat162_rn(acc[(q * 8 + jj) * 4 + 2 * h],
+                                    acc[(q * 8 + jj) * 4 + 2 * h + 1]);
+        }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (lane == 0) store_box(&map_y, c0 + q * kYBox, row0, mybox);
+    }
+  }
+  if (lane == 0) stores_done();
+
+  // ---- the block's partial: the warps' sums, parked in the ring (every
+  // load has been consumed), added in warp order; then the last block of
+  // this column tile adds the partials in block order
+  float* red = reinterpret_cast<float*>(ring);  // [warp][2][BN]
+  named_sync();  // every warpgroup's products have read the ring
+#pragma unroll
+  for (int q = 0; q < BN / 64; ++q)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int o = g * 4 + k;
+      const int stat = o / 16, jj = (o % 16) / 2, e = o % 2;
+      red[(cwarp * 2 + stat) * BN + q * 64 + jj * 8 + lc + e] = run[q][k];
+    }
+  named_sync();
+  const long long cpad = (long long)gridDim.x * BN;
+  for (int j = ctid; j < 2 * BN; j += kConsumerThreads) {
+    const int stat = j / BN, c = j % BN;
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kConsumerWarps; ++w) s += red[(w * 2 + stat) * BN + c];
+    part[((long long)blockIdx.y * 2 + stat) * cpad + c0 + c] = s;
+  }
+  __threadfence();
+  named_sync();
+  if (ctid == 0)
+    *flag = atomicInc(&counter[ct], (unsigned)(nrb - 1)) == (unsigned)(nrb - 1);
+  named_sync();
+  if (!*flag) return;
+  __threadfence();
+  for (int j = ctid; j < 2 * BN; j += kConsumerThreads) {
+    const int stat = j / BN, c = j % BN;
+    if (c0 + c >= C) continue;
+    float s = 0.0f;
+    for (int r = 0; r < nrb; ++r)
+      s += __ldcg(&part[((long long)r * 2 + stat) * cpad + c0 + c]);
+    stats[(long long)stat * C + c0 + c] = s;
+  }
+}
+
+// A 2-D tensor map of a bf16 (rows, cols) matrix, cols the unit-stride
+// axis, rows `row_stride` elements apart, for boxes of (box_cols, box_rows),
+// 128-byte swizzle, zeros outside. False where the encoder refuses it.
+inline bool encode(CUtensorMap* map, const void* p, uint64_t cols,
+                   uint64_t rows, uint64_t row_stride, uint32_t box_cols,
+                   uint32_t box_rows) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_stride * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t ones[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The shared memory each column tile's kernel may use, asked for once: an
+// array of this file alone, so that copies of the library loaded side by
+// side (tools/probe_conv_bn.py) each ask for their own.
+static int tma_granted[3];
+
+template <int BN>
+cudaError_t launch(const CUtensorMap& mx, const CUtensorMap& mw,
+                   const CUtensorMap& my, float* part, float* stats,
+                   unsigned* counter, int N, int K, int C, int stages, int nrb,
+                   int smem, cudaStream_t s) {
+  auto kern = conv1x1_stats_tma_kernel<BN>;
+  int& granted = tma_granted[BN / 64 - 1];
+  if (smem > granted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+    granted = smem;
+  }
+  kern<<<dim3((C + BN - 1) / BN, nrb), kThreads, smem, s>>>(
+      mx, mw, my, part, stats, counter, N, K, C, stages);
+  return cudaGetLastError();
+}
+
+}  // namespace tma
+
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -334,8 +775,8 @@ inline bool aligned16(const void* p) {
 }  // namespace k4
 }  // namespace mmvqa
 
-// x: (N, K) dense; w: (K, C) by element strides (swk, swc); y: (N, C) dense;
-// all of one dtype. partial: (nrb, 2, C) fp32 scratch; stats: (2, C) fp32 out.
+// fp32, and bf16 shapes the TMA path does not take: x (N, K) dense; w (K, C)
+// by element strides (swk, swc); y (N, C) dense; all of one dtype. partial: (nrb, 2, C) fp32 scratch; stats: (2, C) fp32 out.
 // nrb blocks along the rows share the ceil(N / tile_m) row tiles, tile_m 128
 // for bf16 and 64 for fp32 (ops/conv_bn.py::launch_plan); nrb <= that count.
 extern "C" int conv1x1_stats(const void* x, int dtype, const void* w,
@@ -378,4 +819,48 @@ extern "C" int conv1x1_stats(const void* x, int dtype, const void* w,
   conv1x1_stats_reduce_kernel<<<reduce_blocks(n), kReduceThreads, 0, s>>>(
       part, static_cast<float*>(stats), n, nrb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16, the TMA path: x (N, K) dense; w (K, C) with unit stride on K and
+// `swc` elements between its columns; y (N, C) dense; K, C and swc multiples
+// of 8, every base 16-byte aligned. part: (nrb, 2, ceil(C / bn) * bn) fp32
+// scratch; stats: (2, C) fp32 out; counter: ceil(C / bn) unsigned ints, zero
+// on entry and on exit, one buffer a stream. The plan
+// (ops/conv_bn.py::tma_plan): bn channels a column tile (64, 128, 192),
+// stages of the ring, nrb blocks along the rows (no more than the row tiles
+// of 192), smem bytes.
+extern "C" int conv1x1_stats_tma(const void* x, const void* w, long long swc,
+                                 void* y, void* part, void* stats,
+                                 void* counter, int N, int K, int C, int bn,
+                                 int stages, int nrb, int smem,
+                                 void* stream) {
+  using namespace mmvqa;
+  using namespace mmvqa::k4;
+  const int mtiles = (N + tma::kBM - 1) / tma::kBM;
+  if (N < 1 || K < 8 || C < 8 || K % 8 || C % 8 || swc % 8 || swc < K ||
+      !aligned16(x) || !aligned16(w) || !aligned16(y) || stages < 2 ||
+      smem != tma::smem_bytes(bn, stages) || smem > 232448 || nrb < 1 ||
+      nrb > mtiles || nrb > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mw, my;
+  if (!tma::encode(&mx, x, K, N, K, tma::kBK, tma::kBM) ||
+      !tma::encode(&mw, w, K, C, swc, tma::kBK, bn) ||
+      !tma::encode(&my, y, C, N, C, tma::kYBox, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto p = static_cast<float*>(part);
+  auto st = static_cast<float*>(stats);
+  auto cnt = static_cast<unsigned*>(counter);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 64:
+      return tma::launch<64>(mx, mw, my, p, st, cnt, N, K, C, stages, nrb,
+                             smem, s);
+    case 128:
+      return tma::launch<128>(mx, mw, my, p, st, cnt, N, K, C, stages, nrb,
+                              smem, s);
+    case 192:
+      return tma::launch<192>(mx, mw, my, p, st, cnt, N, K, C, stages, nrb,
+                              smem, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,8 +23,8 @@
 //   kElements  where the rows are not 16-byte aligned no 16-byte copy is
 //              possible: element copies, every thread its share, cp.async of
 //              4 bytes for fp32, plain 2-byte loads for bf16, zeros outside.
-// The tensor map is encoded on the host per call; cuTensorMapEncodeTiled is
-// reached through cudaGetDriverEntryPoint, so the library links no -lcuda.
+// The tensor map is encoded on the host per call (common.cuh's
+// tensor_map_encoder).
 #pragma once
 
 #include <cuda.h>
@@ -103,32 +103,10 @@ __host__ __device__ inline int smem_bytes(const Plan& pl, int threads, int vec,
   return stages_bytes<T>(pl, threads, vec, backward) + 9 * pl.ct * 4 + 32;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // 4 bytes from global to shared memory, or 4 zero bytes where !in.
 __device__ __forceinline__ void cp_async(void* dst, const void* src, bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
-                   smem_addr(dst)),
+                   smem_u32(dst)),
                "l"(src), "r"(in ? 4 : 0)
                : "memory");
 }
@@ -138,9 +116,9 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
                                         int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_"
-      "tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_addr(dst)),
+      "tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(b),
-      "r"(smem_addr(bar))
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -190,7 +168,7 @@ __device__ __forceinline__ void issue_stage(
           halo_bytes<T>(pl) + (centre ? centre_bytes<T>(pl) : 0);
       asm volatile(
           "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-              smem_addr(bar)),
+              smem_u32(bar)),
           "r"(bytes)
           : "memory");
       tma_box(dst, hmap, bar, c0, w0 - 1, h0 - 1, b0);
@@ -236,8 +214,8 @@ __device__ __forceinline__ void load_taps(const TapWeights& w, float* taps,
 
 // One-time barrier set-up by thread 0 (kTma only); the caller synchronises.
 __device__ __forceinline__ void init_barriers(uint64_t* bar) {
-  mbar_init(&bar[0]);
-  mbar_init(&bar[1]);
+  mbar_init(&bar[0], 1);
+  mbar_init(&bar[1], 1);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
@@ -266,21 +244,8 @@ __device__ __forceinline__ void store_global(T* p, int c, int C,
 // refuses it (the wrapper then raises).
 inline bool encode_box_map(CUtensorMap* map, const void* base, int dtype,
                            const Plan& pl, int halo) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-      CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return false;
-    encode = reinterpret_cast<Encode>(fn);
-  }
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
   const cuuint64_t es = dtype == kBFloat16 ? 2 : 4;
   const cuuint64_t C = pl.C, W = pl.W, H = pl.H, B = pl.B;
   const cuuint64_t dims[4] = {C, W, H, B};

@@ -58,14 +58,13 @@
 // and its gradient go through as views with no transposing copy.
 #include <type_traits>
 
-#include "common.cuh"
+#include "token_head_tile.cuh"
 
 namespace mmvqa {
-namespace k1bwd {
+namespace k1 {
+namespace bwd {
 
 constexpr int kThreads = 256;  // a block of the fp32 kernel
-
-enum Act : int { kSerf = 0, kSerfFast = 1, kRelu = 2 };
 
 // derivative of the activation (mmvqa_tpu/ops/pallas_token_head.py::_act_grad)
 template <int ACT>
@@ -171,37 +170,8 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ part,
   }
 }
 
-struct Args {
-  const void* x;
-  long long sb, sp, sk;
-  const void* w;
-  const float* g;
-  void* dx;
-  long long dsb, dsp, dsk;
-  float* part;
-  float* dw;
-  unsigned* bar;
-  int B, P, K, C;
-  int tp;               // rows of a tile
-  int items_per_block;  // tiles of a block
-  int dx_tile;          // fp32: dx summed in shared memory (1) or in dx (0)
-};
-
-// element offset of row n (= b * P + p) in a (B, P, K) tensor of strides
-// (sb, sp)
-__device__ __forceinline__ long long row_offset(int n, int P, long long sb,
-                                                long long sp) {
-  const int b = n / P;
-  return b * sb + (long long)(n - b * P) * sp;
-}
-
 // ------------------------------------------------------- bf16: tensor cores
 
-constexpr int kChunkK = 32;    // k's of a stage
-constexpr int kChunkC = 128;   // channels of an s tile and of a dx stage
-constexpr int kXRow = kChunkK + 8;   // bf16 row stride of a staged x chunk:
-                                     // 80 bytes, eight rows on distinct banks
-constexpr int kWRow = kChunkC + 8;   // of a staged W chunk: 272 bytes
 constexpr int kMmaThreads = 512;     // a block of the bf16 kernel: 16 warps
 constexpr int kMmaWarps = kMmaThreads / 32;
 constexpr int kDwWarpC = 48;         // dW channels a warp holds in a pass
@@ -214,11 +184,6 @@ __host__ __device__ inline int gact_row(int C) {
 }
 
 constexpr int kRing = 6;  // stages of the streamed mode's ring
-
-// k's of the x tile the resident mode stages at once: K in 32s
-__host__ __device__ inline int resident_k(int K) {
-  return (K + kChunkK - 1) / kChunkK * kChunkK;
-}
 
 // g / P of the (at most) two images a row tile spans, cached in shared
 // memory: a row of C floats each, C in 4s
@@ -237,56 +202,6 @@ __host__ __device__ inline int mma_smem_bytes(int tp, int K, int C,
                              2 * tp * (resident_k(K) + 8)
                        : kRing * (tp * kXRow + kChunkK * kWRow);
   return 2 * (tp * gact_row(C) + ring) + tp * (8 + 4) + 4 * g_cache_floats(C);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1,
-                                        const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(unsigned& r0, unsigned& r1,
-                                          const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
-}
-
-// d += a b, one m16n8k16 product in bf16 with fp32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Warp layouts of the three products for a tile of TP rows.
@@ -332,80 +247,6 @@ __device__ __forceinline__ Stage decode(int i, int first, int n_cc,
   s.a = l - n_cc * n_kc;  // kt
   s.b = 0;
   return s;
-}
-
-// x[rows of tile `item`, k0 .. k0 + nk] into xs (row stride xld); zero past
-// the rows and past K.
-template <int TP>
-__device__ __forceinline__ void stage_x(const Args& a, __nv_bfloat16* xs,
-                                        int xld, int item, int k0, int nk,
-                                        bool vec) {
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const int N = a.B * a.P;
-  if (vec) {  // 16-byte copies: sk = 1, rows 16-byte aligned, K % 8 = 0
-    const int pieces = nk / 8;
-    for (int i = threadIdx.x; i < TP * pieces; i += kMmaThreads) {
-      const int r = i / pieces;
-      const int kk = (i % pieces) * 8;
-      const int n = item * TP + r;
-      const bool in = n < N && k0 + kk < a.K;
-      const __nv_bfloat16* src =
-          in ? x + row_offset(n, a.P, a.sb, a.sp) + k0 + kk : x;
-      cp_async16(xs + r * xld + kk, src, in);
-    }
-  } else {  // element copies, neighbouring threads on neighbouring addresses
-    for (int i = threadIdx.x; i < TP * nk; i += kMmaThreads) {
-      int r, kk;
-      if (a.sp == 1) {
-        kk = i / TP;
-        r = i % TP;
-      } else {
-        r = i / nk;
-        kk = i % nk;
-      }
-      const int n = item * TP + r;
-      const int k = k0 + kk;
-      xs[r * xld + kk] =
-          (n < N && k < a.K)
-              ? x[row_offset(n, a.P, a.sb, a.sp) + (long long)k * a.sk]
-              : __float2bfloat16(0.0f);
-    }
-  }
-}
-
-// W[k0 .. k0 + nk, c0 .. c0 + nc] into ws (row stride wld); zero past K
-// and C.
-__device__ __forceinline__ void stage_w(const Args& a, __nv_bfloat16* ws,
-                                        int wld, int k0, int nk, int c0,
-                                        int nc, bool vec) {
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
-  if (vec) {  // C % 8 = 0 and w 16-byte aligned
-    const int pieces = nc / 8;
-    for (int i = threadIdx.x; i < nk * pieces; i += kMmaThreads) {
-      const int kk = i / pieces;
-      const int cc = (i % pieces) * 8;
-      const int k = k0 + kk, c = c0 + cc;
-      const bool in = k < a.K && c < a.C;
-      cp_async16(ws + kk * wld + cc, in ? w + (long long)k * a.C + c : w, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < nk * nc; i += kMmaThreads) {
-      const int kk = i / nc;
-      const int cc = i % nc;
-      const int k = k0 + kk, c = c0 + cc;
-      ws[kk * wld + cc] = (k < a.K && c < a.C) ? w[(long long)k * a.C + c]
-                                               : __float2bfloat16(0.0f);
-    }
-  }
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // grid (nblocks), block kMmaThreads, launched cooperatively. Block j takes
@@ -703,10 +544,12 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 
   if constexpr (RESIDENT) {
     // W once; then one stage a row tile: its x, all K, one tile ahead
-    stage_w(a, wres, ldg, 0, kr, 0, n_cc * kChunkC, vec_w);
+    stage_w(a, wres, ldg, 0, kr, 0, n_cc * kChunkC, vec_w, threadIdx.x,
+            kMmaThreads);
     auto issue = [&](int i) {
       if (i < stages)
-        stage_x<TP>(a, ring + (i % 2) * sbuf, xld, first + i, 0, kr, vec_x);
+        stage_x<TP>(a, ring + (i % 2) * sbuf, xld, first + i, 0, kr, vec_x,
+                    threadIdx.x, kMmaThreads);
       commit();
     };
     issue(0);
@@ -740,14 +583,16 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
         __nv_bfloat16* xs = ring + (i % kRing) * sbuf;
         __nv_bfloat16* ws = xs + xbuf;
         if (st.phase == 0) {
-          stage_x<TP>(a, xs, kXRow, st.item, st.b * kChunkK, kChunkK, vec_x);
+          stage_x<TP>(a, xs, kXRow, st.item, st.b * kChunkK, kChunkK, vec_x,
+                      threadIdx.x, kMmaThreads);
           stage_w(a, ws, kWRow, st.b * kChunkK, kChunkK, st.a * kChunkC,
-                  kChunkC, vec_w);
+                  kChunkC, vec_w, threadIdx.x, kMmaThreads);
         } else if (st.phase == 1) {
           stage_w(a, ws, kWRow, st.a * kChunkK, kChunkK, st.b * kChunkC,
-                  kChunkC, vec_w);
+                  kChunkC, vec_w, threadIdx.x, kMmaThreads);
         } else {
-          stage_x<TP>(a, xs, kXRow, st.item, st.a * kChunkK, kChunkK, vec_x);
+          stage_x<TP>(a, xs, kXRow, st.item, st.a * kChunkK, kChunkK, vec_x,
+                      threadIdx.x, kMmaThreads);
         }
       }
       commit();
@@ -1141,15 +986,8 @@ cudaError_t for_kernel(int dtype, int act, int tp, int resident, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-template <typename K>
-cudaError_t allow_smem(K* kern, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) cudaGetLastError();  // must not fail the next call
-  return err;
-}
-
-}  // namespace k1bwd
+}  // namespace bwd
+}  // namespace k1
 }  // namespace mmvqa
 
 // Blocks of the backward kernel for (dtype, act, tp, mode) that an SM holds
@@ -1158,7 +996,8 @@ cudaError_t allow_smem(K* kern, int smem) {
 extern "C" int token_head_bwd_occupancy(int dtype, int act, int tp, int mode,
                                         int smem, int* blocks) {
   using namespace mmvqa;
-  using namespace mmvqa::k1bwd;
+  using namespace mmvqa::k1;
+  using namespace mmvqa::k1::bwd;
   return static_cast<int>(for_kernel(dtype, act, tp, mode, [&](auto kern) {
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
@@ -1184,7 +1023,8 @@ extern "C" int token_head_bwd(const void* x, int dtype, long long sb,
                               int act, int tp, int items_per_block,
                               int nblocks, int mode, int smem, void* stream) {
   using namespace mmvqa;
-  using namespace mmvqa::k1bwd;
+  using namespace mmvqa::k1;
+  using namespace mmvqa::k1::bwd;
   const int need = dtype == kFloat32 ? fma_smem_bytes(K, C, mode)
                                      : mma_smem_bytes(tp, K, C, mode);
   const long long items = ((long long)B * P + tp - 1) / tp;
@@ -1198,9 +1038,8 @@ extern "C" int token_head_bwd(const void* x, int dtype, long long sb,
          static_cast<unsigned*>(bar), B, P, K, C, tp, items_per_block,
          dtype == kFloat32 ? mode : 0};
   // 16-byte copies where every row of x (and W) starts on 16 bytes
-  int vec_x = sk == 1 && K % 8 == 0 && sp % 8 == 0 && sb % 8 == 0 &&
-              reinterpret_cast<size_t>(x) % 16 == 0;
-  int vec_w = C % 8 == 0 && reinterpret_cast<size_t>(w) % 16 == 0;
+  int vec_x = vec_x_ok(x, sb, sp, sk, K);
+  int vec_w = vec_w_ok(w, C);
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(for_kernel(dtype, act, tp, mode, [&](auto kern) {
     cudaError_t err = allow_smem(kern, smem);

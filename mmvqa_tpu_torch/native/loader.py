@@ -118,6 +118,24 @@ BWD_ARGTYPES = [
     _i, _i, _i, _i, _i,         # ops/token_head.py::BwdPlan
     _p,                         # stream
 ]
+FWD_ARGTYPES = [
+    _p, _ll, _ll, _ll,          # x, strides (b, p, k)
+    _p, _p, _p, _p,             # w, partials, out, counters
+    _i, _i, _i, _i, _i,         # B, P, K, C, act
+    _i, _i, _i, _i, _i, _i,     # ops/token_head.py::FwdPlan
+    _p,                         # stream
+]
+FWD_OCCUPANCY_ARGTYPES = [
+    _i, _i, _i,                 # act, mode, smem
+    ctypes.POINTER(_i),         # blocks an SM holds
+]
+TMA_ARGTYPES = [
+    _p, _p, _ll,                # x, w, w's column stride
+    _p, _p, _p, _p,             # y, partial, stats, tile counters
+    _i, _i, _i,                 # N, K, C
+    _i, _i, _i, _i,             # ops/conv_bn.py::TmaPlan
+    _p,                         # stream
+]
 BWD_OCCUPANCY_ARGTYPES = [
     _i, _i, _i, _i, _i,         # dtype, act, tile rows, mode, smem
     ctypes.POINTER(_i),         # blocks an SM holds
@@ -135,6 +153,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         _i, _i,                     # chunk, nchunks
         _p,                         # stream
     ]
+    lib.token_head_fwd_mma.restype = _i
+    lib.token_head_fwd_mma.argtypes = FWD_ARGTYPES
+    lib.token_head_fwd_occupancy.restype = _i
+    lib.token_head_fwd_occupancy.argtypes = FWD_OCCUPANCY_ARGTYPES
     lib.token_head_bwd.restype = _i
     lib.token_head_bwd.argtypes = BWD_ARGTYPES
     lib.token_head_bwd_occupancy.restype = _i
@@ -192,6 +214,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         _i, _i, _i, _i,             # N, K, C, nrb
         _p,                         # stream
     ]
+    lib.conv1x1_stats_tma.restype = _i
+    lib.conv1x1_stats_tma.argtypes = TMA_ARGTYPES
     lib.bn_backward_sums.restype = _i
     lib.bn_backward_sums.argtypes = [
         _p, _p, _i,                 # x, dy, dtype

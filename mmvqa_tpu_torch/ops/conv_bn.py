@@ -1,9 +1,12 @@
 """K4: a 1x1 convolution that returns the BatchNorm statistics of its output
 from the same pass.
 
-Counterpart of mmvqa_tpu/ops/pallas_conv_bn.py. The CUDA kernel is
-``csrc/conv1x1_stats.cu``; this module holds its wrapper, the
-``torch.autograd.Function`` around it and its plain PyTorch version.
+Counterpart of mmvqa_tpu/ops/pallas_conv_bn.py. The CUDA kernels are in
+``csrc/conv1x1_stats.cu``: in bf16 a TMA-fed ``wgmma`` kernel for the shapes
+its tensor maps take (every site of the trunk; ``takes_tma``) and an
+``mma.sync`` kernel for the rest, in fp32 a CUDA-core kernel. This module
+holds their launch plans, the wrapper, the ``torch.autograd.Function``
+around it and the plain PyTorch version.
 
 Layout, as the JAX function: ``x`` is (N, K), the channels-last map
 flattened to rows, ``w`` is (K, C), ``y`` is (N, C), ``stats`` is fp32 (2, C)
@@ -27,7 +30,8 @@ version, a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,6 +40,22 @@ from mmvqa_tpu_torch.ops import tiling
 
 TILE_M = {torch.bfloat16: 128, torch.float32: 64}  # kBM, kFM of the source
 BLOCKS_PER_SM = 4  # two resident, two waves
+
+# the TMA path (k4::tma in the source)
+TMA_TILE_N = (64, 128, 192)  # column tiles a kernel is built for
+TMA_TILE_M = 192             # kBM: rows of a tile, three warpgroups of 64
+TMA_WARPS = 12               # kConsumerWarps
+TMA_STAGES = (6, 5, 4)       # the ring, the deepest that fits
+SMEM_LIMIT = 232448          # shared memory one block can have
+
+
+class TmaPlan(NamedTuple):
+    """The TMA launch; the fields in the order of the C entry point's plan
+    arguments."""
+    bn: int      # channels of a column tile
+    stages: int  # of the ring
+    nrb: int     # blocks along the rows, each walking every nrb-th row tile
+    smem: int    # dynamic shared memory, bytes
 
 
 def _tile_n(dtype: torch.dtype, C: int) -> int:
@@ -58,6 +78,67 @@ def launch_plan(N: int, K: int, C: int, dtype: torch.dtype, sms: int) -> int:
     if nrb > 65535:
         raise ValueError(f"conv1x1_stats: grid too large for N={N}, C={C}")
     return nrb
+
+
+def tma_smem_bytes(bn: int, stages: int) -> int:
+    """k4::tma::smem_bytes: 1024 bytes to reach a 1024-byte boundary, the
+    ring's stages (a 192 x 64 x box and a bn x 64 W box, bf16), a 16 x 64 y
+    box for each of the 12 consumer warps, two mbarriers a stage, the
+    last-block flag."""
+    return (1024 + stages * (TMA_TILE_M * 64 * 2 + bn * 64 * 2)
+            + TMA_WARPS * 16 * 64 * 2 + 2 * stages * 8 + 16)
+
+
+def tma_tile_n(C: int) -> int:
+    """The column tile for C: the least padded width weighed by how often x
+    is staged again (a tile of bn columns stages a row tile's x once for
+    every bn of them, 64 more bytes of products a column at bn = 64), the
+    wider tile on a tie: one tile wherever C <= 192."""
+    def cost(bn):  # tiles * bn * (1 + 64 / bn), then the fewer tiles
+        tiles = tiling.cdiv(C, bn)
+        return tiles * (bn + 64), tiles
+    return min(TMA_TILE_N, key=cost)
+
+
+def tma_plan(N: int, K: int, C: int, sms: int) -> TmaPlan:
+    """One persistent block an SM (each takes more than half an SM's shared
+    memory): the column tiles share the SMs, and the blocks of a column
+    tile walk its row tiles in turn. Where ``tma_tile_n``'s tiles would leave
+    more than a quarter of the SMs idle (few row tiles: N = 6272, C = 304),
+    narrower ones that fill more of them are taken."""
+    if min(N, K, C) < 1:
+        raise ValueError(f"conv1x1_stats: empty shape N={N} K={K} C={C}")
+    if max(N, K, C) > 2**31 - 1 - TMA_TILE_M:
+        raise ValueError(f"conv1x1_stats: N={N} K={K} C={C} beyond int32")
+    mtiles = tiling.cdiv(N, TMA_TILE_M)
+
+    def nrb(bn):  # blocks along the rows
+        return max(1, min(mtiles, sms // tiling.cdiv(C, bn), 65535))
+
+    def blocks(bn):
+        return tiling.cdiv(C, bn) * nrb(bn)
+
+    bn = tma_tile_n(C)
+    while bn > TMA_TILE_N[0] and 4 * blocks(bn) < 3 * sms:
+        narrower = TMA_TILE_N[TMA_TILE_N.index(bn) - 1]
+        if blocks(narrower) <= blocks(bn):
+            break
+        bn = narrower
+    stages = next(s for s in TMA_STAGES if tma_smem_bytes(bn, s) <= SMEM_LIMIT)
+    return TmaPlan(bn, stages, nrb(bn), tma_smem_bytes(bn, stages))
+
+
+def takes_tma(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether a bf16 call takes the TMA path, by shape and alignment alone:
+    x dense with K a multiple of 8, w (K, C) K-major (unit stride on K) with
+    its columns a multiple of 8 elements apart, C a multiple of 8, both
+    bases on 16 bytes. Everything else takes the mma.sync kernel."""
+    K, C = w.shape
+    return (x.dtype == torch.bfloat16 and x.is_contiguous()
+            and K % 8 == 0 and C % 8 == 0
+            and w.stride(0) == 1 and w.stride(1) % 8 == 0
+            and w.stride(1) >= K
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def _sums(yf: torch.Tensor) -> torch.Tensor:
@@ -95,11 +176,43 @@ def conv1x1_stats_backward(
     return dx, dw
 
 
+# the TMA kernel's last-block counters, one a column tile
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_TMA_PLANS: Dict[tuple, TmaPlan] = {}
+
+
+def _launch_tma(x: torch.Tensor, w: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    N, K = x.shape
+    C = w.shape[1]
+    key = (x.device, N, K, C)  # made once a shape: a call's host time counts
+    plan = _TMA_PLANS.get(key)
+    if plan is None:
+        plan = _TMA_PLANS[key] = tma_plan(N, K, C, tiling.sm_count(x))
+    ctiles = tiling.cdiv(C, plan.bn)
+    y = torch.empty((N, C), device=x.device, dtype=x.dtype)
+    part = torch.empty((plan.nrb, 2, ctiles * plan.bn), device=x.device,
+                       dtype=torch.float32)
+    stats = torch.empty((2, C), device=x.device, dtype=torch.float32)
+    ptr = loader.ptr
+    stream = tiling.current_stream(x.device)
+    code = loader.library().conv1x1_stats_tma(
+        ptr(x), ptr(w), w.stride(1), ptr(y), ptr(part), ptr(stats),
+        ptr(tiling.stream_counters(_COUNTERS, x.device, stream, ctiles)),
+        N, K, C, *plan, ctypes.c_void_p(stream))
+    loader.check(code, "conv1x1_stats_tma")
+    return y, stats
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     loader.require_cuda("conv1x1_stats", x, w)
     if w.dtype != x.dtype:
         raise ValueError(f"conv1x1_stats: x is {x.dtype}, w is {w.dtype}")
     tiling.require_dense("conv1x1_stats", x)
+    if takes_tma(x, w):
+        out = _launch_tma(x, w)
+        conv1x1_stats.tma_launches += 1
+        return out
     N, K = x.shape
     C = w.shape[1]
     nrb = launch_plan(N, K, C, x.dtype, tiling.sm_count(x))
@@ -157,4 +270,5 @@ def conv1x1_stats(x: torch.Tensor,
     return _forward(x, w)
 
 
-conv1x1_stats.launches = 0
+conv1x1_stats.launches = 0      # every launch, of any path
+conv1x1_stats.tma_launches = 0  # those of the TMA path

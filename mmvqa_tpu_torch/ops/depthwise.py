@@ -114,21 +114,8 @@ def _weight_rows(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(9, w.shape[2])
 
 
+# the backward's last-block counters, one a channel tile
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
-    """The backward's per-channel-tile arrival counters for the current
-    stream on ``device``: zero between calls (the last block of a tile wraps
-    its counter back to 0), so they are made once. One buffer a stream:
-    calls in one stream run one after the other, calls on two streams could
-    run at once and must not count into one buffer."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
-    return buf
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -163,12 +150,14 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor,
     part = torch.empty((tiling.depthwise_partials(plan), 9, C),
                        device=x.device, dtype=torch.float32)
     dw = torch.empty((3, 3, C), device=x.device, dtype=torch.float32)
-    counter = _tile_counters(x.device, tiling.depthwise_grid(plan, C)[0])
+    stream = tiling.current_stream(x.device)
+    counter = tiling.stream_counters(_COUNTERS, x.device, stream,
+                                     tiling.depthwise_grid(plan, C)[0])
     ptr = loader.ptr
     code = loader.library().depthwise3x3_bwd(
         ptr(x), loader.DTYPE_CODES[x.dtype], ptr(dy), ptr(w9),
         loader.DTYPE_CODES[w9.dtype], *w9.stride(), ptr(dx), ptr(part),
-        ptr(dw), ptr(counter), B, H, W, C, *plan, loader.stream_ptr())
+        ptr(dw), ptr(counter), B, H, W, C, *plan, ctypes.c_void_p(stream))
     loader.check(code, "depthwise3x3_bwd")
     return dx, dw
 

@@ -15,7 +15,7 @@ into ``nrb`` blocks of ``rows_per_block``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -206,3 +206,25 @@ def laid_out_as(t: torch.Tensor, x: torch.Tensor) -> bool:
 
 def sm_count(t: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of the current stream on ``device``, asked once a call: the
+    kernels launch on it and keep their counters by it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def stream_counters(store: Dict[Tuple[torch.device, int], torch.Tensor],
+                    device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters for ``stream`` on ``device``, kept in
+    ``store``: zero between calls (the kernel that counts in them sets each
+    back to 0 before it ends), so they are made once and grown where a call
+    needs more. One buffer a stream: calls in one stream run one after the
+    other, calls on two streams could run at once and must not count into
+    one buffer."""
+    key = (device, stream)
+    buf = store.get(key)
+    if buf is None or buf.numel() < n:
+        buf = store[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                       device=device)
+    return buf

@@ -1,9 +1,11 @@
 """K1: the fused visual-token head, ``mean_p act(x @ W)``.
 
 Counterpart of mmvqa_tpu/ops/pallas_token_head.py. The CUDA kernels are
-``csrc/token_head.cu`` (forward) and ``csrc/token_head_bwd.cu`` (backward);
-this module holds their launch plans, their wrappers, the
-``torch.autograd.Function`` that joins them, and their plain PyTorch versions.
+``csrc/token_head.cu`` (forward: the bf16 kernel on the tensor cores, the
+fp32 one on CUDA cores) and ``csrc/token_head_bwd.cu`` (backward), with the
+bf16 tile machinery of both in ``csrc/token_head_tile.cuh``; this module
+holds their launch plans, their wrappers, the ``torch.autograd.Function``
+that joins them, and their plain PyTorch versions.
 
 The wrappers route by where the input lies: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. There is no other
@@ -26,6 +28,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from mmvqa_tpu_torch.native import loader
+from mmvqa_tpu_torch.ops import tiling
 from mmvqa_tpu_torch.ops.activations import (
     SERF_CLAMP,
     SERF_P5,
@@ -40,6 +43,15 @@ TILE_C = 128              # kTileC: output channels per block
 BLOCKS_PER_SM = 3         # kMinBlocks: the register cap fits three per SM
 WAVES = 4                 # blocks in flight per SM slot; one wave measured
                           # slower (PERF.md)
+# the bf16 forward (k1::fwd in csrc/token_head.cu)
+FWD_TILE_C = 256          # kTileC: channels of a block
+FWD_RESIDENT_K = 96       # kResidentK: W resident in shared memory up to K
+FWD_STAGES = 4            # kStages: the ring
+FWD_WLD = FWD_TILE_C + 8  # kWld: row stride of staged W
+FWD_STREAM_ROWS = 32      # kStreamRows: rows of a tile where W streams
+# k1::fwd::Mode: W streamed with x through the ring; resident in shared
+# memory; resident and its fragments held in registers (K <= 32)
+FWD_STREAMED, FWD_W_SHARED, FWD_W_REGISTERS = 0, 1, 2
 SMEM_LIMIT = 232448       # shared memory one block can have on an H100
 SMEM_PER_SM = 233472      # an SM's, of which each block reserves 1 KB
 # (rows of a tile, W resident) of the bf16 backward, the first that fits:
@@ -52,6 +64,18 @@ BARRIER_WORDS = 2         # the backward's arrival and departure counters
 class Plan(NamedTuple):
     chunk: int     # positions per block, a multiple of TILE_P
     nchunks: int   # blocks along P
+
+
+class FwdPlan(NamedTuple):
+    """The bf16 forward launch; the fields in the order of the C entry
+    point's plan arguments."""
+    tp: int         # rows (of the B * P positions) a tile
+    per_block: int  # consecutive tiles a block walks
+    nblocks: int    # blocks along the rows (times ceil(C / 256) channel tiles)
+    mode: int       # how W reaches the products: FWD_STREAMED,
+                    # FWD_W_SHARED or FWD_W_REGISTERS
+    slots: int      # images a block's partial holds: the most it can span
+    smem: int       # dynamic shared memory, bytes
 
 
 class BwdPlan(NamedTuple):
@@ -70,8 +94,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def launch_plan(B: int, P: int, K: int, C: int, sms: int) -> Plan:
-    """How the launch cuts P on a card with ``sms`` multiprocessors; raises
-    for shapes the grid cannot take.
+    """How the fp32 forward's launch cuts P on a card with ``sms``
+    multiprocessors; raises for shapes the grid cannot take.
 
     A block owns one batch row, TILE_C channels and one chunk of positions;
     P is cut into enough chunks to fill every SM's BLOCKS_PER_SM slots
@@ -87,6 +111,59 @@ def launch_plan(B: int, P: int, K: int, C: int, sms: int) -> Plan:
     if B > 2**31 - 1 or c_tiles > 65535 or nchunks > 65535:
         raise ValueError(f"token head: grid too large for B={B}, P={P}, C={C}")
     return Plan(chunk, nchunks)
+
+
+def resident_k(K: int) -> int:
+    """resident_k in csrc/token_head_tile.cuh: K in 32s."""
+    return _cdiv(K, 32) * 32
+
+
+def fwd_smem_bytes(K: int, resident: bool) -> int:
+    """k1::fwd::smem_bytes in csrc/token_head.cu: W (resident: K in 32s x
+    264 channels), the ring's four stages (resident: a 64-row x tile, all K
+    and 8 more; streamed: a 32 x 32 x chunk in rows of 40 and a 32 x 256 W
+    chunk in rows of 264), the full and empty mbarriers, the last-block
+    flag."""
+    if resident:
+        w, stage = resident_k(K) * FWD_WLD, 64 * (resident_k(K) + 8)
+    else:
+        w, stage = 0, FWD_STREAM_ROWS * 40 + 32 * FWD_WLD
+    return 2 * (w + FWD_STAGES * stage) + 2 * FWD_STAGES * 8 + 16
+
+
+def forward_tile(K: int) -> Tuple[int, int, int]:
+    """(rows a tile, mode, dynamic shared memory) of the bf16 forward: W
+    stays in shared memory for the narrow taps (K up to 96), its fragments
+    in registers too where K <= 32, and a tile is 64 rows; else W streams
+    with x through the ring, 32 rows a tile."""
+    kr = resident_k(K)
+    mode = (FWD_STREAMED if kr > FWD_RESIDENT_K
+            else FWD_W_REGISTERS if kr == 32 else FWD_W_SHARED)
+    resident = mode != FWD_STREAMED
+    return ((64 if resident else FWD_STREAM_ROWS), mode,
+            fwd_smem_bytes(K, resident))
+
+
+def forward_plan(B: int, P: int, K: int, C: int, sms: int,
+                 slots: int) -> FwdPlan:
+    """How the bf16 forward shares the ``ceil(B * P / tp)`` row tiles among
+    ``nblocks`` blocks of ``per_block`` consecutive tiles for each of the
+    ``ceil(C / 256)`` channel tiles: one wave on a card of ``sms``
+    multiprocessors that hold ``slots`` such blocks each (the wrapper asks
+    the card). A block's rows may span several images; ``slots`` of the
+    plan is the most it can span, the images of its partial."""
+    if min(B, P, K, C) < 1:
+        raise ValueError(f"token head: empty shape B={B} P={P} K={K} C={C}")
+    if slots < 1:
+        raise ValueError(f"token head forward: {slots} blocks an SM")
+    tp, mode, smem = forward_tile(K)
+    items = _cdiv(B * P, tp)
+    per_block = _cdiv(items, max(1, slots * sms // _cdiv(C, FWD_TILE_C)))
+    nblocks = _cdiv(items, per_block)
+    if B * P >= 2**31 or nblocks > 65535:
+        raise ValueError(f"token head: grid too large for B={B}, P={P}")
+    images = min(B, (per_block * tp - 1) // P + 2)
+    return FwdPlan(tp, per_block, nblocks, mode, images, smem)
 
 
 def mma_smem_bytes(tp: int, K: int, C: int, resident: bool) -> int:
@@ -218,10 +295,58 @@ def _sms(x: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
+_FWD_PLANS: Dict[tuple, FwdPlan] = {}
+# the bf16 forward's last-block counters, one an (image, channel tile)
+_FWD_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _forward_plan(x: torch.Tensor, K: int, C: int, act: str) -> FwdPlan:
+    """The plan with the blocks an SM of this card holds (asked of the
+    card), made once per device, act and shape: a call's host time counts
+    where the card finishes a small call sooner than the host issues it."""
+    B, P = x.shape[0], x.shape[1]
+    key = (x.device, act, B, P, K, C)
+    plan = _FWD_PLANS.get(key)
+    if plan is None:
+        _, mode, smem = forward_tile(K)
+        n = ctypes.c_int(0)
+        loader.check(loader.library().token_head_fwd_occupancy(
+            ACTS[act], mode, smem, ctypes.byref(n)),
+            "token_head_fwd occupancy")
+        if n.value < 1:
+            raise RuntimeError(f"token head forward: no block with {smem} "
+                               "bytes of shared memory fits an SM")
+        plan = _FWD_PLANS[key] = forward_plan(B, P, K, C, _sms(x), n.value)
+    return plan
+
+
+def _launch_mma(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
+    """The bf16 forward: one kernel, its sums across blocks inside it."""
+    B, P, K = x.shape
+    C = w.shape[1]
+    plan = _forward_plan(x, K, C, act)
+    w = w.contiguous()
+    ctiles = _cdiv(C, FWD_TILE_C)
+    part = torch.empty((plan.nblocks, plan.slots, ctiles * FWD_TILE_C),
+                       device=x.device, dtype=torch.float32)
+    out = torch.empty((B, C), device=x.device, dtype=x.dtype)
+    stream = tiling.current_stream(x.device)
+    counter = tiling.stream_counters(_FWD_COUNTERS, x.device, stream,
+                                     B * ctiles)
+    ptr = loader.ptr
+    code = loader.library().token_head_fwd_mma(
+        ptr(x), *x.stride(), ptr(w), ptr(part), ptr(out), ptr(counter),
+        B, P, K, C, ACTS[act], *plan, ctypes.c_void_p(stream))
+    loader.check(code, "token_head_fwd_mma")
+    return out
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
     B, P, K = x.shape
     C = w.shape[1]
     _check_launch("fused_token_head", x, w)
+    if x.dtype == torch.bfloat16:
+        return _launch_mma(x, w, act)
     plan = launch_plan(B, P, K, C, _sms(x))
     w = w.contiguous()
     partial = torch.empty((B, plan.nchunks, C), device=x.device,
@@ -242,6 +367,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
 
 
 _BWD_SLOTS: Dict[tuple, int] = {}
+# the backward's barrier: arrivals and departures (the first two counters)
 _BARRIERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -264,19 +390,6 @@ def _backward_plan(x: torch.Tensor, K: int, C: int, act: str) -> BwdPlan:
     return backward_plan(B, P, K, C, x.element_size(), _sms(x), slots)
 
 
-def _barrier(device: torch.device) -> torch.Tensor:
-    """The backward's two barrier counters for the current stream on
-    ``device``: zero between calls (the kernel sets both back), so they are
-    made once. One pair a stream: calls in one stream run one after the
-    other, calls on two streams could run at once."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    buf = _BARRIERS.get(key)
-    if buf is None:
-        buf = _BARRIERS[key] = torch.zeros(BARRIER_WORDS, dtype=torch.int32,
-                                           device=device)
-    return buf
-
-
 def _launch_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                      act: str) -> Tuple[torch.Tensor, torch.Tensor]:
     B, P, K = x.shape
@@ -297,10 +410,13 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
 
+    stream = tiling.current_stream(x.device)
     code = loader.library().token_head_bwd(
         ptr(x), loader.DTYPE_CODES[x.dtype], *x.stride(), ptr(w), ptr(g),
-        ptr(dx), *dx.stride(), ptr(part), ptr(dw), ptr(_barrier(x.device)),
-        B, P, K, C, ACTS[act], *plan, loader.stream_ptr(),
+        ptr(dx), *dx.stride(), ptr(part), ptr(dw),
+        ptr(tiling.stream_counters(_BARRIERS, x.device, stream,
+                                   BARRIER_WORDS)),
+        B, P, K, C, ACTS[act], *plan, ctypes.c_void_p(stream),
     )
     loader.check(code, "token_head_bwd")
     return dx, dw

@@ -6,11 +6,13 @@
 Builds copies of ``csrc/token_head_bwd.cu`` with one part of the bf16
 kernel cut out, each into its own library under ``mmvqa_tpu_torch/_build/``
 (all ``nvcc`` processes started together), and times each copy (CUDA events,
-median of 10) at three flagship taps at B=128: stage 0 (K=24) and stage 1
-(K=48), where W is resident in shared memory, and stage 6 (K=512), where W
-streams through the ring; with SERF's bf16 polynomial and with ReLU. The
-cut copies compute wrong gradients: their times only say what the cut part
-costs when the rest stays. The copies:
+median of 10, each call queued behind a sleeping device) at three flagship
+taps at B=128: stage 0 (K=24) and stage 1 (K=48), where W is resident in
+shared memory, and stage 6 (K=512), where W streams through the ring; with
+SERF's bf16 polynomial and with ReLU. The cut copies compute wrong
+gradients: their times only say what the cut part costs when the rest
+stays. ``build_copies`` and ``time_ms`` serve the forward's and conv1x1 +
+statistics' probes too. The copies:
 
     base         the kernel as it is
     no_act       s's epilogue without act'(s): gact = s g / P
@@ -92,12 +94,74 @@ CUTS = {
 }
 
 
-def variant_source(src: str, name: str) -> str:
-    for old, new in TRIM + CUTS[name]:
+def cut(src: str, name: str, edits) -> str:
+    """``src`` with each (old, new) of ``edits`` applied; each ``old`` must
+    occur exactly once."""
+    for old, new in edits:
         if src.count(old) != 1:
             raise RuntimeError(f"{name}: the source no longer has {old!r}")
         src = src.replace(old, new)
     return src
+
+
+def build_copies(source: str, variants, bind):
+    """Copies of ``csrc/<source>`` edited by each variant's (old, new) pairs
+    ({name: edits}), built into libraries of their own beside a copy of the
+    headers (all nvcc processes started together) under
+    ``mmvqa_tpu_torch/_build/``; returns ({name: library, bound by
+    ``bind``}, the work directory)."""
+    from mmvqa_tpu_torch.native import loader
+
+    with open(os.path.join(loader.CSRC_DIR, source)) as f:
+        src = f.read()
+    os.makedirs(loader.BUILD_ROOT, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="probe_", dir=loader.BUILD_ROOT)
+    for header in os.listdir(loader.CSRC_DIR):
+        if header.endswith(".cuh"):
+            shutil.copy(os.path.join(loader.CSRC_DIR, header), work)
+    nvcc = loader.find_nvcc()
+
+    def build(name):
+        cu = os.path.join(work, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(cut(src, name, variants[name]))
+        so = os.path.join(work, f"{name}.so")
+        proc = subprocess.run([nvcc, *loader.NVCC_FLAGS, "-shared", "-o", so,
+                               cu], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
+        lib = ctypes.CDLL(so)
+        bind(lib)
+        return name, lib
+
+    with ThreadPoolExecutor(len(variants)) as ex:
+        return dict(ex.map(build, variants)), work
+
+
+def time_ms(torch, fn, reps=10):
+    """Median of ``reps`` CUDA-event times of ``fn`` after three warm-ups,
+    each call queued behind a sleeping device, so that the time is the
+    card's and not the host's."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(200_000)  # about 0.1 ms: longer than a launch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
 
 
 def main() -> None:
@@ -110,55 +174,23 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
+    card = card_line()
     print(card)
-    with open(os.path.join(loader.CSRC_DIR, "token_head_bwd.cu")) as f:
-        src = f.read()
-    os.makedirs(loader.BUILD_ROOT, exist_ok=True)
-    work = tempfile.mkdtemp(prefix="probe_", dir=loader.BUILD_ROOT)
-    shutil.copy(os.path.join(loader.CSRC_DIR, "common.cuh"), work)
-    nvcc = loader.find_nvcc()
 
-    def build(name):
-        cu = os.path.join(work, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(variant_source(src, name))
-        so = os.path.join(work, f"{name}.so")
-        proc = subprocess.run([nvcc, *loader.NVCC_FLAGS, "-shared", "-o", so,
-                               cu], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
-        lib = ctypes.CDLL(so)
+    def bind(lib):
         lib.token_head_bwd.restype = ctypes.c_int
         lib.token_head_bwd.argtypes = loader.BWD_ARGTYPES
         lib.token_head_bwd_occupancy.restype = ctypes.c_int
         lib.token_head_bwd_occupancy.argtypes = loader.BWD_OCCUPANCY_ARGTYPES
-        return name, lib
 
-    with ThreadPoolExecutor(len(CUTS)) as ex:
-        libs = dict(ex.map(build, CUTS))
+    libs, work = build_copies(
+        "token_head_bwd.cu", {name: TRIM + edits for name, edits in CUTS.items()},
+        bind)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bar = torch.zeros(th.BARRIER_WORDS, dtype=torch.int32, device=dev)
-
-    def time_ms(fn, reps=10):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
@@ -189,7 +221,7 @@ def main() -> None:
                         HIDDEN, th.ACTS[act], *plan, loader.stream_ptr()),
                         name)
 
-                line.append(f"{name} {time_ms(call):.4f}")
+                line.append(f"{name} {time_ms(torch, call):.4f}")
                 del part
             print(f"{tap} B={B} P={P} K={K} {act} ms: " + "; ".join(line),
                   flush=True)

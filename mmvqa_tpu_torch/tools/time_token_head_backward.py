@@ -5,8 +5,10 @@
 
 Imports ``mmvqa_tpu_torch`` from CHECKOUT (default: the checkout this file
 lies in), builds its kernels, checks the backward against the plain version at
-B=16 and prints the kernel's time (CUDA events, median of 10) at the five
-flagship taps for bf16 and fp32 at B=128 and B=16, each with its sum; then
+B=16 and prints the kernel's time (CUDA events, median of 10, each call queued
+behind a sleeping device with the L2 cache overwritten first, so that the time
+is the card's and not the host's) at the five flagship taps for bf16 and fp32
+at B=128 and B=16, each with its sum; then
 bf16 at B=128 with ReLU in place of SERF, whose derivative is a compare: the
 same products and stages without the special functions. To compare two
 versions of the kernel, unpack the other one (``git archive``) into a
@@ -19,17 +21,24 @@ from __future__ import annotations
 import os
 import statistics
 import sys
+import time
 
 TAPS = ((112, 24), (56, 48), (28, 80), (14, 176), (7, 512))  # (side, K)
 HIDDEN = 768
+SM_CLOCK_HZ = 1.98e9
 
 
-def time_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
+def time_ms(torch, fn, flush, reps: int = 10, warmup: int = 3) -> float:
+    host = 0.0
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host = time.perf_counter() - t0
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(int((2 * host + 1e-4) * SM_CLOCK_HZ))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -57,6 +66,7 @@ def main() -> None:
         sys.exit("needs a CUDA card")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     print(f"{checkout} on {torch.cuda.get_device_name(0)}")
     for dtype, act, batches in ((torch.bfloat16, "serf_fast", (128, 16)),
                                 (torch.float32, "serf", (128, 16)),
@@ -85,7 +95,8 @@ def main() -> None:
                             sys.exit(f"K1-bwd disagrees at B={B} K={K} "
                                      f"{dtype}: {err:.3e}")
                 times.append(time_ms(
-                    torch, lambda: token_head_backward(x, w, gout, act)))
+                    torch, lambda: token_head_backward(x, w, gout, act),
+                    flush))
             print(f"  {str(dtype):15s} {act:9s} B={B:3d} ms per tap "
                   + " ".join(f"{t:.3f}" for t in times)
                   + f"  sum {sum(times):.3f}")

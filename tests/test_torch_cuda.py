@@ -102,6 +102,102 @@ def test_token_head_kernel_is_deterministic(dev):
     assert torch.equal(a, b)
 
 
+FWD_CASES = [
+    # tiles that straddle two images (P = 196, 37) and three (P = 49 under
+    # 64-row tiles); W resident (K <= 96) and streamed (K = 97, 176, 512);
+    # the trunk's channels-last view, its NCHW view, a view whose rows are
+    # not 16-byte aligned (element copies); C ragged against 256 and 8
+    (5, 49, 24, 768, "nhwc"),
+    (3, 196, 80, 768, "nhwc"),
+    (7, 37, 96, 300, "dense"),
+    (4, 49, 97, 768, "nchw"),
+    (6, 196, 176, 768, "nhwc"),
+    (9, 49, 512, 520, "nhwc"),
+    (2, 1000, 24, 257, "unaligned"),
+    (2, 1, 8, 8, "dense"),
+]
+
+
+def _forward_inputs(dev, B, P, K, C, layout):
+    if layout == "unaligned":  # every row starts one element past 16 bytes
+        g = _gen(dev)
+        flat = torch.randn(B * P * (K + 1) + 1, device=dev, generator=g)
+        x = flat.bfloat16()[1:].view(B, P, K + 1)[..., :K]
+        w = (torch.randn(K, C, device=dev, generator=g) * K ** -0.5).bfloat16()
+        return x, w
+    x, w, _ = _token_head_inputs(dev, torch.bfloat16, B, P, K, C, layout)
+    return x, w
+
+
+@pytest.mark.parametrize("act", ["serf", "serf_fast", "relu"])
+@pytest.mark.parametrize("B,P,K,C,layout", FWD_CASES)
+def test_token_head_bf16_forward_straddles_images(dev, act, B, P, K, C,
+                                                  layout):
+    """The bf16 forward on the tensor cores: rows of one axis of B * P,
+    tiles across image boundaries, against the plain version; two runs give
+    the same bits (the sums across blocks are added in block order) and
+    every last-block counter ends at 0."""
+    from mmvqa_tpu_torch.ops import token_head
+
+    x, w = _forward_inputs(dev, B, P, K, C, layout)
+    before = fused_token_head.launches
+    got = fused_token_head(x, w, act)
+    again = fused_token_head(x, w, act)
+    torch.cuda.synchronize()
+    assert fused_token_head.launches == before + 2
+    assert got.shape == (B, C) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(),
+                               token_head_reference(x, w, act).float(),
+                               **TOL[torch.bfloat16])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert not token_head._FWD_COUNTERS[(x.device, stream)].any()
+
+
+def test_token_head_bf16_forward_is_one_kernel(dev):
+    """The sums across blocks are added inside the kernel: a profiled
+    forward shows one kernel and no token_head_finalize."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    x, w, _ = _token_head_inputs(dev, torch.bfloat16, 8, 56 * 56, 48, 768,
+                                 "nhwc")
+    fused_token_head(x, w, "serf_fast")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_token_head(x, w, "serf_fast")
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    ours = [n for n in names if "token_head" in n]
+    assert len(ours) == 1 and "token_head_fwd_mma" in ours[0], names
+
+
+def test_token_head_bf16_forward_on_two_streams_at_once(dev):
+    """Forward calls queued on two streams at once count into their own
+    stream's counters: every output is the one the default stream gives,
+    bit for bit, and every counter ends at 0."""
+    from mmvqa_tpu_torch.ops import token_head
+
+    cases = [_forward_inputs(dev, 16, P, K, 768, "nhwc")
+             for P, K in ((112 * 112, 24), (7 * 7, 512), (28 * 28, 80))]
+    want = [fused_token_head(x, w, "serf_fast") for x, w in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    got = [[] for _ in cases]
+    for _ in range(3):
+        for i, (stream, (x, w)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(1000)
+                got[i].append(fused_token_head(x, w, "serf_fast"))
+    torch.cuda.synchronize()
+    for out, runs in zip(want, got):
+        for r in runs:
+            assert torch.equal(r, out)
+    device = cases[0][0].device
+    for s in streams:
+        assert not token_head._FWD_COUNTERS[(device, s.cuda_stream)].any()
+
+
 def test_token_head_refuses_what_it_does_not_take(dev):
     x = torch.zeros(2, 8, 4, device=dev)
     with pytest.raises(ValueError, match="dtype"):
@@ -716,10 +812,12 @@ def test_conv1x1_stats_kernel_matches_plain(dev, dtype, N, K, C, wt):
         w = (torch.randn(C, K, device=dev, generator=g) * K ** -0.5).to(dtype).t()
     else:
         w = (torch.randn(K, C, device=dev, generator=g) * K ** -0.5).to(dtype)
-    before = conv1x1_stats.launches
+    before = (conv1x1_stats.launches, conv1x1_stats.tma_launches)
     y, stats = conv1x1_stats(x, w)
     torch.cuda.synchronize()
-    assert conv1x1_stats.launches == before + 1
+    tma = dtype == torch.bfloat16 and wt and K % 8 == 0 and C % 8 == 0
+    assert (conv1x1_stats.launches,
+            conv1x1_stats.tma_launches) == (before[0] + 1, before[1] + tma)
     assert y.dtype == dtype and stats.dtype == torch.float32
     assert y.shape == (N, C) and stats.shape == (2, C)
     y_p, stats_p = conv1x1_stats_reference(x, w)
@@ -733,6 +831,81 @@ def test_conv1x1_stats_kernel_matches_plain(dev, dtype, N, K, C, wt):
     _normwise(stats[1], stats_p[1], 1e-4)
     y2, stats2 = conv1x1_stats(x, w)
     assert torch.equal(y2, y) and torch.equal(stats2, stats)
+
+
+# the trunk's ragged K and C (176, 304, 1056, 1824: K past its last full
+# 64-deep box, C past its last column tile) at small N, and N ragged
+# against the 192-row tiles; each column tile (64, 128, 192)
+TMA_SHAPES = [
+    (700, 176, 1056), (300, 1824, 304), (129, 304, 1824), (1000, 1056, 176),
+    (4099, 192, 48), (513, 320, 80), (257, 3072, 512), (130, 8, 8),
+]
+
+
+@pytest.mark.parametrize("N,K,C", TMA_SHAPES)
+def test_conv1x1_stats_tma_path_matches_plain(dev, N, K, C):
+    """The TMA + wgmma path against the plain version and against the
+    mma.sync path on the same inputs (which it must take for a dense (K, C)
+    w); two runs give the same bits; its counters end at 0."""
+    from mmvqa_tpu_torch.ops import conv_bn
+
+    g = _gen(dev)
+    x = torch.randn(N, K, device=dev, generator=g).bfloat16()
+    wt = (torch.randn(C, K, device=dev, generator=g) * K ** -0.5).bfloat16()
+    before = conv1x1_stats.tma_launches
+    y, stats = conv1x1_stats(x, wt.t())
+    y2, stats2 = conv1x1_stats(x, wt.t())
+    y_m, stats_m = conv1x1_stats(x, wt.t().contiguous())  # mma.sync
+    torch.cuda.synchronize()
+    assert conv1x1_stats.tma_launches == before + 2
+    assert torch.equal(y2, y) and torch.equal(stats2, stats)
+    y_p, stats_p = conv1x1_stats_reference(x, wt.t())
+    for got, sums in ((y, stats), (y_m, stats_m)):
+        torch.testing.assert_close(got.float(), y_p.float(),
+                                   **TOL[torch.bfloat16])
+        _normwise(sums[0], stats_p[0], 1e-4)
+        _normwise(sums[1], stats_p[1], 1e-4)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    assert not conv_bn._COUNTERS[(x.device, stream)].any()
+
+
+def test_conv1x1_stats_tma_path_is_one_kernel_on_two_streams(dev):
+    """No reduce kernel on the TMA path; calls queued on two streams at once
+    count into their own stream's counters and give the default stream's
+    bits."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from mmvqa_tpu_torch.ops import conv_bn
+
+    g = _gen(dev)
+    cases = []
+    for N, K, C in ((25088, 176, 1056), (100352, 320, 80), (6272, 3072, 512)):
+        x = torch.randn(N, K, device=dev, generator=g).bfloat16()
+        w = (torch.randn(C, K, device=dev, generator=g)
+             * K ** -0.5).bfloat16().t()
+        cases.append((x, w))
+    want = [conv1x1_stats(x, w) for x, w in cases]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        conv1x1_stats(*cases[0])
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert [n for n in names if "conv1x1" in n] == [
+        n for n in names if "conv1x1_stats_tma" in n] != [], names
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    got = [[] for _ in cases]
+    for _ in range(3):
+        for i, (stream, (x, w)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(1000)
+                got[i].append(conv1x1_stats(x, w))
+    torch.cuda.synchronize()
+    for (y, st), runs in zip(want, got):
+        for ry, rst in runs:
+            assert torch.equal(ry, y) and torch.equal(rst, st)
+    device = cases[0][0].device
+    for s in streams:
+        assert not conv_bn._COUNTERS[(device, s.cuda_stream)].any()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

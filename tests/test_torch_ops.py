@@ -33,7 +33,13 @@ from mmvqa_tpu_torch.ops.attention import (
     realformer_attention_backward_reference,
 )
 from mmvqa_tpu_torch.ops.token_head import (
+    FWD_STREAMED,
+    FWD_TILE_C,
+    FWD_W_REGISTERS,
+    SMEM_LIMIT,
     TILE_P,
+    forward_plan,
+    forward_tile,
     fused_token_head,
     launch_plan,
     token_head_reference,
@@ -134,6 +140,112 @@ def test_token_head_launch_plan_refuses_what_the_grid_cannot_take():
         launch_plan(2, 0, 24, 768, 132)
     with pytest.raises(ValueError, match="grid too large"):
         launch_plan(2, 64, 24, 128 * 65536, 132)
+
+
+def _walk_forward_block(plan, B, P, j):
+    """The bf16 forward kernel's walk over block j's rows, 16 at a time, as
+    csrc/token_head.cu takes it: the running sums of image b_cur take every
+    row of a 16-row step where the next image starts past the step, else
+    the rows below its start, and the image is flushed to the block's
+    partial when a row of the next one comes (the last one at the end).
+    Returns [(image, first row, end row)] in the order of the flushes; rows
+    past B * P (zeros) go to the last image."""
+    INF = float("inf")
+    N, tp = B * P, plan.tp
+    n_items = -(-N // tp)
+    first = j * plan.per_block
+    last = min(n_items, first + plan.per_block)
+    assert first < last  # no block is empty
+    b_first = first * tp // P
+    b_cur = b_first
+    next_b = INF if b_cur == B - 1 else (b_cur + 1) * P
+    flushes, seg = [], None
+
+    def take(lo, hi):  # rows [lo, hi) into image b_cur's sums
+        nonlocal seg
+        if lo >= hi:
+            return
+        if seg is None:
+            seg = [lo, hi]
+        else:
+            assert seg[1] == lo  # the image's rows come in order, no gap
+            seg[1] = hi
+
+    for n0 in range(first * tp, last * tp, 16):
+        if n0 + 16 <= next_b:
+            take(n0, n0 + 16)
+            continue
+        lo = 0
+        while True:
+            lim = next_b - n0
+            take(n0 + lo, n0 + min(16, lim))
+            if lim >= 16:
+                break
+            flushes.append((b_cur, *(seg or (n0, n0))))
+            seg = None
+            b_cur += 1
+            next_b = INF if b_cur == B - 1 else next_b + P
+            lo = max(lim, 0)
+    flushes.append((b_cur, *seg))
+    return flushes
+
+
+@pytest.mark.parametrize("B,P,K", [
+    *((B, P, K) for B in (128, 16) for P, K in (
+        (112 * 112, 24), (56 * 56, 48), (28 * 28, 80), (14 * 14, 176),
+        (7 * 7, 512))),
+    (3, 37, 96), (7, 1, 8), (2, 700, 24), (5, 49, 97), (1, 1, 1),
+])
+def test_token_head_forward_plan_splits_rows_by_image(B, P, K):
+    """The bf16 forward's share-out and its per-image sums, walked block
+    by block on the CPU for cards of 1 and 132 SMs holding 1 or 3 blocks
+    each: the tiles go to the blocks in order, none twice and none left out,
+    no block empty; a block flushes the images its rows span, each once,
+    in order, each with exactly its own rows (P = 49, 196 and 784 put
+    boundaries inside tiles, 12544 inside 16-row steps only at an image's
+    end), into a slot of its partial below ``slots``; and the blocks that
+    flush an image are the ones the kernel's last block adds, in order."""
+    N = B * P
+    tp, mode, smem = forward_tile(K)
+    resident = mode != FWD_STREAMED
+    assert smem <= SMEM_LIMIT and tp == (64 if resident else 32)
+    assert resident == (K <= 96) and (mode == FWD_W_REGISTERS) == (K <= 32)
+    for sms, slots in ((1, 1), (1, 3), (132, 1), (132, 3)):
+        plan = forward_plan(B, P, K, 768, sms, slots)
+        assert (plan.tp, plan.mode, plan.smem) == (tp, mode, smem)
+        ctiles = -(-768 // FWD_TILE_C)
+        assert plan.nblocks * ctiles <= max(slots * sms, ctiles)
+        rows_pb = plan.per_block * tp
+        assert (plan.nblocks - 1) * rows_pb < N <= plan.nblocks * rows_pb
+        flushed = {}
+        for j in range(plan.nblocks):
+            fl = _walk_forward_block(plan, B, P, j)
+            b_first = fl[0][0]
+            assert b_first == j * rows_pb // P
+            assert [b for b, _, _ in fl] == list(range(b_first,
+                                                       b_first + len(fl)))
+            assert len(fl) <= plan.slots
+            for b, lo, hi in fl:
+                want_lo = max(b * P, j * rows_pb)
+                want_hi = min((b + 1) * P, (j + 1) * rows_pb)
+                if b == B - 1:  # the zero rows past B * P come along
+                    want_hi = min(-(-N // tp) * tp, (j + 1) * rows_pb)
+                assert (lo, hi) == (want_lo, want_hi), (j, b)
+                flushed.setdefault(b, []).append(j)
+        assert sorted(flushed) == list(range(B))
+        for b, blocks in flushed.items():
+            j_lo = b * P // rows_pb
+            j_hi = min(plan.nblocks - 1, ((b + 1) * P - 1) // rows_pb)
+            assert blocks == list(range(j_lo, j_hi + 1))
+
+
+def test_token_head_forward_plan_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError, match="empty"):
+        forward_plan(2, 0, 24, 768, 132, 3)
+    with pytest.raises(ValueError, match="blocks an SM"):
+        forward_plan(2, 64, 24, 768, 132, 0)
+    with pytest.raises(ValueError, match="grid too large"):
+        forward_plan(2**16, 2**15, 24, 768, 132, 3)
 
 
 def test_token_head_rejects_bad_arguments():

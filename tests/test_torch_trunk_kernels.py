@@ -31,9 +31,13 @@ from mmvqa_tpu_torch.ops.bn_sums import (
     bn_backward_sums_reference,
 )
 from mmvqa_tpu_torch.ops.conv_bn import (
+    SMEM_LIMIT,
+    TMA_TILE_M,
     conv1x1_stats,
     conv1x1_stats_reference,
     launch_plan,
+    takes_tma,
+    tma_plan,
 )
 from mmvqa_tpu_torch.ops.depthwise import (
     depthwise3x3,
@@ -201,6 +205,75 @@ def test_conv1x1_stats_launch_plan(N, K, C, dtype):
     assert 1 <= nrb <= -(-N // tile_m)
     with pytest.raises(ValueError, match="empty"):
         launch_plan(0, K, C, dtype, 132)
+
+
+# (N / B, K, C) of the flagship trunk's 18 K4 site shapes (chip_smoke.py::
+# trunk_sites)
+K4_SITES = [(49, 304, 1824), (49, 512, 3072), (49, 1056, 304),
+            (49, 1824, 304), (49, 1824, 512), (49, 3072, 512),
+            (196, 160, 640), (196, 160, 960), (196, 176, 1056),
+            (196, 320, 160), (196, 640, 160), (196, 960, 176),
+            (196, 1056, 176), (784, 80, 320), (784, 192, 80),
+            (784, 320, 80), (3136, 96, 48), (3136, 192, 48)]
+
+
+@pytest.mark.parametrize("rows,K,C", K4_SITES)
+def test_conv1x1_stats_tma_plan_at_the_trunk_shapes(rows, K, C):
+    """Every trunk site takes the TMA path (x and w as the trunk hands them
+    over, ``models/effnetv2.py::pointwise_bn``), at the train batch and at
+    the fp32 check's; the plan, walked block by block for cards of 114 and
+    132 SMs, puts every (row, column) in exactly one tile: the column tiles
+    cover C, the blocks of a column tile take the row tiles in turn, none
+    twice, none empty; the column tile is a width wgmma takes (a multiple
+    of 8 up to 256), at the train batch one tile wherever C <= 192 (every
+    trunk C up to 176); the ring has 4 to 6 stages and fits a block's shared
+    memory."""
+    x = torch.empty(8, K, dtype=torch.bfloat16)
+    w = torch.empty(C, K, dtype=torch.bfloat16).t()
+    assert takes_tma(x, w)
+    for B in (128, 8):
+        N = B * rows
+        for sms in (114, 132):
+            plan = tma_plan(N, K, C, sms)
+            assert plan.bn % 8 == 0 and 8 <= plan.bn <= 256
+            if B == 128:
+                assert (plan.bn >= C) == (C <= 192)
+            assert 4 <= plan.stages <= 6 and plan.smem <= SMEM_LIMIT
+            ctiles = -(-C // plan.bn)
+            assert ctiles * plan.bn - C < plan.bn  # no empty column tile
+            mtiles = -(-N // TMA_TILE_M)
+            assert 1 <= plan.nrb <= mtiles
+            assert ctiles * plan.nrb <= max(sms, ctiles)
+            seen = []
+            for r in range(plan.nrb):
+                mine = list(range(r, mtiles, plan.nrb))
+                assert mine  # not empty
+                seen += mine
+            assert sorted(seen) == list(range(mtiles))
+
+
+def test_conv1x1_stats_other_bf16_shapes_take_the_mma_sync_path():
+    """The TMA path is chosen by shape and alignment alone: K or C no
+    multiple of 8, a dense (K, C) w (not K-major), a w whose columns are
+    no multiple of 8 apart, x or w off a 16-byte boundary, and fp32 all take
+    the other kernels."""
+    def wt(C, K, dtype=torch.bfloat16):
+        return torch.empty(C, K, dtype=dtype).t()
+
+    x = torch.empty(64, 176, dtype=torch.bfloat16)
+    assert takes_tma(x, wt(304, 176))
+    assert not takes_tma(torch.empty(64, 35, dtype=torch.bfloat16),
+                         wt(304, 35))
+    assert not takes_tma(x, wt(77, 176))
+    assert not takes_tma(x, torch.empty(176, 304, dtype=torch.bfloat16))
+    # the (296, 176) weight inside rows of 180: columns 180 apart
+    assert not takes_tma(x, torch.empty(296, 180, dtype=torch.bfloat16)
+                         [:, :176].t())
+    flat = torch.empty(64 * 176 + 1, dtype=torch.bfloat16)
+    assert not takes_tma(flat[1:].view(64, 176), wt(304, 176))
+    wflat = torch.empty(304 * 176 + 8, dtype=torch.bfloat16)
+    assert not takes_tma(x, wflat[1:304 * 176 + 1].view(304, 176).t())
+    assert not takes_tma(x.float(), wt(304, 176, torch.float32))
 
 
 # ------------------------------------------------------------- K5 ----
