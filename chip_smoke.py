@@ -21,7 +21,9 @@
    T=512 (its tiled kernels). The token head's forward prints its rate
    (TFLOP/s of its products) and its share of the bound per tap at B=128
    and B=16; conv1x1 + statistics must take its TMA + wgmma path at every
-   bf16 trunk site shape.
+   bf16 trunk site shape; the bf16 attention backward at T=75 and T=28 and
+   the BN-backward sums at every site shape print their share of the
+   bound.
 3. Eval slice: the flagship VQA model (EfficientNetV2-M + RealFormer, hidden
    768, 4 layers, T=28, 224 px) with seeded random weights answers batches
    of 16 synthetic requests through ``make_vqa_eval_step``, in fp32 and in
@@ -40,15 +42,17 @@
    ``mlm_epoch`` over a repeated batch of 128 through ``make_mlm_steps``;
    every loss finite, the last below the first; ms per step, images per
    second, peak memory. (c) The launch counters must show, per step, the
-   token head 5x forward and 5x backward, the attention 4x and 4x, the
-   depthwise 3x3 42x and 42x, conv1x1 + statistics 98x (all of them on its
-   TMA path) and the BN-backward sums 156x. (d) Where the time goes:
-   forward, backward and optimizer by CUDA events, the eight kernels, what
-   is left of the library's batch-norm and depthwise kernels, and the
-   device's busy share by torch.profiler; a
-   library batch-norm kernel in the train step fails the run, and so does a
-   second pass (a reduce or finalize kernel) of the token head, forward or
-   backward, of the depthwise backward or of conv1x1 + statistics.
+   token head 5x forward and 5x backward, the attention 4x and 4x (the
+   backward all on its tensor-core kernel), the depthwise 3x3 42x and 42x,
+   conv1x1 + statistics 98x (all of them on its TMA path) and the
+   BN-backward sums 156x. (d) Where the time goes: forward, backward and
+   optimizer by CUDA events, the eight kernels, what is left of the
+   library's batch-norm and depthwise kernels, and the device's busy share
+   by torch.profiler; a library batch-norm kernel in the train step fails
+   the run, and so does a second pass (a reduce or finalize kernel) of the
+   token head, forward or backward, of the depthwise backward, of conv1x1 +
+   statistics or of the BN-backward sums, and an attention backward kernel
+   other than the tensor-core one.
 
 Prints a JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -328,7 +332,15 @@ KERNELS = {
         "mmvqa_tpu/ops/pallas_attention.py:146",
         "scaled_dot_product_attention takes no residual scores and returns "
         "no score carry"),
+    # every launch of the backward, whichever of its kernels took it (the
+    # fp32 one-block kernel, the tiled pair, the bf16 tensor-core kernel)
     "realformer_attention_bwd": (
+        "mmvqa_tpu_torch/csrc/realformer_attention_bwd.cu",
+        "mmvqa_tpu/ops/pallas_attention.py:164",
+        "no PyTorch call takes a score carry and its gradient"),
+    # of those, realformer_attn_bwd_mma_kernel: bf16 on mma.sync, the train
+    # path's only attention backward
+    "realformer_attention_bwd_mma": (
         "mmvqa_tpu_torch/csrc/realformer_attention_bwd.cu",
         "mmvqa_tpu/ops/pallas_attention.py:164",
         "no PyTorch call takes a score carry and its gradient"),
@@ -346,6 +358,8 @@ KERNELS = {
         "no single PyTorch call returns a product and the sums of its "
         "output; the two calls F.conv2d + torch.batch_norm_stats are timed "
         "as context"),
+    # bn_backward_sums_kernel: one launch, the last block of a channel tile
+    # adds the partials
     "bn_backward_sums": (
         "mmvqa_tpu_torch/csrc/bn_backward_sums.cu",
         "tools/bn_probe.py:73",
@@ -365,6 +379,8 @@ def kernel_phase(torch):
     so that its time is the card's, not the host's."""
     from mmvqa_tpu_torch.models.visual_tokens import tap_positions
     from mmvqa_tpu_torch.ops.attention import (
+        backward_path,
+        mma_occupancy,
         realformer_attention,
         realformer_attention_backward,
         realformer_attention_backward_reference,
@@ -518,12 +534,14 @@ def kernel_phase(torch):
 
     # ---- K2, forward and backward
     H, E = HEADS, HEAD_DIM
+    print("realformer_attention_bwd_mma: blocks an SM holds at E=96: " + ", "
+          .join(f"T={T} {mma_occupancy(T, E)}" for T in (28, 75, 125)))
     k2_cases = [(dtype, EVAL_B, T, wp, wm)
                 for dtype in (torch.float32, torch.bfloat16)
                 for T in (28, 75) for wp in (False, True)
                 for wm in (False, True)]
-    k2_cases += [(torch.bfloat16, TRAIN_B, 75, wp, True)
-                 for wp in (False, True)]
+    k2_cases += [(torch.bfloat16, TRAIN_B, T, wp, True)
+                 for T in (28, 75) for wp in (False, True)]
     # sequences longer than one block's tiles hold (the tiled kernels): T=128
     # (forward in one block, backward tiled) and T=512 (both tiled)
     k2_cases += [(dtype, EVAL_B, T, True, True)
@@ -542,7 +560,7 @@ def kernel_phase(torch):
                                     generator=g)
             valid = torch.arange(T, device=dev)[None] < lengths[:, None]
             mask = valid.float()
-        summary = bf16 and B == TRAIN_B and with_prev
+        summary = bf16 and B == TRAIN_B and T == 75 and with_prev
         label = (f"B={B} T={T} prev={with_prev} mask={with_mask} {dtype}")
 
         ctx, carry = realformer_attention(q, k, v, prev, mask)
@@ -556,9 +574,11 @@ def kernel_phase(torch):
                        TOL_K2_VALID)
             e2 = close(name + " ctx", ctx, ctx_p, TOL_K2_PADDED)
         e3 = close(name + " carry", carry, carry_p, TOL_K2_CARRY)
-        ms = time_ms(lambda: realformer_attention(q, k, v, prev, mask))
+        ms = time_ms(lambda: realformer_attention(q, k, v, prev, mask),
+                     flush=flush)
         plain = time_ms(
-            lambda: realformer_attention_reference(q, k, v, prev, mask))
+            lambda: realformer_attention_reference(q, k, v, prev, mask),
+            flush=flush)
         bnd = k2_bound(B, H, T, E, kqv.element_size(), with_prev, with_mask,
                        "fwd")
         print(f"{name}: max_abs_err ctx {max(e1, e2):.3e} carry {e3:.3e}  "
@@ -572,28 +592,44 @@ def kernel_phase(torch):
         dctx = torch.randn(B, T, H, E, device=dev, generator=g).to(dtype)
         dcarry = (0.1 * torch.randn(B, H, T, T, device=dev, generator=g)
                   if with_prev else None)
+        mma = realformer_attention.backward_mma_launches
         dkqv, dprev = realformer_attention_backward(kqv, carry, dctx, dcarry,
                                                     with_prev)
+        dkqv2, dprev2 = realformer_attention_backward(kqv, carry, dctx,
+                                                      dcarry, with_prev)
         dq_p, dk_p, dv_p, ds_p = realformer_attention_backward_reference(
             q, k, v, carry, dctx, dcarry)
         torch.cuda.synchronize()
-        name = f"realformer_attention_bwd {label}"
+        path = backward_path(dtype, T, E)
+        if (realformer_attention.backward_mma_launches - mma
+                != (2 if path == "mma" else 0)):
+            fail(f"realformer_attention_bwd {label}: the {path} path did not "
+                 f"take its kernel")
+        if not (torch.equal(dkqv, dkqv2)
+                and (dprev is None or torch.equal(dprev, dprev2))):
+            fail(f"realformer_attention_bwd {label}: two runs differ")
+        del dkqv2, dprev2
+        name = f"realformer_attention_bwd {label} ({path})"
         want = torch.cat([dk_p, dq_p, dv_p], dim=-1)
         e1 = close(name + " dkqv", dkqv, want,
                    TOL_K2_BWD_BF16 if bf16 else TOL_K2_BWD)
         e2 = (close(name + " dprev", dprev, ds_p, TOL_K2_BWD)
               if with_prev else 0.0)
         ms = time_ms(lambda: realformer_attention_backward(
-            kqv, carry, dctx, dcarry, with_prev))
+            kqv, carry, dctx, dcarry, with_prev), flush=flush)
         plain = time_ms(lambda: realformer_attention_backward_reference(
-            q, k, v, carry, dctx, dcarry))
+            q, k, v, carry, dctx, dcarry), flush=flush)
         bnd = k2_bound(B, H, T, E, kqv.element_size(), with_prev, with_mask,
                        "bwd")
-        print(f"{name}: max_abs_err dkqv {e1:.3e} dprev {e2:.3e}  kernel "
-              f"{ms:.4f} ms  plain {plain:.4f} ms  bound {bnd[0]:.4f} ms "
-              f"({bnd[1]})")
+        print(f"{name}: max_abs_err dkqv {e1:.3e} dprev {e2:.3e}, two runs "
+              f"identical  kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}); {100 * bnd[0] / ms:.1f}% of the "
+              f"bound")
         note("realformer_attention_bwd", dtype, max(e1, e2), summary, ms,
              plain, bnd)
+        if path == "mma":
+            note("realformer_attention_bwd_mma", dtype, max(e1, e2), summary,
+                 ms, plain, bnd)
 
     trunk_kernel_phase(torch, results)
     for name, r in results.items():
@@ -883,10 +919,12 @@ def trunk_kernel_phase(torch, results):
             lib = timed(library)
             bnd = bound(2 * N * C * x.element_size() + 16 * C, 5.0 * N * C, 0,
                         "fp32")
+            nbytes = 2 * N * C * x.element_size() + 16 * C
             print(f"bn_backward_sums {label}: max_abs_err {err:.3e} (of max "
                   f"{s_max:.3e}), two runs identical  "
                   f"kernel {ms:.4f} ms  plain {plain:.4f} ms  library "
-                  f"{lib:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+                  f"{lib:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]}); "
+                  f"{rate(nbytes, ms, bnd[0])}")
             note("bn_backward_sums", dtype, err, count, ms, plain, lib, bnd)
             if dtype == torch.float32:  # the fp32 train check's rows
                 ns = N // B * CHECK_B
@@ -1091,6 +1129,8 @@ def _counters():
             ("realformer_attention", realformer_attention, "launches"),
             ("realformer_attention_bwd", realformer_attention,
              "backward_launches"),
+            ("realformer_attention_bwd_mma", realformer_attention,
+             "backward_mma_launches"),
             ("depthwise3x3", depthwise3x3, "launches"),
             ("depthwise3x3_bwd", depthwise3x3, "backward_launches"),
             ("conv1x1_stats", conv1x1_stats, "launches"),
@@ -1264,7 +1304,8 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
           f"({100 * busy / wall:.1f}%)")
     ours = ("token_head_fwd_mma", "token_head_partial", "token_head_finalize",
             "token_head_bwd", "realformer_attn_fwd",
-            "realformer_attn_bwd", "depthwise3x3_fwd", "depthwise3x3_bwd",
+            "realformer_attn_bwd", "realformer_attn_bwd_mma",
+            "depthwise3x3_fwd", "depthwise3x3_bwd",
             "conv1x1_stats_tma", "conv1x1_stats_bf16",
             "conv1x1_stats_reduce", "bn_backward_sums_kernel",
             "bn_backward_sums_reduce")
@@ -1295,14 +1336,22 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
     if bn:
         fail("a library batch-norm kernel ran in the train step: "
              + ", ".join(a.key[:60] for a in bn))
-    # the depthwise backward and the token head, both ways, and conv1x1 +
-    # statistics add their partials themselves
+    # the depthwise backward and the token head, both ways, conv1x1 +
+    # statistics and the BN-backward sums add their partials themselves
     second = [a.key for a in mine if "reduce" in a.key and any(
-        t in a.key for t in ("depthwise", "token_head", "conv1x1"))
+        t in a.key for t in ("depthwise", "token_head", "conv1x1",
+                             "bn_backward_sums"))
               or "token_head_finalize" in a.key]
     if second:
-        fail(f"a second pass of the depthwise backward, the token head or "
-             f"conv1x1 + statistics ran in the train step: {second}")
+        fail(f"a second pass of the depthwise backward, the token head, "
+             f"conv1x1 + statistics or the BN-backward sums ran in the train "
+             f"step: {second}")
+    # the attention backward runs on its tensor-core kernel alone
+    other = [a.key for a in mine if "realformer_attn_bwd" in a.key
+             and "realformer_attn_bwd_mma" not in a.key]
+    if other:
+        fail(f"an attention backward kernel other than the tensor-core one "
+             f"ran in the train step: {other}")
     for a in kernels[:14]:
         print(f"  {a.self_device_time_total / 1e3 / n:9.4f} ms/step "
               f"{a.count // n:5d} calls  {a.key[:80]}")
@@ -1369,6 +1418,7 @@ def train_phase(torch):
     per_step = {"token_head": 5, "token_head_bwd": 5,
                 "realformer_attention": cfg.n_layers,
                 "realformer_attention_bwd": cfg.n_layers,
+                "realformer_attention_bwd_mma": cfg.n_layers,
                 "depthwise3x3": 42, "depthwise3x3_bwd": 42,
                 "conv1x1_stats": 98, "conv1x1_stats_tma": 98,
                 "bn_backward_sums": 156}

@@ -14,28 +14,55 @@
 //
 // The query mask is a constant of the forward and gets no gradient.
 //
-// What bounds it on an H100: bytes, barely: at the training shape (B=128,
-// H=8, T=75, E=96) a layer reads q, k, v, dctx and the carry and writes dq,
-// dk, dv (and dprev), 80 MB in bf16 with fp32 carries, against 0.4 G
-// multiply-adds a product. One block per (batch, head) keeps q, k, v, dctx
-// and two T x T tiles (p and ds) in shared memory, 160 KB at T=75, E=96, so
-// every input is read and every output written exactly once and nothing of
-// shape (B, H, T, T) but the carries touches device memory. One block fits
-// an SM; B * H = 1024 blocks keep the 132 SMs busy.
+// What bounds it on an H100: bytes. At the training shape (B=128, H=8,
+// T=75, E=96) a layer reads q, k, v, dctx and the carries and writes dq, dk,
+// dv and dprev: 172 MB in bf16 with fp32 carries, 0.051 ms at 3.35 TB/s,
+// against four products of 0.44 GFLOP each. Three paths, chosen by dtype, T
+// and E alone (ops/attention.py::backward_path):
 //
-// Where those tiles outgrow one block's shared memory (T=100 at E=96), two
-// tiled kernels take any T, in (B, H, T, T) fp32 score rows in device
-// memory. The rows kernel owns 32 query rows of a head: it takes p's row
-// statistics from the carry, walks the keys 32 at a time for dp and
-// sum_keys(dp p), writes ds into dprev (or a scratch of the same shape) and
-// walks them again for dq. The columns kernel owns 32 keys and walks the
-// queries for dk and dv, reading ds and the row statistics the rows kernel
-// left. The path is chosen by T and E alone (ops/attention.py).
+// * bf16 where a head fits (T up to 125 at E=96, E a multiple of 16 up to
+//   128): the tensor-core kernel below (realformer_attn_bwd_mma_kernel). One
+//   block a (batch, head) stages the head's q, k, v and dctx rows in bf16
+//   shared memory by 16-byte cp.async, T padded to a multiple of 16 with zero
+//   rows. The head's carry and dcarry, each a flat T x T fp32 block that
+//   starts on 4 bytes only, come in beside them by 16-byte copies too, peeled
+//   to the 16-byte boundary (read straight into the accumulator layout by
+//   4-byte loads instead, they made a train layer 0.148 ms against 0.128:
+//   tools/time_attention_backward.py on both versions). The copies come in
+//   three groups, in the order the work needs them. A warp owns 16 query
+//   rows: it
+//   recomputes p in the mma accumulator layout (row max and row sum by quad
+//   shuffles), takes dp = dctx v^T on mma.sync.m16n8k16, forms ds in fp32
+//   registers and writes dprev from them. p and ds are held at fp32
+//   accuracy in the products that follow: each is split into two bf16
+//   terms, hi = bf16(x) and lo = bf16(x - hi), and both products are issued
+//   (the other operand, k, q or dctx, is exact in bf16), so a product
+//   differs from the fp32 one by about 2^-16 of it, far below the bf16
+//   rounding of dq, dk and dv. dq takes ds from the warp's registers (the
+//   accumulator layout of two key tiles is the A operand of one k step);
+//   dk = ds^T q and dv = p^T dctx read ds and p back, transposed, by
+//   ldmatrix.trans from bf16 tiles that take the place of v and the carries
+//   once ds is taken (a warp holds one key tile's fragments of both terms in
+//   registers across E), so that a head needs 109 KB at T=75, E=96 and two
+//   blocks share an SM.
+// * Other dtypes and widths where a head's fp32 tiles fit one block's shared
+//   memory: the fp32 one-block kernel (realformer_attn_bwd_kernel), q, k, v,
+//   dctx and two T x T tiles in fp32 shared memory, products on the CUDA
+//   cores.
+// * Beyond that, two tiled kernels take any T, in (B, H, T, T) fp32 score
+//   rows in device memory. The rows kernel owns 32 query rows of a head: it
+//   takes p's row statistics from the carry, walks the keys 32 at a time for
+//   dp and sum_keys(dp p), writes ds into dprev (or a scratch of the same
+//   shape) and walks them again for dq. The columns kernel owns 32 keys and
+//   walks the queries for dk and dv, reading ds and the row statistics the
+//   rows kernel left.
 //
 // dq, dk and dv are written by strides: the wrapper hands in the three
 // slices of one (B, T, H, 3E) buffer in (k, q, v) order, which is the
 // gradient of the shared kqv projection's output as it stands.
-#include "common.cuh"
+#include <type_traits>
+
+#include "mma_sync.cuh"
 
 namespace mmvqa {
 namespace k2bwd {
@@ -454,6 +481,428 @@ cudaError_t launch_tiled(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16, tensor cores
+
+namespace tc {
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
+}
+
+constexpr int kPad = 8;  // bf16 elements past a staged row: rows 16 bytes x
+                         // an odd count apart, so ldmatrix meets no conflict
+
+__host__ __device__ inline int warps_for(int nt) { return nt < 4 ? 4 : nt; }
+
+// fp32 elements of a staged (T, T) block: T * T and the up to three that
+// keep its offset within 16 bytes, rounded up to 16 bytes
+__host__ __device__ inline int flat_floats(int T) {
+  return (T * T + 3 + 3) / 4 * 4;
+}
+
+// shared memory of a head: q, k, dctx (Tp x (E + 8) bf16 each), then v and
+// the flat carry and dcarry blocks, whose place p and ds take (hi and lo
+// terms, Tp x (Tp + 8) bf16 each) once dp and ds are taken
+__host__ __device__ inline size_t smem_bytes(int T, int Tp, int E) {
+  const size_t rows = 2 * (size_t)Tp * (E + kPad);
+  const size_t first = rows + 2 * 4 * (size_t)flat_floats(T);
+  const size_t tiles = 4 * 2 * (size_t)Tp * (Tp + kPad);
+  return 3 * rows + (first > tiles ? first : tiles);
+}
+
+struct Args {
+  const __nv_bfloat16 *q, *k, *v, *dctx;  // dctx may be null (zero)
+  const float* carry;
+  const float* dcarry;  // may be null (zero)
+  __nv_bfloat16 *dq, *dk, *dv;
+  float* dprev;         // may be null (not wanted)
+  BwdStrides st;
+  int H, T, E;
+  float scale;
+  int vec;              // 16-byte copies of q, k, v and dctx
+};
+
+// rows [0, Tp) of one head of a (B, T, H, E) operand into dst (row stride
+// ld), zero past T and where src is null
+__device__ __forceinline__ void stage(const __nv_bfloat16* src,
+                                      const Strides4& s, int b, int h, int T,
+                                      int Tp, int E, __nv_bfloat16* dst,
+                                      int ld, bool vec,
+                                      const __nv_bfloat16* any, int tid,
+                                      int nthreads) {
+  const long long base = b * s.b + h * s.h;
+  if (vec) {  // every row starts on 16 bytes; e is the unit-stride axis
+    const int pieces = E / 8;
+    for (int i = tid; i < Tp * pieces; i += nthreads) {
+      const int r = i / pieces, e = (i % pieces) * 8;
+      const bool in = src != nullptr && r < T;
+      cp_async16(dst + r * ld + e, in ? src + base + r * s.t + e : any, in);
+    }
+  } else {
+    for (int i = tid; i < Tp * E; i += nthreads) {
+      const int r = i / E, e = i % E;
+      dst[r * ld + e] = (src != nullptr && r < T)
+                            ? src[base + r * s.t + e * s.e]
+                            : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// a head's flat (T, T) fp32 block of n = T * T elements into dst (16-byte
+// aligned), by 16-byte copies: dst[off + i] = src[i], where off keeps src's
+// offset within 16 bytes so that both sides of every copy are aligned; the
+// peeled ends (at most three elements each) by plain loads. Returns off.
+__device__ __forceinline__ int stage_flat(const float* src, int n, float* dst,
+                                          int tid, int nthreads) {
+  const int off = (int)((reinterpret_cast<size_t>(src) >> 2) & 3);
+  const int head = min((4 - off) & 3, n);
+  const int pieces = (n - head) / 4;
+  for (int i = tid; i < pieces; i += nthreads)
+    cp_async16(dst + off + head + 4 * i, src + head + 4 * i, true);
+  const int tail = head + 4 * pieces;
+  for (int i = tid; i < head + n - tail; i += nthreads) {
+    const int e = i < head ? i : tail + i - head;
+    dst[off + e] = src[e];
+  }
+  return off;
+}
+
+// the two bf16 terms of (x0, x1): hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split(float x0, float x1, unsigned& hi,
+                                      unsigned& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l2 = __floats2bfloat162_rn(
+      x0 - __low2float(h2), x1 - __high2float(h2));
+  hi = *reinterpret_cast<const unsigned*>(&h2);
+  lo = *reinterpret_cast<const unsigned*>(&l2);
+}
+
+// acc += a b, a exact in bf16
+__device__ __forceinline__ void product(float (&acc)[4],
+                                        const unsigned (&a)[4], unsigned b0,
+                                        unsigned b1) {
+  mma(acc, a, b0, b1);
+}
+
+// acc += (hi + lo) b: an fp32 operand as its two bf16 terms
+__device__ __forceinline__ void split_product(float (&acc)[4],
+                                              const unsigned (&hi)[4],
+                                              const unsigned (&lo)[4],
+                                              unsigned b0, unsigned b1) {
+  mma(acc, hi, b0, b1);
+  mma(acc, lo, b0, b1);
+}
+
+// rows r0 + g and r0 + g + 8, columns e0 + 8 n + 2 t4 of a (B, T, H, E)
+// output from an m16n8 accumulator pair, times `scale`; rows >= T dropped
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const Strides4& s, int b, int h,
+                                           int T, int r0, int e0,
+                                           const float (&acc)[2][4],
+                                           float scale, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= T) continue;
+    __nv_bfloat16* row = out + b * s.b + r * s.t + h * s.h;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(row + e0 + 8 * n + 2 * t4) =
+          __floats2bfloat162_rn(acc[n][2 * half] * scale,
+                                acc[n][2 * half + 1] * scale);
+    }
+  }
+}
+
+// p = softmax over the keys of each of a thread's two rows, in place: the
+// quad of a row holds all of its columns
+template <int NT>
+__device__ __forceinline__ void softmax_rows(float (&p)[2 * NT][4]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float m = neg_inf();
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+      m = fmaxf(m, fmaxf(p[j][2 * half], p[j][2 * half + 1]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    if (m == neg_inf()) m = 0.0f;  // a padded row: every p is 0
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float e = expf(p[j][2 * half + c] - m);
+        p[j][2 * half + c] = e;
+        sum += e;
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv_ok = sum > 0.0f ? 1.0f : 0.0f;
+    const float den = sum > 0.0f ? sum : 1.0f;
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      p[j][2 * half] = p[j][2 * half] / den * inv_ok;
+      p[j][2 * half + 1] = p[j][2 * half + 1] / den * inv_ok;
+    }
+  }
+}
+
+// grid (B * H), block 32 * warps_for(NT) threads, smem_bytes(T, 16 NT, E).
+// Tp = 16 NT >= T; E a multiple of 16. Warp w < NT owns query rows
+// [16 w, 16 w + 16): thread (g = lane / 4, t4 = lane % 4) holds rows 16 w + g
+// and 16 w + g + 8, columns 8 j + 2 t4 and + 1 of key tile j.
+template <int NT>
+__global__ void __launch_bounds__(32 * (NT < 4 ? 4 : NT))
+    realformer_attn_bwd_mma_kernel(const Args a) {
+  constexpr int Tp = 16 * NT;
+  constexpr int TR = Tp + kPad;
+  constexpr int NW = NT < 4 ? 4 : NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int E = a.E, ER = E + kPad;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + Tp * ER;
+  __nv_bfloat16* dcs = ks + Tp * ER;
+  __nv_bfloat16* vs = dcs + Tp * ER;  // until dp and ds are taken; then:
+  float* cflat = reinterpret_cast<float*>(vs + Tp * ER);
+  float* dflat = cflat + flat_floats(a.T);
+  __nv_bfloat16* p_hi = vs;
+  __nv_bfloat16* p_lo = p_hi + Tp * TR;
+  __nv_bfloat16* ds_hi = p_lo + Tp * TR;
+  __nv_bfloat16* ds_lo = ds_hi + Tp * TR;
+
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int T = a.T;
+  const long long head = ((long long)b * a.H + h) * T * T;
+
+  // three groups of copies, in the order the work needs them: p and dp
+  // start while dcarry, q and k are still on their way
+  stage(a.dctx, a.st.dctx, b, h, T, Tp, E, dcs, ER, a.vec, a.q, tid, 32 * NW);
+  stage(a.v, a.st.v, b, h, T, Tp, E, vs, ER, a.vec, a.q, tid, 32 * NW);
+  const int coff = stage_flat(a.carry + head, T * T, cflat, tid, 32 * NW);
+  commit();
+  const int doff =
+      a.dcarry ? stage_flat(a.dcarry + head, T * T, dflat, tid, 32 * NW) : 0;
+  commit();
+  stage(a.q, a.st.q, b, h, T, Tp, E, qs, ER, a.vec, a.q, tid, 32 * NW);
+  stage(a.k, a.st.k, b, h, T, Tp, E, ks, ER, a.vec, a.q, tid, 32 * NW);
+  commit();
+  wait_groups<2>();
+  __syncthreads();
+
+  const int r0 = 16 * warp;
+  float p[2 * NT][4];   // p, then its terms go to shared memory
+  float ds[2 * NT][4];  // dp, then ds
+  if (warp < NT) {
+    // the carry rows into the accumulator layout (rows and keys past T:
+    // -inf, so p is 0 there)
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + g + 8 * half;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * t4 + c;
+          p[j][2 * half + c] =
+              (r < T && col < T) ? cflat[coff + r * T + col] : neg_inf();
+        }
+      }
+    }
+    softmax_rows<NT>(p);
+
+    // dp = dctx v^T over this warp's rows and every key
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[j][i] = 0.0f;
+    for (int e0 = 0; e0 < E; e0 += 16) {
+      unsigned af[4];
+      ldsm_x4(af, dcs + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ER + e0 +
+                      ((lane >> 4) & 1) * 8);
+#pragma unroll
+      for (int j2 = 0; j2 < NT; ++j2) {
+        unsigned bf[4];
+        ldsm_x4(bf, vs + (16 * j2 + (lane & 7) + ((lane >> 4) & 1) * 8) * ER +
+                        e0 + ((lane >> 3) & 1) * 8);
+        product(ds[2 * j2], af, bf[0], bf[1]);
+        product(ds[2 * j2 + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+  wait_groups<1>();
+  __syncthreads();  // dcarry has landed
+
+  if (warp < NT) {
+    // ds = p (dp - sum_keys(dp p)) + dcarry; dprev = ds
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float d = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
+        d = fmaf(ds[j][2 * half], p[j][2 * half],
+                 fmaf(ds[j][2 * half + 1], p[j][2 * half + 1], d));
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      const int r = r0 + g + 8 * half;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * t4 + c;
+          const bool in = r < T && col < T;
+          float x = p[j][2 * half + c] * (ds[j][2 * half + c] - d);
+          if (a.dcarry && in) x += dflat[doff + r * T + col];
+          if (a.dprev && in) a.dprev[head + r * T + col] = x;
+          ds[j][2 * half + c] = x;
+        }
+      }
+    }
+  }
+  wait_groups<0>();
+  __syncthreads();  // every warp is done with v, the carry and dcarry; q and
+                    // k have landed
+
+  if (warp < NT) {
+    // p and ds as bf16 hi and lo terms, for the transposed products
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int at_rc = (r0 + g + 8 * half) * TR + 8 * j + 2 * t4;
+        unsigned hi, lo;
+        split(p[j][2 * half], p[j][2 * half + 1], hi, lo);
+        *reinterpret_cast<unsigned*>(p_hi + at_rc) = hi;
+        *reinterpret_cast<unsigned*>(p_lo + at_rc) = lo;
+        split(ds[j][2 * half], ds[j][2 * half + 1], hi, lo);
+        *reinterpret_cast<unsigned*>(ds_hi + at_rc) = hi;
+        *reinterpret_cast<unsigned*>(ds_lo + at_rc) = lo;
+      }
+    }
+    // dq = ds k / sqrt(E), ds from registers: key tiles 2 j2 and 2 j2 + 1
+    // are the A operand of k step j2
+    unsigned a_hi[NT][4], a_lo[NT][4];
+#pragma unroll
+    for (int j2 = 0; j2 < NT; ++j2) {
+      split(ds[2 * j2][0], ds[2 * j2][1], a_hi[j2][0], a_lo[j2][0]);
+      split(ds[2 * j2][2], ds[2 * j2][3], a_hi[j2][1], a_lo[j2][1]);
+      split(ds[2 * j2 + 1][0], ds[2 * j2 + 1][1], a_hi[j2][2], a_lo[j2][2]);
+      split(ds[2 * j2 + 1][2], ds[2 * j2 + 1][3], a_hi[j2][3], a_lo[j2][3]);
+    }
+    for (int e0 = 0; e0 < E; e0 += 16) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int j2 = 0; j2 < NT; ++j2) {
+        unsigned bf[4];
+        const int krow = 16 * j2 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4_t(bf, ks + krow * ER + e0 + ((lane >> 4) & 1) * 8);
+        split_product(acc[0], a_hi[j2], a_lo[j2], bf[0], bf[1]);
+        split_product(acc[1], a_hi[j2], a_lo[j2], bf[2], bf[3]);
+      }
+      store_rows(a.dq, a.st.dq, b, h, T, r0, e0, acc, a.scale, lane);
+    }
+  }
+  __syncthreads();  // p and ds staged
+
+  // dk = ds^T q / sqrt(E) and dv = p^T dctx: an item is one gradient's 16
+  // keys, their A fragments (both terms, every query step) held in
+  // registers across the 16-column steps of E
+  for (int it = warp; it < 2 * NT; it += NW) {
+    const bool is_dv = it >= NT;
+    const int kt = is_dv ? it - NT : it;
+    const __nv_bfloat16* t_hi = is_dv ? p_hi : ds_hi;
+    const __nv_bfloat16* t_lo = is_dv ? p_lo : ds_lo;
+    const __nv_bfloat16* bsrc = is_dv ? dcs : qs;
+    const int acol = 16 * kt + ((lane >> 3) & 1) * 8;
+    unsigned fh[NT][4], fl[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int arow = 16 * i + (lane & 7) + ((lane >> 4) & 1) * 8;
+      ldsm_x4_t(fh[i], t_hi + arow * TR + acol);
+      ldsm_x4_t(fl[i], t_lo + arow * TR + acol);
+    }
+    for (int e0 = 0; e0 < E; e0 += 16) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        unsigned bf[4];
+        const int brow = 16 * i + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4_t(bf, bsrc + brow * ER + e0 + ((lane >> 4) & 1) * 8);
+        split_product(acc[0], fh[i], fl[i], bf[0], bf[1]);
+        split_product(acc[1], fh[i], fl[i], bf[2], bf[3]);
+      }
+      store_rows(is_dv ? a.dv : a.dk, is_dv ? a.st.dv : a.st.dk, b, h, T,
+                 16 * kt, e0, acc, is_dv ? 1.0f : a.scale, lane);
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch_nt(const Args& a, int B, cudaStream_t stream) {
+  auto kern = realformer_attn_bwd_mma_kernel<NT>;
+  const int smem = (int)smem_bytes(a.T, 16 * NT, a.E);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // the refusal must not fail the next launch
+    return err;
+  }
+  kern<<<B * a.H, 32 * warps_for(NT), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t occupancy_nt(int T, int E, int* blocks) {
+  auto kern = realformer_attn_bwd_mma_kernel<NT>;
+  const int smem = (int)smem_bytes(T, 16 * NT, E);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kern, 32 * warps_for(NT), smem);
+}
+
+constexpr int kMaxTiles = 8;  // Tp <= 128: registers of p and ds
+
+// f(std::integral_constant<int, NT>) for NT = ceil(T / 16)
+template <typename F>
+cudaError_t dispatch(int T, F f) {
+  switch ((T + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 6: return f(std::integral_constant<int, 6>());
+    case 7: return f(std::integral_constant<int, 7>());
+    case 8: return f(std::integral_constant<int, 8>());
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// q, k, v, dctx read by 16-byte copies: e the unit-stride axis and every
+// row of a head on 16 bytes
+inline bool rows16(const void* p, const Strides4& s) {
+  return p == nullptr ||
+         (s.e == 1 && s.b % 8 == 0 && s.t % 8 == 0 && s.h % 8 == 0 &&
+          reinterpret_cast<size_t>(p) % 16 == 0);
+}
+
+// dq, dk, dv written two elements a store
+inline bool pairs_ok(const void* p, const Strides4& s) {
+  return s.e == 1 && s.b % 2 == 0 && s.t % 2 == 0 && s.h % 2 == 0 &&
+         reinterpret_cast<size_t>(p) % 4 == 0;
+}
+
+}  // namespace tc
+
 }  // namespace k2bwd
 }  // namespace mmvqa
 
@@ -461,17 +910,18 @@ cudaError_t launch_tiled(const void* q, const void* k, const void* v,
 // `strides` as 28 int64 (in that order; each b, t, h, e), all of one dtype.
 // carry: (B, H, T, T) fp32, the forward's stored scores. dctx, dcarry: the
 // gradients of the forward's two outputs, either may be null (zero). dprev:
-// (B, H, T, T) fp32 out, or null where the layer had no prev. scratch, for
-// the tiled kernels only: (B, H, T, T) fp32 for ds where dprev is null, and
-// (B, H, T, 2) fp32 for the row statistics; null for the one-block kernel
-// (tiled = 0).
+// (B, H, T, T) fp32 out, or null where the layer had no prev. path: 0 the
+// fp32 one-block kernel, 1 the tiled kernels, 2 the bf16 tensor-core kernel
+// (ops/attention.py::backward_path). scratch, for the tiled kernels only:
+// (B, H, T, T) fp32 for ds where dprev is null, and (B, H, T, 2) fp32 for
+// the row statistics; null otherwise.
 extern "C" int realformer_attn_bwd(const void* q, const void* k, const void* v,
                                    const void* carry, const void* dctx,
                                    const void* dcarry, void* dq, void* dk,
                                    void* dv, void* dprev, void* ds_scratch,
                                    void* stats, const long long* strides,
                                    int dtype, int B, int H, int Tn, int E,
-                                   int tiled, void* stream) {
+                                   int path, void* stream) {
   using namespace mmvqa;
   k2bwd::BwdStrides st;
   k2bwd::Strides4* parts[7] = {&st.q,  &st.k,  &st.v, &st.dctx,
@@ -489,19 +939,44 @@ extern "C" int realformer_attn_bwd(const void* q, const void* k, const void* v,
   auto ds = dp ? dp : static_cast<float*>(ds_scratch);
   auto sts = static_cast<float*>(stats);
   cudaError_t err;
-  if (dtype == kFloat32) {
-    err = tiled ? k2bwd::launch_tiled<float>(q, k, v, cr, dctx, dc, dq, dk, dv,
-                                             ds, sts, st, B, H, Tn, E, s)
-                : k2bwd::launch<float>(q, k, v, cr, dctx, dc, dq, dk, dv, dp,
-                                       st, B, H, Tn, E, s);
+  if (path == 2) {
+    namespace tc = k2bwd::tc;
+    if (dtype != kBFloat16 || E % 16 != 0 || E < 16 ||
+        !tc::pairs_ok(dq, st.dq) || !tc::pairs_ok(dk, st.dk) ||
+        !tc::pairs_ok(dv, st.dv))
+      return static_cast<int>(cudaErrorInvalidValue);
+    using bf = __nv_bfloat16;
+    const tc::Args a{static_cast<const bf*>(q), static_cast<const bf*>(k),
+                     static_cast<const bf*>(v), static_cast<const bf*>(dctx),
+                     cr, dc, static_cast<bf*>(dq), static_cast<bf*>(dk),
+                     static_cast<bf*>(dv), dp, st, H, Tn, E,
+                     1.0f / sqrtf((float)E),
+                     tc::rows16(q, st.q) && tc::rows16(k, st.k) &&
+                         tc::rows16(v, st.v) && tc::rows16(dctx, st.dctx)};
+    err = tc::dispatch(Tn, [&](auto nt) {
+      return tc::launch_nt<decltype(nt)::value>(a, B, s);
+    });
+  } else if (dtype == kFloat32) {
+    err = path ? k2bwd::launch_tiled<float>(q, k, v, cr, dctx, dc, dq, dk, dv,
+                                            ds, sts, st, B, H, Tn, E, s)
+               : k2bwd::launch<float>(q, k, v, cr, dctx, dc, dq, dk, dv, dp,
+                                      st, B, H, Tn, E, s);
   } else if (dtype == kBFloat16) {
-    err = tiled ? k2bwd::launch_tiled<__nv_bfloat16>(q, k, v, cr, dctx, dc, dq,
-                                                     dk, dv, ds, sts, st, B, H,
-                                                     Tn, E, s)
-                : k2bwd::launch<__nv_bfloat16>(q, k, v, cr, dctx, dc, dq, dk,
-                                               dv, dp, st, B, H, Tn, E, s);
+    err = path ? k2bwd::launch_tiled<__nv_bfloat16>(q, k, v, cr, dctx, dc, dq,
+                                                    dk, dv, ds, sts, st, B, H,
+                                                    Tn, E, s)
+               : k2bwd::launch<__nv_bfloat16>(q, k, v, cr, dctx, dc, dq, dk,
+                                              dv, dp, st, B, H, Tn, E, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Blocks of the tensor-core kernel for (T, E) that an SM holds at once.
+extern "C" int realformer_attn_bwd_mma_occupancy(int Tn, int E, int* blocks) {
+  using namespace mmvqa::k2bwd;
+  return static_cast<int>(tc::dispatch(Tn, [&](auto nt) {
+    return tc::occupancy_nt<decltype(nt)::value>(Tn, E, blocks);
+  }));
 }

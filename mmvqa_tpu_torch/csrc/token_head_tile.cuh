@@ -7,10 +7,10 @@
 // x and W are staged in shared memory by cp.async (16-byte copies where the
 // rows are 16-byte aligned, element copies where not), zero past the rows,
 // past K and past C, and the products run on mma.sync.m16n8k16 in bf16 with
-// fp32 sums, their fragments loaded by ldmatrix.
+// fp32 sums, their fragments loaded by ldmatrix (csrc/mma_sync.cuh).
 #pragma once
 
-#include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace mmvqa {
 namespace k1 {
@@ -53,67 +53,12 @@ __host__ __device__ inline int resident_k(int K) {
   return (K + kChunkK - 1) / kChunkK * kChunkK;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // an arrival on `bar` once every cp.async this thread has issued is done
 // (the barrier's count includes it)
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
                    smem_u32(bar))
                : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1,
-                                        const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(unsigned& r0, unsigned& r1,
-                                          const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
-}
-
-// d += a b, one m16n8k16 product in bf16 with fp32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // x[rows of tile `item`, k0 .. k0 + nk] into xs (row stride xld); zero past

@@ -136,6 +136,14 @@ TMA_ARGTYPES = [
     _i, _i, _i, _i,             # ops/conv_bn.py::TmaPlan
     _p,                         # stream
 ]
+BN_SUMS_ARGTYPES = [
+    _p, _p, _i,                 # x, dy, dtype
+    _p, _p,                     # mean, inv_std
+    _p, _p, _p,                 # partial, out, tile counters
+    _ll, _i,                    # rows, C
+    _i, _i, _i, _i, _i, _i,     # ops/tiling.py::ChannelPlan
+    _p,                         # stream
+]
 BWD_OCCUPANCY_ARGTYPES = [
     _i, _i, _i, _i, _i,         # dtype, act, tile rows, mode, smem
     ctypes.POINTER(_i),         # blocks an SM holds
@@ -175,12 +183,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         _p, _p, _p, _p,             # dq, dk, dv, dprev
         _p, _p,                     # ds scratch, row statistics
         ctypes.POINTER(_ll),        # 28 strides
-        _i, _i, _i, _i, _i, _i,     # dtype, B, H, T, E, tiled
+        _i, _i, _i, _i, _i, _i,     # dtype, B, H, T, E, path
         _p,                         # stream
     ]
-    # the channel plan of ops/tiling.py: vec, lanes, ctiles, row_groups,
-    # rows_per_block, nrb
-    plan = [_i, _i, _i, _i, _i, _i]
+    lib.realformer_attn_bwd_mma_occupancy.restype = _i
+    lib.realformer_attn_bwd_mma_occupancy.argtypes = [
+        _i, _i, ctypes.POINTER(_i)]  # T, E, blocks an SM holds
     # ops/tiling.py::DepthwisePlan: copy, vec, ct, tw, s, p, steps, ncol,
     # nstrip, groups, threads, smem
     dw_plan = [_i] * 12
@@ -217,13 +225,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.conv1x1_stats_tma.restype = _i
     lib.conv1x1_stats_tma.argtypes = TMA_ARGTYPES
     lib.bn_backward_sums.restype = _i
-    lib.bn_backward_sums.argtypes = [
-        _p, _p, _i,                 # x, dy, dtype
-        _p, _p,                     # mean, inv_std
-        _p, _p,                     # partial, out
-        _ll, _i,                    # rows, C
-        *plan,
-        _p,                         # stream
+    lib.bn_backward_sums.argtypes = BN_SUMS_ARGTYPES
+    lib.bn_backward_sums_occupancy.restype = _i
+    lib.bn_backward_sums_occupancy.argtypes = [
+        _i, _i, _i,                 # dtype, vec, threads
+        ctypes.POINTER(_i),         # blocks an SM holds
     ]
 
 

@@ -17,7 +17,9 @@ semantics is exactly the forward's softmax input. The mask gets no gradient.
 
 Each direction has a kernel that holds a head's tiles in one block's shared
 memory (the flagship T=75 and T=28), and tiled kernels for any longer T,
-chosen by T and E alone (``fits_one_block``).
+chosen by T and E alone (``fits_one_block``). The backward in bf16 takes a
+tensor-core kernel wherever a head fits it (``backward_path``), the train
+path's T=75 and the eval path's T=28 among them.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.
@@ -36,6 +38,8 @@ from mmvqa_tpu_torch.native import loader
 NEG_BIG = 10000.0
 SMEM_LIMIT = 232448  # shared memory one block can have on an H100 (227 KB)
 TILE = 32            # query rows or keys a block of the tiled kernels owns
+MMA_MAX_T = 128      # tc::kMaxTiles x 16: the tensor-core backward's rows
+MMA_PAD = 8          # tc::kPad: bf16 elements past each of its staged rows
 
 
 def _one_block_bytes(T: int, E: int, backward: bool) -> int:
@@ -69,6 +73,42 @@ def fits_one_block(T: int, E: int, backward: bool) -> bool:
             f"{_tiled_bytes(E, backward)} bytes of shared memory for its "
             f"{TILE}-row tiles, a block has {SMEM_LIMIT}")
     return False
+
+
+def mma_smem_bytes(T: int, E: int) -> int:
+    """Shared memory of the tensor-core backward, tc::smem_bytes in
+    csrc/realformer_attention_bwd.cu: q, k, dctx in bf16 rows of E + 8; then
+    v's rows and the flat fp32 carry and dcarry blocks, or, in their place
+    once ds is taken, the four bf16 (Tp, Tp + 8) tiles of p and ds (hi and
+    lo terms), whichever is larger; T padded to Tp, a multiple of 16."""
+    Tp = -(-T // 16) * 16
+    rows = 2 * Tp * (E + MMA_PAD)
+    flat = 4 * ((T * T + 6) // 4 * 4)
+    return 3 * rows + max(rows + 2 * flat, 8 * Tp * (Tp + MMA_PAD))
+
+
+def backward_path(dtype: torch.dtype, T: int, E: int) -> str:
+    """The backward kernel for a head of (T, E) in ``dtype``: ``"mma"``, the
+    bf16 tensor-core kernel, where E is a multiple of 16 up to 128, T at
+    most 128 and a head fits one block's shared memory (T up to 125 at
+    E=96); else ``"one_block"`` or ``"tiled"`` as ``fits_one_block``
+    says."""
+    if (dtype == torch.bfloat16 and E % 16 == 0 and 16 <= E <= 128
+            and T <= MMA_MAX_T and mma_smem_bytes(T, E) <= SMEM_LIMIT):
+        return "mma"
+    return "one_block" if fits_one_block(T, E, backward=True) else "tiled"
+
+
+PATH_CODES = {"one_block": 0, "tiled": 1, "mma": 2}  # realformer_attn_bwd's
+
+
+def mma_occupancy(T: int, E: int) -> int:
+    """Blocks of the tensor-core backward for (T, E) that an SM of the
+    current card holds at once."""
+    blocks = ctypes.c_int(0)
+    loader.check(loader.library().realformer_attn_bwd_mma_occupancy(
+        T, E, ctypes.byref(blocks)), "realformer_attn_bwd_mma occupancy")
+    return blocks.value
 
 
 def _require_memory(name: str, t: torch.Tensor, nbytes: int) -> None:
@@ -174,7 +214,8 @@ def _launch_backward(kqv, carry, dctx, dcarry, want_dprev):
     E = E3 // 3
     k, q, v = kqv.split(E, dim=-1)
     loader.require_cuda("realformer_attention backward", kqv, carry)
-    tiled = not fits_one_block(T, E, backward=True)
+    path = backward_path(kqv.dtype, T, E)
+    tiled = path == "tiled"
     _require_memory("realformer_attention backward", kqv,
                     4 * B * H * T * T * (4 if tiled else 3))
     dkqv = torch.empty((B, T, H, E3), device=kqv.device, dtype=kqv.dtype)
@@ -204,9 +245,11 @@ def _launch_backward(kqv, carry, dctx, dcarry, want_dprev):
         _ptr(q), _ptr(k), _ptr(v), _ptr(carry), _ptr(dctx), _ptr(dcarry),
         _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dprev), _ptr(ds_scratch),
         _ptr(stats), strides, loader.DTYPE_CODES[kqv.dtype], B, H, T, E,
-        int(tiled), loader.stream_ptr(),
+        PATH_CODES[path], loader.stream_ptr(),
     )
     loader.check(code, "realformer_attn_bwd")
+    if path == "mma":
+        realformer_attention.backward_mma_launches += 1
     return dkqv, dprev
 
 
@@ -302,3 +345,4 @@ def realformer_attention(
 
 realformer_attention.launches = 0
 realformer_attention.backward_launches = 0
+realformer_attention.backward_mma_launches = 0  # of those, the tensor cores'

@@ -6,7 +6,8 @@ the map as (rows, C). A thread owns ``vec`` neighbouring channels and walks
 down rows. A block is ``lanes`` x ``row_groups`` threads: ``lanes * vec``
 channels wide, so that a narrow map fills its block with row groups instead
 of idle lanes. Channels are cut into ``ctiles`` tiles of equal width, rows
-into ``nrb`` blocks of ``rows_per_block``.
+into ``nrb`` blocks of ``rows_per_block``, as many as one wave of the card
+holds.
 
 ``depthwise_plan``, the depthwise 3x3 forward and backward
 (``csrc/depthwise3x3*.cu``, ``csrc/depthwise3x3_tile.cuh``): the map as
@@ -55,16 +56,20 @@ def sixteen_byte_rows(C: int, *tensors: torch.Tensor) -> bool:
                for t in tensors)
 
 
-def channel_plan(rows: int, C: int, vec: int, blocks: int) -> ChannelPlan:
-    """Cut a (rows, C) map for about ``blocks`` blocks in all; raises for
-    shapes the grid cannot take. No block is left without rows."""
+def channel_plan(rows: int, C: int, vec: int, wave: int) -> ChannelPlan:
+    """Cut a (rows, C) map into at most ``wave`` blocks in all (the blocks
+    of the kernel the card holds at once), one channel tile's row blocks
+    never fewer than one; raises for shapes the grid cannot take. No block
+    is left without rows. The block's shape does not depend on ``wave``, so
+    a caller may plan with any wave, ask the card how many such blocks an SM
+    holds, and plan again."""
     if rows < 1 or C < 1:
         raise ValueError(f"empty map: rows={rows} C={C}")
     nvec = cdiv(C, vec)
     ctiles = cdiv(nvec, MAX_LANES)
     lanes = cdiv(nvec, ctiles)
     row_groups = max(1, min(MAX_THREADS // lanes, rows))
-    nrb = max(1, min(cdiv(blocks, ctiles), cdiv(rows, row_groups)))
+    nrb = max(1, min(wave // ctiles, cdiv(rows, row_groups)))
     rows_per_block = cdiv(cdiv(rows, nrb), row_groups) * row_groups
     nrb = cdiv(rows, rows_per_block)
     if nrb > 65535 or rows_per_block > 2**31 - 1 or ctiles > 2**31 - 1:

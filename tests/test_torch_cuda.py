@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from mmvqa_tpu_torch.ops.attention import (
+    backward_path,
     realformer_attention,
     realformer_attention_backward,
     realformer_attention_backward_reference,
@@ -591,6 +592,100 @@ def test_attention_long_sequences_match_plain(dev, dtype, T, with_prev,
         assert dprev is None
 
 
+def _k2_bwd_case(dev, B, T, layout, with_prev, with_mask):
+    """bf16 kqv at 8 heads of 96 laid out as the train step gives it
+    ("packed": the projection's (B, T, H, 3E) output), as a (B, H, T, 3E)
+    buffer's permuted view ("strided"), or one element past a 16-byte
+    boundary ("unaligned": the kernel's element copies); the forward's carry
+    from the kernel."""
+    g = _gen(dev)
+    H, E = 8, 96
+    if layout == "strided":
+        kqv = torch.randn(B, H, T, 3 * E, device=dev, generator=g)
+        kqv = kqv.bfloat16().permute(0, 2, 1, 3)
+    elif layout == "unaligned":
+        flat = torch.randn(B * T * H * 3 * E + 1, device=dev, generator=g)
+        kqv = flat.bfloat16()[1:].view(B, T, H, 3 * E)
+    else:
+        kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g).bfloat16()
+    k, q, v = kqv.split(E, dim=-1)
+    prev = (torch.randn(B, H, T, T, device=dev, generator=g)
+            if with_prev else None)
+    mask = None
+    if with_mask:
+        mask = torch.ones(B, T, device=dev)
+        mask[1, T // 3:] = 0.0
+    _, carry = realformer_attention(q, k, v, prev, mask)
+    return kqv, q, k, v, carry, g
+
+
+@pytest.mark.parametrize("T", [17, 28, 75, 125])
+@pytest.mark.parametrize("layout", ["packed", "strided", "unaligned"])
+@pytest.mark.parametrize("with_prev,with_mask,with_dctx,with_dcarry", [
+    (False, False, True, False), (False, True, True, True),
+    (True, True, True, True), (True, True, True, False),
+    (True, False, False, True)])
+def test_attention_bf16_backward_tensor_core_kernel_matches_plain(
+        dev, T, layout, with_prev, with_mask, with_dctx, with_dcarry):
+    """The tensor-core backward against the plain version at the flagship's
+    two lengths, a ragged one and the longest it takes at E=96 (125), within
+    chip_smoke.py's TOL_K2_BWD_BF16 (dq, dk, dv) and TOL_K2_BWD (dprev);
+    dctx a strided view; two runs give the same bits; its own launch
+    counter moves, no other kernel runs."""
+    assert backward_path(torch.bfloat16, T, 96) == "mma"
+    B, E = 4, 96
+    kqv, q, k, v, carry, g = _k2_bwd_case(dev, B, T, layout, with_prev,
+                                          with_mask)
+    dctx = None
+    if with_dctx:  # the output projection's gradient as a strided view
+        dctx = torch.randn(B, T, 8, 2 * E, device=dev, generator=g)
+        dctx = dctx.bfloat16()[..., E // 2:E // 2 + E]
+    dcarry = (0.1 * torch.randn(B, 8, T, T, device=dev, generator=g)
+              if with_dcarry else None)
+    counts = (realformer_attention.backward_launches,
+              realformer_attention.backward_mma_launches)
+    dkqv, dprev = realformer_attention_backward(kqv, carry, dctx, dcarry,
+                                                with_prev)
+    again = realformer_attention_backward(kqv, carry, dctx, dcarry,
+                                          with_prev)
+    torch.cuda.synchronize()
+    assert (realformer_attention.backward_launches,
+            realformer_attention.backward_mma_launches) == (counts[0] + 2,
+                                                           counts[1] + 2)
+    assert torch.equal(again[0], dkqv)
+    dq, dk, dv, ds = realformer_attention_backward_reference(
+        q, k, v, carry, dctx, dcarry)
+    torch.testing.assert_close(dkqv.float(),
+                               torch.cat([dk, dq, dv], dim=-1).float(),
+                               rtol=8e-3, atol=5e-5)
+    if with_prev:
+        assert torch.equal(again[1], dprev)
+        torch.testing.assert_close(dprev, ds, rtol=5e-4, atol=5e-5)
+    else:
+        assert dprev is None
+
+
+def test_attention_bf16_backward_is_one_tensor_core_kernel(dev):
+    """At the train shape the backward launches realformer_attn_bwd_mma
+    alone; fp32 keeps its one-block kernel."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    kqv, q, k, v, carry, g = _k2_bwd_case(dev, 8, 75, "packed", True, True)
+    dctx = torch.randn(8, 75, 8, 96, device=dev, generator=g).bfloat16()
+    realformer_attention_backward(kqv, carry, dctx, carry, True)
+    torch.cuda.synchronize()
+    for dtype, want in ((torch.bfloat16, "realformer_attn_bwd_mma"),
+                        (torch.float32, "realformer_attn_bwd_kernel")):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            realformer_attention_backward(kqv.to(dtype), carry,
+                                          dctx.to(dtype), carry, True)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and "realformer_attn_bwd" in e.key]
+        assert len(names) == 1 and want in names[0], names
+
+
 # ------------------------------------------- the trunk's kernels ----
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -930,6 +1025,71 @@ def test_bn_backward_sums_kernel_matches_plain(dev, dtype, shape):
     _normwise(s2, p2, 1e-4)
     again = bn_backward_sums(x, dy, mean, inv_std)
     assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [24, 1824, 3072, 301])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_bn_backward_sums_is_one_launch(dev, dtype, C, aligned):
+    """The stem's, the widest and an odd channel count (one channel a
+    thread), on a map one element past a 16-byte boundary too: one kernel
+    and no reduce kernel, the plain version's sums, two runs bit for bit,
+    the counters back at 0."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from mmvqa_tpu_torch.ops import bn_sums
+
+    g = _gen(dev)
+    N = 6272 if C > 1000 else 25088
+    flat = (torch.randn(N * C + 1, device=dev, generator=g) * 2 + 1)
+    x = flat.to(dtype)[(0 if aligned else 1):][:N * C].view(N, C)
+    dy = torch.randn(N, C, device=dev, generator=g).to(dtype)
+    mean = torch.randn(C, device=dev, generator=g)
+    inv_std = 1 + torch.rand(C, device=dev, generator=g)
+    s1, s2 = bn_backward_sums(x, dy, mean, inv_std)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = bn_backward_sums(x, dy, mean, inv_std)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "bn_backward" in e.key]
+    assert len(names) == 1 and "bn_backward_sums_kernel" in names[0], names
+    assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+    p1, p2 = bn_backward_sums_reference(x, dy, mean, inv_std)
+    _normwise(s1, p1, 1e-4)
+    _normwise(s2, p2, 1e-4)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert not bn_sums._COUNTERS[(x.device, stream)].any()
+
+
+def test_bn_backward_sums_on_three_streams_at_once(dev):
+    """Calls queued on three streams at once count into their own stream's
+    counters and give the default stream's bits."""
+    from mmvqa_tpu_torch.ops import bn_sums
+
+    g = _gen(dev)
+    cases = []
+    for N, C in ((401408, 48), (25088, 1056), (6272, 3072)):
+        x = torch.randn(N, C, device=dev, generator=g).bfloat16()
+        dy = torch.randn(N, C, device=dev, generator=g).bfloat16()
+        mean = torch.randn(C, device=dev, generator=g)
+        inv_std = 1 + torch.rand(C, device=dev, generator=g)
+        cases.append((x, dy, mean, inv_std))
+    want = [bn_backward_sums(*c) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    got = [[] for _ in cases]
+    for _ in range(3):
+        for i, (stream, c) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(1000)
+                got[i].append(bn_backward_sums(*c))
+    torch.cuda.synchronize()
+    for (s1, s2), runs in zip(want, got):
+        for r1, r2 in runs:
+            assert torch.equal(r1, s1) and torch.equal(r2, s2)
+    device = cases[0][0].device
+    for s in streams:
+        assert not bn_sums._COUNTERS[(device, s.cuda_stream)].any()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -3,8 +3,12 @@
 The same numpy inputs go through the JAX function and its port. On the CPU
 the port's kernel wrappers take their plain PyTorch versions; the JAX token
 head runs its Pallas kernel in interpret mode, as tests/test_token_head.py
-runs it.
+runs it. The attention backward's bf16 tensor-core arithmetic is written out
+here and held against the JAX package's Pallas backward in interpret mode on
+bf16 inputs.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -17,6 +21,9 @@ import flax.linen as nn
 from mmvqa_tpu.core.config import vqa_config as jax_vqa_config
 from mmvqa_tpu.ops import activations as jax_act
 from mmvqa_tpu.ops.attention import realformer_attention as jax_attention
+from mmvqa_tpu.ops.pallas_attention import (
+    _bwd_call as jax_attention_bwd_kernel,
+)
 from mmvqa_tpu.ops.pallas_token_head import (
     fused_token_head as jax_fused_token_head,
     token_head_reference as jax_token_head_reference,
@@ -28,9 +35,12 @@ from mmvqa_tpu_torch.core.config import vqa_config
 from mmvqa_tpu_torch.data.images import process_batch
 from mmvqa_tpu_torch.ops import activations, losses
 from mmvqa_tpu_torch.ops.attention import (
+    backward_path,
     fits_one_block,
+    mma_smem_bytes,
     realformer_attention,
     realformer_attention_backward_reference,
+    realformer_attention_reference,
 )
 from mmvqa_tpu_torch.ops.token_head import (
     FWD_STREAMED,
@@ -376,6 +386,155 @@ def test_realformer_attention_refuses_a_head_too_wide_for_its_tiles():
     assert not fits_one_block(4096, 384, backward=False)
     with pytest.raises(ValueError, match="shared memory"):
         fits_one_block(4096, 512, backward=True)
+
+
+# K2-bwd's tensor-core kernel (csrc/realformer_attention_bwd.cu, bf16): the
+# products take bf16 operands, so p and ds (fp32) go in as two bf16 terms,
+# hi = bf16(x) and lo = bf16(x - hi); k, q and dctx are bf16 already.
+
+
+def _bf16_terms(x):
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _k2_bwd_split(q, k, v, carry, dctx, dcarry, split=True):
+    """The tensor-core kernel's arithmetic written out: p, dp and ds in
+    fp32 as the plain version takes them, then dq = ds k, dk = ds^T q and
+    dv = p^T dctx with ds and p as their hi + lo bf16 terms (``split``) or
+    as hi alone (the control), fp32 sums. Returns fp32 dq, dk, dv
+    (B, T, H, E), unrounded, and ds (B, H, T, T)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    dch = dctx.float().permute(0, 2, 1, 3)
+    p = torch.softmax(carry, dim=-1)
+    dp = dch @ vh.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if dcarry is not None:
+        ds = ds + dcarry
+
+    def product(a, b):
+        hi, lo = _bf16_terms(a)
+        return hi @ b + lo @ b if split else hi @ b
+
+    dq = product(ds, kh) * scale
+    dk = product(ds.transpose(-1, -2), qh) * scale
+    dv = product(p.transpose(-1, -2), dch)
+    return [t.permute(0, 2, 1, 3) for t in (dq, dk, dv)], ds
+
+
+def _k2_bwd_bf16_inputs(rng, T, with_prev, with_mask, with_dcarry):
+    """bf16 q, k, v, dctx at 2 heads of 32 and the fp32 carry of the
+    forward's plain version (the kernel's input), dcarry fp32 or None."""
+    Bk, Hk, Ek = 2, 2, 32
+    q, k, v, dctx = (torch.from_numpy(rng.normal(size=(Bk, T, Hk, Ek))
+                                      .astype(np.float32)).bfloat16()
+                     for _ in range(4))
+    prev = (torch.from_numpy(rng.normal(size=(Bk, Hk, T, T))
+                             .astype(np.float32)) if with_prev else None)
+    mask = None
+    if with_mask:
+        mask = torch.ones(Bk, T)
+        mask[1, T // 2:] = 0.0
+    _, carry = realformer_attention_reference(q, k, v, prev, mask)
+    dcarry = (torch.from_numpy(0.1 * rng.normal(size=(Bk, Hk, T, T))
+                               .astype(np.float32)) if with_dcarry else None)
+    return q, k, v, carry, dctx, dcarry
+
+
+# chip_smoke.py's TOL_K2_BWD_BF16 (dq, dk, dv: two bf16 ulps of one fp32
+# value) and TOL_K2_BWD (dprev, fp32; tests/test_pallas_attention.py:92)
+TOL_K2_BWD_BF16 = dict(rtol=8e-3, atol=5e-5)
+TOL_K2_BWD = dict(rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("T", [17, 28, 75])
+@pytest.mark.parametrize("with_prev,with_mask,with_dcarry", [
+    (False, False, False), (False, True, True), (True, True, True),
+    (True, True, False)])
+def test_attention_bf16_backward_split_matches_the_reference_kernel(
+        rng, T, with_prev, with_mask, with_dcarry):
+    """The tensor-core kernel's arithmetic against the JAX package's Pallas
+    backward (interpret mode, as tests/test_pallas_attention.py runs it) on
+    the same bf16 inputs and fp32 carry, and against the port's fp32 plain
+    version, both within chip_smoke.py's tolerances: T of the flagship's
+    two lengths and a ragged one, the train step's four kinds of layer."""
+    q, k, v, carry, dctx, dcarry = _k2_bwd_bf16_inputs(
+        rng, T, with_prev, with_mask, with_dcarry)
+    (dq, dk, dv), ds = _k2_bwd_split(q, k, v, carry, dctx, dcarry)
+
+    def jx(t):  # (B, T, H, E) bf16 -> the kernel's (B, H, T, E)
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) \
+            .transpose(0, 2, 1, 3)
+
+    zeros = torch.zeros_like(carry) if dcarry is None else dcarry
+    want = jax_attention_bwd_kernel(jx(q), jx(k), jx(v),
+                                    jnp.asarray(carry.numpy()), jx(dctx),
+                                    jnp.asarray(zeros.numpy()))
+    plain = realformer_attention_backward_reference(q, k, v, carry, dctx,
+                                                    dcarry)
+    for got, ref, pl in zip((dq, dk, dv), want[:3], plain[:3]):
+        got = got.bfloat16().float().numpy()
+        ref = np.asarray(ref.astype(jnp.float32)).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(got, ref, **TOL_K2_BWD_BF16)
+        np.testing.assert_allclose(got, pl.float().numpy(), **TOL_K2_BWD_BF16)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(want[3]), **TOL_K2_BWD)
+    np.testing.assert_allclose(ds.numpy(), plain[3].numpy(), **TOL_K2_BWD)
+
+
+# the split's products against the fp32 ones, relative to the largest
+# entry: hi + lo leaves about 2^-16 of each term (read: 2e-6 to 5e-6 at
+# T = 17, 28, 75), one bf16 term about 2^-9 (1e-3 to 3e-3)
+SPLIT_BOUND = 1e-4
+
+
+@pytest.mark.parametrize("T", [17, 28, 75])
+def test_attention_bf16_backward_needs_both_terms(rng, T):
+    """Before the final rounding, the split products meet the fp32 products
+    of the same bf16 inputs within SPLIT_BOUND of the largest entry; the
+    control with one bf16 term for p and ds misses it, and misses the
+    card's bf16 tolerance after the rounding too."""
+    q, k, v, carry, dctx, dcarry = _k2_bwd_bf16_inputs(rng, T, True, True,
+                                                       True)
+    dq, dk, dv, _ = realformer_attention_backward_reference(
+        *(t.float() for t in (q, k, v)), carry, dctx.float(), dcarry)
+    split, _ = _k2_bwd_split(q, k, v, carry, dctx, dcarry)
+    one, _ = _k2_bwd_split(q, k, v, carry, dctx, dcarry, split=False)
+    for want, got, ctl in zip((dq, dk, dv), split, one):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= SPLIT_BOUND * scale
+        assert (ctl - want).abs().max().item() > SPLIT_BOUND * scale
+        wb = want.bfloat16().float()
+        miss = (ctl.bfloat16().float() - wb).abs() > (
+            TOL_K2_BWD_BF16["atol"] + TOL_K2_BWD_BF16["rtol"] * wb.abs())
+        assert miss.any()
+
+
+@pytest.mark.parametrize("dtype,T,E,path", [
+    (torch.bfloat16, 75, 96, "mma"),       # the train path
+    (torch.bfloat16, 28, 96, "mma"),       # the eval path's length
+    (torch.bfloat16, 17, 16, "mma"),
+    (torch.bfloat16, 125, 96, "mma"),      # the longest it takes at E=96
+    (torch.bfloat16, 75, 128, "mma"),
+    (torch.bfloat16, 126, 96, "tiled"),    # 233 KB: beyond one block
+    (torch.bfloat16, 128, 96, "tiled"),
+    (torch.bfloat16, 129, 96, "tiled"),
+    (torch.bfloat16, 512, 96, "tiled"),
+    (torch.bfloat16, 33, 40, "one_block"),  # E no multiple of 16
+    (torch.bfloat16, 75, 144, "one_block"),  # E beyond 128
+    (torch.float32, 75, 96, "one_block"),  # the fp32 check's kernel
+    (torch.float32, 28, 96, "one_block"),
+    (torch.float32, 200, 96, "tiled"),
+])
+def test_attention_backward_path_follows_dtype_t_and_e(dtype, T, E, path):
+    assert backward_path(dtype, T, E) == path
+
+
+def test_attention_bf16_backward_shares_an_sm_at_the_train_shape():
+    """Two blocks of the train shape's (T=75, E=96) share an SM: each at
+    most half of 228 KB less the 1 KB a block reserves."""
+    assert mma_smem_bytes(75, 96) <= (233472 // 2 - 1024)
+    assert mma_smem_bytes(28, 96) < mma_smem_bytes(75, 96)
 
 
 # ------------------------------------------------------ eval criterion ----

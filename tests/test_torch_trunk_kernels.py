@@ -351,6 +351,142 @@ def test_channel_plan_covers_the_map_once(rows, C, vec):
         assert p.ctiles * p.nrb >= 132
 
 
+# K5's sites in a train step, (N / B, C) -> count (chip_smoke.py::trunk_sites)
+K5_SITES = {(49, 304): 18, (49, 512): 5, (49, 1056): 1, (49, 1824): 36,
+            (49, 3072): 8, (196, 160): 7, (196, 176): 14, (196, 320): 1,
+            (196, 640): 12, (196, 960): 2, (196, 1056): 27, (784, 80): 5,
+            (784, 192): 1, (784, 320): 5, (3136, 48): 5, (3136, 96): 1,
+            (3136, 192): 4, (12544, 24): 4}
+SMS = 132
+
+
+def _last_blocks(plan, rng):
+    """The blocks of each channel tile arrive at its counter in a random
+    order; atomicInc(counter, nrb - 1) returns the count before it and wraps
+    to 0 after the nrb-th. Returns, per tile, the blocks that saw nrb - 1,
+    and the counters afterwards."""
+    counters = np.zeros(plan.ctiles, np.int64)
+    last = [[] for _ in range(plan.ctiles)]
+    arrivals = [(x, y) for x in range(plan.ctiles) for y in range(plan.nrb)]
+    for i in rng.permutation(len(arrivals)):
+        x, y = arrivals[i]
+        old = counters[x]
+        counters[x] = 0 if old >= plan.nrb - 1 else old + 1
+        if old == plan.nrb - 1:
+            last[x].append(y)
+    return last, counters
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rows,C", sorted(K5_SITES))
+def test_bn_sums_plan_at_every_trunk_site(rng, rows, C, itemsize):
+    """At B=128 and 1-16 blocks an SM: every row and channel owned once, one
+    wave of blocks that fills the card, a narrow map's block filled with
+    row groups, and one last block a channel tile, after which its counter
+    is back at 0."""
+    N = 128 * rows
+    vec = 16 // itemsize if C % (16 // itemsize) == 0 else 1
+    draft = tiling.channel_plan(N, C, vec, 1)
+    for slots in range(1, 17):
+        p = tiling.channel_plan(N, C, vec, slots * SMS)
+        # the block's shape is the draft's: asked of the card before planning
+        assert (p.lanes, p.row_groups) == (draft.lanes, draft.row_groups)
+        assert p.lanes * p.row_groups <= tiling.MAX_THREADS
+        assert p.lanes * p.row_groups > tiling.MAX_THREADS // 2
+        assert (p.ctiles * p.lanes * p.vec >= C
+                > (p.ctiles - 1) * p.lanes * p.vec)
+        assert p.nrb * p.rows_per_block >= N > (p.nrb - 1) * p.rows_per_block
+        assert p.rows_per_block % p.row_groups == 0
+        assert p.ctiles * p.nrb <= slots * SMS          # one wave
+        # that fills the card, or a row a thread
+        assert (p.ctiles * p.nrb > slots * SMS // 2
+                or p.rows_per_block == p.row_groups)
+        last, counters = _last_blocks(p, rng)
+        assert all(len(blocks) == 1 for blocks in last)
+        assert not counters.any()
+
+
+def _emulated_k5(x, dy, mean, inv_std, plan):
+    """csrc/bn_backward_sums.cu's order of fp32 sums under ``plan``: thread
+    (lane, group) of row block b walks rows b * rows_per_block + group,
+    + row_groups, ... in order; the block adds its row groups in order into
+    its partial; the last block's thread of row group g adds partials g,
+    g + row_groups, ... in order, then the row groups in order."""
+    C = x.shape[-1]
+    xf, d = x.reshape(-1, C).float(), dy.reshape(-1, C).float()
+    terms = torch.stack([d, d * ((xf - mean) * inv_std)])     # (2, N, C)
+    groups, rpb, nrb = plan.row_groups, plan.rows_per_block, plan.nrb
+    padded = torch.zeros(2, nrb * rpb, C)
+    padded[:, :terms.shape[1]] = terms
+    steps = padded.view(2, nrb, rpb // groups, groups, C)
+    per_thread = torch.zeros(2, nrb, groups, C)
+    for k in range(rpb // groups):
+        per_thread += steps[:, :, k]
+    partial = torch.zeros(2, nrb, C)
+    for g in range(groups):
+        partial += per_thread[:, :, g]
+    per_group = torch.zeros(2, groups, C)
+    for j in range(nrb):
+        per_group[:, j % groups] += partial[:, j]
+    out = torch.zeros(2, C)
+    for g in range(groups):
+        out += per_group[:, g]
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("slots", [1, 3, 16])
+def test_bn_sums_block_order_matches_flax_and_the_plain_version(rng, dtype,
+                                                                slots):
+    """The kernel's block-order sums, on the data of
+    test_bn_backward_sums_match_flax_and_the_probe and on a map of many row
+    blocks, against the plain version (1e-5 of the largest entry) and the
+    Flax BatchNorm's gradients (1e-4, that test's bound)."""
+    B, H, W, C = 4, 6, 5, 24
+    x = (rng.normal(size=(B, H, W, C)) * 2 + 0.5).astype(np.float32)
+    dy = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    jx, jdy = jnp.asarray(x, dtype), jnp.asarray(dy, dtype)
+    params = {"scale": rng.uniform(0.5, 1.5, C).astype(np.float32),
+              "bias": rng.normal(size=C).astype(np.float32)}
+    stats = {"mean": np.zeros(C, np.float32), "var": np.ones(C, np.float32)}
+    bn = nn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-3)
+
+    def f(p):
+        y, _ = bn.apply({"params": p, "batch_stats": stats},
+                        jx.astype(jnp.float32), mutable=["batch_stats"])
+        return jnp.sum(y * jdy.astype(jnp.float32))
+
+    want = jax.grad(f)(params)
+    xf = np.asarray(jx, np.float32).reshape(-1, C)
+    mean = xf.mean(0)
+    inv_std = 1.0 / np.sqrt(np.maximum((xf * xf).mean(0) - mean * mean, 0)
+                            + 1e-3)
+    tdtype = getattr(torch, dtype)
+    xt = _t(np.asarray(jx, np.float32), tdtype)
+    dyt = _t(np.asarray(jdy, np.float32), tdtype)
+    vec = 16 // xt.element_size()
+    plan = tiling.channel_plan(B * H * W, C, vec, slots * SMS)
+    s1, s2 = _emulated_k5(xt, dyt, _t(mean), _t(inv_std), plan)
+    p1, p2 = bn_backward_sums_reference(xt, dyt, _t(mean), _t(inv_std))
+    for got, flax_grad, plain in ((s1, want["bias"], p1),
+                                  (s2, want["scale"], p2)):
+        scale = np.abs(np.asarray(flax_grad)).max()
+        assert np.abs(_np(got) - np.asarray(flax_grad)).max() <= 1e-4 * scale
+        assert np.abs(_np(got) - _np(plain)).max() <= 1e-5 * scale
+    # a map of many row blocks and a ragged last block
+    N, C = 9001, 40
+    x = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32) * 2 + 1)
+    dy = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32))
+    x, dy = x.to(tdtype), dy.to(tdtype)
+    m = torch.from_numpy(rng.normal(size=C).astype(np.float32))
+    inv = torch.from_numpy(rng.uniform(1, 2, size=C).astype(np.float32))
+    plan = tiling.channel_plan(N, C, vec, slots * SMS)
+    assert plan.nrb > 1
+    for got, want_ in zip(_emulated_k5(x, dy, m, inv, plan),
+                          bn_backward_sums_reference(x, dy, m, inv)):
+        assert (got - want_).abs().max() <= 1e-5 * want_.abs().max()
+
+
 # K3's halo-tile plan: the five stride-1 site shapes of the flagship trunk at
 # the train, eval and fp32-check batches, and ragged shapes (channel counts
 # whose rows are not 16 bytes, planes that are cut into strips or are
