@@ -18,17 +18,20 @@
    every kernel that sums across blocks give identical bits. Beyond the
    main path's shapes: the token head's backward at K=2048 (the ResNet-152
    trunk's last tap) and the attention, forward and backward, at T=128 and
-   T=512 (its tiled kernels). The token head's forward prints its rate
-   (TFLOP/s of its products) and its share of the bound per tap at B=128
+   T=512 (its tiled kernels). Each bf16 attention case must take the
+   tensor-core kernels where forward_path and backward_path say so, and two
+   runs of it must give identical bits. The token head's forward prints its
+   rate (TFLOP/s of its products) and its share of the bound per tap at B=128
    and B=16; conv1x1 + statistics must take its TMA + wgmma path at every
-   bf16 trunk site shape; the bf16 attention backward at T=75 and T=28 and
-   the BN-backward sums at every site shape print their share of the
-   bound.
+   bf16 trunk site shape; the attention at T=75 and T=28, forward and
+   backward, and the BN-backward sums at every site shape print their
+   share of the bound.
 3. Eval slice: the flagship VQA model (EfficientNetV2-M + RealFormer, hidden
    768, 4 layers, T=28, 224 px) with seeded random weights answers batches
    of 16 synthetic requests through ``make_vqa_eval_step``, in fp32 and in
    bf16. The launch counters must show the token head 5x, the attention
-   4x and the depthwise 3x3 42x per forward; the fp32 logits must match the
+   4x (in bf16 all on its tensor-core kernel) and the depthwise 3x3 42x per
+   forward; the fp32 logits must match the
    same model run on the CPU (plain path); the bf16 logits must be as close
    to those as the same bf16 model run on the CPU; every output must be finite. For each precision it
    then times each layer with CUDA events and traces the batches with
@@ -42,8 +45,8 @@
    ``mlm_epoch`` over a repeated batch of 128 through ``make_mlm_steps``;
    every loss finite, the last below the first; ms per step, images per
    second, peak memory. (c) The launch counters must show, per step, the
-   token head 5x forward and 5x backward, the attention 4x and 4x (the
-   backward all on its tensor-core kernel), the depthwise 3x3 42x and 42x,
+   token head 5x forward and 5x backward, the attention 4x and 4x (all on
+   its tensor-core kernels), the depthwise 3x3 42x and 42x,
    conv1x1 + statistics 98x (all of them on its TMA path) and the
    BN-backward sums 156x. (d) Where the time goes: forward, backward and
    optimizer by CUDA events, the eight kernels, what is left of the
@@ -51,8 +54,8 @@
    by torch.profiler; a library batch-norm kernel in the train step fails
    the run, and so does a second pass (a reduce or finalize kernel) of the
    token head, forward or backward, of the depthwise backward, of conv1x1 +
-   statistics or of the BN-backward sums, and an attention backward kernel
-   other than the tensor-core one.
+   statistics or of the BN-backward sums, and an attention kernel, forward
+   or backward, other than the tensor-core ones.
 
 Prints a JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -327,7 +330,16 @@ KERNELS = {
         "mmvqa_tpu_torch/csrc/token_head_bwd.cu",
         "mmvqa_tpu/ops/pallas_token_head.py:273",
         "no single PyTorch call gives dx and dW of the fused head"),
+    # every launch of the forward, whichever of its kernels took it (the
+    # one-block kernel, the tiled one, the bf16 tensor-core kernel)
     "realformer_attention": (
+        "mmvqa_tpu_torch/csrc/realformer_attention.cu",
+        "mmvqa_tpu/ops/pallas_attention.py:146",
+        "scaled_dot_product_attention takes no residual scores and returns "
+        "no score carry"),
+    # of those, realformer_attn_fwd_mma_kernel: bf16 on mma.sync, the eval
+    # and train paths' only attention forward in bf16
+    "realformer_attention_mma": (
         "mmvqa_tpu_torch/csrc/realformer_attention.cu",
         "mmvqa_tpu/ops/pallas_attention.py:146",
         "scaled_dot_product_attention takes no residual scores and returns "
@@ -380,6 +392,7 @@ def kernel_phase(torch):
     from mmvqa_tpu_torch.models.visual_tokens import tap_positions
     from mmvqa_tpu_torch.ops.attention import (
         backward_path,
+        forward_path,
         mma_occupancy,
         realformer_attention,
         realformer_attention_backward,
@@ -534,8 +547,12 @@ def kernel_phase(torch):
 
     # ---- K2, forward and backward
     H, E = HEADS, HEAD_DIM
+    print("realformer_attention_mma: blocks an SM holds at E=96: " + ", "
+          .join(f"T={T} {mma_occupancy(T, E, backward=False)}"
+                for T in (28, 75, 128)))
     print("realformer_attention_bwd_mma: blocks an SM holds at E=96: " + ", "
-          .join(f"T={T} {mma_occupancy(T, E)}" for T in (28, 75, 125)))
+          .join(f"T={T} {mma_occupancy(T, E, backward=True)}"
+                for T in (28, 75, 125)))
     k2_cases = [(dtype, EVAL_B, T, wp, wm)
                 for dtype in (torch.float32, torch.bfloat16)
                 for T in (28, 75) for wp in (False, True)
@@ -563,10 +580,20 @@ def kernel_phase(torch):
         summary = bf16 and B == TRAIN_B and T == 75 and with_prev
         label = (f"B={B} T={T} prev={with_prev} mask={with_mask} {dtype}")
 
+        path = forward_path(dtype, T, E)
+        mma = realformer_attention.mma_launches
         ctx, carry = realformer_attention(q, k, v, prev, mask)
+        ctx2, carry2 = realformer_attention(q, k, v, prev, mask)
         ctx_p, carry_p = realformer_attention_reference(q, k, v, prev, mask)
         torch.cuda.synchronize()
-        name = f"realformer_attention {label}"
+        if (realformer_attention.mma_launches - mma
+                != (2 if path == "mma" else 0)):
+            fail(f"realformer_attention {label}: the {path} path did not "
+                 f"take its kernel")
+        if not (torch.equal(ctx, ctx2) and torch.equal(carry, carry2)):
+            fail(f"realformer_attention {label}: two runs differ")
+        del ctx2, carry2
+        name = f"realformer_attention {label} ({path})"
         if bf16:
             e1 = e2 = close(name + " ctx", ctx, ctx_p, TOL_BF16)
         else:
@@ -581,11 +608,15 @@ def kernel_phase(torch):
             flush=flush)
         bnd = k2_bound(B, H, T, E, kqv.element_size(), with_prev, with_mask,
                        "fwd")
-        print(f"{name}: max_abs_err ctx {max(e1, e2):.3e} carry {e3:.3e}  "
-              f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]})")
+        print(f"{name}: max_abs_err ctx {max(e1, e2):.3e} carry {e3:.3e}, "
+              f"two runs identical  kernel {ms:.4f} ms  plain {plain:.4f} ms"
+              f"  bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"{100 * bnd[0] / ms:.1f}% of the bound")
         note("realformer_attention", dtype, max(e1, e2, e3), summary, ms,
              plain, bnd)
+        if path == "mma":
+            note("realformer_attention_mma", dtype, max(e1, e2, e3), summary,
+                 ms, plain, bnd)
 
         # the backward from the kernel's own carry; a layer with a prev also
         # gets a gradient for its carry, a last layer (here: no prev) none
@@ -1073,11 +1104,15 @@ def slice_phase(torch):
         time_layers(torch, model, step, batches[1:], label)
         trace_batches(torch, step, batches[1:], label)
         forwards += len(batches) + 2 * len(batches[1:])
+        if dtype == torch.bfloat16:
+            bf16_forwards = len(batches) + 2 * len(batches[1:])
     launches = read_counts()
-    print(f"slice: launches over {forwards} forwards: {launches}")
+    print(f"slice: launches over {forwards} forwards ({bf16_forwards} in "
+          f"bf16): {launches}")
     want = dict.fromkeys(launches, 0)
     want.update(token_head=5 * forwards,
                 realformer_attention=cfg.n_layers * forwards,
+                realformer_attention_mma=cfg.n_layers * bf16_forwards,
                 depthwise3x3=42 * forwards)
     if launches != want:
         fail(f"eval launches {launches}, want {want}")
@@ -1127,6 +1162,8 @@ def _counters():
     return (("token_head", fused_token_head, "launches"),
             ("token_head_bwd", fused_token_head, "backward_launches"),
             ("realformer_attention", realformer_attention, "launches"),
+            ("realformer_attention_mma", realformer_attention,
+             "mma_launches"),
             ("realformer_attention_bwd", realformer_attention,
              "backward_launches"),
             ("realformer_attention_bwd_mma", realformer_attention,
@@ -1303,7 +1340,7 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
           f"ms/step, device busy {busy / n:.2f} ms/step "
           f"({100 * busy / wall:.1f}%)")
     ours = ("token_head_fwd_mma", "token_head_partial", "token_head_finalize",
-            "token_head_bwd", "realformer_attn_fwd",
+            "token_head_bwd", "realformer_attn_fwd", "realformer_attn_fwd_mma",
             "realformer_attn_bwd", "realformer_attn_bwd_mma",
             "depthwise3x3_fwd", "depthwise3x3_bwd",
             "conv1x1_stats_tma", "conv1x1_stats_bf16",
@@ -1346,12 +1383,13 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
         fail(f"a second pass of the depthwise backward, the token head, "
              f"conv1x1 + statistics or the BN-backward sums ran in the train "
              f"step: {second}")
-    # the attention backward runs on its tensor-core kernel alone
-    other = [a.key for a in mine if "realformer_attn_bwd" in a.key
-             and "realformer_attn_bwd_mma" not in a.key]
-    if other:
-        fail(f"an attention backward kernel other than the tensor-core one "
-             f"ran in the train step: {other}")
+    # the attention runs on its tensor-core kernels alone, both ways
+    for way in ("fwd", "bwd"):
+        other = [a.key for a in mine if f"realformer_attn_{way}" in a.key
+                 and f"realformer_attn_{way}_mma" not in a.key]
+        if other:
+            fail(f"an attention {way} kernel other than the tensor-core one "
+                 f"ran in the train step: {other}")
     for a in kernels[:14]:
         print(f"  {a.self_device_time_total / 1e3 / n:9.4f} ms/step "
               f"{a.count // n:5d} calls  {a.key[:80]}")
@@ -1417,6 +1455,7 @@ def train_phase(torch):
           f"{second}; launches {launches}")
     per_step = {"token_head": 5, "token_head_bwd": 5,
                 "realformer_attention": cfg.n_layers,
+                "realformer_attention_mma": cfg.n_layers,
                 "realformer_attention_bwd": cfg.n_layers,
                 "realformer_attention_bwd_mma": cfg.n_layers,
                 "depthwise3x3": 42, "depthwise3x3_bwd": 42,

@@ -31,6 +31,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// 2^x by the special-function unit alone; below 2^-126 it gives 0
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // VEC neighbouring elements moved by one load or store. The
 // address must be a multiple of sizeof(T) * VEC bytes; the wrappers choose
 // VEC = 1 where the channel count or the base address does not allow more.

@@ -1,7 +1,7 @@
 // The mma.sync building blocks shared by the kernels that run bf16 products
 // on the tensor cores from shared-memory tiles: the token head's forward and
-// backward (token_head_tile.cuh) and the attention's backward
-// (realformer_attention_bwd.cu). 16-byte cp.async copies into shared memory,
+// backward (token_head_tile.cuh) and the attention's forward and backward
+// (attention_tile.cuh). 16-byte cp.async copies into shared memory,
 // ldmatrix fragment loads (plain and transposed) and one m16n8k16 product in
 // bf16 with fp32 sums.
 #pragma once

@@ -12,24 +12,48 @@
 // keys and values of the next layer, so their rounding is part of the
 // result.
 //
-// What bounds it on an H100: neither bytes nor operations. At the VQA shape
-// (B=16, H=8, T=28, E=96) one layer is 1.2 M multiply-adds per head and a
-// few hundred KB in total; the cost is launch and latency. One block per
-// (batch, head) keeps q, k, v and the score tile in shared memory and reads
-// and writes device memory exactly once, while its tiles fit one block's
-// shared memory (T=128 at E=96: 214 KB).
+// What bounds it on an H100: bytes. At the training shape (B=128, H=8,
+// T=75, E=96, bf16, prev and mask) a layer reads q, k, v and prev and
+// writes ctx and the carry: 105 MB, 0.031 ms at 3.35 TB/s, against two
+// products of 1.1 GFLOP each. Three paths, chosen by dtype, T and E alone
+// (ops/attention.py::forward_path):
 //
-// Beyond that, the tiled kernel below takes any T: a block owns 32 query
-// rows of one head and walks the keys 32 at a time, three times. The score
-// rows it writes to the carry (which is (B, H, T, T) in device memory
-// anyway) hold its softmax state: the first walk writes the scores, a warp
-// a row then takes their maximum and sum, and the last walk turns them into
-// probabilities and sums p v. The carry is read back twice from L2; the
-// path is chosen by T and E alone (ops/attention.py::fits_one_block).
+// * bf16 where a head fits one block (E a multiple of 16 up to 128, T up to
+//   128): the tensor-core kernel (tc::realformer_attn_fwd_mma_kernel). One
+//   block a (batch, head) stages the head's q, k and v rows in bf16 shared
+//   memory by 16-byte cp.async, T padded to Tp, a multiple of 16, with zero
+//   rows, and its prev, a flat T x T fp32 block that starts on 4 bytes
+//   only, by 16-byte copies peeled to the carry's 16-byte boundary; the
+//   copies come in three groups (q and k, prev, v), in the order the work
+//   needs them. A warp owns 16 query rows: s = q k^T on mma.sync.m16n8k16
+//   into fp32 accumulators (16 x Tp a warp, 40 registers at T=75), then the
+//   scale, prev from shared memory in the accumulator layout and the mask
+//   term, in the plain version's order. s goes into the flat block in
+//   place of prev and out to the carry by 16-byte stores, the staging
+//   reversed. The softmax runs in the registers (row max and sum by quad
+//   shuffles; keys past T are -inf); p's accumulator fragments are the A
+//   operand of p v with no trip through shared memory (two key tiles make
+//   one k step), as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi),
+//   because one term misses the bf16 tolerance (tests/test_torch_ops.py::
+//   test_attention_bf16_forward_needs_both_terms); v is read as the B
+//   operand by ldmatrix.trans. ctx is staged in bf16 in the warp's own q
+//   rows and leaves by 16-byte stores. 73 KB a head at T=75, three blocks
+//   an SM.
+// * Other dtypes and widths where a head's fp32 tiles fit one block's
+//   shared memory: the one-block kernel below (realformer_attn_fwd_kernel),
+//   q, k, v and the score tile in fp32 shared memory, products on the CUDA
+//   cores, one thread an output element (T=128 at E=96: 214 KB).
+// * Beyond that, the tiled kernel below takes any T: a block owns 32 query
+//   rows of one head and walks the keys 32 at a time, three times. The
+//   score rows it writes to the carry (which is (B, H, T, T) in device
+//   memory anyway) hold its softmax state: the first walk writes the
+//   scores, a warp a row then takes their maximum and sum, and the last
+//   walk turns them into probabilities and sums p v. The carry is read back
+//   twice from L2.
 //
 // q, k and v are read by strides, so the slices of the shared kqv projection
 // go in as views.
-#include "common.cuh"
+#include "attention_tile.cuh"
 
 namespace mmvqa {
 
@@ -313,17 +337,253 @@ cudaError_t launch_attn_tiled(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16, tensor cores
+
+namespace tc {
+
+using namespace k2tc;
+
+struct Args {
+  const __nv_bfloat16 *q, *k, *v;
+  const float* prev;  // may be null
+  const float* mask;  // may be null
+  float* carry;
+  __nv_bfloat16* ctx;
+  AttnStrides st;
+  int heads, H, T, E;
+  float scale;  // 1 / sqrt(E)
+  int vec;      // 16-byte copies of q, k and v
+};
+
+// shared memory of one head: q, k, v in bf16 rows of E + 8, then the flat
+// (T, T) fp32 block of prev, then of s
+inline size_t stage_bytes(int T, int Tp, int E) {
+  return 3 * 2 * (size_t)Tp * (E + kPad) + 4 * (size_t)flat_floats(T);
+}
+
+struct Stage {
+  __nv_bfloat16 *q, *k, *v;
+  float* flat;
+};
+
+__device__ __forceinline__ Stage stage_at(unsigned char* base, int Tp,
+                                          int E) {
+  const int ER = E + kPad;
+  Stage s;
+  s.q = reinterpret_cast<__nv_bfloat16*>(base);
+  s.k = s.q + Tp * ER;
+  s.v = s.k + Tp * ER;
+  s.flat = reinterpret_cast<float*>(s.v + Tp * ER);
+  return s;
+}
+
+// head bh's copies into stage s, in three groups in the order its work
+// needs them: q and k; prev; v. prev keeps the carry's offset within 16
+// bytes, so that the same flat block goes out to the carry by 16-byte
+// stores; where prev's offset differs, it comes in by plain loads.
+template <int NT>
+__device__ __forceinline__ void load(const Args& a, int bh, const Stage& s,
+                                     int tid) {
+  constexpr int Tp = 16 * NT, NTH = 32 * warps_for(NT);
+  const int b = bh / a.H, h = bh % a.H, T = a.T, E = a.E, ER = E + kPad;
+  stage(a.q, a.st.q, b, h, T, Tp, E, s.q, ER, a.vec, a.q, tid, NTH);
+  stage(a.k, a.st.k, b, h, T, Tp, E, s.k, ER, a.vec, a.q, tid, NTH);
+  commit();
+  if (a.prev) {
+    const long long head = (long long)bh * T * T;
+    const int off = flat_offset(a.carry + head);
+    if (flat_offset(a.prev + head) == off) {
+      stage_flat(a.prev + head, T * T, s.flat, tid, NTH);
+    } else {
+      for (int i = tid; i < T * T; i += NTH) s.flat[off + i] = a.prev[head + i];
+    }
+  }
+  commit();
+  stage(a.v, a.st.v, b, h, T, Tp, E, s.v, ER, a.vec, a.q, tid, NTH);
+  commit();
+}
+
+// head bh from stage s, whose three copy groups are the last committed.
+// Warp w < NT owns query rows [16 w, 16 w + 16): thread (g = lane / 4,
+// t4 = lane % 4) holds rows 16 w + g and 16 w + g + 8, columns 8 j + 2 t4
+// and + 1 of key tile j, as mma.sync's accumulators.
+// Each step's ldmatrix loads are issued before its products, which take
+// independent accumulators where they can: the asm statements keep their
+// order, so this is the schedule.
+template <int NT>
+__device__ __forceinline__ void compute(const Args& a, int bh, const Stage& s,
+                                        int tid) {
+  constexpr int NTH = 32 * warps_for(NT);
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int b = bh / a.H, h = bh % a.H, T = a.T, E = a.E, ER = E + kPad;
+  const long long head = (long long)bh * T * T;
+  const int off = flat_offset(a.carry + head);
+  const int r0 = 16 * warp;
+  float p[2 * NT][4];  // s, then p
+
+  wait_groups<2>();
+  __syncthreads();  // q and k have landed
+  if (warp < NT) {
+    // s = q k^T over this warp's rows and every key
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[j][i] = 0.0f;
+    for (int e0 = 0; e0 < E; e0 += 16) {
+      unsigned af[4], bf[NT][4];
+      ldsm_x4(af, s.q + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ER + e0 +
+                      ((lane >> 4) & 1) * 8);
+#pragma unroll
+      for (int j2 = 0; j2 < NT; ++j2)
+        ldsm_x4(bf[j2], s.k + (16 * j2 + (lane & 7) + ((lane >> 4) & 1) * 8) *
+                                  ER + e0 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int j2 = 0; j2 < NT; ++j2) {
+        mma(p[2 * j2], af, bf[j2][0], bf[j2][1]);
+        mma(p[2 * j2 + 1], af, bf[j2][2], bf[j2][3]);
+      }
+    }
+  }
+  wait_groups<1>();
+  __syncthreads();  // prev has landed
+  if (warp < NT) {
+    // s / sqrt(E) (+ prev) - 10000 (1 - mask_q), the plain version's order,
+    // into the flat block in place of prev; -inf past T, so p is 0 there
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + g + 8 * half;
+      const float neg = (a.mask && r < T)
+                            ? kNegBig * (1.0f - a.mask[(long long)b * T + r])
+                            : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * t4 + c;
+          float x = p[j][2 * half + c] * a.scale;
+          if (r < T && col < T) {
+            float* cell = s.flat + off + r * T + col;
+            if (a.prev) x = x + *cell;
+            if (a.mask) x = x - neg;
+            *cell = x;
+          } else {
+            x = neg_inf();
+          }
+          p[j][2 * half + c] = x;
+        }
+      }
+    }
+  }
+  wait_groups<0>();
+  __syncthreads();  // every row of s is in the flat block; v has landed
+  store_flat(s.flat, T * T, a.carry + head, tid, NTH);
+  if (warp < NT) {
+    softmax_rows<NT>(p);
+    // p as the A operand with no trip through shared memory: key tiles
+    // 2 j2 and 2 j2 + 1 are the k step j2, each as two bf16 terms
+    unsigned hi[NT][4], lo[NT][4];
+#pragma unroll
+    for (int j2 = 0; j2 < NT; ++j2) {
+      split(p[2 * j2][0], p[2 * j2][1], hi[j2][0], lo[j2][0]);
+      split(p[2 * j2][2], p[2 * j2][3], hi[j2][1], lo[j2][1]);
+      split(p[2 * j2 + 1][0], p[2 * j2 + 1][1], hi[j2][2], lo[j2][2]);
+      split(p[2 * j2 + 1][2], p[2 * j2 + 1][3], hi[j2][3], lo[j2][3]);
+    }
+    // ctx = p v, staged in bf16 in this warp's own q rows, done with; the
+    // hi and lo products of each 8 columns in accumulators of their own
+    __nv_bfloat16* out = s.q + r0 * ER;
+    for (int e0 = 0; e0 < E; e0 += 16) {
+      unsigned bf[NT][4];
+#pragma unroll
+      for (int j2 = 0; j2 < NT; ++j2)
+        ldsm_x4_t(bf[j2], s.v + (16 * j2 + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * ER +
+                              e0 + ((lane >> 4) & 1) * 8);
+      float acc[2][2][4] = {};  // columns e0 + 8 n, term
+#pragma unroll
+      for (int j2 = 0; j2 < NT; ++j2) {
+        mma(acc[0][0], hi[j2], bf[j2][0], bf[j2][1]);
+        mma(acc[1][0], hi[j2], bf[j2][2], bf[j2][3]);
+        mma(acc[0][1], lo[j2], bf[j2][0], bf[j2][1]);
+        mma(acc[1][1], lo[j2], bf[j2][2], bf[j2][3]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + (g + 8 * half) * ER + e0 + 8 * n + 2 * t4) =
+              __floats2bfloat162_rn(
+                  acc[n][0][2 * half] + acc[n][1][2 * half],
+                  acc[n][0][2 * half + 1] + acc[n][1][2 * half + 1]);
+    }
+    __syncwarp();
+    // the warp's rows below T out by 16-byte stores
+    const int pieces = E / 8;
+    for (int i = lane; i < 16 * pieces; i += 32) {
+      const int r = i / pieces, e = (i % pieces) * 8;
+      if (r0 + r < T)
+        *reinterpret_cast<uint4*>(a.ctx + b * a.st.ctx.b +
+                                  (r0 + r) * a.st.ctx.t + h * a.st.ctx.h + e) =
+            *reinterpret_cast<const uint4*>(out + r * ER + e);
+    }
+  }
+}
+
+// grid: one block a head; block 32 * warps_for(NT) threads; stage_bytes(T,
+// 16 NT, E) of shared memory. Tp = 16 NT >= T; E a multiple of 16.
+template <int NT>
+__global__ void __launch_bounds__(32 * warps_for(NT))
+    realformer_attn_fwd_mma_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Stage s = stage_at(smem_raw, 16 * NT, a.E);
+  load<NT>(a, blockIdx.x, s, threadIdx.x);
+  compute<NT>(a, blockIdx.x, s, threadIdx.x);
+}
+
+template <int NT>
+cudaError_t prepare(int T, int E, int* smem) {
+  *smem = (int)stage_bytes(T, 16 * NT, E);
+  cudaError_t err = cudaFuncSetAttribute(
+      realformer_attn_fwd_mma_kernel<NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (err != cudaSuccess) cudaGetLastError();  // must not fail the next launch
+  return err;
+}
+
+template <int NT>
+cudaError_t occupancy_nt(int T, int E, int* blocks) {
+  int smem;
+  cudaError_t err = prepare<NT>(T, E, &smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, realformer_attn_fwd_mma_kernel<NT>, 32 * warps_for(NT), smem);
+}
+
+template <int NT>
+cudaError_t launch_nt(const Args& a, cudaStream_t stream) {
+  int smem;
+  cudaError_t err = prepare<NT>(a.T, a.E, &smem);
+  if (err != cudaSuccess) return err;
+  realformer_attn_fwd_mma_kernel<NT>
+      <<<a.heads, 32 * warps_for(NT), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace mmvqa
 
 // q, k, v, ctx: (B, T, H, E) by element strides, given in `strides` as 16
 // int64 (q, k, v, ctx; each b, t, h, e). prev: (B, H, T, T) fp32 or null;
-// mask: (B, T) fp32 or null; scores: (B, H, T, T) fp32 out. tiled: 0 for
-// the one-block kernel, 1 for the tiled one.
+// mask: (B, T) fp32 or null; scores: (B, H, T, T) fp32 out. path: 0 the
+// one-block kernel, 1 the tiled one, 2 the bf16 tensor-core kernel
+// (ops/attention.py::forward_path), which writes ctx by 16-byte stores.
 extern "C" int realformer_attn_fwd(const void* q, const void* k, const void* v,
                                    const void* prev, const void* mask,
                                    void* scores, void* ctx,
                                    const long long* strides, int dtype, int B,
-                                   int H, int Tn, int E, int tiled,
+                                   int H, int Tn, int E, int path,
                                    void* stream) {
   using namespace mmvqa;
   AttnStrides st;
@@ -338,8 +598,23 @@ extern "C" int realformer_attn_fwd(const void* q, const void* k, const void* v,
   auto pv = static_cast<const float*>(prev);
   auto mk = static_cast<const float*>(mask);
   auto sc = static_cast<float*>(scores);
+  const bool tiled = path == 1;
   cudaError_t err;
-  if (dtype == kFloat32) {
+  if (path == 2) {
+    if (dtype != kBFloat16 || E % 16 != 0 || E < 16 || E > 128 ||
+        !tc::rows16(ctx, st.ctx))
+      return static_cast<int>(cudaErrorInvalidValue);
+    using bf = __nv_bfloat16;
+    const tc::Args a{static_cast<const bf*>(q), static_cast<const bf*>(k),
+                     static_cast<const bf*>(v), pv, mk, sc,
+                     static_cast<bf*>(ctx), st, B * H, H, Tn, E,
+                     1.0f / sqrtf((float)E),
+                     tc::rows16(q, st.q) && tc::rows16(k, st.k) &&
+                         tc::rows16(v, st.v)};
+    err = tc::dispatch(Tn, [&](auto nt) {
+      return tc::launch_nt<decltype(nt)::value>(a, s);
+    });
+  } else if (dtype == kFloat32) {
     err = tiled ? launch_attn_tiled<float>(q, k, v, pv, mk, sc, ctx, st, B, H,
                                            Tn, E, s)
                 : launch_attn<float>(q, k, v, pv, mk, sc, ctx, st, B, H, Tn, E,
@@ -353,4 +628,12 @@ extern "C" int realformer_attn_fwd(const void* q, const void* k, const void* v,
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Blocks of the tensor-core forward for (T, E) that an SM holds at once.
+extern "C" int realformer_attn_fwd_mma_occupancy(int Tn, int E, int* blocks) {
+  using namespace mmvqa;
+  return static_cast<int>(tc::dispatch(Tn, [&](auto nt) {
+    return tc::occupancy_nt<decltype(nt)::value>(Tn, E, blocks);
+  }));
 }

@@ -17,7 +17,7 @@
 // What bounds it on an H100: bytes. At the training shape (B=128, H=8,
 // T=75, E=96) a layer reads q, k, v, dctx and the carries and writes dq, dk,
 // dv and dprev: 172 MB in bf16 with fp32 carries, 0.051 ms at 3.35 TB/s,
-// against four products of 0.44 GFLOP each. Three paths, chosen by dtype, T
+// against four products of 1.1 GFLOP each. Three paths, chosen by dtype, T
 // and E alone (ops/attention.py::backward_path):
 //
 // * bf16 where a head fits (T up to 125 at E=96, E a multiple of 16 up to
@@ -60,9 +60,7 @@
 // dq, dk and dv are written by strides: the wrapper hands in the three
 // slices of one (B, T, H, 3E) buffer in (k, q, v) order, which is the
 // gradient of the shared kqv projection's output as it stands.
-#include <type_traits>
-
-#include "mma_sync.cuh"
+#include "attention_tile.cuh"
 
 namespace mmvqa {
 namespace k2bwd {
@@ -485,20 +483,7 @@ cudaError_t launch_tiled(const void* q, const void* k, const void* v,
 
 namespace tc {
 
-__device__ __forceinline__ float neg_inf() {
-  return __int_as_float(0xff800000);
-}
-
-constexpr int kPad = 8;  // bf16 elements past a staged row: rows 16 bytes x
-                         // an odd count apart, so ldmatrix meets no conflict
-
-__host__ __device__ inline int warps_for(int nt) { return nt < 4 ? 4 : nt; }
-
-// fp32 elements of a staged (T, T) block: T * T and the up to three that
-// keep its offset within 16 bytes, rounded up to 16 bytes
-__host__ __device__ inline int flat_floats(int T) {
-  return (T * T + 3 + 3) / 4 * 4;
-}
+using namespace k2tc;
 
 // shared memory of a head: q, k, dctx (Tp x (E + 8) bf16 each), then v and
 // the flat carry and dcarry blocks, whose place p and ds take (hi and lo
@@ -521,61 +506,6 @@ struct Args {
   float scale;
   int vec;              // 16-byte copies of q, k, v and dctx
 };
-
-// rows [0, Tp) of one head of a (B, T, H, E) operand into dst (row stride
-// ld), zero past T and where src is null
-__device__ __forceinline__ void stage(const __nv_bfloat16* src,
-                                      const Strides4& s, int b, int h, int T,
-                                      int Tp, int E, __nv_bfloat16* dst,
-                                      int ld, bool vec,
-                                      const __nv_bfloat16* any, int tid,
-                                      int nthreads) {
-  const long long base = b * s.b + h * s.h;
-  if (vec) {  // every row starts on 16 bytes; e is the unit-stride axis
-    const int pieces = E / 8;
-    for (int i = tid; i < Tp * pieces; i += nthreads) {
-      const int r = i / pieces, e = (i % pieces) * 8;
-      const bool in = src != nullptr && r < T;
-      cp_async16(dst + r * ld + e, in ? src + base + r * s.t + e : any, in);
-    }
-  } else {
-    for (int i = tid; i < Tp * E; i += nthreads) {
-      const int r = i / E, e = i % E;
-      dst[r * ld + e] = (src != nullptr && r < T)
-                            ? src[base + r * s.t + e * s.e]
-                            : __float2bfloat16(0.0f);
-    }
-  }
-}
-
-// a head's flat (T, T) fp32 block of n = T * T elements into dst (16-byte
-// aligned), by 16-byte copies: dst[off + i] = src[i], where off keeps src's
-// offset within 16 bytes so that both sides of every copy are aligned; the
-// peeled ends (at most three elements each) by plain loads. Returns off.
-__device__ __forceinline__ int stage_flat(const float* src, int n, float* dst,
-                                          int tid, int nthreads) {
-  const int off = (int)((reinterpret_cast<size_t>(src) >> 2) & 3);
-  const int head = min((4 - off) & 3, n);
-  const int pieces = (n - head) / 4;
-  for (int i = tid; i < pieces; i += nthreads)
-    cp_async16(dst + off + head + 4 * i, src + head + 4 * i, true);
-  const int tail = head + 4 * pieces;
-  for (int i = tid; i < head + n - tail; i += nthreads) {
-    const int e = i < head ? i : tail + i - head;
-    dst[off + e] = src[e];
-  }
-  return off;
-}
-
-// the two bf16 terms of (x0, x1): hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split(float x0, float x1, unsigned& hi,
-                                      unsigned& lo) {
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l2 = __floats2bfloat162_rn(
-      x0 - __low2float(h2), x1 - __high2float(h2));
-  hi = *reinterpret_cast<const unsigned*>(&h2);
-  lo = *reinterpret_cast<const unsigned*>(&l2);
-}
 
 // acc += a b, a exact in bf16
 __device__ __forceinline__ void product(float (&acc)[4],
@@ -611,41 +541,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
       *reinterpret_cast<__nv_bfloat162*>(row + e0 + 8 * n + 2 * t4) =
           __floats2bfloat162_rn(acc[n][2 * half] * scale,
                                 acc[n][2 * half + 1] * scale);
-    }
-  }
-}
-
-// p = softmax over the keys of each of a thread's two rows, in place: the
-// quad of a row holds all of its columns
-template <int NT>
-__device__ __forceinline__ void softmax_rows(float (&p)[2 * NT][4]) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float m = neg_inf();
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j)
-      m = fmaxf(m, fmaxf(p[j][2 * half], p[j][2 * half + 1]));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    if (m == neg_inf()) m = 0.0f;  // a padded row: every p is 0
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float e = expf(p[j][2 * half + c] - m);
-        p[j][2 * half + c] = e;
-        sum += e;
-      }
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float inv_ok = sum > 0.0f ? 1.0f : 0.0f;
-    const float den = sum > 0.0f ? sum : 1.0f;
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j) {
-      p[j][2 * half] = p[j][2 * half] / den * inv_ok;
-      p[j][2 * half + 1] = p[j][2 * half + 1] / den * inv_ok;
     }
   }
 }
@@ -867,32 +762,6 @@ cudaError_t occupancy_nt(int T, int E, int* blocks) {
   }
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kern, 32 * warps_for(NT), smem);
-}
-
-constexpr int kMaxTiles = 8;  // Tp <= 128: registers of p and ds
-
-// f(std::integral_constant<int, NT>) for NT = ceil(T / 16)
-template <typename F>
-cudaError_t dispatch(int T, F f) {
-  switch ((T + 15) / 16) {
-    case 1: return f(std::integral_constant<int, 1>());
-    case 2: return f(std::integral_constant<int, 2>());
-    case 3: return f(std::integral_constant<int, 3>());
-    case 4: return f(std::integral_constant<int, 4>());
-    case 5: return f(std::integral_constant<int, 5>());
-    case 6: return f(std::integral_constant<int, 6>());
-    case 7: return f(std::integral_constant<int, 7>());
-    case 8: return f(std::integral_constant<int, 8>());
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// q, k, v, dctx read by 16-byte copies: e the unit-stride axis and every
-// row of a head on 16 bytes
-inline bool rows16(const void* p, const Strides4& s) {
-  return p == nullptr ||
-         (s.e == 1 && s.b % 8 == 0 && s.t % 8 == 0 && s.h % 8 == 0 &&
-          reinterpret_cast<size_t>(p) % 16 == 0);
 }
 
 // dq, dk, dv written two elements a store

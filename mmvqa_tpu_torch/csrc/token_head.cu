@@ -273,13 +273,6 @@ __host__ __device__ inline int smem_bytes(int K, bool resident) {
   return 2 * (w + kStages * stage_elems(K, resident)) + 2 * kStages * 8 + 16;
 }
 
-// 2^x by the special-function unit alone; below 2^-126 it gives 0
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The bf16 activation: SERF's polynomial with the fast exp and divide, two
 // special functions an element; exact SERF; ReLU.
 template <int ACT>

@@ -174,9 +174,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         _p, _p, _p, _p, _p,         # q, k, v, prev, mask
         _p, _p,                     # scores, ctx
         ctypes.POINTER(_ll),        # 16 strides
-        _i, _i, _i, _i, _i, _i,     # dtype, B, H, T, E, tiled
+        _i, _i, _i, _i, _i, _i,     # dtype, B, H, T, E, path
         _p,                         # stream
     ]
+    lib.realformer_attn_fwd_mma_occupancy.restype = _i
+    lib.realformer_attn_fwd_mma_occupancy.argtypes = [
+        _i, _i, ctypes.POINTER(_i)]  # T, E, blocks an SM holds
     lib.realformer_attn_bwd.restype = _i
     lib.realformer_attn_bwd.argtypes = [
         _p, _p, _p, _p, _p, _p,     # q, k, v, carry, dctx, dcarry

@@ -17,9 +17,10 @@ semantics is exactly the forward's softmax input. The mask gets no gradient.
 
 Each direction has a kernel that holds a head's tiles in one block's shared
 memory (the flagship T=75 and T=28), and tiled kernels for any longer T,
-chosen by T and E alone (``fits_one_block``). The backward in bf16 takes a
-tensor-core kernel wherever a head fits it (``backward_path``), the train
-path's T=75 and the eval path's T=28 among them.
+chosen by T and E alone (``fits_one_block``). In bf16 each direction takes a
+tensor-core kernel wherever a head fits it (``forward_path``,
+``backward_path``), the train path's T=75 and the eval path's T=28 among
+them.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.
@@ -38,8 +39,8 @@ from mmvqa_tpu_torch.native import loader
 NEG_BIG = 10000.0
 SMEM_LIMIT = 232448  # shared memory one block can have on an H100 (227 KB)
 TILE = 32            # query rows or keys a block of the tiled kernels owns
-MMA_MAX_T = 128      # tc::kMaxTiles x 16: the tensor-core backward's rows
-MMA_PAD = 8          # tc::kPad: bf16 elements past each of its staged rows
+MMA_MAX_T = 128      # k2tc::kMaxTiles x 16: the tensor-core kernels' rows
+MMA_PAD = 8          # k2tc::kPad: bf16 elements past each of their staged rows
 
 
 def _one_block_bytes(T: int, E: int, backward: bool) -> int:
@@ -87,27 +88,52 @@ def mma_smem_bytes(T: int, E: int) -> int:
     return 3 * rows + max(rows + 2 * flat, 8 * Tp * (Tp + MMA_PAD))
 
 
+def forward_mma_smem_bytes(T: int, E: int) -> int:
+    """Shared memory of the tensor-core forward, tc::stage_bytes in
+    csrc/realformer_attention.cu: q, k, v in bf16 rows of E + 8, then the
+    flat fp32 (T, T) block of prev and s; T padded to Tp, a multiple of
+    16."""
+    Tp = -(-T // 16) * 16
+    return 3 * 2 * Tp * (E + MMA_PAD) + 4 * ((T * T + 6) // 4 * 4)
+
+
+def _mma_shape(dtype: torch.dtype, T: int, E: int) -> bool:
+    return (dtype == torch.bfloat16 and E % 16 == 0 and 16 <= E <= 128
+            and T <= MMA_MAX_T)
+
+
+def forward_path(dtype: torch.dtype, T: int, E: int) -> str:
+    """The forward kernel for a head of (T, E) in ``dtype``: ``"mma"``, the
+    bf16 tensor-core kernel, where E is a multiple of 16 up to 128 and T at
+    most 128 (the largest such head, 166 KB, fits one block); else
+    ``"one_block"`` or ``"tiled"`` as ``fits_one_block`` says."""
+    if _mma_shape(dtype, T, E):
+        return "mma"
+    return "one_block" if fits_one_block(T, E, backward=False) else "tiled"
+
+
 def backward_path(dtype: torch.dtype, T: int, E: int) -> str:
     """The backward kernel for a head of (T, E) in ``dtype``: ``"mma"``, the
     bf16 tensor-core kernel, where E is a multiple of 16 up to 128, T at
     most 128 and a head fits one block's shared memory (T up to 125 at
     E=96); else ``"one_block"`` or ``"tiled"`` as ``fits_one_block``
     says."""
-    if (dtype == torch.bfloat16 and E % 16 == 0 and 16 <= E <= 128
-            and T <= MMA_MAX_T and mma_smem_bytes(T, E) <= SMEM_LIMIT):
+    if _mma_shape(dtype, T, E) and mma_smem_bytes(T, E) <= SMEM_LIMIT:
         return "mma"
     return "one_block" if fits_one_block(T, E, backward=True) else "tiled"
 
 
-PATH_CODES = {"one_block": 0, "tiled": 1, "mma": 2}  # realformer_attn_bwd's
+# realformer_attn_fwd's and realformer_attn_bwd's path codes
+PATH_CODES = {"one_block": 0, "tiled": 1, "mma": 2}
 
 
-def mma_occupancy(T: int, E: int) -> int:
-    """Blocks of the tensor-core backward for (T, E) that an SM of the
-    current card holds at once."""
+def mma_occupancy(T: int, E: int, backward: bool) -> int:
+    """Blocks of the tensor-core backward (or forward) for (T, E) that an SM
+    of the current card holds at once."""
+    name = f"realformer_attn_{'bwd' if backward else 'fwd'}_mma"
     blocks = ctypes.c_int(0)
-    loader.check(loader.library().realformer_attn_bwd_mma_occupancy(
-        T, E, ctypes.byref(blocks)), "realformer_attn_bwd_mma occupancy")
+    loader.check(getattr(loader.library(), name + "_occupancy")(
+        T, E, ctypes.byref(blocks)), name + " occupancy")
     return blocks.value
 
 
@@ -150,7 +176,7 @@ def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 def _launch(q, k, v, prev, query_mask):
     B, T, H, E = q.shape
     loader.require_cuda("realformer_attention", q, k, v)
-    tiled = not fits_one_block(T, E, backward=False)
+    path = forward_path(q.dtype, T, E)
     _require_memory("realformer_attention", q,
                     4 * B * H * T * T * (2 if prev is not None else 1))
     if not (q.dtype == k.dtype == v.dtype):
@@ -174,10 +200,12 @@ def _launch(q, k, v, prev, query_mask):
     code = loader.library().realformer_attn_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(prev), _ptr(mask), _ptr(scores),
         _ptr(ctx),
-        strides, loader.DTYPE_CODES[q.dtype], B, H, T, E, int(tiled),
+        strides, loader.DTYPE_CODES[q.dtype], B, H, T, E, PATH_CODES[path],
         loader.stream_ptr(),
     )
     loader.check(code, "realformer_attn_fwd")
+    if path == "mma":
+        realformer_attention.mma_launches += 1
     return ctx, scores
 
 
@@ -344,5 +372,6 @@ def realformer_attention(
 
 
 realformer_attention.launches = 0
+realformer_attention.mma_launches = 0  # of those, the tensor cores'
 realformer_attention.backward_launches = 0
 realformer_attention.backward_mma_launches = 0  # of those, the tensor cores'

@@ -13,6 +13,7 @@ import torch
 
 from mmvqa_tpu_torch.ops.attention import (
     backward_path,
+    forward_path,
     realformer_attention,
     realformer_attention_backward,
     realformer_attention_backward_reference,
@@ -251,6 +252,84 @@ def test_attention_shared_memory_refusal_raises_and_clears(dev):
     q = torch.ones(1, 28, 1, 96, device=dev)
     ctx, _ = realformer_attention(q, q, q, None, None)
     torch.testing.assert_close(ctx, q)
+
+
+def _k2_fwd_case(dev, B, T, H, E, layout, with_prev, with_mask):
+    """bf16 q, k, v as the slices of a kqv laid out as the train step gives
+    it ("packed": the projection's (B, T, H, 3E) output), as a (B, H, T, 3E)
+    buffer's permuted view ("strided"), or one element past a 16-byte
+    boundary ("unaligned": the kernel's element copies; prev then one float
+    off the carry's offset within 16 bytes, so it comes in by plain loads
+    too); ragged masks."""
+    g = _gen(dev)
+    if layout == "strided":
+        kqv = torch.randn(B, H, T, 3 * E, device=dev, generator=g)
+        kqv = kqv.bfloat16().permute(0, 2, 1, 3)
+    elif layout == "unaligned":
+        flat = torch.randn(B * T * H * 3 * E + 1, device=dev, generator=g)
+        kqv = flat.bfloat16()[1:].view(B, T, H, 3 * E)
+    else:
+        kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g).bfloat16()
+    k, q, v = kqv.split(E, dim=-1)
+    prev = None
+    if with_prev:
+        prev = torch.randn(B * H * T * T + 1, device=dev, generator=g)
+        prev = (prev[1:] if layout == "unaligned" else prev[:-1]).view(
+            B, H, T, T)
+    mask = None
+    if with_mask:
+        lengths = torch.randint(1, T + 1, (B,), device=dev, generator=g)
+        mask = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
+    return q, k, v, prev, mask
+
+
+@pytest.mark.parametrize("T", [16, 17, 28, 75, 125, 128])
+@pytest.mark.parametrize("E", [16, 96, 128])
+@pytest.mark.parametrize("layout", ["packed", "strided", "unaligned"])
+@pytest.mark.parametrize("with_prev,with_mask", [
+    (False, False), (False, True), (True, False), (True, True)])
+def test_attention_bf16_forward_tensor_core_kernel_matches_plain(
+        dev, T, E, layout, with_prev, with_mask):
+    """The tensor-core forward against the plain version: the carry within
+    chip_smoke.py's TOL_K2_CARRY, ctx within its TOL_BF16; two runs give
+    the same bits; its own launch counter moves."""
+    assert forward_path(torch.bfloat16, T, E) == "mma"
+    q, k, v, prev, mask = _k2_fwd_case(dev, 3, T, 4, E, layout, with_prev,
+                                       with_mask)
+    counts = (realformer_attention.launches,
+              realformer_attention.mma_launches)
+    ctx, carry = realformer_attention(q, k, v, prev, mask)
+    again = realformer_attention(q, k, v, prev, mask)
+    torch.cuda.synchronize()
+    assert (realformer_attention.launches,
+            realformer_attention.mma_launches) == (counts[0] + 2,
+                                                   counts[1] + 2)
+    assert torch.equal(again[0], ctx) and torch.equal(again[1], carry)
+    ctx_p, carry_p = realformer_attention_reference(q, k, v, prev, mask)
+    torch.testing.assert_close(carry, carry_p, rtol=2e-5, atol=2e-4)
+    torch.testing.assert_close(ctx.float(), ctx_p.float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_attention_bf16_forward_is_one_tensor_core_kernel(dev):
+    """At the train shape the forward launches realformer_attn_fwd_mma
+    alone; fp32 keeps its one-block kernel."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    q, k, v, prev, mask = _k2_fwd_case(dev, 8, 75, 8, 96, "packed", True,
+                                       True)
+    for dtype, want in ((torch.bfloat16, "realformer_attn_fwd_mma"),
+                        (torch.float32, "realformer_attn_fwd_kernel")):
+        args = [t.to(dtype) for t in (q, k, v)]
+        realformer_attention(*args, prev, mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            realformer_attention(*args, prev, mask)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and "realformer_attn_fwd" in e.key]
+        assert len(names) == 1 and want in names[0], names
 
 
 # ------------------------------------------------------- backward ----

@@ -3,9 +3,9 @@
 The same numpy inputs go through the JAX function and its port. On the CPU
 the port's kernel wrappers take their plain PyTorch versions; the JAX token
 head runs its Pallas kernel in interpret mode, as tests/test_token_head.py
-runs it. The attention backward's bf16 tensor-core arithmetic is written out
-here and held against the JAX package's Pallas backward in interpret mode on
-bf16 inputs.
+runs it. The attention's bf16 tensor-core arithmetic, forward and backward,
+is written out here and held against the JAX package's Pallas kernels in
+interpret mode on bf16 inputs.
 """
 
 import math
@@ -23,6 +23,7 @@ from mmvqa_tpu.ops import activations as jax_act
 from mmvqa_tpu.ops.attention import realformer_attention as jax_attention
 from mmvqa_tpu.ops.pallas_attention import (
     _bwd_call as jax_attention_bwd_kernel,
+    _fwd_call as jax_attention_fwd_kernel,
 )
 from mmvqa_tpu.ops.pallas_token_head import (
     fused_token_head as jax_fused_token_head,
@@ -37,6 +38,8 @@ from mmvqa_tpu_torch.ops import activations, losses
 from mmvqa_tpu_torch.ops.attention import (
     backward_path,
     fits_one_block,
+    forward_mma_smem_bytes,
+    forward_path,
     mma_smem_bytes,
     realformer_attention,
     realformer_attention_backward_reference,
@@ -398,16 +401,29 @@ def _bf16_terms(x):
     return hi, (x - hi).bfloat16().float()
 
 
-def _k2_bwd_split(q, k, v, carry, dctx, dcarry, split=True):
+def _kernel_softmax(s, ex2_err):
+    """The tensor-core kernels' softmax (csrc/attention_tile.cuh,
+    softmax_rows) written out: e = 2^((s - max) log2 e) in fp32, each e off
+    by ``ex2_err`` relative with a random sign, as ex2.approx may be, then e
+    times one reciprocal of its row's sum."""
+    e = torch.exp2((s - s.amax(dim=-1, keepdim=True)) * 1.4426950408889634)
+    signs = np.random.default_rng(1).choice([-1.0, 1.0], size=tuple(e.shape))
+    e = e * (1.0 + ex2_err * torch.from_numpy(signs.astype(np.float32)))
+    return e * (1.0 / e.sum(dim=-1, keepdim=True))
+
+
+def _k2_bwd_split(q, k, v, carry, dctx, dcarry, split=True, ex2_err=None):
     """The tensor-core kernel's arithmetic written out: p, dp and ds in
-    fp32 as the plain version takes them, then dq = ds k, dk = ds^T q and
+    fp32 as the plain version takes them (p as the kernel takes it where
+    ``ex2_err`` is given, _kernel_softmax), then dq = ds k, dk = ds^T q and
     dv = p^T dctx with ds and p as their hi + lo bf16 terms (``split``) or
     as hi alone (the control), fp32 sums. Returns fp32 dq, dk, dv
     (B, T, H, E), unrounded, and ds (B, H, T, T)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
     dch = dctx.float().permute(0, 2, 1, 3)
-    p = torch.softmax(carry, dim=-1)
+    p = (torch.softmax(carry, dim=-1) if ex2_err is None
+         else _kernel_softmax(carry, ex2_err))
     dp = dch @ vh.transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     if dcarry is not None:
@@ -535,6 +551,204 @@ def test_attention_bf16_backward_shares_an_sm_at_the_train_shape():
     most half of 228 KB less the 1 KB a block reserves."""
     assert mma_smem_bytes(75, 96) <= (233472 // 2 - 1024)
     assert mma_smem_bytes(28, 96) < mma_smem_bytes(75, 96)
+
+
+# K2-fwd's tensor-core kernel (csrc/realformer_attention.cu, tc::, bf16): s
+# from bf16 q and k with fp32 sums, then p v with p, fp32, as its hi + lo
+# bf16 terms (v is bf16 already).
+
+# chip_smoke.py's TOL_BF16 (ctx: two bf16 ulps of one fp32 value) and
+# TOL_K2_CARRY (the fp32 carry)
+TOL_BF16 = dict(rtol=8e-3, atol=2e-3)
+TOL_K2_CARRY = dict(rtol=2e-5, atol=2e-4)
+
+
+def _k2_fwd_mma(q, k, v, prev, mask, split=True, ex2_err=None):
+    """The tensor-core forward's arithmetic written out: s = q k^T from the
+    bf16 operands with fp32 sums, times 1 / sqrt(E), plus prev, minus the
+    mask term, as the plain version orders them; the softmax in fp32 (as
+    the kernel takes it where ``ex2_err`` is given, _kernel_softmax); ctx =
+    p v with p as its hi + lo bf16 terms (``split``) or as hi alone, fp32
+    sums. Returns ctx (B, T, H, E) fp32, unrounded, and s (B, H, T, T)."""
+    qh, kh, vh = (t.bfloat16().float().permute(0, 2, 1, 3) for t in (q, k, v))
+    s = (qh @ kh.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    if prev is not None:
+        s = s + prev
+    if mask is not None:
+        s = s - 10000.0 * (1.0 - mask.float())[:, None, :, None]
+    hi, lo = _bf16_terms(torch.softmax(s, dim=-1) if ex2_err is None
+                         else _kernel_softmax(s, ex2_err))
+    ctx = hi @ vh + lo @ vh if split else hi @ vh
+    return ctx.permute(0, 2, 1, 3), s
+
+
+def _k2_fwd_bf16_inputs(rng, B, T, H, E, with_prev, with_mask):
+    """bf16 q, k, v (B, T, H, E) as slices of one kqv, fp32 prev or None,
+    and a mask whose lengths are drawn as chip_smoke.py draws them."""
+    kqv = torch.from_numpy(rng.standard_normal((B, T, H, 3 * E),
+                                               dtype=np.float32)).bfloat16()
+    k, q, v = kqv.split(E, dim=-1)
+    prev = (torch.from_numpy(rng.standard_normal((B, H, T, T),
+                                                 dtype=np.float32))
+            if with_prev else None)
+    mask = None
+    if with_mask:
+        lengths = rng.integers(T // 2, T + 1, B)
+        mask = torch.from_numpy(
+            (np.arange(T)[None] < lengths[:, None]).astype(np.float32))
+    return q, k, v, prev, mask
+
+
+@pytest.mark.parametrize("T", [17, 28, 75])
+@pytest.mark.parametrize("with_prev,with_mask", [
+    (False, False), (False, True), (True, False), (True, True)])
+def test_attention_bf16_forward_mma_matches_the_reference(rng, T, with_prev,
+                                                          with_mask):
+    """The tensor-core forward's arithmetic against the JAX package's Pallas
+    forward (interpret mode, as tests/test_pallas_attention.py runs it) on
+    the same bf16 inputs, against its XLA path on those inputs widened to
+    fp32, and against the port's plain version: ctx within TOL_BF16 after
+    the kernel's rounding to bf16, the carry within TOL_K2_CARRY. T of the
+    flagship's two lengths and a ragged one."""
+    q, k, v, prev, mask = _k2_fwd_bf16_inputs(rng, 2, T, 2, 32, with_prev,
+                                              with_mask)
+    ctx, s = _k2_fwd_mma(q, k, v, prev, mask)
+    ctx = ctx.bfloat16().float().numpy()
+
+    def jx(t):  # (B, T, H, E) bf16 -> the kernel's (B, H, T, E)
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) \
+            .transpose(0, 2, 1, 3)
+
+    ctx_k, s_k = jax_attention_fwd_kernel(
+        jx(q), jx(k), jx(v), None if prev is None else jnp.asarray(
+            prev.numpy()), None if mask is None else jnp.asarray(mask.numpy()))
+    ctx_x, s_x = jax_attention(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+        None if prev is None else jnp.asarray(prev.numpy()
+                                              .transpose(0, 2, 3, 1)),
+        None if mask is None else jnp.asarray(mask.numpy()), impl="xla")
+    ctx_p, s_p = realformer_attention_reference(q, k, v, prev, mask)
+    for ref in (np.asarray(ctx_k.astype(jnp.float32)).transpose(0, 2, 1, 3),
+                np.asarray(ctx_x), ctx_p.float().numpy()):
+        np.testing.assert_allclose(ctx, ref, **TOL_BF16)
+    for ref in (np.asarray(s_k), np.asarray(s_x).transpose(0, 3, 1, 2),
+                s_p.numpy()):
+        np.testing.assert_allclose(s.numpy(), ref, **TOL_K2_CARRY)
+
+
+# The decision between one bf16 term for p and hi + lo, at chip_smoke.py's
+# own shapes (8 heads of 96; B=128 at T=75, B=16 at T=28) and draws: the
+# largest |ctx - plain| / (atol + rtol |plain|) of TOL_BF16 over every
+# entry, before the final rounding to bf16 (after it, a value one side of a
+# rounding boundary reads one ulp, up to 0.78 of the tolerance, whichever
+# way p went in). One term may ship only where it uses at most half of the
+# tolerance in every case. Read: one term 0.97-0.99 without prev, 1.39-1.70
+# with it, so one term misses the tolerance itself; hi + lo 0.002-0.003.
+FWD_MARGIN = 0.5
+
+
+@pytest.mark.parametrize("B,T", [(128, 75), (16, 28)])
+@pytest.mark.parametrize("with_prev,with_mask", [
+    (False, False), (False, True), (True, False), (True, True)])
+def test_attention_bf16_forward_needs_both_terms(rng, B, T, with_prev,
+                                                 with_mask):
+    q, k, v, prev, mask = _k2_fwd_bf16_inputs(rng, B, T, 8, 96, with_prev,
+                                              with_mask)
+    want, _ = realformer_attention_reference(
+        *(t.float() for t in (q, k, v)), prev, mask)
+
+    def share(got):
+        return ((got - want).abs() / (TOL_BF16["atol"] + TOL_BF16["rtol"]
+                                      * want.abs())).max().item()
+
+    split, _ = _k2_fwd_mma(q, k, v, prev, mask)
+    one, _ = _k2_fwd_mma(q, k, v, prev, mask, split=False)
+    assert share(split) <= FWD_MARGIN < share(one)
+
+
+# Both tensor-core kernels take the softmax by ex2.approx, whose relative
+# error the PTX ISA gives as about 2^-22, and one reciprocal a row. Twice
+# that error on every exponent, signs at random, keeps each kernel's
+# arithmetic within the bounds its exact-softmax tests hold it to.
+EX2_ERR = 2.0 ** -21
+
+
+@pytest.mark.parametrize("T", [17, 28, 75])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_attention_bf16_kernels_hold_with_the_approximate_exponent(
+        rng, T, direction):
+    """With prev and a ragged mask (and dcarry): the forward's ctx within
+    FWD_MARGIN of TOL_BF16 before its rounding and within TOL_BF16 of the
+    JAX package's Pallas forward after it; the backward's products within
+    SPLIT_BOUND of the fp32 products, dq, dk, dv within TOL_K2_BWD_BF16 and
+    ds within TOL_K2_BWD of the Pallas backward (interpret mode)."""
+    if direction == "forward":
+        q, k, v, prev, mask = _k2_fwd_bf16_inputs(rng, 2, T, 2, 32, True,
+                                                  True)
+        want, _ = realformer_attention_reference(
+            *(t.float() for t in (q, k, v)), prev, mask)
+        got, _ = _k2_fwd_mma(q, k, v, prev, mask, ex2_err=EX2_ERR)
+        share = ((got - want).abs() / (TOL_BF16["atol"] + TOL_BF16["rtol"]
+                                       * want.abs())).max().item()
+        assert share <= FWD_MARGIN
+        ref, _ = jax_attention_fwd_kernel(
+            *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+              .transpose(0, 2, 1, 3) for t in (q, k, v)),
+            jnp.asarray(prev.numpy()), jnp.asarray(mask.numpy()))
+        np.testing.assert_allclose(
+            got.bfloat16().float().numpy(),
+            np.asarray(ref.astype(jnp.float32)).transpose(0, 2, 1, 3),
+            **TOL_BF16)
+        return
+    q, k, v, carry, dctx, dcarry = _k2_bwd_bf16_inputs(rng, T, True, True,
+                                                       True)
+    fp32 = realformer_attention_backward_reference(
+        *(t.float() for t in (q, k, v)), carry, dctx.float(), dcarry)
+    got, ds = _k2_bwd_split(q, k, v, carry, dctx, dcarry, ex2_err=EX2_ERR)
+    jx = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          .transpose(0, 2, 1, 3) for t in (q, k, v, dctx)]
+    ref = jax_attention_bwd_kernel(*jx[:3], jnp.asarray(carry.numpy()),
+                                   jx[3], jnp.asarray(dcarry.numpy()))
+    for g, want, r in zip(got, fp32[:3], ref[:3]):
+        scale = want.abs().max().item()
+        assert (g - want).abs().max().item() <= SPLIT_BOUND * scale
+        np.testing.assert_allclose(
+            g.bfloat16().float().numpy(),
+            np.asarray(r.astype(jnp.float32)).transpose(0, 2, 1, 3),
+            **TOL_K2_BWD_BF16)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(ref[3]), **TOL_K2_BWD)
+
+
+@pytest.mark.parametrize("dtype,T,E,path", [
+    (torch.bfloat16, 75, 96, "mma"),       # the train path
+    (torch.bfloat16, 28, 96, "mma"),       # the eval path
+    (torch.bfloat16, 128, 96, "mma"),      # the smoke's one-block length
+    (torch.bfloat16, 128, 128, "mma"),     # the largest head it takes
+    (torch.bfloat16, 1, 16, "mma"),
+    (torch.bfloat16, 17, 16, "mma"),
+    (torch.bfloat16, 129, 96, "one_block"),  # beyond 8 tiles of 16 rows
+    (torch.bfloat16, 200, 96, "tiled"),
+    (torch.bfloat16, 512, 96, "tiled"),
+    (torch.bfloat16, 33, 40, "one_block"),   # E no multiple of 16
+    (torch.bfloat16, 75, 8, "one_block"),
+    (torch.bfloat16, 75, 144, "one_block"),  # E beyond 128
+    (torch.float32, 75, 96, "one_block"),    # the fp32 checks' kernel
+    (torch.float32, 28, 96, "one_block"),
+    (torch.float32, 512, 96, "tiled"),
+])
+def test_attention_forward_path_follows_dtype_t_and_e(dtype, T, E, path):
+    assert forward_path(dtype, T, E) == path
+
+
+def test_attention_bf16_forward_shares_an_sm_three_ways_at_the_train_shape():
+    """Three blocks of the train shape's (T=75, E=96) share an SM, as the
+    design says, and a fourth does not fit: each takes its shared memory and
+    the 1 KB a block reserves, of 228 KB. The largest head forward_path
+    sends to the kernel fits one block."""
+    need = forward_mma_smem_bytes(75, 96) + 1024
+    assert 3 * need <= 233472 < 4 * need
+    assert forward_path(torch.bfloat16, 128, 128) == "mma"
+    assert forward_mma_smem_bytes(128, 128) <= SMEM_LIMIT
 
 
 # ------------------------------------------------------ eval criterion ----
