@@ -57,6 +57,27 @@
    statistics or of the BN-backward sums, and an attention kernel, forward
    or backward, other than the tensor-core ones.
 
+5. Fine-tune slice: VQA-Med fine-tuning of the flagship model. (a) One
+   fp32 VQA train step at B=8 on the card and on the CPU plain path under
+   each criterion (cross entropy, ASL, the category-smoothing table), held
+   as the MLM step is. (b) The transfer: the flagship MLM model's weights
+   saved (``save_weights``), loaded and filtered (``filtered_restore``) into
+   the VQA model; exactly the tensors whose shape differs (``classifier_2``)
+   stay fresh, every other tensor equals its saved value. (c) The main path:
+   bf16 compute, B=16, dropout on, one step and then an epoch of 6 steps
+   through ``vqa_epoch`` and ``make_vqa_steps`` on a repeated batch; the
+   loss falls; per step the token head 5x and 5x, the attention 4x and 4x
+   on its tensor-core kernels, the depthwise 3x3 42x and 42x,
+   conv1x1 + statistics 98x on its TMA path, the BN-backward sums 156x;
+   the profiler's rules of the train slice; ms per step, the device's busy
+   time, items/s, peak memory; a validation pass, the plateau scheduler,
+   the best weights and a recorder round trip. (d) grad_accum=2 in fp32:
+   micro-step 1 leaves the parameters, micro-step 2 is Adam on the mean of
+   the two micro-gradients, and a run resumed from a recorder written
+   between them matches the run that never stopped (rtol 1e-6, atol 1e-7;
+   cuDNN held deterministic for this check). Checkpoints go to
+   ``_checkpoints/`` in the checkout and are removed at the end.
+
 Prints a JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
@@ -81,6 +102,10 @@ TRAIN_B = 128       # the train path's batch
 TRAIN_STEPS = 6     # steps of the main path on one repeated batch
 TRAIN_LR = 1e-4     # so that six steps move the loss beyond dropout's noise
 CHECK_B = 8         # batch of the fp32 train step held against the CPU
+FT_STEPS = 6        # fine-tune steps counted, after one that warms up
+FT_VAL_BATCHES = 2  # validation batches of the fine-tune's B, the last partial
+FT_SMOOTHING = 0.1  # the category-smoothing criterion's smoothing
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Tolerances, kernel vs plain version on the same card and inputs.
 # fp32: both accumulate in fp32 in another order; the token head's sums run
@@ -711,8 +736,9 @@ def trunk_kernel_phase(torch, results):
     every distinct site shape of the flagship trunk at B=TRAIN_B, fp32 and
     bf16, and untimed at the other batches the paths below give them: K3's
     forward at EVAL_B in both dtypes with the weight in x's dtype, as the
-    eval model holds it, and all four in fp32 at CHECK_B, the fp32 train
-    check's batch. The summary times are bf16, each shape's time multiplied
+    eval model holds it, all four in fp32 at CHECK_B, the fp32 train
+    check's batch, and all four in bf16 at EVAL_B, the fine-tune step's
+    batch, with K3's fp32 master weight. The summary times are bf16, each shape's time multiplied
     by the number of sites that have it: one train step's worth. Every timed call
     finds its inputs in device memory (the L2 cache is overwritten before
     it), as in a step, where a map of tens of MB does not survive until its
@@ -873,14 +899,17 @@ def trunk_kernel_phase(torch, results):
                 f"depthwise3x3 {lab}", depthwise3x3(xe, we),
                 depthwise3x3_reference(xe, we),
                 TOL_BF16 if bf16 else TOL_K3_F32))
-            if not bf16:  # the fp32 train check
-                xs, dys = x[:CHECK_B], dy[:CHECK_B]
-                lab = f"B={CHECK_B} {H}x{W}x{C} {dtype}"
-                note_small("depthwise3x3", dtype, close(
-                    f"depthwise3x3 {lab}", depthwise3x3(xs, w),
-                    depthwise3x3_reference(xs, w), TOL_K3_F32))
-                note_small("depthwise3x3_bwd", dtype,
-                           max(check_k3_bwd(lab, xs, w, dys, bf16)))
+            # the train steps: the fp32 check's and the bf16 fine-tune's,
+            # both with the fp32 master weight
+            bs = EVAL_B if bf16 else CHECK_B
+            xs, dys = x[:bs], dy[:bs]
+            lab = f"B={bs} {H}x{W}x{C} {dtype}"
+            note_small("depthwise3x3", dtype, close(
+                f"depthwise3x3 {lab}", depthwise3x3(xs, w),
+                depthwise3x3_reference(xs, w),
+                TOL_BF16 if bf16 else TOL_K3_F32))
+            note_small("depthwise3x3_bwd", dtype,
+                       max(check_k3_bwd(lab, xs, w, dys, bf16)))
             del x, dy, xn, dyn
 
     # ---- K4: w is the convolution's (C, K) weight as its (K, C) view
@@ -914,10 +943,10 @@ def trunk_kernel_phase(torch, results):
             note("conv1x1_stats", dtype, e_y, count, ms, plain, 0.0, bnd)
             if bf16:
                 two_call_ms += count * two
-            else:  # the fp32 train check's rows
-                ns = N // B * CHECK_B
-                note_small("conv1x1_stats", dtype, check_k4(
-                    f"N={ns} K={K} C={C} {dtype}", x[:ns], w, bf16)[0])
+            # the rows of the fp32 train check and of the bf16 fine-tune step
+            ns = N // B * (EVAL_B if bf16 else CHECK_B)
+            note_small("conv1x1_stats", dtype, check_k4(
+                f"N={ns} K={K} C={C} {dtype}", x[:ns], w, bf16)[0])
             del x, xn
 
     # ---- K5; the library's call takes the (B, C, H, W) view of the same
@@ -957,18 +986,17 @@ def trunk_kernel_phase(torch, results):
                   f"{lib:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]}); "
                   f"{rate(nbytes, ms, bnd[0])}")
             note("bn_backward_sums", dtype, err, count, ms, plain, lib, bnd)
-            if dtype == torch.float32:  # the fp32 train check's rows
-                ns = N // B * CHECK_B
-                note_small("bn_backward_sums", dtype, check_k5(
-                    f"N={ns} C={C} {dtype}", x[:ns], dy[:ns], mean,
-                    inv_std)[2])
+            # the rows of the fp32 train check and of the bf16 fine-tune step
+            ns = N // B * (CHECK_B if dtype == torch.float32 else EVAL_B)
+            note_small("bn_backward_sums", dtype, check_k5(
+                f"N={ns} C={C} {dtype}", x[:ns], dy[:ns], mean, inv_std)[2])
             del x, dy, xn, dyn
     print(f"conv1x1_stats: the two library calls (conv2d + batch_norm_stats) "
           f"take {two_call_ms:.4f} ms over the 98 sites, bf16")
     print(f"trunk kernels at the eval batch {EVAL_B} (depthwise3x3 forward, "
-          f"fp32 and bf16 with the weight in x's dtype) and at the fp32 "
-          f"train check's batch {CHECK_B}: cases within the same limits "
-          f"{small}")
+          f"fp32 and bf16 with the weight in x's dtype), at the fp32 train "
+          f"check's batch {CHECK_B} and at the bf16 fine-tune step's batch "
+          f"{EVAL_B} (all four): cases within the same limits {small}")
 
 
 def check_outputs(torch, outs, label):
@@ -1036,10 +1064,29 @@ def time_layers(torch, model, step, batches, label):
           f"{len(batches)}): " + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()))
 
 
+def device_work(prof, n: int, label: str):
+    """The kernels and memory operations the card ran under ``prof``, by
+    device time. A host-side annotation (``Optimizer.step#Adam.step``) also
+    shows a device-side range, which spans the kernels it launched and the
+    card's idle time between them: such ranges are printed, not counted."""
+    from torch.profiler import DeviceType
+
+    averages = prof.key_averages()
+    host = {a.key for a in averages if a.device_type == DeviceType.CPU}
+    device = sorted((a for a in averages if a.device_type == DeviceType.CUDA),
+                    key=lambda a: a.self_device_time_total, reverse=True)
+    for a in device:
+        if a.key in host:
+            print(f"{label}: not counted, the device-side range of the host "
+                  f"annotation {a.key[:60]}: "
+                  f"{a.self_device_time_total / 1e3 / n:.4f} ms per pass")
+    return [a for a in device if a.key not in host]
+
+
 def trace_batches(torch, step, batches, label):
     """Device busy share under torch.profiler: summed kernel time over the
     host-clock span of ``batches``; prints the kernels that take most."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1049,9 +1096,7 @@ def trace_batches(torch, step, batches, label):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     check_outputs(torch, outs, label)
-    kernels = [a for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA]
-    kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
+    kernels = device_work(prof, len(batches), f"slice {label}")
     n = len(batches)
     busy = sum(a.self_device_time_total for a in kernels) / 1e3
     if busy <= 0:
@@ -1210,9 +1255,9 @@ CHECK_STATS = ["trans.trunk.stem_bn.running_var",
                "trans.trunk.stage4_block13.bn2.running_var"]
 
 
-def checked_train_step(torch, model, cfg, batch, draws):
-    """One train step through ``make_mlm_steps`` with hooks that keep the
-    logits and the gradients of CHECK_LEAVES."""
+def checked_train_step(torch, model, cfg, batch, draws, make_steps=None):
+    """One train step through ``make_steps`` (``make_mlm_steps`` where None)
+    with hooks that keep the logits and the gradients of CHECK_LEAVES."""
     from mmvqa_tpu_torch.train.state import create_train_state
     from mmvqa_tpu_torch.train.steps import make_mlm_steps
 
@@ -1224,7 +1269,7 @@ def checked_train_step(torch, model, cfg, batch, draws):
     hooks.append(model.register_forward_hook(
         lambda _m, _a, out: kept.__setitem__("logits", out.detach())))
     try:
-        train_step, _ = make_mlm_steps(model, cfg)
+        train_step, _ = (make_steps or make_mlm_steps)(model, cfg)
         state, metrics = train_step(create_train_state(model, cfg.lr), batch,
                                     draws=draws)
     finally:
@@ -1260,20 +1305,27 @@ def train_check_fp32(torch):
     torch.cuda.synchronize()
     del card_model
 
+    compare_fp32_step(torch, "train fp32", got, want)
+
+
+def compare_fp32_step(torch, label, got, want) -> None:
+    """A train step's kept values on the card against the CPU plain path:
+    the loss to 1e-4 relative, the logits as TOL_SLICE, the gradient leaves
+    and statistics to GRAD_NORMWISE of their largest entry."""
     loss_err = abs(got["loss"].item() - want["loss"].item())
     if not loss_err <= 1e-4 * abs(want["loss"].item()):
-        fail(f"train fp32 loss: card {got['loss'].item():.6f}, CPU "
+        fail(f"{label} loss: card {got['loss'].item():.6f}, CPU "
              f"{want['loss'].item():.6f}")
-    err = close("train fp32 logits vs CPU", got["logits"].cpu(),
+    err = close(f"{label} logits vs CPU", got["logits"].cpu(),
                 want["logits"], TOL_SLICE)
-    print(f"train fp32 check: loss card {got['loss'].item():.6f} CPU "
+    print(f"{label} check: loss card {got['loss'].item():.6f} CPU "
           f"{want['loss'].item():.6f} (err {loss_err:.3e}); logits "
           f"max_abs_err {err:.3e}")
     for name in CHECK_LEAVES + CHECK_STATS:
-        e = close_normwise(f"train fp32 {name}", got[name].cpu(), want[name],
+        e = close_normwise(f"{label} {name}", got[name].cpu(), want[name],
                            GRAD_NORMWISE)
         kind = "stat" if name in CHECK_STATS else "grad"
-        print(f"train fp32 check: {kind} {name}: max_abs_err {e:.3e} of "
+        print(f"{label} check: {kind} {name}: max_abs_err {e:.3e} of "
               f"max {want[name].abs().max().item():.3e}")
 
 
@@ -1282,8 +1334,6 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
     (augment, forward, backward, optimizer) between CUDA events with a
     synchronise after each, then ``n`` whole steps under torch.profiler for
     the four kernels and the device's busy share."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
     from mmvqa_tpu_torch.data.images import process_batch
     from mmvqa_tpu_torch.ops.losses import weighted_token_nll
     from mmvqa_tpu_torch.train.steps import make_mlm_steps
@@ -1320,23 +1370,35 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
               f"{k} {statistics.median(v):.2f}" for k, v in phases.items()))
 
     train_step, _ = make_mlm_steps(model, cfg)
+    traced_train_steps(torch, lambda: train_step(state, batch), n,
+                       f"train bf16 B={TRAIN_B}")
+
+
+def traced_train_steps(torch, run_step, n: int, label: str):
+    """``n`` calls of ``run_step`` (one train step) under torch.profiler:
+    the device's busy share, the eight kernels and what is left of the
+    library's batch-norm and depthwise kernels. Fails on a library
+    batch-norm kernel, a second pass of the token head, the depthwise
+    backward, conv1x1 + statistics or the BN-backward sums, and an
+    attention kernel other than the tensor-core ones. Returns the busy ms
+    per step, or None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            train_step(state, batch)
+            run_step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [a for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA]
-    kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
+    kernels = device_work(prof, n, label)
     busy = sum(a.self_device_time_total for a in kernels) / 1e3
     if busy <= 0:
-        print("train: device busy share not measured (the profiler saw no "
-              "device time)")
-        return
-    print(f"train bf16 B={TRAIN_B}: traced {n} steps, wall {wall / n:.2f} "
+        print(f"{label}: device busy share not measured (the profiler saw "
+              "no device time)")
+        return None
+    print(f"{label}: traced {n} steps, wall {wall / n:.2f} "
           f"ms/step, device busy {busy / n:.2f} ms/step "
           f"({100 * busy / wall:.1f}%)")
     ours = ("token_head_fwd_mma", "token_head_partial", "token_head_finalize",
@@ -1371,7 +1433,7 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
         for a in hit if hit is not mine else ():
             print(f"      {a.count / n:7.1f} calls  {a.key[:90]}")
     if bn:
-        fail("a library batch-norm kernel ran in the train step: "
+        fail(f"{label}: a library batch-norm kernel ran in the train step: "
              + ", ".join(a.key[:60] for a in bn))
     # the depthwise backward and the token head, both ways, conv1x1 +
     # statistics and the BN-backward sums add their partials themselves
@@ -1380,19 +1442,20 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
                              "bn_backward_sums"))
               or "token_head_finalize" in a.key]
     if second:
-        fail(f"a second pass of the depthwise backward, the token head, "
-             f"conv1x1 + statistics or the BN-backward sums ran in the train "
-             f"step: {second}")
+        fail(f"{label}: a second pass of the depthwise backward, the token "
+             f"head, conv1x1 + statistics or the BN-backward sums ran in the "
+             f"train step: {second}")
     # the attention runs on its tensor-core kernels alone, both ways
     for way in ("fwd", "bwd"):
         other = [a.key for a in mine if f"realformer_attn_{way}" in a.key
                  and f"realformer_attn_{way}_mma" not in a.key]
         if other:
-            fail(f"an attention {way} kernel other than the tensor-core one "
-                 f"ran in the train step: {other}")
+            fail(f"{label}: an attention {way} kernel other than the "
+                 f"tensor-core one ran in the train step: {other}")
     for a in kernels[:14]:
         print(f"  {a.self_device_time_total / 1e3 / n:9.4f} ms/step "
               f"{a.count // n:5d} calls  {a.key[:80]}")
+    return busy / n
 
 
 def train_phase(torch):
@@ -1494,13 +1557,349 @@ def train_phase(torch):
     train_breakdown(torch, model, cfg, state, batch, 3)
     return launches
 
+def flagship_vqa_config(**over):
+    from mmvqa_tpu_torch.core.config import vqa_config
+
+    return vqa_config(cnn_encoder="tf_efficientnetv2_m",
+                      transformer_model="realformer", num_classes=NUM_CLASSES,
+                      **over)
+
+
+def finetune_check_fp32(torch) -> None:
+    """(a) one fp32 VQA train step, card against the CPU plain path, under
+    each criterion: cross entropy, ASL, the category-smoothing table."""
+    import copy
+
+    from mmvqa_tpu_torch.data.images import FINETUNE_AUG, sample_draws
+    from mmvqa_tpu_torch.data.synthetic import (
+        CATS2ANS,
+        smoothing_columns,
+        vqa_batches,
+    )
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.train.category_smoothing import (
+        build_category_smoothing_table,
+    )
+    from mmvqa_tpu_torch.train.steps import make_vqa_steps
+
+    cfg0 = flagship_vqa_config(batch_size=CHECK_B, dropout_override=0.0)
+    batches = vqa_batches(cfg0, 1, NUM_CLASSES, SEED)
+    table = build_category_smoothing_table(
+        *smoothing_columns(batches), NUM_CLASSES, CATS2ANS, FT_SMOOTHING)
+    draws = sample_draws(CHECK_B, cfg0.image_size,
+                         torch.Generator().manual_seed(SEED), FINETUNE_AUG)
+    base = MMBert(cfg0, device="cpu",
+                  generator=torch.Generator().manual_seed(SEED))
+    for label, over, tab in (
+            ("CE", {}, None),
+            ("ASL", dict(loss="ASLSingleLabel"), None),
+            ("category smoothing", dict(smoothing=FT_SMOOTHING), table)):
+        cfg = cfg0.replace(**over)
+
+        def make_steps(m, c, tab=tab):
+            return make_vqa_steps(m, c, category_smoothing_table=tab)
+
+        t0 = time.perf_counter()
+        want = checked_train_step(torch, copy.deepcopy(base), cfg,
+                                  batches[0], draws, make_steps)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got = checked_train_step(torch, copy.deepcopy(base).to("cuda"), cfg,
+                                 batches[0], draws, make_steps)
+        torch.cuda.synchronize()
+        print(f"finetune fp32 {label}: CPU reference step (plain path, "
+              f"B={CHECK_B}) {cpu_ms:.0f} ms")
+        compare_fp32_step(torch, f"finetune fp32 {label}", got, want)
+    del base
+
+
+def transfer(torch, ckpt_dir: str):
+    """(b) pretrained MLM weights -> save_weights -> load_weights ->
+    filtered_restore into the bf16 VQA model, which is returned. Exactly
+    the tensors whose shape differs stay as the VQA model drew them."""
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.models.mmbert import compute_dtype_of
+    from mmvqa_tpu_torch.train import checkpoint
+    from mmvqa_tpu_torch.train.state import create_train_state
+
+    mcfg = flagship_mlm_config(seed=SEED)
+    mlm = MMBert(mcfg, device="cpu",
+                 generator=torch.Generator().manual_seed(SEED))
+    path = os.path.join(ckpt_dir, "roco", "best")
+    t0 = time.perf_counter()
+    checkpoint.save_weights(path, create_train_state(mlm, mcfg.lr))
+    save_s = time.perf_counter() - t0
+    del mlm
+    cfg = flagship_vqa_config(mixed_precision=True, seed=SEED)
+    # another seed than the MLM model's, so that a transferred tensor shows
+    model = MMBert(cfg, compute_dtype=compute_dtype_of(cfg),
+                   generator=torch.Generator().manual_seed(SEED + 1))
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    loaded = checkpoint.load_weights(path)
+    merged, n_ok, n_all = checkpoint.filtered_restore(model.state_dict(),
+                                                      loaded)
+    model.load_state_dict(merged, strict=True)
+    load_s = time.perf_counter() - t0
+    print(f"transfer: MLM weights ({len(loaded)} tensors, "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB) saved in {save_s:.2f} "
+          f"s; loaded and filtered into the VQA model in {load_s:.2f} s: "
+          f"{n_ok} / {n_all} tensors transferred")
+    kept = sorted(k for k in fresh if k not in loaded
+                  or loaded[k].shape != fresh[k].shape)
+    if kept != ["classifier_2.bias", "classifier_2.weight"] or (
+            n_ok != n_all - len(kept)):
+        fail(f"transfer: the VQA model kept {kept} fresh ({n_ok} / {n_all} "
+             f"loaded); want exactly classifier_2")
+    sd = model.state_dict()
+    for k, v in sd.items():
+        want = fresh[k] if k in kept else loaded[k]
+        if not torch.equal(v.cpu(), want.cpu()):
+            fail(f"transfer: {k} is neither its saved nor its fresh value")
+    moved = sum(not torch.equal(fresh[k], sd[k]) for k in sd)
+    print(f"transfer: fresh: {kept}; {moved} tensors differ from the VQA "
+          f"model's own draw; the position table "
+          f"{tuple(sd['bert_embedding.position_embeddings'].shape)} keeps "
+          f"BERT's 512 rows in both models, so the shape filter takes it")
+    return model, cfg
+
+
+def finetune_phase(torch):
+    """(b), (c), (d): the VQA-Med fine-tuning path; returns the launches of
+    its main path (the fine-tune epoch)."""
+    import shutil
+
+    import numpy as np
+
+    from mmvqa_tpu_torch.data.synthetic import vqa_batches
+    from mmvqa_tpu_torch.train import checkpoint
+    from mmvqa_tpu_torch.train.plateau import ReduceLROnPlateau
+    from mmvqa_tpu_torch.train.state import create_train_state
+    from mmvqa_tpu_torch.train.steps import make_vqa_steps
+    from mmvqa_tpu_torch.train.trainer import vqa_epoch
+
+    finetune_check_fp32(torch)
+    torch.cuda.empty_cache()
+    ckpt_dir = os.path.join(ROOT, "_checkpoints")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        model, cfg = transfer(torch, ckpt_dir)
+        if cfg.batch_size != EVAL_B:  # the trunk kernels were checked there
+            fail(f"finetune: B={cfg.batch_size}, the kernels were held at "
+                 f"B={EVAL_B}")
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"finetune: MMBert VQA {cfg.cnn_encoder} + "
+              f"{cfg.transformer_model}, hidden {cfg.hidden_size}, "
+              f"{cfg.n_layers} layers, T={cfg.max_position_embeddings}, "
+              f"{cfg.image_size} px, {NUM_CLASSES} classes, "
+              f"{n_params / 1e6:.2f} M fp32 parameters, compute "
+              f"{model.dtype}, B={cfg.batch_size}, lr {cfg.lr}, dropout on, "
+              f"on {model.device}")
+        state = create_train_state(model, cfg.lr, clip=cfg.clip,
+                                   grad_accum=cfg.grad_accum)
+        train_step, eval_step = make_vqa_steps(model, cfg)
+        batch = vqa_batches(cfg, 1, NUM_CLASSES, SEED)[0]
+        losses = []
+
+        def recorded(state, batch):
+            state, m = train_step(state, batch)
+            losses.append(m["loss"])
+            return state, m
+
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = vqa_epoch(recorded, state, [batch], True)
+        # the main path, undisturbed: one epoch through vqa_epoch, counters
+        # read around it
+        reset_counts()
+        state, second = vqa_epoch(recorded, state, [batch] * FT_STEPS, True)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        losses = [x.item() for x in losses]
+        print(f"finetune bf16 B={cfg.batch_size}: vqa_epoch of {FT_STEPS} "
+              f"steps after one: loss {second['loss']:.4f}, "
+              f"{second['items_per_sec']:.1f} items/s; peak memory "
+              f"{peak:.1f} MiB; losses {['%.4f' % x for x in losses]}; "
+              f"launches {launches}")
+        per_step = {"token_head": 5, "token_head_bwd": 5,
+                    "realformer_attention": cfg.n_layers,
+                    "realformer_attention_mma": cfg.n_layers,
+                    "realformer_attention_bwd": cfg.n_layers,
+                    "realformer_attention_bwd_mma": cfg.n_layers,
+                    "depthwise3x3": 42, "depthwise3x3_bwd": 42,
+                    "conv1x1_stats": 98, "conv1x1_stats_tma": 98,
+                    "bn_backward_sums": 156}
+        want = {name: n * FT_STEPS for name, n in per_step.items()}
+        other = launches["conv1x1_stats"] - launches["conv1x1_stats_tma"]
+        if other:
+            fail(f"finetune: {other} conv1x1 + statistics launches took the "
+                 f"mma.sync path")
+        if launches != want:
+            fail(f"finetune launches {launches}, want {want}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"finetune: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"finetune: loss did not fall on a repeated batch: {losses}")
+        if len(second["preds"]) != FT_STEPS * cfg.batch_size:
+            fail(f"finetune: {len(second['preds'])} predictions")
+
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms = statistics.median(times)
+        label = f"finetune bf16 B={cfg.batch_size}"
+        busy = traced_train_steps(torch, lambda: train_step(state, batch), 3,
+                                  label)
+        print(f"{label}: ms per step {['%.2f' % t for t in times]} (median "
+              f"{step_ms:.2f}, {cfg.batch_size / step_ms * 1e3:.1f} items/s), "
+              f"device busy "
+              f"{'not measured' if busy is None else '%.2f ms' % busy} a "
+              f"step")
+        copies = gradient_copies()
+        if any(copies.values()):
+            fail(f"finetune: a gradient reached a kernel site in another "
+                 f"layout than its map and was copied: {copies}")
+
+        # validation, the plateau scheduler, the best weights, the recorder
+        val = vqa_batches(cfg, FT_VAL_BATCHES, NUM_CLASSES, SEED + 1,
+                          PAD_LAST)
+        _, vm = vqa_epoch(eval_step, state, val, False, collect_logits=True)
+        n_real = FT_VAL_BATCHES * cfg.batch_size - PAD_LAST
+        if not (math.isfinite(vm["loss"]) and len(vm["preds"]) == n_real
+                and vm["logits"].shape == (n_real, NUM_CLASSES)
+                and np.isfinite(vm["logits"]).all()):
+            fail(f"finetune: validation {vm['loss']}, "
+                 f"{len(vm['preds'])} predictions")
+        acc = 100.0 * float((vm["preds"] == vm["targets"]).mean())
+        sched = ReduceLROnPlateau(lr=cfg.lr, patience=cfg.patience,
+                                  factor=cfg.factor)
+        state.with_lr(sched.step(vm["loss"]))
+        checkpoint.save_weights(
+            os.path.join(ckpt_dir, cfg.task, cfg.run_name + "_loss"), state)
+        if acc > 0.0:
+            checkpoint.save_weights(
+                os.path.join(ckpt_dir, cfg.task, cfg.run_name), state)
+        t0 = time.perf_counter()
+        checkpoint.save_recorder(ckpt_dir, 1, state, sched.state_dict())
+        at = state.step
+        state, sched_state, epoch = checkpoint.restore_recorder(ckpt_dir,
+                                                                state)
+        rec_s = time.perf_counter() - t0
+        state, m = train_step(state, batch)
+        if not (epoch == 1 and sched_state == sched.state_dict()
+                and state.step == at + 1 and math.isfinite(m["loss"].item())):
+            fail(f"finetune: recorder round trip: epoch {epoch}, step "
+                 f"{state.step}, loss {m['loss'].item()}")
+        print(f"finetune: validation over {n_real} samples: loss "
+              f"{vm['loss']:.4f}, accuracy {acc:.2f}%, lr {state.lr}; "
+              f"recorder saved and restored in {rec_s:.2f} s, the next "
+              f"step's loss {m['loss'].item():.4f}")
+        del model, state, train_step, eval_step
+        torch.cuda.empty_cache()
+        accumulate_and_resume(torch, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches
+
+
+def accumulate_and_resume(torch, ckpt_dir: str) -> None:
+    """(d) grad_accum=2 in fp32: micro-step 1 leaves the parameters,
+    micro-step 2 is Adam on the mean of the two micro-gradients, and a run
+    resumed from a recorder taken between them lands where the run that
+    never stopped does. cuDNN is held to deterministic algorithms for this
+    check alone: its convolutions' weight gradients may otherwise sum in
+    another order on each run."""
+    from mmvqa_tpu_torch.data.images import FINETUNE_AUG, sample_draws
+    from mmvqa_tpu_torch.data.synthetic import vqa_batches
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.train import checkpoint
+    from mmvqa_tpu_torch.train.state import create_train_state
+    from mmvqa_tpu_torch.train.steps import make_vqa_steps
+
+    cfg = flagship_vqa_config(batch_size=CHECK_B, dropout_override=0.0,
+                              grad_accum=2, seed=SEED)
+    b1, b2 = vqa_batches(cfg, 2, NUM_CLASSES, SEED + 2)
+    gen = torch.Generator().manual_seed(SEED)
+    d1, d2 = (sample_draws(CHECK_B, cfg.image_size, gen, FINETUNE_AUG)
+              for _ in range(2))
+    rec_dir = os.path.join(ckpt_dir, "accumulate")
+
+    def fresh():
+        model = MMBert(cfg, generator=torch.Generator().manual_seed(SEED))
+        state = create_train_state(model, cfg.lr, grad_accum=cfg.grad_accum)
+        return state, make_vqa_steps(model, cfg)[0]
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, step = fresh()
+        params = dict(state.model.named_parameters())
+        p0 = {n: p.detach().clone() for n, p in params.items()}
+        grads = []
+        apply = state.apply_gradients
+
+        def keep_grads():
+            grads.append({n: (torch.zeros_like(p) if p.grad is None
+                              else p.grad.detach().clone())
+                          for n, p in params.items()})
+            apply()
+
+        state.apply_gradients = keep_grads
+        state, _ = step(state, b1, draws=d1)
+        still = all(torch.equal(p, p0[n]) for n, p in params.items())
+        checkpoint.save_recorder(rec_dir, 0, state, {})
+        state, _ = step(state, b2, draws=d2)
+        del state.apply_gradients
+        ref = {n: p.clone() for n, p in p0.items()}
+        adam = torch.optim.Adam(ref.values(), lr=cfg.lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=0.0)
+        for n, r in ref.items():
+            g1, g2 = grads[0][n], grads[1][n]
+            r.grad = g1 + (g2 - g1) / 2.0
+        adam.step()
+        err_mean = max((params[n] - r).abs().max().item()
+                       for n, r in ref.items())
+        off_mean = [n for n, r in ref.items() if not torch.allclose(
+            params[n], r, rtol=1e-6, atol=1e-7)]
+        moved = sum(not torch.equal(params[n], p0[n]) for n in params)
+        del ref, adam, grads, p0
+
+        resumed, rstep = fresh()
+        resumed, _, _ = checkpoint.restore_recorder(rec_dir, resumed)
+        mini = resumed.mini_step
+        resumed, _ = rstep(resumed, b2, draws=d2)
+        rparams = dict(resumed.model.named_parameters())
+        err_resume = max((rparams[n] - p).abs().max().item()
+                         for n, p in params.items())
+        off_resume = [n for n, p in params.items() if not torch.allclose(
+            rparams[n], p, rtol=1e-6, atol=1e-7)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"accumulate fp32 B={CHECK_B}, grad_accum 2: micro-step 1 left "
+          f"the parameters {'unchanged' if still else 'CHANGED'}; "
+          f"micro-step 2 moved {moved} of {len(params)} tensors, max abs err "
+          f"against Adam on the mean gradient {err_mean:.3e}; resumed from "
+          f"the recorder at micro-step {mini}: max abs err against the run "
+          f"that never stopped {err_resume:.3e} (rtol 1e-6, atol 1e-7)")
+    if not still:
+        fail("accumulate: micro-step 1 changed the parameters")
+    if off_mean or moved == 0:
+        fail(f"accumulate: micro-step 2 is not Adam on the mean gradient: "
+             f"{off_mean[:5]} ({moved} tensors moved)")
+    if mini != 1 or off_resume:
+        fail(f"accumulate: the resumed run (micro-step {mini}) differs: "
+             f"{off_resume[:5]}")
+
+
 
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     try:
         from mmvqa_tpu_torch.native import loader
     except ImportError as e:
@@ -1515,16 +1914,19 @@ def main() -> None:
     path = loader.build()
     loader.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
-          f"{os.path.relpath(path, os.path.dirname(os.path.abspath(__file__)))}")
+          f"{os.path.relpath(path, ROOT)}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = kernel_phase(torch)
     eval_launches = slice_phase(torch)
     train_launches = train_phase(torch)
+    torch.cuda.empty_cache()
+    finetune_launches = finetune_phase(torch)
 
     # launches: the counts read after each main path's run, counters set to
-    # 0 just before it (the eval slice's forwards, then the train epoch).
+    # 0 just before it (the eval slice's forwards, the train epoch, the
+    # fine-tune epoch).
     # ms, plain_ms, bound_ms, library_ms: at the train path's shapes in bf16,
     # B=TRAIN_B, summed over the calls of one pass (the trunk's kernels:
     # every site of a step, inputs not in the L2 cache); bound_by: what
@@ -1532,9 +1934,11 @@ def main() -> None:
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
-         "launches": eval_launches.get(name, 0) + train_launches[name],
+         "launches": (eval_launches.get(name, 0) + train_launches[name]
+                      + finetune_launches[name]),
          "launches_eval": eval_launches.get(name, 0),
          "launches_train": train_launches[name],
+         "launches_finetune": finetune_launches[name],
          "max_abs_err": max(r["err"].values()),
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": sum(ms for ms, _ in r["bounds"]),

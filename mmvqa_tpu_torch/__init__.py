@@ -5,8 +5,10 @@ flax or mmvqa_tpu; the JAX package stays the numerical reference, and the
 tests (tests/test_torch_*.py) hold each ported module against it.
 
 Ported so far, for EfficientNetV2 + RealFormer: VQA-Med inference
-(``train.steps.make_vqa_eval_step``) and ROCO MLM pretraining
-(``train.steps.make_mlm_steps``, ``train.state``, ``train.trainer``), with
+(``train.steps.make_vqa_eval_step``), ROCO MLM pretraining
+(``train.steps.make_mlm_steps``, ``train.state``, ``train.trainer``) and
+VQA-Med fine-tuning (``train.steps.make_vqa_steps``, ``train.checkpoint``,
+``train.plateau``, ``train.category_smoothing``, ``trainer.vqa_epoch``), with
 hand-written CUDA kernels, forward and backward, for the visual-token head
 (``ops.token_head``) and the RealFormer attention core (``ops.attention``),
 built from ``csrc/`` on first use (``native.loader``). Models are built on

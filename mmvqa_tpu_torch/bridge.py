@@ -18,6 +18,10 @@ and a leaf name and layout fixed by the module type:
 
 ``to_flax`` is the way back, for parameters and running statistics after a
 train step; ``grads_to_flax`` carries the parameters' gradients the same way.
+``from_flax_recorder`` carries a whole JAX recorder across (parameters,
+statistics, Adam's moments, the accumulator of ``grad_accum``, step, epoch,
+scheduler) into the port's recorder layout (``train.checkpoint``); each
+moment and the accumulator take their parameter's transform.
 
 The bridge raises on a Flax leaf that no entry takes, on one that two
 entries take, on a missing leaf and on a shape that does not fit.
@@ -25,7 +29,7 @@ entries take, on a missing leaf and on a shape that does not fit.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, NamedTuple, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -113,11 +117,16 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
 def to_state_dict(variables: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
     """Flax variables -> a state_dict that ``model.load_state_dict`` takes
     with ``strict=True``."""
+    return _convert(variables, model, mapping(model))
+
+
+def _convert(variables: Mapping, model: nn.Module,
+             entries: List[Entry]) -> Dict[str, torch.Tensor]:
     leaves = _flatten({c: variables.get(c, {}) for c in ("params", "batch_stats")})
     target = model.state_dict()
     used: Dict[Tuple[str, ...], str] = {}
     out = {}
-    for e in mapping(model):
+    for e in entries:
         if e.path not in leaves:
             raise KeyError(f"bridge: Flax leaf {'/'.join(e.path)} (for {e.key}) is missing")
         if e.path in used:
@@ -165,3 +174,67 @@ def grads_to_flax(model: nn.Module) -> Dict:
              for name, p in model.named_parameters()}
     entries = [e for e in mapping(model) if e.path[0] == "params"]
     return _to_tree({e.key: grads[e.key] for e in entries}, entries)["params"]
+
+
+def flax_names(model: nn.Module) -> Dict[str, str]:
+    """Parameter name -> its Flax path under ``params`` ('a/b/kernel'), the
+    names the JAX package gives a parameter's histograms."""
+    return {e.key: "/".join(e.path[1:]) for e in mapping(model)
+            if e.path[0] == "params"}
+
+
+def _params_to_torch(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A params-shaped Flax tree (parameters, a moment, an accumulator) ->
+    one tensor a parameter name, through the parameter's transform."""
+    entries = [e for e in mapping(model) if e.path[0] == "params"]
+    return _convert({"params": tree}, model, entries)
+
+
+def from_flax_recorder(state, *, params: Mapping, batch_stats: Mapping,
+                       mu: Mapping, nu: Mapping, count: int, step: int,
+                       epoch: int, scheduler: Mapping,
+                       lr: Optional[float] = None,
+                       acc_grads: Optional[Mapping] = None,
+                       mini_step: int = 0) -> Dict:
+    """A JAX recorder, as plain nested dicts of numpy arrays, -> the port's
+    recorder tree for ``state`` (a ``train.state.TrainState``: its model
+    gives the layout, its optimizer the settings), which
+    ``train.checkpoint.load_recorder_tree`` puts into a state.
+
+    ``mu``, ``nu`` and ``count`` are Adam's (inside ``MultiSteps`` where the
+    run accumulates: there ``count`` counts real updates); ``acc_grads`` and
+    ``mini_step`` are ``MultiSteps``' accumulator and micro-step; ``lr`` the
+    injected learning rate (the state's own where None)."""
+    model = state.model
+    mus, nus = _params_to_torch(mu, model), _params_to_torch(nu, model)
+    names = [name for name, _ in model.named_parameters()]
+    adam = {}
+    if int(count) > 0:  # torch keeps no state before the first update
+        adam = {i: {"step": torch.tensor(float(count)),
+                    "exp_avg": mus[name], "exp_avg_sq": nus[name]}
+                for i, name in enumerate(names)}
+    groups = state.optimizer.state_dict()["param_groups"]
+    if len(groups) != 1 or groups[0]["params"] != list(range(len(names))):
+        raise ValueError("bridge: the optimizer must hold the model's "
+                         "parameters in one group, in their order")
+    group = dict(groups[0])
+    if lr is not None:
+        group["lr"] = float(lr)
+    if int(mini_step) and state.grad_accum == 1:
+        raise ValueError("bridge: the recorder is mid-accumulation but the "
+                         "state does not accumulate")
+    return {
+        "epoch": int(epoch),
+        "model": to_state_dict({"params": params,
+                                "batch_stats": batch_stats}, model),
+        "optimizer": {"state": adam, "param_groups": [group]},
+        "step": int(step),
+        "grad_accum": state.grad_accum,
+        "mini_step": int(mini_step),
+        "acc_grads": (_params_to_torch(acc_grads, model)
+                      if int(mini_step) else None),
+        # plain Python numbers, which a weights-only load takes
+        "scheduler": {k: v.item() if hasattr(v, "item") else v
+                      for k, v in scheduler.items()},
+    }
+

@@ -610,6 +610,18 @@ cudaError_t for_kernel(int act, int mode, F&& f) {
 // side (tools/probe_token_head.py) each ask for their own.
 static int fwd_granted[3][3];
 
+// Raises the variant's limit to smem where it is below it and never lowers
+// it: the occupancy query of a shape that needs less must not take away
+// what a plan made earlier for a shape that needs more was granted.
+template <typename Kern>
+cudaError_t grant_smem(Kern kern, int act, int mode, int smem) {
+  int& granted = fwd_granted[act][mode];
+  if (smem <= granted) return cudaSuccess;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err == cudaSuccess) granted = smem;
+  return err;
+}
+
 }  // namespace fwd
 }  // namespace k1
 }  // namespace mmvqa
@@ -657,7 +669,7 @@ extern "C" int token_head_fwd_occupancy(int act, int mode, int smem,
   using namespace mmvqa::k1;
   using namespace mmvqa::k1::fwd;
   return static_cast<int>(for_kernel(act, mode, [&](auto kern) {
-    cudaError_t err = allow_smem(kern, smem);
+    cudaError_t err = grant_smem(kern, act, mode, smem);
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
                                                          kThreads, smem);
@@ -701,12 +713,8 @@ extern "C" int token_head_fwd_mma(const void* x, long long sb, long long sp,
   const int vec_w = vec_w_ok(w, C);
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(for_kernel(act, mode, [&](auto kern) {
-    int& granted = fwd_granted[act][mode];
-    if (smem > granted) {
-      cudaError_t err = allow_smem(kern, smem);
-      if (err != cudaSuccess) return err;
-      granted = smem;
-    }
+    cudaError_t err = grant_smem(kern, act, mode, smem);
+    if (err != cudaSuccess) return err;
     kern<<<dim3(ctiles, nblocks), kThreads, smem, st>>>(a, o, vec_x, vec_w);
     return cudaGetLastError();
   }));

@@ -4,25 +4,33 @@ loader's keys.
 No dataset ships with the repository; the smoke run feeds the steps with
 these. Images are uniform uint8 noise, questions are
 random token ids with ``[CLS]`` first, ``[SEP]`` last and zero-padded tails
-of random length, answers are uniform over ``num_classes``.
+of random length, answers are uniform over ``num_classes``. Each answer
+belongs to one of VQA-Med 2019's five question categories (answer id modulo
+five), which gives each sample its ``category`` id, as the category-smoothing
+criterion reads it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from mmvqa_tpu_torch.core.config import Config
 
 CLS_ID, SEP_ID, MASK_ID = 101, 102, 103
+# VQA-Med 2019's question categories (mmvqa_tpu/evaluation/metrics.py:18),
+# in the order of their ids
+CATEGORIES = ("binary", "plane", "organ", "modality", "abnormality")
+CATS2ANS = {name: i for i, name in enumerate(CATEGORIES)}
 
 
 def vqa_batches(cfg: Config, n_batches: int, num_classes: int, seed: int = 0,
                 pad_last: int = 0) -> List[Dict[str, np.ndarray]]:
     """``n_batches`` batches of ``cfg.batch_size`` at ``cfg.image_size`` and
     T = ``cfg.max_position_embeddings``; the last batch carries
-    ``pad_last`` padding samples (weight 0), as an epoch's last one does."""
+    ``pad_last`` padding samples (weight 0), as an epoch's last one does;
+    ``category`` is the answer's category id."""
     rng = np.random.default_rng(seed)
     B, T, S = cfg.batch_size, cfg.max_position_embeddings, cfg.image_size
     batches = []
@@ -43,7 +51,21 @@ def vqa_batches(cfg: Config, n_batches: int, num_classes: int, seed: int = 0,
             "answer": rng.integers(0, num_classes, size=B).astype(np.int32),
             "weights": weights,
         })
+        batches[-1]["category"] = (batches[-1]["answer"] % len(CATEGORIES)
+                                   ).astype(np.int32)
     return batches
+
+
+def smoothing_columns(batches: Sequence[Dict[str, np.ndarray]]
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """The train split's ``category`` (names) and ``answer`` columns over
+    the real samples of ``batches``: what
+    ``train.category_smoothing.build_category_smoothing_table`` takes, with
+    ``CATS2ANS``."""
+    real = np.concatenate([b["weights"] for b in batches]) > 0
+    cats = np.concatenate([b["category"] for b in batches])[real]
+    answers = np.concatenate([b["answer"] for b in batches])[real]
+    return np.asarray(CATEGORIES)[cats], answers
 
 
 def mlm_batches(cfg: Config, n_batches: int, seed: int = 0,

@@ -107,11 +107,11 @@ class MMBert(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if "realformer" not in cfg.transformer_model:
-            raise _not_ported(f"transformer_model {cfg.transformer_model!r}", "7")
+            raise _not_ported(f"transformer_model {cfg.transformer_model!r}", "8")
         if cfg.supcon:
-            raise _not_ported("the SupCon head", "8")
+            raise _not_ported("the SupCon head", "6")
         if cfg.dataset == "roco" and cfg.task != "MLM":
-            raise _not_ported(f"task {cfg.task!r}", "8")
+            raise _not_ported(f"task {cfg.task!r}", "7")
         if cfg.dataset not in ("roco", "VQA-Med"):
             raise NotImplementedError(cfg.dataset)
         if cfg.pp_size > 1:

@@ -61,7 +61,7 @@ class VisualTokenizer(nn.Module):
         if "efficientnetv2" not in cnn_encoder:
             raise NotImplementedError(
                 f"cnn_encoder {cnn_encoder!r} is not ported yet (ROADMAP.md "
-                "Queue 1, item 7)"
+                "Queue 1, item 8)"
             )
         if num_vis not in (5, 7):
             raise ValueError("efficientnetv2 supports num_vis in {5, 7}")

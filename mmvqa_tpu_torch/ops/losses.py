@@ -1,40 +1,101 @@
 """Losses (counterpart of mmvqa_tpu/ops/losses.py and of the loss helpers of
 mmvqa_tpu/train/steps.py): the MLM objective with its streaming logsumexp,
-and the VQA eval criterion (the per-sample losses inside ``make_vqa_steps``,
-:396-428, and ``_weighted_mean``, :48-49). Every loss is taken in fp32. Plain
-PyTorch: the JAX package computes these outside any Pallas kernel."""
+the VQA-Med criteria (cross entropy, asymmetric single-label loss, label
+smoothing, soft targets, the category-smoothed targets) in their mean forms
+(``ops/losses.py:77-162``) and in the per-sample forms that
+``make_vqa_steps`` reduces with the batch's weights (``steps.py:396-428``,
+``_weighted_mean``, :48-49). Every loss is taken in fp32. Plain PyTorch: the
+JAX package computes these outside any Pallas kernel."""
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 
+def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    return F.log_softmax(logits.float(), dim=-1)
+
+
 def cross_entropy_per_sample(logits: torch.Tensor,
                              targets: torch.Tensor) -> torch.Tensor:
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = _log_softmax(logits)
     return -logp.gather(-1, targets.long()[:, None])[:, 0]
 
 
 def asl_per_sample(logits: torch.Tensor, targets: torch.Tensor,
-                   gamma_neg: float = 4.0, eps: float = 0.1) -> torch.Tensor:
-    """Asymmetric single-label loss (gamma_pos 0), one value per sample:
-    log-probabilities weighted by ``(1 - p_t)^0`` on the target and ``p^4``
-    elsewhere, against one-hot targets smoothed by ``eps``."""
+                   gamma_pos: float = 0.0, gamma_neg: float = 4.0,
+                   eps: float = 0.1) -> torch.Tensor:
+    """Asymmetric single-label loss, one value per sample
+    (models/asl_singlelabel.py:23-53): log-probabilities weighted by
+    ``(1 - p t - (1 - p)(1 - t))^(gamma_pos t + gamma_neg (1 - t))``, a
+    weight that carries a gradient, against one-hot targets smoothed by
+    ``eps``."""
     num_classes = logits.shape[-1]
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = _log_softmax(logits)
     one_hot = F.one_hot(targets.long(), num_classes).to(logp.dtype)
     anti = 1.0 - one_hot
     p = torch.exp(logp)
-    wgt = torch.pow(1.0 - p * one_hot - (1.0 - p) * anti, gamma_neg * anti)
-    soft = one_hot * (1.0 - eps) + eps / num_classes
+    wgt = torch.pow(1.0 - p * one_hot - (1.0 - p) * anti,
+                    gamma_pos * one_hot + gamma_neg * anti)
+    soft = one_hot * (1.0 - eps) + eps / num_classes if eps > 0 else one_hot
     return torch.sum(-soft * (logp * wgt), dim=-1)
+
+
+def soft_target_per_sample(logits: torch.Tensor,
+                           soft_targets: torch.Tensor) -> torch.Tensor:
+    """CE against soft targets, one value per sample."""
+    return torch.sum(-soft_targets * _log_softmax(logits), dim=-1)
+
+
+def category_smoothing_per_sample(logits: torch.Tensor, answers: torch.Tensor,
+                                  categories: torch.Tensor,
+                                  table: torch.Tensor,
+                                  smoothing: float) -> torch.Tensor:
+    """LabelSmoothByCategory's train branch, one value per sample: the soft
+    target is the row of ``table`` for the sample's category with
+    ``1 - smoothing`` written at its answer; the write goes into a gathered
+    copy, never into the table."""
+    soft = table[categories.long()]  # advanced indexing: a copy
+    soft = soft.scatter(1, answers.long()[:, None], 1.0 - smoothing)
+    return soft_target_per_sample(logits, soft)
 
 
 def weighted_mean(per_sample: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Mean over the real samples of a batch (weight 1 real, 0 padding)."""
     w = w.to(per_sample.dtype)
     return torch.sum(per_sample * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean CE over int labels (vqamed2019/train.py:169-171)."""
+    return cross_entropy_per_sample(logits, targets).mean()
+
+
+def asl_single_label(logits: torch.Tensor, targets: torch.Tensor,
+                     gamma_pos: float = 0.0, gamma_neg: float = 4.0,
+                     eps: float = 0.1) -> torch.Tensor:
+    """``asl_per_sample`` averaged over the batch."""
+    return asl_per_sample(logits, targets, gamma_pos, gamma_neg, eps).mean()
+
+
+def label_smoothing_loss(logits: torch.Tensor, one_hot_targets: torch.Tensor,
+                         smoothing: float = 0.1) -> torch.Tensor:
+    """Smoothed CE over soft or one-hot targets (vqamed2019/utils.py:178-198):
+    ``(1 - s) sum(-logp t) + s mean(-logp)`` averaged over the batch."""
+    logp = _log_softmax(logits)
+    nll = torch.sum(-logp * one_hot_targets, dim=-1)
+    smooth = torch.mean(-logp, dim=-1)
+    return torch.mean((1.0 - smoothing) * nll + smoothing * smooth)
+
+
+def smoothed_soft_target_ce(logits: torch.Tensor,
+                            soft_targets: torch.Tensor) -> torch.Tensor:
+    """CE against precomputed soft targets (vqamed2019/utils.py:1296-1300):
+    ``mean(sum(-t log_softmax(x), -1))``."""
+    return soft_target_per_sample(logits, soft_targets).mean()
 
 
 class _StreamingLSE(torch.autograd.Function):
@@ -91,3 +152,10 @@ def mlm_metrics(logits: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):
     pred = torch.argmax(logits, dim=-1)
     masked = (labels > 0) & (w[:, None] > 0)
     return torch.sum(masked & (pred == labels)), torch.sum(masked)
+
+
+def mlm_accuracy(logits: torch.Tensor,
+                 targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked-token accuracy (roco_utils.py:256-265): (correct, masked) over
+    the positions with a label > 0, for a host to add up over an epoch."""
+    return mlm_metrics(logits, targets, targets.new_ones(targets.shape[0]))

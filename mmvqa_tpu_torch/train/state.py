@@ -4,13 +4,23 @@ Adam with the reference's settings (b1 0.9, b2 0.999, eps 1e-8, no weight
 decay), with an optional clip of the global gradient norm at 1.0 applied
 before Adam, as ``optax.clip_by_global_norm``. Parameters and both moments
 are fp32 whatever the model's compute dtype. The state is updated in place:
-``apply_gradients`` steps the model's own parameters. Gradient accumulation
-(``grad_accum``) is not ported yet.
+``apply_gradients`` steps the model's own parameters.
+
+Gradient accumulation (``grad_accum`` k > 1) has ``optax.MultiSteps``'
+semantics, nested as the JAX state nests it (the clip and Adam inside the
+accumulation, the learning rate outside): each call folds the micro-batch's
+gradient into a running mean (``acc + (g - acc) / (n + 1)``, optax's
+Welford form), and every k-th call clips that mean and takes one Adam step
+from it. Adam's count moves only on those real updates; ``step`` counts
+micro-steps, as the JAX ``TrainState.step`` does; ``with_lr`` works between
+micro-steps. The BatchNorm statistics are no optimizer state: they move in
+every forward, so on every micro-step.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -24,10 +34,29 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     clip: bool = False
+    grad_accum: int = 1
+    # micro-steps folded into acc_grads since the last update, and their
+    # running mean, one fp32 tensor a parameter (None until the first fold)
+    mini_step: int = 0
+    acc_grads: Optional[Dict[str, torch.Tensor]] = field(default=None,
+                                                         repr=False)
 
     def apply_gradients(self) -> None:
-        """One optimizer step from the ``.grad`` of the model's parameters;
-        the gradients are dropped afterwards."""
+        """One micro-step from the ``.grad`` of the model's parameters: an
+        optimizer step at once, or every ``grad_accum``-th call from the
+        mean of the accumulated gradients. The gradients are dropped
+        afterwards."""
+        self.step += 1
+        if self.grad_accum > 1:
+            self._accumulate()
+            self.mini_step += 1
+            if self.mini_step < self.grad_accum:
+                self.optimizer.zero_grad(set_to_none=True)
+                return
+            self.mini_step = 0
+            for name, p in self.model.named_parameters():
+                p.grad = self.acc_grads[name].to(p.dtype)
+            self.acc_grads = None
         if self.clip:
             params = [p for p in self.model.parameters() if p.grad is not None]
             # optax's rule: untouched below the limit, g / norm * limit
@@ -39,7 +68,18 @@ class TrainState:
             torch._foreach_mul_([p.grad for p in params], scale)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
-        self.step += 1
+
+    def _accumulate(self) -> None:
+        """acc += (g - acc) / (n + 1); a parameter without a gradient counts
+        as a zero gradient, as in the JAX tree."""
+        if self.acc_grads is None:
+            self.acc_grads = {name: torch.zeros_like(p, dtype=torch.float32)
+                              for name, p in self.model.named_parameters()}
+        n = float(self.mini_step + 1)
+        for name, p in self.model.named_parameters():
+            acc = self.acc_grads[name]
+            g = torch.zeros_like(acc) if p.grad is None else p.grad.float()
+            acc.add_((g - acc) / n)
 
     @property
     def lr(self) -> float:
@@ -53,9 +93,12 @@ class TrainState:
         return self
 
 
-def create_train_state(model: nn.Module, lr: float,
-                       clip: bool = False) -> TrainState:
+def create_train_state(model: nn.Module, lr: float, clip: bool = False,
+                       grad_accum: int = 1) -> TrainState:
     """Adam over every parameter of ``model``, on the model's device."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
                                  eps=1e-8, weight_decay=0.0)
-    return TrainState(step=0, model=model, optimizer=optimizer, clip=clip)
+    return TrainState(step=0, model=model, optimizer=optimizer, clip=clip,
+                      grad_accum=grad_accum)

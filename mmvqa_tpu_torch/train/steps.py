@@ -1,24 +1,24 @@
 """Train and eval steps (counterpart of mmvqa_tpu/train/steps.py): the ROCO
-MLM pretraining steps (``make_mlm_steps``, :167-220) and the VQA eval step
-(the ``eval_step`` of ``make_vqa_steps``, :461-471).
+MLM pretraining steps (``make_mlm_steps``, :167-220), the VQA-Med
+fine-tuning steps (``make_vqa_steps``, :371-478) and the per-parameter
+histograms (``grad_weight_histograms``, :87-115).
 
 The steps run eagerly and update the train state in place. Metrics come
 back as tensors on the model's device, so that a loop can pull them once at
 its end.
-
-The VQA eval criterion is the configured loss: ASL under
-``--loss ASLSingleLabel``, plain CE otherwise (the category-smoothing table
-that would switch ASL off is a training input, not ported yet).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from mmvqa_tpu_torch.bridge import flax_names
 from mmvqa_tpu_torch.core.config import Config
 from mmvqa_tpu_torch.data.images import (
+    FINETUNE_AUG,
     PRETRAIN_AUG,
     AugmentDraws,
     AugmentSpec,
@@ -26,6 +26,7 @@ from mmvqa_tpu_torch.data.images import (
 )
 from mmvqa_tpu_torch.ops.losses import (
     asl_per_sample,
+    category_smoothing_per_sample,
     cross_entropy_per_sample,
     mlm_metrics,
     weighted_mean,
@@ -57,6 +58,40 @@ def grad_norms(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
             out[f"gnorm/{name}"] = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(g) for g in grads]))
     return out
+
+
+HIST_BINS = 64
+
+
+def _histograms(named: Dict[str, torch.Tensor], prefix: str,
+                bins: int = HIST_BINS) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """One (counts[bins] int32, lo, hi) triple a tensor, on its device, as
+    mmvqa_tpu/train/steps.py::_param_histograms bins it (a transpose moves
+    no value between bins, so the counts are the JAX ones)."""
+    out = {}
+    for name, t in named.items():
+        x = t.detach().float().reshape(-1)
+        lo, hi = torch.min(x), torch.max(x)
+        width = torch.clamp(hi - lo, min=1e-12)
+        idx = torch.clamp(((x - lo) / width * bins).to(torch.int32), 0,
+                          bins - 1)
+        counts = torch.bincount(idx, minlength=bins).to(torch.int32)
+        out[f"{prefix}/{name}"] = (counts, lo, hi)
+    return out
+
+
+def grad_weight_histograms(model: torch.nn.Module
+                           ) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """Histograms of every parameter's gradient (``ghist/<path>``) and value
+    (``whist/<path>``), named by the parameter's Flax path through the
+    bridge; a parameter without a gradient gives a zero gradient's. Taken
+    before the update, at the parameters the gradients were taken at."""
+    names = flax_names(model)
+    params = dict(model.named_parameters())
+    grads = {names[k]: (torch.zeros_like(p) if p.grad is None else p.grad)
+             for k, p in params.items()}
+    return {**_histograms(grads, "ghist"),
+            **_histograms({names[k]: p for k, p in params.items()}, "whist")}
 
 
 def make_mlm_steps(
@@ -121,25 +156,104 @@ def make_mlm_steps(
     return train_step, eval_step
 
 
-def make_vqa_eval_step(
-    model: torch.nn.Module, cfg: Config
-) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
-    """Returns ``eval_step(batch) -> {"loss", "preds", "logits"}``.
+def make_vqa_steps(
+    model: torch.nn.Module, cfg: Config, aug: AugmentSpec = FINETUNE_AUG,
+    category_smoothing_table: Optional[np.ndarray] = None,
+    histograms: bool = False,
+) -> Tuple[Callable, Callable]:
+    """Returns ``(train_step, eval_step)`` for VQA-Med fine-tuning.
+
+    The train criterion (train.py:163-173, smoothing first): the category
+    smoothing when ``cfg.smoothing`` is set and a table is given, else ASL
+    under ``--loss ASLSingleLabel``, else CE. The eval criterion: ASL under
+    ``--loss ASLSingleLabel`` unless the smoothing table is in use, else CE
+    (the reference passes val and test logits through the same criterion
+    object, whose smoothing branch falls back to CE outside training).
+
+    ``train_step(state, batch, draws=None)`` runs augmentation, the forward
+    with dropout on and the trunk's BatchNorms on batch statistics, the
+    criterion over the real samples, backward and ``apply_gradients``; it
+    returns ``(state, metrics)`` with ``loss`` and ``preds`` and, with
+    ``histograms``, ``grad_weight_histograms`` at the pre-update parameters.
+    The augmentation draws come from ``draws`` if given, else from the
+    step's own generator (seeded with ``cfg.seed``, on the model's device).
+    ``eval_step(state, batch)`` returns ``loss``, ``preds`` and ``logits``
+    without augmentation, dropout or any update.
 
     ``batch`` has the JAX loader's keys: ``image`` uint8 (B, S, S, 3),
-    ``tokens``, ``segment_ids``, ``input_mask`` (B, T), ``answer`` (B,) and
-    ``weights`` (B,) (1 real, 0 padding), as numpy arrays or tensors; they
-    are moved to the model's device."""
-    criterion = (asl_per_sample if cfg.loss == "ASLSingleLabel"
-                 else cross_entropy_per_sample)
+    ``tokens``, ``segment_ids``, ``input_mask`` (B, T), ``answer`` (B,),
+    ``weights`` (B,) (1 real, 0 padding) and, for the smoothing criterion,
+    ``category`` (B,) (0 for every sample where absent)."""
+    use_smoothing = (cfg.smoothing is not None
+                     and category_smoothing_table is not None)
+    smoothing = cfg.smoothing if cfg.smoothing else 0.1
+    asl = cfg.loss == "ASLSingleLabel"
+    tables: Dict[torch.device, torch.Tensor] = {}
+    own: Dict[torch.device, torch.Generator] = {}
+
+    def table_on(dev: torch.device) -> torch.Tensor:
+        if dev not in tables:
+            tables[dev] = torch.as_tensor(
+                np.asarray(category_smoothing_table, np.float32)).to(dev)
+        return tables[dev]
+
+    def criterion(logits, answers, categories):
+        if use_smoothing:
+            return category_smoothing_per_sample(
+                logits, answers, categories, table_on(logits.device),
+                smoothing)
+        if asl:
+            return asl_per_sample(logits, answers)
+        return cross_entropy_per_sample(logits, answers)
+
+    eval_criterion = (asl_per_sample if asl and not use_smoothing
+                      else cross_entropy_per_sample)
+
+    def train_step(state: TrainState, batch: Mapping,
+                   draws: Optional[AugmentDraws] = None):
+        if state.model is not model:
+            raise ValueError("train_step: the state holds another model")
+        dev = model.device
+        b = _to_device(batch, BATCH_KEYS, dev)
+        answers = b["answer"]
+        categories = (torch.as_tensor(batch["category"]).to(dev)
+                      if "category" in batch else torch.zeros_like(answers))
+        if draws is None and dev not in own:
+            own[dev] = torch.Generator(device=dev).manual_seed(cfg.seed)
+        with torch.no_grad():
+            img = process_batch(b["image"], own.get(dev), aug, True, draws)
+        model.set_mode(deterministic=False, train_cnn=True)
+        logits = model(img, b["tokens"], b["segment_ids"], b["input_mask"])
+        loss = weighted_mean(criterion(logits, answers, categories),
+                             b["weights"])
+        loss.backward()
+        metrics = {"loss": loss.detach(),
+                   "preds": torch.argmax(logits.detach(), dim=-1)}
+        if histograms:
+            metrics.update(grad_weight_histograms(model))
+        state.apply_gradients()
+        return state, metrics
 
     @torch.inference_mode()
-    def eval_step(batch: Mapping) -> Dict[str, torch.Tensor]:
+    def eval_step(state: Optional[TrainState], batch: Mapping):
         b = _to_device(batch, BATCH_KEYS, model.device)
-        img = process_batch(b["image"])
-        logits = model(img, b["tokens"], b["segment_ids"], b["input_mask"])
-        loss = weighted_mean(criterion(logits, b["answer"]), b["weights"])
+        model.eval()
+        logits = model(process_batch(b["image"]), b["tokens"],
+                       b["segment_ids"], b["input_mask"])
+        loss = weighted_mean(eval_criterion(logits, b["answer"]),
+                             b["weights"])
         return {"loss": loss, "preds": torch.argmax(logits, dim=-1),
                 "logits": logits}
 
-    return eval_step
+    return train_step, eval_step
+
+
+def make_vqa_eval_step(
+    model: torch.nn.Module, cfg: Config
+) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
+    """The eval half of ``make_vqa_steps`` as ``eval_step(batch) ->
+    {"loss", "preds", "logits"}``: the serving path, which needs no train
+    state. ``batch`` as for ``make_vqa_steps``, as numpy arrays or tensors;
+    they are moved to the model's device."""
+    _, eval_step = make_vqa_steps(model, cfg)
+    return lambda batch: eval_step(None, batch)

@@ -2,9 +2,11 @@
 around the steps.
 
 Metric aggregation matches the reference: the epoch loss is the mean of the
-per-batch means, MLM accuracy is global over all masked tokens. The steps
-leave their metrics on the device; they are pulled once, at the end of the
-epoch and before the clock stops, so that no step waits for the host.
+per-batch means, MLM accuracy is global over all masked tokens, and a VQA
+epoch returns its per-sample predictions for host-side per-category metrics.
+The steps leave their metrics on the device; they are pulled once, at the
+end of the epoch and before the clock stops, so that no step waits for the
+host.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, Iterable, List, Mapping, Tuple
 
+import numpy as np
 import torch
 
 from mmvqa_tpu_torch.train.state import TrainState
@@ -51,3 +54,45 @@ def mlm_epoch(step_fn: Callable, state: TrainState, loader: Iterable[Mapping],
         if k.startswith("gnorm/"):
             metrics[k] = float(v.mean())
     return state, metrics
+
+
+def vqa_epoch(step_fn: Callable, state: TrainState,
+              loader: Iterable[Mapping], train: bool,
+              collect_logits: bool = False) -> Tuple[TrainState, Dict]:
+    """Run ``step_fn`` (a train or eval step of ``make_vqa_steps``) over the
+    batches of ``loader``. Returns the state and ``loss`` (the mean of the
+    per-batch means), ``preds`` and ``targets`` (numpy, the real samples in
+    dataset order), ``logits`` (eval steps, with ``collect_logits``) and
+    ``items_per_sec`` (real samples over the epoch's wall time)."""
+    losses, preds, logits, targets, weights = [], [], [], [], []
+    n_items = 0
+    t0 = time.perf_counter()
+    for batch in loader:
+        w = np.asarray(batch["weights"])
+        n_items += int(w.sum())
+        weights.append(w.copy())
+        targets.append(np.asarray(batch["answer"]).copy())
+        if train:
+            state, m = step_fn(state, batch)
+        else:
+            m = step_fn(state, batch)
+            if collect_logits:
+                logits.append(m["logits"].detach())
+        losses.append(m["loss"])
+        preds.append(m["preds"])
+    # one pull for each kind of output (waits for the device), then the clock
+    flat_losses = _pull(losses) if losses else torch.tensor([float("nan")])
+    host_preds = (torch.cat(preds).cpu().numpy() if preds
+                  else np.zeros(0, np.int64))
+    host_logits = (torch.cat([x.float() for x in logits]).cpu().numpy()
+                   if logits else None)
+    dt = time.perf_counter() - t0
+    real = np.concatenate(weights) > 0 if weights else np.zeros(0, bool)
+    out = {"loss": float(flat_losses.mean()),
+           "preds": host_preds[real],
+           "targets": (np.concatenate(targets)[real] if targets
+                       else np.zeros(0, np.int64)),
+           "items_per_sec": n_items / max(dt, 1e-9)}
+    if host_logits is not None:
+        out["logits"] = host_logits[real]
+    return state, out

@@ -1256,3 +1256,149 @@ def test_a_gradient_in_another_layout_is_copied_and_counted(dev):
     got = bn_grad(g.contiguous())
     assert copies() == (before[0] + 1, before[1] + 1)
     assert torch.equal(got, want)
+
+
+
+def test_token_head_forward_keeps_a_shared_memory_grant(dev):
+    """The bf16 forward asks the card how many blocks an SM holds once for
+    each new shape; that query must not lower the shared memory that a
+    shape of the same kernel variant planned before was granted: K=80
+    (104016 bytes), then a new shape at K=48 (70736, the same variant),
+    then K=80 again. The shapes are ones no other test plans."""
+    g = _gen(dev)
+
+    def run(B, P, K):
+        x = torch.randn(B, P, K, device=dev, generator=g).bfloat16()
+        w = (torch.randn(K, 256, device=dev, generator=g)
+             * K ** -0.5).bfloat16()
+        torch.testing.assert_close(
+            fused_token_head(x, w, "serf_fast").float(),
+            token_head_reference(x, w, "serf_fast").float(),
+            **TOL[torch.bfloat16])
+
+    run(2, 1231, 80)
+    run(3, 1237, 48)
+    run(2, 1231, 80)
+
+
+# ------------------------------------------------------ fine-tuning ----
+
+def _recorder_state(device):
+    from mmvqa_tpu_torch.core.config import vqa_config
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.train.state import create_train_state
+
+    cfg = vqa_config(cnn_encoder="tf_efficientnetv2_m",
+                     transformer_model="realformer", hidden_size=64,
+                     n_layers=1, tiny_cnn=True, image_size=32,
+                     max_position_embeddings=12, num_classes=7,
+                     vocab_size=1300, dropout_override=0.0, grad_accum=2)
+    model = MMBert(cfg, device=device,
+                   generator=torch.Generator().manual_seed(0))
+    return cfg, create_train_state(model, 1e-3, grad_accum=2)
+
+
+def _recorder_values(state):
+    """Everything a recorder holds, on the CPU, in a comparable form."""
+    opt = state.optimizer.state_dict()
+    return ({k: v.cpu() for k, v in state.model.state_dict().items()},
+            {i: {k: v.cpu() for k, v in s.items()}
+             for i, s in opt["state"].items()},
+            opt["param_groups"], state.step, state.mini_step,
+            {k: v.cpu() for k, v in (state.acc_grads or {}).items()})
+
+
+def _same_recorder(a, b):
+    sd_a, opt_a, groups_a, *rest_a, acc_a = a
+    sd_b, opt_b, groups_b, *rest_b, acc_b = b
+    assert sd_a.keys() == sd_b.keys() and acc_a.keys() == acc_b.keys()
+    assert all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
+    assert all(torch.equal(acc_a[k], acc_b[k]) for k in acc_a)
+    assert opt_a.keys() == opt_b.keys() and groups_a == groups_b
+    assert all(torch.equal(opt_a[i][k], opt_b[i][k])
+               for i in opt_a for k in opt_a[i])
+    assert rest_a == rest_b
+
+
+def test_recorder_moves_between_the_card_and_the_cpu_bit_for_bit(
+        dev, tmp_path):
+    """A recorder written from a model on the card, mid-accumulation after a
+    real update, restores into a model on the CPU, and one written from
+    there into a model on the card, with every tensor's bits."""
+    from mmvqa_tpu_torch.data.synthetic import vqa_batches
+    from mmvqa_tpu_torch.train import checkpoint
+    from mmvqa_tpu_torch.train.steps import make_vqa_steps
+
+    cfg, state = _recorder_state(dev)
+    step, _ = make_vqa_steps(state.model, cfg)
+    for b in vqa_batches(cfg.replace(batch_size=4), 3, 7, seed=1):
+        state, _ = step(state, b)
+    assert state.mini_step == 1 and state.optimizer.state
+    checkpoint.save_recorder(str(tmp_path / "card"), 2, state, {"best": 1.5})
+    want = _recorder_values(state)
+
+    _, cpu = _recorder_state("cpu")
+    cpu, sched, epoch = checkpoint.restore_recorder(str(tmp_path / "card"),
+                                                    cpu)
+    assert (sched, epoch) == ({"best": 1.5}, 2)
+    assert next(cpu.model.parameters()).device.type == "cpu"
+    assert all(v.device.type == "cpu" for v in cpu.acc_grads.values())
+    _same_recorder(_recorder_values(cpu), want)
+
+    checkpoint.save_recorder(str(tmp_path / "cpu"), 2, cpu, sched)
+    _, back = _recorder_state(dev)
+    back, _, _ = checkpoint.restore_recorder(str(tmp_path / "cpu"), back)
+    assert all(v.device.type == dev.type for v in back.acc_grads.values())
+    assert all(s["exp_avg"].device.type == dev.type
+               for s in back.optimizer.state.values())
+    _same_recorder(_recorder_values(back), want)
+    back, _ = make_vqa_steps(back.model, cfg)[0](back, b)  # it trains on
+    assert back.mini_step == 0
+
+
+@pytest.fixture(scope="module")
+def finetune_launches():
+    """Launch counts of one bf16 fine-tune step of the flagship VQA model at
+    B=16 (224 px, T=28), after one that warms up."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mmvqa_tpu_torch.core.config import vqa_config
+    from mmvqa_tpu_torch.data.synthetic import vqa_batches
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.models.mmbert import compute_dtype_of
+    from mmvqa_tpu_torch.ops.conv_bn import conv1x1_stats
+    from mmvqa_tpu_torch.train.state import create_train_state
+    from mmvqa_tpu_torch.train.steps import make_vqa_steps
+
+    cfg = vqa_config(cnn_encoder="tf_efficientnetv2_m",
+                     transformer_model="realformer", mixed_precision=True,
+                     num_classes=64)
+    model = MMBert(cfg, compute_dtype=compute_dtype_of(cfg),
+                   generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, cfg.lr)
+    step, _ = make_vqa_steps(model, cfg)
+    batch = vqa_batches(cfg, 1, 64, seed=0)[0]
+    state, _ = step(state, batch)
+    counters = ((realformer_attention, "launches"),
+                (realformer_attention, "mma_launches"),
+                (realformer_attention, "backward_launches"),
+                (realformer_attention, "backward_mma_launches"),
+                (conv1x1_stats, "launches"), (conv1x1_stats, "tma_launches"))
+    before = [getattr(fn, attr) for fn, attr in counters]
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"])
+    return {attr if fn is realformer_attention else "conv1x1_" + attr:
+            getattr(fn, attr) - b0 for (fn, attr), b0 in zip(counters, before)}
+
+
+def test_finetune_step_attention_takes_the_tensor_core_kernels(
+        finetune_launches):
+    n = finetune_launches
+    assert n["launches"] == n["mma_launches"] == 4
+    assert n["backward_launches"] == n["backward_mma_launches"] == 4
+
+
+def test_finetune_step_conv1x1_takes_tma_at_every_site(finetune_launches):
+    n = finetune_launches
+    assert n["conv1x1_launches"] == n["conv1x1_tma_launches"] == 98

@@ -175,6 +175,34 @@ def test_unported_parts_name_the_roadmap(over, what):
         MMBert(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("case,over,words", [
+    ("vqa5", {"cnn_encoder": "resnet152"}, "encoders and trunks"),
+    ("vqa5", {"transformer_model": "transformer", "heads": 8},
+     "encoders and trunks"),
+    ("vqa5", {"supcon": True}, "SupCon"),
+    ("mlm", {"task": "distillation"}, "Distillation"),
+    ("vqa5", {"pp_size": 2}, "Multi-GPU"),
+])
+def test_unported_parts_cite_the_queue_item_that_ports_them(case, over,
+                                                            words):
+    """The item number in the message names the ROADMAP.md Queue 1 item
+    that ports the part."""
+    import os
+    import re
+
+    cfg, _ = configs(case, **over)
+    with pytest.raises(NotImplementedError) as err:
+        MMBert(cfg, device="cpu")
+    item = re.search(r"Queue 1, item (\d+)", str(err.value)).group(1)
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "ROADMAP.md")
+    with open(path) as f:
+        roadmap = f.read()
+    queue = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
+    entry = re.search(rf"^{item}\. (.*)$", queue, re.M).group(1)
+    assert words in entry, (item, entry)
+
+
 def test_distillation_task_is_not_ported():
     cfg, _ = configs("mlm", task="distillation")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
