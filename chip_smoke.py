@@ -77,6 +77,25 @@
    between them matches the run that never stopped (rtol 1e-6, atol 1e-7;
    cuDNN held deterministic for this check). Checkpoints go to
    ``_checkpoints/`` in the checkout and are removed at the end.
+6. CLI slice: ROCO pretraining from disk through
+   ``mmvqa_tpu_torch.cli.roco_train.main``. The port writes a ROCO fixture
+   of 64 train and 32 validation JPEGs at 512x416 px (its numpy encoder);
+   the decoded pixels of three of them, full size and through
+   ``load_image`` at 224 px, must give the pinned digest that
+   tests/test_torch_jpeg.py holds to PIL on the CPU; the host's decode +
+   resize rate on one thread is printed with the host's CPU count. Then the
+   flagship at full width and depth, B=16, four loader threads: two epochs
+   with ``--mixed_precision`` (bf16 compute) and one at the CLI's default
+   fp32. For each run the launch counters, set to 0 before and read after,
+   must equal the run's train steps and eval forwards times each kernel's
+   count a pass (bf16 on the tensor-core and TMA paths), every loss must be
+   finite, the weights file and the metric lines must be written; train
+   items/s and the share of each train epoch the loop waited on the loader
+   are printed. The summary line's ``launches_cli`` holds these counts.
+
+Every phase that traces with torch.profiler fails where the profiler saw no
+device time twice (once more after a synchronise): a trace without device
+events would check none of its rules.
 
 Prints a JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -106,6 +125,15 @@ FT_STEPS = 6        # fine-tune steps counted, after one that warms up
 FT_VAL_BATCHES = 2  # validation batches of the fine-tune's B, the last partial
 FT_SMOOTHING = 0.1  # the category-smoothing criterion's smoothing
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_IMAGE_SIZE = (512, 416)  # the CLI phase's JPEGs, width x height
+CLI_TRAIN, CLI_VAL = 64, 32  # the CLI phase's fixture: JPEGs a split
+CLI_B = 16                    # the CLI's default --batch_size
+CLI_ARGS = ["--mlm_prob", "0.15", "--cnn_encoder", "tf_efficientnetv2_m",
+            "--transformer_model", "realformer", "--batch_size", str(CLI_B),
+            "--num_workers", "4"]
+# decode_digest of the CLI phase's fixture (tests/test_torch_jpeg.py computes
+# it on the CPU, where PIL decodes the same files to the same pixels)
+DECODE_DIGEST = "535f354c8ffae59bfd55cb9497b753107a903dbb70e2bf981bb2a61bd3774678"
 
 # Tolerances, kernel vs plain version on the same card and inputs.
 # fp32: both accumulate in fp32 in another order; the token head's sums run
@@ -203,6 +231,25 @@ PEAK_SFU = 16 * 132 * SM_CLOCK_HZ
 # bf16 polynomial form is one sigmoid (an exp and a reciprocal) both ways
 SFU_PER_ELEMENT = {("serf", "fwd"): 3, ("serf", "bwd"): 6,
                    ("serf_fast", "fwd"): 2, ("serf_fast", "bwd"): 2}
+
+
+def decode_digest(roco_dir: str) -> str:
+    """sha256 over the pixels of the first three train images of a ROCO
+    fixture the port wrote at CLI_IMAGE_SIZE from SEED: each decoded at full
+    size, then through ``load_image`` at 224 px. The same constant holds the
+    host build of both machines to one answer."""
+    import hashlib
+
+    from mmvqa_tpu_torch.data.images import load_image
+    from mmvqa_tpu_torch.data.jpeg import read_rgb
+
+    h = hashlib.sha256()
+    for i in range(3):
+        path = os.path.join(roco_dir, "train", "radiology", "images",
+                            f"ROCO_train_{i:04d}.jpg")
+        h.update(read_rgb(path).tobytes())
+        h.update(load_image(path, 224).tobytes())
+    return h.hexdigest()
 
 
 def fail(msg: str) -> None:
@@ -737,8 +784,9 @@ def trunk_kernel_phase(torch, results):
     bf16, and untimed at the other batches the paths below give them: K3's
     forward at EVAL_B in both dtypes with the weight in x's dtype, as the
     eval model holds it, all four in fp32 at CHECK_B, the fp32 train
-    check's batch, and all four in bf16 at EVAL_B, the fine-tune step's
-    batch, with K3's fp32 master weight. The summary times are bf16, each shape's time multiplied
+    check's batch, all four in bf16 at EVAL_B, the fine-tune step's
+    batch, and in both dtypes at CLI_B, the CLI's, with K3's fp32 master
+    weight. The summary times are bf16, each shape's time multiplied
     by the number of sites that have it: one train step's worth. Every timed call
     finds its inputs in device memory (the L2 cache is overwritten before
     it), as in a step, where a map of tens of MB does not survive until its
@@ -763,6 +811,10 @@ def trunk_kernel_phase(torch, results):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    # the train steps' batches other than TRAIN_B: the fp32 check's and the
+    # CLI's fp32 run's; the fine-tune step's and the CLI's bf16 run's
+    SMALL_BATCHES = {torch.float32: sorted({CHECK_B, CLI_B}),
+                     torch.bfloat16: sorted({EVAL_B, CLI_B})}
     k3_sites, k4_sites, k5_sites = trunk_sites(TRAIN_B)
     if (sum(k3_sites.values()), sum(k4_sites.values()),
             sum(k5_sites.values())) != (42, 98, 156):
@@ -899,17 +951,17 @@ def trunk_kernel_phase(torch, results):
                 f"depthwise3x3 {lab}", depthwise3x3(xe, we),
                 depthwise3x3_reference(xe, we),
                 TOL_BF16 if bf16 else TOL_K3_F32))
-            # the train steps: the fp32 check's and the bf16 fine-tune's,
-            # both with the fp32 master weight
-            bs = EVAL_B if bf16 else CHECK_B
-            xs, dys = x[:bs], dy[:bs]
-            lab = f"B={bs} {H}x{W}x{C} {dtype}"
-            note_small("depthwise3x3", dtype, close(
-                f"depthwise3x3 {lab}", depthwise3x3(xs, w),
-                depthwise3x3_reference(xs, w),
-                TOL_BF16 if bf16 else TOL_K3_F32))
-            note_small("depthwise3x3_bwd", dtype,
-                       max(check_k3_bwd(lab, xs, w, dys, bf16)))
+            # the train steps: the fp32 check's, the bf16 fine-tune's and
+            # the CLI's (both dtypes), all with the fp32 master weight
+            for bs in SMALL_BATCHES[dtype]:
+                xs, dys = x[:bs], dy[:bs]
+                lab = f"B={bs} {H}x{W}x{C} {dtype}"
+                note_small("depthwise3x3", dtype, close(
+                    f"depthwise3x3 {lab}", depthwise3x3(xs, w),
+                    depthwise3x3_reference(xs, w),
+                    TOL_BF16 if bf16 else TOL_K3_F32))
+                note_small("depthwise3x3_bwd", dtype,
+                           max(check_k3_bwd(lab, xs, w, dys, bf16)))
             del x, dy, xn, dyn
 
     # ---- K4: w is the convolution's (C, K) weight as its (K, C) view
@@ -943,10 +995,11 @@ def trunk_kernel_phase(torch, results):
             note("conv1x1_stats", dtype, e_y, count, ms, plain, 0.0, bnd)
             if bf16:
                 two_call_ms += count * two
-            # the rows of the fp32 train check and of the bf16 fine-tune step
-            ns = N // B * (EVAL_B if bf16 else CHECK_B)
-            note_small("conv1x1_stats", dtype, check_k4(
-                f"N={ns} K={K} C={C} {dtype}", x[:ns], w, bf16)[0])
+            # the rows of the train steps at their smaller batches
+            for bs in SMALL_BATCHES[dtype]:
+                ns = N // B * bs
+                note_small("conv1x1_stats", dtype, check_k4(
+                    f"N={ns} K={K} C={C} {dtype}", x[:ns], w, bf16)[0])
             del x, xn
 
     # ---- K5; the library's call takes the (B, C, H, W) view of the same
@@ -986,17 +1039,20 @@ def trunk_kernel_phase(torch, results):
                   f"{lib:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]}); "
                   f"{rate(nbytes, ms, bnd[0])}")
             note("bn_backward_sums", dtype, err, count, ms, plain, lib, bnd)
-            # the rows of the fp32 train check and of the bf16 fine-tune step
-            ns = N // B * (CHECK_B if dtype == torch.float32 else EVAL_B)
-            note_small("bn_backward_sums", dtype, check_k5(
-                f"N={ns} C={C} {dtype}", x[:ns], dy[:ns], mean, inv_std)[2])
+            # the rows of the train steps at their smaller batches
+            for bs in SMALL_BATCHES[dtype]:
+                ns = N // B * bs
+                note_small("bn_backward_sums", dtype, check_k5(
+                    f"N={ns} C={C} {dtype}", x[:ns], dy[:ns], mean,
+                    inv_std)[2])
             del x, dy, xn, dyn
     print(f"conv1x1_stats: the two library calls (conv2d + batch_norm_stats) "
           f"take {two_call_ms:.4f} ms over the 98 sites, bf16")
     print(f"trunk kernels at the eval batch {EVAL_B} (depthwise3x3 forward, "
           f"fp32 and bf16 with the weight in x's dtype), at the fp32 train "
-          f"check's batch {CHECK_B} and at the bf16 fine-tune step's batch "
-          f"{EVAL_B} (all four): cases within the same limits {small}")
+          f"check's batch {CHECK_B}, the bf16 fine-tune step's batch "
+          f"{EVAL_B} and the CLI's {CLI_B} in both dtypes (all four): cases "
+          f"within the same limits {small}")
 
 
 def check_outputs(torch, outs, label):
@@ -1083,26 +1139,41 @@ def device_work(prof, n: int, label: str):
     return [a for a in device if a.key not in host]
 
 
+def profiled(torch, run, n: int, label: str):
+    """``run()`` (``n`` passes) under torch.profiler, host and device
+    activity, the card synchronised before and after. Returns the result,
+    the wall time in ms and the device's kernels (``device_work``). Where
+    the profiler saw no device time it runs once more after a synchronise,
+    and fails if it again sees none: a trace without device events checks
+    no rule (tools/probe_profiler.py: on some machines most traces of one
+    short kernel come back empty; the smoke's traces hold thousands)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = device_work(prof, n, label)
+        if sum(a.self_device_time_total for a in kernels) > 0:
+            return out, wall, kernels
+        print(f"{label}: the profiler saw no device time (attempt {attempt} "
+              "of 2)")
+    fail(f"{label}: the profiler saw no device time twice: its rules were "
+         "not checked")
+
+
 def trace_batches(torch, step, batches, label):
     """Device busy share under torch.profiler: summed kernel time over the
     host-clock span of ``batches``; prints the kernels that take most."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        outs = [step(b) for b in batches]
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    check_outputs(torch, outs, label)
-    kernels = device_work(prof, len(batches), f"slice {label}")
     n = len(batches)
+    outs, wall, kernels = profiled(torch, lambda: [step(b) for b in batches],
+                                   n, f"slice {label}")
+    check_outputs(torch, outs, label)
     busy = sum(a.self_device_time_total for a in kernels) / 1e3
-    if busy <= 0:
-        print(f"slice {label}: device busy share not measured (the profiler "
-              "saw no device time)")
-        return
     print(f"slice {label}: traced {n} batches, wall {wall / n:.3f} ms/batch, "
           f"device busy {busy / n:.3f} ms/batch ({100 * busy / wall:.1f}%)")
     for a in kernels[:8]:
@@ -1374,30 +1445,17 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
                        f"train bf16 B={TRAIN_B}")
 
 
-def traced_train_steps(torch, run_step, n: int, label: str):
+def traced_train_steps(torch, run_step, n: int, label: str) -> float:
     """``n`` calls of ``run_step`` (one train step) under torch.profiler:
     the device's busy share, the eight kernels and what is left of the
     library's batch-norm and depthwise kernels. Fails on a library
     batch-norm kernel, a second pass of the token head, the depthwise
-    backward, conv1x1 + statistics or the BN-backward sums, and an
-    attention kernel other than the tensor-core ones. Returns the busy ms
-    per step, or None where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            run_step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = device_work(prof, n, label)
+    backward, conv1x1 + statistics or the BN-backward sums, an attention
+    kernel other than the tensor-core ones, and a trace without device time
+    (``profiled``). Returns the busy ms per step."""
+    _, wall, kernels = profiled(
+        torch, lambda: [run_step() for _ in range(n)], n, label)
     busy = sum(a.self_device_time_total for a in kernels) / 1e3
-    if busy <= 0:
-        print(f"{label}: device busy share not measured (the profiler saw "
-              "no device time)")
-        return None
     print(f"{label}: traced {n} steps, wall {wall / n:.2f} "
           f"ms/step, device busy {busy / n:.2f} ms/step "
           f"({100 * busy / wall:.1f}%)")
@@ -1754,9 +1812,7 @@ def finetune_phase(torch):
                                   label)
         print(f"{label}: ms per step {['%.2f' % t for t in times]} (median "
               f"{step_ms:.2f}, {cfg.batch_size / step_ms * 1e3:.1f} items/s), "
-              f"device busy "
-              f"{'not measured' if busy is None else '%.2f ms' % busy} a "
-              f"step")
+              f"device busy {busy:.2f} ms a step")
         copies = gradient_copies()
         if any(copies.values()):
             fail(f"finetune: a gradient reached a kernel site in another "
@@ -1894,6 +1950,137 @@ def accumulate_and_resume(torch, ckpt_dir: str) -> None:
 
 
 
+class TimedLoader:
+    """Iterates a loader and adds up the time the loop waited for each
+    batch (``next`` on the loader's iterator)."""
+
+    def __init__(self, loader, waits: list):
+        self.loader, self.waits = loader, waits
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+
+
+def cli_phase(torch):
+    """(6) ROCO pretraining from disk through ``roco_train.main``: a JPEG
+    fixture written by the port, the decoder held to its pinned digest, the
+    host's decode + resize rate on one thread, then the full-width flagship
+    for two epochs in bf16 (``--mixed_precision``) and one in fp32 (the
+    CLI's default). Per run: the launch counters set to 0 before and read
+    after (every one of the eight kernels must move, at the exact count of
+    its train steps and eval forwards), finite losses, the weights file and
+    the metric lines, train items/s and the share of each train epoch the
+    loop waited on the loader. Returns the launches of both runs."""
+    import shutil
+
+    from mmvqa_tpu_torch.cli import roco_train
+    from mmvqa_tpu_torch.data.fixtures import make_roco_fixture
+    from mmvqa_tpu_torch.data.images import load_image
+
+    work = os.path.join(ROOT, "_checkpoints", "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    real_epoch = roco_train.mlm_epoch
+    try:
+        t0 = time.perf_counter()
+        data = make_roco_fixture(os.path.join(work, "roco"), CLI_TRAIN,
+                                 CLI_VAL, SEED, CLI_IMAGE_SIZE)
+        print(f"cli: ROCO fixture of {CLI_TRAIN} + {CLI_VAL} JPEGs at "
+              f"{CLI_IMAGE_SIZE[0]}x{CLI_IMAGE_SIZE[1]} px written by the "
+              f"port in {time.perf_counter() - t0:.1f} s")
+        digest = decode_digest(data)
+        if digest != DECODE_DIGEST:
+            fail(f"cli: decoded pixels' digest {digest}, pinned "
+                 f"{DECODE_DIGEST}")
+        print("cli: decoded pixels match the pinned digest")
+        paths = [os.path.join(data, "train", "radiology", "images",
+                              f"ROCO_train_{i:04d}.jpg") for i in range(16)]
+        load_image(paths[0], 224)
+        t0 = time.perf_counter()
+        for p in paths:
+            load_image(p, 224)
+        rate = len(paths) / (time.perf_counter() - t0)
+        print(f"cli: host decode + resize to 224 px, one thread: "
+              f"{rate:.1f} images/s; host CPUs {os.cpu_count()}")
+
+        waits: list = []
+        epochs: list = []
+
+        def timed_epoch(step_fn, state, loader, train):
+            if not train:
+                return real_epoch(step_fn, state, loader, train)
+            del waits[:]
+            t0 = time.perf_counter()
+            state, m = real_epoch(step_fn, state, TimedLoader(loader, waits),
+                                  train)
+            wall = time.perf_counter() - t0
+            epochs.append((sum(waits) / wall, len(waits), wall))
+            return state, m
+
+        roco_train.mlm_epoch = timed_epoch
+        steps = -(-CLI_TRAIN // CLI_B)
+        evals = -(-CLI_VAL // CLI_B)
+        launches = {}
+        for label, extra, n_epochs in (("bf16", ["--mixed_precision"], 2),
+                                       ("fp32", [], 1)):
+            save = os.path.join(work, label)
+            del epochs[:]
+            reset_counts()
+            t0 = time.perf_counter()
+            roco_train.main(["-r", f"cli_{label}", "--data_dir", data,
+                             "--save_dir", save, "--epochs", str(n_epochs),
+                             *CLI_ARGS, *extra])
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            bf16 = label == "bf16"
+            tr, ev = steps * n_epochs, evals * n_epochs
+            want = {"token_head": 5 * (tr + ev), "token_head_bwd": 5 * tr,
+                    "realformer_attention": 4 * (tr + ev),
+                    "realformer_attention_mma": 4 * (tr + ev) if bf16 else 0,
+                    "realformer_attention_bwd": 4 * tr,
+                    "realformer_attention_bwd_mma": 4 * tr if bf16 else 0,
+                    "depthwise3x3": 42 * (tr + ev), "depthwise3x3_bwd": 42 * tr,
+                    "conv1x1_stats": 98 * tr,
+                    "conv1x1_stats_tma": 98 * tr if bf16 else 0,
+                    "bn_backward_sums": 156 * tr}
+            print(f"cli {label}: roco_train.main, {n_epochs} epochs of {tr // n_epochs} "
+                  f"train steps and {ev // n_epochs} validation batches at B={CLI_B}, "
+                  f"{wall:.1f} s; launches {got}")
+            if got != want:
+                fail(f"cli {label}: launches {got}, want {want}")
+            with open(os.path.join(save, f"cli_{label}_metrics.jsonl")) as f:
+                lines = [json.loads(line) for line in f]
+            if len(lines) != n_epochs or not os.path.exists(
+                    os.path.join(save, "MLM", f"cli_{label}")):
+                fail(f"cli {label}: {len(lines)} metric lines, weights "
+                     f"{os.listdir(os.path.join(save, 'MLM'))}")
+            for line, (share, n, ep_wall) in zip(lines, epochs):
+                if not all(math.isfinite(line[k]) for k in (
+                        "epoch_train_loss", "epoch_val_loss",
+                        "train_items_per_sec")):
+                    fail(f"cli {label}: non-finite metric in {line}")
+                print(f"cli {label} epoch {line['epoch']}: train loss "
+                      f"{line['epoch_train_loss']:.4f}, val loss "
+                      f"{line['epoch_val_loss']:.4f}, "
+                      f"{line['train_items_per_sec']:.1f} train items/s, "
+                      f"waited on the loader {100 * share:.1f}% of the "
+                      f"train epoch ({n} batches, {ep_wall:.2f} s)")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            torch.cuda.empty_cache()
+    finally:
+        roco_train.mlm_epoch = real_epoch
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1923,10 +2110,12 @@ def main() -> None:
     train_launches = train_phase(torch)
     torch.cuda.empty_cache()
     finetune_launches = finetune_phase(torch)
+    torch.cuda.empty_cache()
+    cli_launches = cli_phase(torch)
 
     # launches: the counts read after each main path's run, counters set to
     # 0 just before it (the eval slice's forwards, the train epoch, the
-    # fine-tune epoch).
+    # fine-tune epoch, the CLI's two runs).
     # ms, plain_ms, bound_ms, library_ms: at the train path's shapes in bf16,
     # B=TRAIN_B, summed over the calls of one pass (the trunk's kernels:
     # every site of a step, inputs not in the L2 cache); bound_by: what
@@ -1935,10 +2124,11 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
          "launches": (eval_launches.get(name, 0) + train_launches[name]
-                      + finetune_launches[name]),
+                      + finetune_launches[name] + cli_launches[name]),
          "launches_eval": eval_launches.get(name, 0),
          "launches_train": train_launches[name],
          "launches_finetune": finetune_launches[name],
+         "launches_cli": cli_launches[name],
          "max_abs_err": max(r["err"].values()),
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": sum(ms for ms, _ in r["bounds"]),

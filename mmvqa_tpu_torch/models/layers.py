@@ -63,6 +63,16 @@ class DropoutRng:
                 device=device).manual_seed(self.seed)
         return self._generators[device]
 
+    def get_state(self):
+        """The seed and each device's generator state, for ``set_state``."""
+        return self.seed, {d: g.get_state()
+                           for d, g in self._generators.items()}
+
+    def set_state(self, state) -> None:
+        self.manual_seed(state[0])
+        for device, s in state[1].items():
+            self.generator(device).set_state(s)
+
 
 class Dropout(nn.Module):
     """Inverted dropout at rate ``p`` in train mode, the identity in eval

@@ -10,6 +10,11 @@ kernels' callers have no other path on the card.
 
 The C entry points return ``cudaGetLastError()``; ``check`` raises on any
 code other than 0.
+
+The host libraries (``native/*.cpp``: the WordPiece fast path and the JPEG
+decoder) are built the same way with the host's C++ compiler, one library a
+source, into ``_build/host-<hash>/``, and raise the same way if they do not
+build (``wordpiece_library``, ``jpeg_library``).
 """
 
 from __future__ import annotations
@@ -234,6 +239,85 @@ def _bind(lib: ctypes.CDLL) -> None:
         _i, _i, _i,                 # dtype, vec, threads
         ctypes.POINTER(_i),         # blocks an SM holds
     ]
+
+
+HOST_DIR = os.path.join(PKG_DIR, "native")
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+_HOST_LIBS: dict = {}
+
+
+def find_cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if not cxx:
+        raise RuntimeError(
+            "no C++ compiler ($CXX, g++ or c++): the host libraries of "
+            "mmvqa_tpu_torch cannot be built")
+    return cxx
+
+
+def build_host(name: str) -> str:
+    """Compile ``native/<name>.cpp`` into ``lib<name>.so`` if this source has
+    no library yet; return the library's path. Concurrent builds each work
+    in a temporary directory and rename the library into place."""
+    src = os.path.join(HOST_DIR, f"{name}.cpp")
+    h = hashlib.sha1(" ".join(HOST_FLAGS).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    out_dir = os.path.join(BUILD_ROOT, f"host-{h.hexdigest()[:16]}")
+    out = os.path.join(out_dir, f"lib{name}.so")
+    if os.path.exists(out):
+        return out
+    cxx = find_cxx()
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        lib = os.path.join(tmp, os.path.basename(out))
+        proc = subprocess.run([cxx, *HOST_FLAGS, src, "-o", lib],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{cxx} failed ({proc.returncode}): {' '.join(proc.args)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, out)
+    return out
+
+
+def _bind_wordpiece(lib: ctypes.CDLL) -> None:
+    lib.wp_load.restype = _p
+    lib.wp_load.argtypes = [ctypes.c_char_p]
+    lib.wp_free.restype = None
+    lib.wp_free.argtypes = [_p]
+    lib.wp_tokenize.restype = ctypes.c_int32
+    lib.wp_tokenize.argtypes = [
+        _p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32), ctypes.c_int32]
+
+
+def _bind_jpeg(lib: ctypes.CDLL) -> None:
+    size_t, ip = ctypes.c_size_t, ctypes.POINTER(_i)
+    lib.jpeg_probe.restype = _i
+    lib.jpeg_probe.argtypes = [ctypes.c_char_p, size_t, ip, ip, ip,
+                               ctypes.c_char_p, _i]
+    lib.jpeg_decode_rgb.restype = _i
+    lib.jpeg_decode_rgb.argtypes = [ctypes.c_char_p, size_t, _p, _i, _i,
+                                    ctypes.c_char_p, _i]
+
+
+def host_library(name: str, bind) -> ctypes.CDLL:
+    """The loaded host library ``native/<name>.cpp``, built on first use.
+    Raises on failure."""
+    with _LOCK:
+        if name not in _HOST_LIBS:
+            lib = ctypes.CDLL(build_host(name))
+            bind(lib)
+            _HOST_LIBS[name] = lib
+        return _HOST_LIBS[name]
+
+
+def wordpiece_library() -> ctypes.CDLL:
+    return host_library("wordpiece", _bind_wordpiece)
+
+
+def jpeg_library() -> ctypes.CDLL:
+    return host_library("jpeg_decode", _bind_jpeg)
 
 
 def library() -> ctypes.CDLL:

@@ -1402,3 +1402,28 @@ def test_finetune_step_attention_takes_the_tensor_core_kernels(
 def test_finetune_step_conv1x1_takes_tma_at_every_site(finetune_launches):
     n = finetune_launches
     assert n["conv1x1_launches"] == n["conv1x1_tma_launches"] == 98
+
+
+def test_host_decoder_and_load_image_on_the_card_machine(dev, tmp_path):
+    """The host build (``native/jpeg_decode.cpp``, the numpy resize) on the
+    card's machine: a fixture the port writes there decodes, and resizes
+    through ``load_image``, to the pixels the smoke's pinned digest holds
+    (tests/test_torch_jpeg.py holds the same files to PIL on the CPU)."""
+    import os
+    import sys
+
+    from mmvqa_tpu_torch.data.fixtures import make_roco_fixture
+    from mmvqa_tpu_torch.data.images import load_image
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    root = make_roco_fixture(str(tmp_path), 3, 0, chip_smoke.SEED,
+                             chip_smoke.CLI_IMAGE_SIZE)
+    assert chip_smoke.decode_digest(root) == chip_smoke.DECODE_DIGEST
+    img = load_image(os.path.join(
+        root, "train/radiology/images/ROCO_train_0002.jpg"), 224)
+    assert img.shape == (224, 224, 3) and img.dtype.name == "uint8"
+    x = torch.from_numpy(img).to(dev)
+    assert int(x.sum()) == int(img.astype("int64").sum())
