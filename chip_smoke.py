@@ -92,6 +92,29 @@
    finite, the weights file and the metric lines must be written; train
    items/s and the share of each train epoch the loop waited on the loader
    are printed. The summary line's ``launches_cli`` holds these counts.
+   The fixture and the bf16 run's weights stay for the next phase.
+7. Drivers slice: the user's whole pipeline from disk at the same width,
+   batch and loader threads. (a) SupCon pretraining through
+   ``cli.roco_supcon_train.main`` (``--con_task supcon --similarity
+   jaccard``, the loader at B // 2, two views a sample) on the CLI slice's
+   fixture: two epochs in bf16 with the mask passed (``--use_sim_mask``),
+   one in fp32 without; finite MLM, SupCon and validation losses and the
+   weights file. (b) One fp32 SupCon step at 4 pairs with the Jaccard mask,
+   card against the CPU plain path, held as the MLM step is, the projection
+   head's gradients among the leaves. (c) Fine-tuning through
+   ``cli.vqa_train.main`` on a VQA-Med fixture the port writes (65 train,
+   30 val, 30 test questions at 512x416 px) from the CLI slice's bf16
+   weights with its vocabulary: exactly ``classifier_2`` stays fresh; two
+   epochs in bf16 with the category smoothing and ``--watch_histograms``
+   (the histograms computed on the card), one in fp32 with ASL; the
+   per-category keys of every metric line and both best checkpoints (the one
+   by accuracy where a validation accuracy beat 0). (d) Evaluation through
+   ``cli.vqa_eval.main`` of one model and of an ensemble of two: both
+   files with a row a test question, ``total_acc`` equal to the share of
+   right rows. Every run: the counters at their exact counts (train steps,
+   histogram passes, validation, test and eval forwards), train items/s and
+   the loader's wait share. The summary line's ``launches_drivers`` holds
+   them.
 
 Every phase that traces with torch.profiler fails where the profiler saw no
 device time twice (once more after a synchronise): a trace without device
@@ -104,6 +127,7 @@ that line.
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
@@ -128,6 +152,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CLI_IMAGE_SIZE = (512, 416)  # the CLI phase's JPEGs, width x height
 CLI_TRAIN, CLI_VAL = 64, 32  # the CLI phase's fixture: JPEGs a split
 CLI_B = 16                    # the CLI's default --batch_size
+# the drivers phase's VQA fixture: questions a category in train, val, test
+DRV_VQA_PER_CAT = (13, 6, 6)
 CLI_ARGS = ["--mlm_prob", "0.15", "--cnn_encoder", "tf_efficientnetv2_m",
             "--transformer_model", "realformer", "--batch_size", str(CLI_B),
             "--num_workers", "4"]
@@ -1326,9 +1352,11 @@ CHECK_STATS = ["trans.trunk.stem_bn.running_var",
                "trans.trunk.stage4_block13.bn2.running_var"]
 
 
-def checked_train_step(torch, model, cfg, batch, draws, make_steps=None):
+def checked_train_step(torch, model, cfg, batch, draws, make_steps=None,
+                       leaves=CHECK_LEAVES):
     """One train step through ``make_steps`` (``make_mlm_steps`` where None)
-    with hooks that keep the logits and the gradients of CHECK_LEAVES."""
+    with hooks that keep the logits (the first output of a SupCon model)
+    and the gradients of ``leaves``."""
     from mmvqa_tpu_torch.train.state import create_train_state
     from mmvqa_tpu_torch.train.steps import make_mlm_steps
 
@@ -1336,9 +1364,10 @@ def checked_train_step(torch, model, cfg, batch, draws, make_steps=None):
     params = dict(model.named_parameters())
     hooks = [params[name].register_hook(
         lambda g, name=name: kept.__setitem__(name, g.detach().clone()))
-        for name in CHECK_LEAVES]
+        for name in leaves]
     hooks.append(model.register_forward_hook(
-        lambda _m, _a, out: kept.__setitem__("logits", out.detach())))
+        lambda _m, _a, out: kept.__setitem__(
+            "logits", (out[0] if isinstance(out, tuple) else out).detach())))
     try:
         train_step, _ = (make_steps or make_mlm_steps)(model, cfg)
         state, metrics = train_step(create_train_state(model, cfg.lr), batch,
@@ -1379,10 +1408,10 @@ def train_check_fp32(torch):
     compare_fp32_step(torch, "train fp32", got, want)
 
 
-def compare_fp32_step(torch, label, got, want) -> None:
+def compare_fp32_step(torch, label, got, want, leaves=CHECK_LEAVES) -> None:
     """A train step's kept values on the card against the CPU plain path:
-    the loss to 1e-4 relative, the logits as TOL_SLICE, the gradient leaves
-    and statistics to GRAD_NORMWISE of their largest entry."""
+    the loss to 1e-4 relative, the logits as TOL_SLICE, the gradient
+    ``leaves`` and CHECK_STATS to GRAD_NORMWISE of their largest entry."""
     loss_err = abs(got["loss"].item() - want["loss"].item())
     if not loss_err <= 1e-4 * abs(want["loss"].item()):
         fail(f"{label} loss: card {got['loss'].item():.6f}, CPU "
@@ -1392,7 +1421,7 @@ def compare_fp32_step(torch, label, got, want) -> None:
     print(f"{label} check: loss card {got['loss'].item():.6f} CPU "
           f"{want['loss'].item():.6f} (err {loss_err:.3e}); logits "
           f"max_abs_err {err:.3e}")
-    for name in CHECK_LEAVES + CHECK_STATS:
+    for name in list(leaves) + CHECK_STATS:
         e = close_normwise(f"{label} {name}", got[name].cpu(), want[name],
                            GRAD_NORMWISE)
         kind = "stat" if name in CHECK_STATS else "grad"
@@ -1969,115 +1998,421 @@ class TimedLoader:
             yield batch
 
 
-def cli_phase(torch):
-    """(6) ROCO pretraining from disk through ``roco_train.main``: a JPEG
-    fixture written by the port, the decoder held to its pinned digest, the
-    host's decode + resize rate on one thread, then the full-width flagship
-    for two epochs in bf16 (``--mixed_precision``) and one in fp32 (the
-    CLI's default). Per run: the launch counters set to 0 before and read
-    after (every one of the eight kernels must move, at the exact count of
-    its train steps and eval forwards), finite losses, the weights file and
-    the metric lines, train items/s and the share of each train epoch the
-    loop waited on the loader. Returns the launches of both runs."""
-    import shutil
+class TimedTrainEpochs:
+    """Within ``with``, ``module.<name>`` (an epoch loop that takes the loader
+    third and, but for ``supcon_epoch``, ``train`` fourth) times each train
+    epoch's waits on its loader: ``epochs`` gets (wait share, batches, wall
+    s) a train epoch."""
 
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.epochs: list = []
+
+    def __enter__(self):
+        def timed(step_fn, state, loader, *args, **kw):
+            train = (self.name == "supcon_epoch"
+                     or (args[0] if args else kw.get("train")))
+            if not train:
+                return self.real(step_fn, state, loader, *args, **kw)
+            waits: list = []
+            t0 = time.perf_counter()
+            out = self.real(step_fn, state, TimedLoader(loader, waits), *args,
+                            **kw)
+            wall = time.perf_counter() - t0
+            self.epochs.append((sum(waits) / wall, len(waits), wall))
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+class Tee:
+    """Within ``with``, standard output goes on to the terminal and is kept
+    in ``text``."""
+
+    def __enter__(self):
+        import io
+
+        self.buf, self.out = io.StringIO(), sys.stdout
+        sys.stdout = self
+        return self
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.out
+        return False
+
+    @property
+    def text(self) -> str:
+        return self.buf.getvalue()
+
+
+def expected_launches(train: int, forwards: int, bf16: bool) -> dict:
+    """Each counter after ``train`` train steps (forward and backward, the
+    trunk on batch statistics) and ``forwards`` eval forwards of the
+    flagship model; in bf16 every attention call takes the tensor-core
+    kernels and every conv1x1 + statistics call its TMA path."""
+    f = train + forwards
+    return {"token_head": 5 * f, "token_head_bwd": 5 * train,
+            "realformer_attention": 4 * f,
+            "realformer_attention_mma": 4 * f if bf16 else 0,
+            "realformer_attention_bwd": 4 * train,
+            "realformer_attention_bwd_mma": 4 * train if bf16 else 0,
+            "depthwise3x3": 42 * f, "depthwise3x3_bwd": 42 * train,
+            "conv1x1_stats": 98 * train,
+            "conv1x1_stats_tma": 98 * train if bf16 else 0,
+            "bn_backward_sums": 156 * train}
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    if got != want:
+        fail(f"{label}: launches {got}, want {want}")
+
+
+def metric_lines(save: str, run: str) -> list:
+    with open(os.path.join(save, f"{run}_metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def add_counts(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def cli_phase(torch, work: str):
+    """(6) ROCO pretraining from disk through ``roco_train.main``: a JPEG
+    fixture written by the port into ``work``, the decoder held to its
+    pinned digest, the host's decode + resize rate on one thread, then the
+    full-width flagship for two epochs in bf16 (``--mixed_precision``) and
+    one in fp32 (the CLI's default). Per run: the launch counters set to 0
+    before and read after (every one of the eight kernels must move, at the
+    exact count of its train steps and eval forwards), finite losses, the
+    weights file and the metric lines, train items/s and the share of each
+    train epoch the loop waited on the loader. The fixture and the bf16
+    run's weights stay in ``work`` for the drivers phase. Returns the
+    launches of both runs."""
     from mmvqa_tpu_torch.cli import roco_train
     from mmvqa_tpu_torch.data.fixtures import make_roco_fixture
     from mmvqa_tpu_torch.data.images import load_image
 
-    work = os.path.join(ROOT, "_checkpoints", "cli")
-    shutil.rmtree(work, ignore_errors=True)
-    real_epoch = roco_train.mlm_epoch
-    try:
+    t0 = time.perf_counter()
+    data = make_roco_fixture(os.path.join(work, "roco"), CLI_TRAIN, CLI_VAL,
+                             SEED, CLI_IMAGE_SIZE)
+    print(f"cli: ROCO fixture of {CLI_TRAIN} + {CLI_VAL} JPEGs at "
+          f"{CLI_IMAGE_SIZE[0]}x{CLI_IMAGE_SIZE[1]} px written by the "
+          f"port in {time.perf_counter() - t0:.1f} s")
+    digest = decode_digest(data)
+    if digest != DECODE_DIGEST:
+        fail(f"cli: decoded pixels' digest {digest}, pinned "
+             f"{DECODE_DIGEST}")
+    print("cli: decoded pixels match the pinned digest")
+    paths = [os.path.join(data, "train", "radiology", "images",
+                          f"ROCO_train_{i:04d}.jpg") for i in range(16)]
+    load_image(paths[0], 224)
+    t0 = time.perf_counter()
+    for p in paths:
+        load_image(p, 224)
+    rate = len(paths) / (time.perf_counter() - t0)
+    print(f"cli: host decode + resize to 224 px, one thread: "
+          f"{rate:.1f} images/s; host CPUs {os.cpu_count()}")
+
+    steps = -(-CLI_TRAIN // CLI_B)
+    evals = -(-CLI_VAL // CLI_B)
+    launches: dict = {}
+    for label, extra, n_epochs in (("bf16", ["--mixed_precision"], 2),
+                                   ("fp32", [], 1)):
+        save = os.path.join(work, label)
+        reset_counts()
         t0 = time.perf_counter()
-        data = make_roco_fixture(os.path.join(work, "roco"), CLI_TRAIN,
-                                 CLI_VAL, SEED, CLI_IMAGE_SIZE)
-        print(f"cli: ROCO fixture of {CLI_TRAIN} + {CLI_VAL} JPEGs at "
-              f"{CLI_IMAGE_SIZE[0]}x{CLI_IMAGE_SIZE[1]} px written by the "
-              f"port in {time.perf_counter() - t0:.1f} s")
-        digest = decode_digest(data)
-        if digest != DECODE_DIGEST:
-            fail(f"cli: decoded pixels' digest {digest}, pinned "
-                 f"{DECODE_DIGEST}")
-        print("cli: decoded pixels match the pinned digest")
-        paths = [os.path.join(data, "train", "radiology", "images",
-                              f"ROCO_train_{i:04d}.jpg") for i in range(16)]
-        load_image(paths[0], 224)
-        t0 = time.perf_counter()
-        for p in paths:
-            load_image(p, 224)
-        rate = len(paths) / (time.perf_counter() - t0)
-        print(f"cli: host decode + resize to 224 px, one thread: "
-              f"{rate:.1f} images/s; host CPUs {os.cpu_count()}")
-
-        waits: list = []
-        epochs: list = []
-
-        def timed_epoch(step_fn, state, loader, train):
-            if not train:
-                return real_epoch(step_fn, state, loader, train)
-            del waits[:]
-            t0 = time.perf_counter()
-            state, m = real_epoch(step_fn, state, TimedLoader(loader, waits),
-                                  train)
-            wall = time.perf_counter() - t0
-            epochs.append((sum(waits) / wall, len(waits), wall))
-            return state, m
-
-        roco_train.mlm_epoch = timed_epoch
-        steps = -(-CLI_TRAIN // CLI_B)
-        evals = -(-CLI_VAL // CLI_B)
-        launches = {}
-        for label, extra, n_epochs in (("bf16", ["--mixed_precision"], 2),
-                                       ("fp32", [], 1)):
-            save = os.path.join(work, label)
-            del epochs[:]
-            reset_counts()
-            t0 = time.perf_counter()
+        with TimedTrainEpochs(roco_train, "mlm_epoch") as timer:
             roco_train.main(["-r", f"cli_{label}", "--data_dir", data,
                              "--save_dir", save, "--epochs", str(n_epochs),
                              *CLI_ARGS, *extra])
-            wall = time.perf_counter() - t0
-            got = read_counts()
-            bf16 = label == "bf16"
-            tr, ev = steps * n_epochs, evals * n_epochs
-            want = {"token_head": 5 * (tr + ev), "token_head_bwd": 5 * tr,
-                    "realformer_attention": 4 * (tr + ev),
-                    "realformer_attention_mma": 4 * (tr + ev) if bf16 else 0,
-                    "realformer_attention_bwd": 4 * tr,
-                    "realformer_attention_bwd_mma": 4 * tr if bf16 else 0,
-                    "depthwise3x3": 42 * (tr + ev), "depthwise3x3_bwd": 42 * tr,
-                    "conv1x1_stats": 98 * tr,
-                    "conv1x1_stats_tma": 98 * tr if bf16 else 0,
-                    "bn_backward_sums": 156 * tr}
-            print(f"cli {label}: roco_train.main, {n_epochs} epochs of {tr // n_epochs} "
-                  f"train steps and {ev // n_epochs} validation batches at B={CLI_B}, "
-                  f"{wall:.1f} s; launches {got}")
-            if got != want:
-                fail(f"cli {label}: launches {got}, want {want}")
-            with open(os.path.join(save, f"cli_{label}_metrics.jsonl")) as f:
-                lines = [json.loads(line) for line in f]
-            if len(lines) != n_epochs or not os.path.exists(
-                    os.path.join(save, "MLM", f"cli_{label}")):
-                fail(f"cli {label}: {len(lines)} metric lines, weights "
-                     f"{os.listdir(os.path.join(save, 'MLM'))}")
-            for line, (share, n, ep_wall) in zip(lines, epochs):
-                if not all(math.isfinite(line[k]) for k in (
-                        "epoch_train_loss", "epoch_val_loss",
-                        "train_items_per_sec")):
-                    fail(f"cli {label}: non-finite metric in {line}")
-                print(f"cli {label} epoch {line['epoch']}: train loss "
-                      f"{line['epoch_train_loss']:.4f}, val loss "
-                      f"{line['epoch_val_loss']:.4f}, "
-                      f"{line['train_items_per_sec']:.1f} train items/s, "
-                      f"waited on the loader {100 * share:.1f}% of the "
-                      f"train epoch ({n} batches, {ep_wall:.2f} s)")
-            for k, v in got.items():
-                launches[k] = launches.get(k, 0) + v
-            torch.cuda.empty_cache()
-    finally:
-        roco_train.mlm_epoch = real_epoch
-        shutil.rmtree(work, ignore_errors=True)
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        tr, ev = steps * n_epochs, evals * n_epochs
+        print(f"cli {label}: roco_train.main, {n_epochs} epochs of {steps} "
+              f"train steps and {evals} validation batches at B={CLI_B}, "
+              f"{wall:.1f} s; launches {got}")
+        check_launches(f"cli {label}", got,
+                       expected_launches(tr, ev, label == "bf16"))
+        lines = metric_lines(save, f"cli_{label}")
+        if len(lines) != n_epochs or not os.path.exists(
+                os.path.join(save, "MLM", f"cli_{label}")):
+            fail(f"cli {label}: {len(lines)} metric lines, weights "
+                 f"{os.listdir(os.path.join(save, 'MLM'))}")
+        for line, (share, n, ep_wall) in zip(lines, timer.epochs):
+            if not all(math.isfinite(line[k]) for k in (
+                    "epoch_train_loss", "epoch_val_loss",
+                    "train_items_per_sec")):
+                fail(f"cli {label}: non-finite metric in {line}")
+            print(f"cli {label} epoch {line['epoch']}: train loss "
+                  f"{line['epoch_train_loss']:.4f}, val loss "
+                  f"{line['epoch_val_loss']:.4f}, "
+                  f"{line['train_items_per_sec']:.1f} train items/s, "
+                  f"waited on the loader {100 * share:.1f}% of the "
+                  f"train epoch ({n} batches, {ep_wall:.2f} s)")
+        add_counts(launches, got)
+        torch.cuda.empty_cache()
+    return launches
+
+
+# leaves of the SupCon check: CHECK_LEAVES and the projection head
+SUPCON_LEAVES = CHECK_LEAVES + ["head_0.weight", "head_2.weight"]
+
+
+def supcon_check_fp32(torch) -> None:
+    """(7b) one fp32 SupCon train step at B=CHECK_B (CHECK_B // 2 pairs of
+    views) with the Jaccard mask of synthetic captions, card against the
+    CPU plain path, held as the MLM step is, the projection head's
+    gradients among the leaves."""
+    import copy
+
+    import numpy as np
+
+    from mmvqa_tpu_torch.core.config import supcon_config
+    from mmvqa_tpu_torch.data.fixtures import WORDS
+    from mmvqa_tpu_torch.data.images import PRETRAIN_AUG, sample_draws
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.similarity import SimilarityCalculator
+    from mmvqa_tpu_torch.train.steps import make_supcon_steps
+
+    pairs = CHECK_B // 2
+    cfg = supcon_config(cnn_encoder="tf_efficientnetv2_m",
+                        transformer_model="realformer", batch_size=pairs,
+                        dropout_override=0.0)
+    b0, b1 = mlm_batches(cfg, 2, SEED)
+    batch = dict(b0, aug_tokens=(b1["tokens"] * b0["input_mask"]).astype(
+        np.int32), aug_labels=(b1["labels"] * b0["input_mask"]).astype(
+        np.int32))
+    rng = np.random.default_rng(SEED)
+    caps = [" ".join(rng.choice(WORDS, 8)) for _ in range(2 * pairs)]
+    sim = SimilarityCalculator("jaccard")(caps[:pairs], caps[pairs:])
+    gen = torch.Generator().manual_seed(SEED)
+    draws = tuple(sample_draws(pairs, cfg.image_size, gen, PRETRAIN_AUG)
+                  for _ in range(2))
+
+    def make_steps(model, c):
+        step, evaluate = make_supcon_steps(model, c)
+        return (lambda state, b, draws: step(state, b, draws, sim_mask=sim),
+                evaluate)
+
+    cpu_model = MMBert(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(SEED))
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    t0 = time.perf_counter()
+    want = checked_train_step(torch, cpu_model, cfg, batch, draws, make_steps,
+                              SUPCON_LEAVES)
+    print(f"drivers supcon fp32 check: CPU reference step (plain path, "
+          f"{pairs} pairs, Jaccard mask with off-diagonal mean "
+          f"{(sim.sum() - pairs) / (pairs * pairs - pairs):.3f}) "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    del cpu_model
+    got = checked_train_step(torch, card_model, cfg, batch, draws, make_steps,
+                             SUPCON_LEAVES)
+    torch.cuda.synchronize()
+    del card_model
+    compare_fp32_step(torch, "drivers supcon fp32", got, want, SUPCON_LEAVES)
+
+
+def print_epochs(label: str, lines: list, epochs: list, loss_key: str) -> None:
+    for i, (line, (share, n, wall)) in enumerate(zip(lines, epochs)):
+        print(f"{label} epoch {i}: train loss "
+              f"{line[loss_key]:.4f}, {line['train_items_per_sec']:.1f} train "
+              f"items/s, waited on the loader {100 * share:.1f}% of the train "
+              f"epoch ({n} batches, {wall:.2f} s)")
+
+
+def drivers_phase(torch, work: str) -> dict:
+    """(7) The remaining drivers from disk at full width: SupCon
+    pretraining on the CLI phase's ROCO fixture, the fp32 SupCon step card
+    vs CPU, fine-tuning from the CLI phase's bf16 weights on a VQA fixture
+    the port writes, and evaluation (one model and an ensemble of two).
+    Every run has each counter at its exact count; returns the launches of
+    all the runs."""
+    from mmvqa_tpu_torch.cli import roco_supcon_train, vqa_eval, vqa_train
+    from mmvqa_tpu_torch.data.fixtures import make_vqa_fixture
+    from mmvqa_tpu_torch.train import checkpoint
+
+    roco = os.path.join(work, "roco")
+    vocab = os.path.join(roco, "vocab.txt")
+    launches: dict = {}
+
+    # (a) SupCon pretraining: the loader at B // 2, two views a sample
+    steps = -(-CLI_TRAIN // (CLI_B // 2))
+    evals = -(-CLI_VAL // CLI_B)
+    for label, extra, n_epochs in (
+            ("bf16", ["--mixed_precision", "--use_sim_mask"], 2),
+            ("fp32", [], 1)):
+        run = f"supcon_{label}"
+        save = os.path.join(work, run)
+        reset_counts()
+        t0 = time.perf_counter()
+        with TimedTrainEpochs(roco_supcon_train, "supcon_epoch") as timer:
+            roco_supcon_train.main([
+                "-r", run, "--data_dir", roco, "--save_dir", save,
+                "--epochs", str(n_epochs), "--con_task", "supcon",
+                "--similarity", "jaccard", *CLI_ARGS, *extra])
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        print(f"drivers {run}: roco_supcon_train.main {' '.join(extra)}, "
+              f"{n_epochs} epochs of {steps} train steps ({CLI_B // 2} pairs "
+              f"of views) and {evals} validation batches of {CLI_B}, "
+              f"{wall:.1f} s; launches {got}")
+        check_launches(f"drivers {run}", got, expected_launches(
+            steps * n_epochs, evals * n_epochs, label == "bf16"))
+        lines = metric_lines(save, run)
+        if len(lines) != n_epochs or not os.path.exists(
+                os.path.join(save, "MLM", run)):
+            fail(f"drivers {run}: {len(lines)} metric lines, weights "
+                 f"{os.listdir(os.path.join(save, 'MLM'))}")
+        for line in lines:
+            if not all(math.isfinite(line[k]) for k in (
+                    "epoch_train_mlm_loss", "epoch_train_supcon_loss",
+                    "epoch_val_loss", "train_items_per_sec")):
+                fail(f"drivers {run}: non-finite metric in {line}")
+            print(f"drivers {run} epoch {line['epoch']}: mlm loss "
+                  f"{line['epoch_train_mlm_loss']:.4f}, supcon loss "
+                  f"{line['epoch_train_supcon_loss']:.4f}, val loss "
+                  f"{line['epoch_val_loss']:.4f}")
+        print_epochs(f"drivers {run}", lines, timer.epochs,
+                     "epoch_train_loss")
+        add_counts(launches, got)
+        torch.cuda.empty_cache()
+
+    # (b) one fp32 SupCon step, card against CPU
+    supcon_check_fp32(torch)
+    torch.cuda.empty_cache()
+
+    # (c) fine-tuning from the CLI phase's bf16 pretraining
+    t0 = time.perf_counter()
+    vqa = make_vqa_fixture(os.path.join(work, "vqa"), DRV_VQA_PER_CAT, SEED,
+                           CLI_IMAGE_SIZE)
+    n_train, n_val, n_test = (5 * n for n in DRV_VQA_PER_CAT)
+    print(f"drivers: VQA fixture of {n_train} + {n_val} + {n_test} questions "
+          f"(JPEGs at {CLI_IMAGE_SIZE[0]}x{CLI_IMAGE_SIZE[1]} px) written "
+          f"in {time.perf_counter() - t0:.1f} s")
+    pretrained = os.path.join(work, "bf16", "MLM", "cli_bf16")
+    vqa_flags = ["--data_dir", vqa, "--num_vis", "5", "--hidden_size", "768",
+                 *CLI_ARGS[2:], "--vocab_file", vocab]
+    tr, va, te = (-(-n // CLI_B) for n in (n_train, n_val, n_test))
+    checkpoints = {}
+    for label, extra, n_epochs in (
+            ("bf16", ["--mixed_precision", "--smoothing", str(FT_SMOOTHING),
+                      "--watch_histograms"], 2),
+            ("fp32", ["--loss", "ASLSingleLabel"], 1)):
+        run = f"vqa_{label}"
+        save = os.path.join(work, run)
+        hist = n_epochs if "--watch_histograms" in extra else 0
+        reset_counts()
+        t0 = time.perf_counter()
+        with Tee() as out, TimedTrainEpochs(vqa_train, "vqa_epoch") as timer:
+            vqa_train.main(["--run_name", run, "--save_dir", save,
+                            "--epochs", str(n_epochs), "--use_pretrained",
+                            "--model_dir", pretrained, *vqa_flags, *extra])
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        print(f"drivers {run}: vqa_train.main {' '.join(extra)}, {n_epochs} "
+              f"epochs of {tr} train steps, {va} val and {te} test batches "
+              f"at B={CLI_B}, {hist} histogram steps, {wall:.1f} s; "
+              f"launches {got}")
+        check_launches(f"drivers {run}", got, expected_launches(
+            tr * n_epochs + hist, (va + te) * n_epochs, label == "bf16"))
+        moved = [line for line in out.text.splitlines()
+                 if line.startswith("[mmvqa] transferred ")]
+        n_ok, n_all = (int(x) for x in moved[0].split()[2].split("/"))
+        # the tensors that could not come across: a key or a shape the
+        # pretrained file lacks, read off the run's checkpoint
+        by_loss = os.path.join(save, "MLM", run + "_loss")
+        pre = checkpoint.load_weights(pretrained)
+        fresh = sorted(k for k, v in checkpoint.load_weights(by_loss).items()
+                       if k not in pre or pre[k].shape != v.shape)
+        print(f"drivers {run}: {n_ok} of {n_all} tensors transferred from "
+              f"the CLI phase's bf16 pretraining; fresh: {fresh}")
+        if fresh != ["classifier_2.bias", "classifier_2.weight"] or (
+                n_all - n_ok != len(fresh)):
+            fail(f"drivers {run}: {n_all - n_ok} tensors stayed fresh "
+                 f"({fresh}); want exactly classifier_2")
+        lines = metric_lines(save, run)
+        epochs = [line for line in lines if "histograms" not in line]
+        if len(epochs) != n_epochs or len(lines) - n_epochs != hist:
+            fail(f"drivers {run}: {len(epochs)} metric lines and "
+                 f"{len(lines) - len(epochs)} histogram lines")
+        keys = {f"{c}_{m}" for c in ("total", "binary", "plane", "organ",
+                                     "modality", "abnorm")
+                for m in ("acc", "bleu")} | {"val_total_acc"}
+        for line in epochs:
+            if not keys <= line.keys() or not all(math.isfinite(line[k]) for k in (
+                    "train_loss", "val_loss", "test_loss", "total_bleu",
+                    "train_items_per_sec")):
+                fail(f"drivers {run}: per-category keys or finite losses "
+                     f"missing in {line}")
+            print(f"drivers {run}: train loss {line['train_loss']:.4f}, "
+                  f"val loss {line['val_loss']:.4f}, test loss "
+                  f"{line['test_loss']:.4f}, val acc "
+                  f"{line['val_total_acc']:.2f}, test acc "
+                  f"{line['total_acc']:.2f}, test BLEU "
+                  f"{line['total_bleu']:.4f}")
+        print_epochs(f"drivers {run}", epochs, timer.epochs, "train_loss")
+        by_acc = os.path.join(save, "MLM", run)
+        acc_seen = max(line["val_total_acc"] for line in epochs) > 0
+        if not os.path.exists(by_loss) or os.path.exists(by_acc) != acc_seen:
+            fail(f"drivers {run}: best checkpoints "
+                 f"{os.listdir(os.path.join(save, 'MLM'))}, a val accuracy "
+                 f"above 0: {acc_seen}")
+        checkpoints[label] = [by_acc, by_loss] if acc_seen else [by_loss]
+        add_counts(launches, got)
+        torch.cuda.empty_cache()
+
+    # (d) evaluation of the bf16 run's best model, then of its two best
+    # checkpoints (the fp32 run's best by loss where the bf16 run saved no
+    # best by accuracy)
+    pair = (checkpoints["bf16"] if len(checkpoints["bf16"]) == 2
+            else checkpoints["bf16"] + checkpoints["fp32"][-1:])
+    for label, dirs in (("single", pair[:1]), ("ensemble", pair)):
+        save = os.path.join(work, "eval_" + label)
+        name = os.path.basename(dirs[0])
+        reset_counts()
+        t0 = time.perf_counter()
+        vqa_eval.main(["--run_name", "eval", "--save_dir", save,
+                       "--mixed_precision", *vqa_flags, "--model_dir",
+                       dirs[0], "--model_dirs", *dirs])
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        print(f"drivers eval {label}: vqa_eval.main of "
+              f"{[os.path.relpath(d, work) for d in dirs]}, {te} test "
+              f"batches a model, {wall:.1f} s ({n_test * len(dirs) / wall:.1f} "
+              f"questions/s with set-up); launches {got}")
+        check_launches(f"drivers eval {label}", got,
+                       expected_launches(0, te * len(dirs), True))
+        with open(os.path.join(save, f"{name}_preds.csv"), newline="") as f:
+            rows = list(csv.reader(f))
+        with open(os.path.join(save, f"{name}_res.txt")) as f:
+            res = f.read().splitlines()
+        if len(rows) != n_test + 1 or len(res) != n_test:
+            fail(f"drivers eval {label}: {len(rows) - 1} prediction rows and "
+                 f"{len(res)} submission lines for {n_test} questions")
+        col = rows[0].index("decode_preds")
+        share = 100.0 * sum(r[col] == r[col + 1] for r in rows[1:]) / n_test
+        acc = metric_lines(save, f"testing-{name}")[0]["total_acc"]
+        print(f"drivers eval {label}: test accuracy {acc:.4f}, the share of "
+              f"right rows in {name}_preds.csv {share:.4f}")
+        if acc != round(share, 4):
+            fail(f"drivers eval {label}: total_acc {acc}, rows {share}")
+        add_counts(launches, got)
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2111,11 +2446,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     finetune_launches = finetune_phase(torch)
     torch.cuda.empty_cache()
-    cli_launches = cli_phase(torch)
+    import shutil
+
+    work = os.path.join(ROOT, "_checkpoints", "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        cli_launches = cli_phase(torch, work)
+        t0 = time.perf_counter()
+        driver_launches = drivers_phase(torch, work)
+        print(f"drivers phase: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # launches: the counts read after each main path's run, counters set to
     # 0 just before it (the eval slice's forwards, the train epoch, the
-    # fine-tune epoch, the CLI's two runs).
+    # fine-tune epoch, the CLI's two runs, the drivers' eight runs).
     # ms, plain_ms, bound_ms, library_ms: at the train path's shapes in bf16,
     # B=TRAIN_B, summed over the calls of one pass (the trunk's kernels:
     # every site of a step, inputs not in the L2 cache); bound_by: what
@@ -2124,11 +2469,13 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
          "launches": (eval_launches.get(name, 0) + train_launches[name]
-                      + finetune_launches[name] + cli_launches[name]),
+                      + finetune_launches[name] + cli_launches[name]
+                      + driver_launches[name]),
          "launches_eval": eval_launches.get(name, 0),
          "launches_train": train_launches[name],
          "launches_finetune": finetune_launches[name],
          "launches_cli": cli_launches[name],
+         "launches_drivers": driver_launches[name],
          "max_abs_err": max(r["err"].values()),
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": sum(ms for ms, _ in r["bounds"]),

@@ -22,6 +22,7 @@ from typing import Optional, Union
 import torch
 
 from mmvqa_tpu_torch.cli.common import (
+    KeepFirst,
     config_from_args,
     load_tokenizer,
     make_hist_logger,
@@ -41,21 +42,6 @@ from mmvqa_tpu_torch.train.trainer import mlm_epoch
 from mmvqa_tpu_torch.utils.logging import MetricSink, seed_everything
 
 SAVE_RECORDER_EVERY = 5
-
-
-class _KeepFirst:
-    """Iterates ``loader`` and keeps the first batch it yields (the batch
-    the histograms are pinned to)."""
-
-    def __init__(self, loader):
-        self.loader = loader
-        self.batch = None
-
-    def __iter__(self):
-        for b in self.loader:
-            if self.batch is None:
-                self.batch = b
-            yield b
 
 
 def main(argv: Optional[list] = None,
@@ -84,7 +70,7 @@ def main(argv: Optional[list] = None,
                            image_cache=img_cache)
     val_ds = ROCODataset(cfg, val_df, tok, keywords, "validation",
                          image_cache=img_cache)
-    train_loader = _KeepFirst(BatchLoader(
+    train_loader = KeepFirst(BatchLoader(
         train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
         num_workers=cfg.num_workers, cache_images=args.cache_images))
     val_loader = BatchLoader(

@@ -241,3 +241,11 @@ def vqa_config(**kw: Any) -> Config:
     cfg = base.replace(**kw)
     cfg.validate()  # see pretrain_config
     return cfg
+
+
+def supcon_config(**kw: Any) -> Config:
+    """Defaults of pretrain/roco_supcon_train.py:25-74 (supcon=True by default)."""
+    base = pretrain_config(supcon=True, con_task="supcon", similarity="jaccard")
+    cfg = base.replace(**kw)
+    cfg.validate()  # see pretrain_config
+    return cfg

@@ -98,9 +98,38 @@ class Table:
     def unique(self, name: str) -> list:
         return list(dict.fromkeys(self.column(name)))
 
+    def rename(self, columns: Sequence[str]) -> "Table":
+        """``df.columns = columns``."""
+        if len(columns) != len(self.columns):
+            raise ValueError(f"{len(columns)} names for {len(self.columns)} "
+                             "columns")
+        return Table(columns, self.rows)
+
+    def drop(self, names: Sequence[str]) -> "Table":
+        keep = [i for i, c in enumerate(self.columns) if c not in names]
+        return Table([self.columns[i] for i in keep],
+                     [[r[i] for i in keep] for r in self.rows])
+
+    def with_column(self, name: str, value) -> "Table":
+        """``df[name] = value`` for a new column of one value."""
+        if name in self._pos:
+            raise ValueError(f"column {name!r} exists")
+        return Table(self.columns + [name], [r + [value] for r in self.rows])
+
     @staticmethod
     def concat(tables: Sequence["Table"]) -> "Table":
-        return Table(tables[0].columns, [r for t in tables for r in t.rows])
+        """``pd.concat``: the columns of the first table, then any new
+        column of a later one in first-seen order; a cell a table lacks is
+        NaN."""
+        columns = list(dict.fromkeys(c for t in tables for c in t.columns))
+        rows = []
+        for t in tables:
+            if t.columns == columns:
+                rows.extend(t.rows)
+            else:
+                rows.extend([r[t._pos[c]] if c in t._pos else float("nan")
+                             for c in columns] for r in t.rows)
+        return Table(columns, rows)
 
 
 def _lower(x):

@@ -101,18 +101,24 @@ def make_roco_fixture(
 
 
 def make_vqa_fixture(
-    root: str, n_per_cat: int = 4, seed: int = 0, image_size: ImageSize = 64
+    root: str, n_per_cat: Union[int, Tuple[int, int, int]] = 4, seed: int = 0,
+    image_size: ImageSize = 64,
 ) -> str:
-    """<root>/{traindf,valdf,testdf}.csv + {Train,Val,Test}/images."""
+    """<root>/{traindf,valdf,testdf}.csv + {Train,Val,Test}/images, with
+    ``n_per_cat`` questions of each category in each split, or a
+    (train, val, test) triple of such counts."""
+    counts = ((n_per_cat,) * 3 if isinstance(n_per_cat, int)
+              else tuple(n_per_cat))
     rng = random.Random(seed)
     nrng = np.random.default_rng(seed)
     questions = []
-    for split, mode in (("Train", "train"), ("Val", "val"), ("Test", "test")):
+    for (split, mode), n in zip(
+            (("Train", "train"), ("Val", "val"), ("Test", "test")), counts):
         img_dir = os.path.join(root, split, "images")
         os.makedirs(img_dir, exist_ok=True)
         rows = []
         for cat in CATEGORIES:
-            for i in range(n_per_cat):
+            for i in range(n):
                 img_id = f"synpic_{mode}_{cat}_{i}"
                 _write_image(os.path.join(img_dir, img_id + ".jpg"), nrng,
                              image_size)

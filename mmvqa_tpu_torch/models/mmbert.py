@@ -6,7 +6,11 @@ embedded positions 0..num_vis-1, [CLS] included (the reference's fusion
 quirk). The fused sequence runs through the encoder, then either the
 per-token MLM head (ROCO) or the mean-pooled VQA head:
 ``classifier(serf(fc1(.)))`` with classifier = Dense, LayerNorm(1e-12),
-Dense.
+Dense. With ``cfg.supcon`` the model also has the SupCon projection head
+(``head_0`` Dense(H), ``head_2`` Dense(feat_dim), mmbert.py:138-140), and
+the ROCO MLM forward returns ``(logits, feat)``: ``feat`` is
+``head_2(serf(head_0(mean_pooling(h))))`` L2-normalised in the compute
+dtype.
 
 Weights are drawn from an explicit ``torch.Generator`` (on the CPU, so a
 seed gives the same model on every device) or carried over from a Flax tree
@@ -108,8 +112,6 @@ class MMBert(nn.Module):
         super().__init__()
         if "realformer" not in cfg.transformer_model:
             raise _not_ported(f"transformer_model {cfg.transformer_model!r}", "8")
-        if cfg.supcon:
-            raise _not_ported("the SupCon head", "6")
         if cfg.dataset == "roco" and cfg.task != "MLM":
             raise _not_ported(f"task {cfg.task!r}", "7")
         if cfg.dataset not in ("roco", "VQA-Med"):
@@ -145,6 +147,9 @@ class MMBert(nn.Module):
                    if cfg.dataset == "VQA-Med" and cfg.num_classes > 0
                    else cfg.vocab_size)
         self.classifier_2 = Linear(H, out_dim)
+        if cfg.supcon and cfg.dataset == "roco":  # Flax makes it where called
+            self.head_0 = Linear(H, H)
+            self.head_2 = Linear(H, cfg.feat_dim)
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         init_weights(self, generator)
@@ -183,9 +188,18 @@ class MMBert(nn.Module):
                 segment_ids: torch.Tensor,
                 input_mask: torch.Tensor) -> torch.Tensor:
         """img (B, S, S, 3) normalized NHWC; ids, segments, mask (B, T).
-        Returns VQA logits (B, num_classes) or MLM logits (B, T, vocab)."""
+        Returns VQA logits (B, num_classes) or MLM logits (B, T, vocab), the
+        latter with the SupCon feature (B, feat_dim) as ``(logits, feat)``
+        under ``cfg.supcon``."""
         h = self.encode(img, input_ids, segment_ids, input_mask)
         if self.cfg.dataset == "roco":
-            return self._classifier(serf(self.fc1(h)))
+            logits = self._classifier(serf(self.fc1(h)))
+            if self.cfg.supcon:
+                pooled = mean_pooling(h, input_mask)
+                feat = self.head_2(serf(self.head_0(pooled)))
+                feat = feat / torch.linalg.vector_norm(feat, dim=-1,
+                                                       keepdim=True)
+                return logits, feat
+            return logits
         pooled = serf(self.fc1(mean_pooling(h, input_mask)))
         return self._classifier(pooled)

@@ -19,7 +19,8 @@ round: every load maps the tensors to the device of the model they go into.
 A recorder written by the JAX package comes across through
 ``mmvqa_tpu_torch.bridge.from_flax_recorder``. Converting the encoder's
 layout between sequential and pipeline-stacked (``adapt_encoder_layout``)
-waits for pipeline parallelism (ROADMAP.md, Queue 1).
+waits for pipeline parallelism (ROADMAP.md Queue 1, item 10): a sequential
+checkpoint loads as it is, a pipeline-stacked one raises.
 """
 
 from __future__ import annotations
@@ -116,6 +117,21 @@ def load_weights(path: str) -> Dict[str, torch.Tensor]:
     """The tensors on the CPU, wherever they were saved from:
     ``filtered_restore`` or ``load_state_dict`` moves them to the model."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def adapt_encoder_layout(loaded: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """The JAX package converts a checkpoint between the sequential and the
+    pipeline-stacked encoder layouts here. The port's encoder is
+    sequential: a sequential checkpoint comes back as it is, one with
+    pipeline-stacked layers (``pp_layers``) raises."""
+    stacked = sorted(k for k in loaded if "pp_layers" in k.split("."))
+    if stacked:
+        raise NotImplementedError(
+            f"the checkpoint's encoder is pipeline-stacked ({stacked[0]}, "
+            "...): pipeline layouts are not ported to mmvqa_tpu_torch yet "
+            "(ROADMAP.md Queue 1, item 10)")
+    return loaded
 
 
 def filtered_restore(model_state: Mapping[str, torch.Tensor],

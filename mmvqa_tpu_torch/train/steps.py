@@ -1,5 +1,6 @@
 """Train and eval steps (counterpart of mmvqa_tpu/train/steps.py): the ROCO
-MLM pretraining steps (``make_mlm_steps``, :167-220), the VQA-Med
+MLM pretraining steps (``make_mlm_steps``, :167-220), the joint MLM +
+SupCon/SimCLR steps (``make_supcon_steps``, :291-368), the VQA-Med
 fine-tuning steps (``make_vqa_steps``, :371-478) and the per-parameter
 histograms (``grad_weight_histograms``, :87-115).
 
@@ -32,11 +33,13 @@ from mmvqa_tpu_torch.ops.losses import (
     weighted_mean,
     weighted_token_nll,
 )
+from mmvqa_tpu_torch.ops.supcon import split_two_views, supcon_loss
 from mmvqa_tpu_torch.train.state import TrainState
 
 BATCH_KEYS = ("image", "tokens", "segment_ids", "input_mask", "answer", "weights")
 MLM_BATCH_KEYS = ("image", "tokens", "segment_ids", "input_mask", "labels",
                   "weights")
+SUPCON_BATCH_KEYS = MLM_BATCH_KEYS + ("aug_tokens", "aug_labels")
 
 
 def _to_device(batch: Mapping, keys, dev: torch.device) -> Dict[str, torch.Tensor]:
@@ -94,8 +97,42 @@ def grad_weight_histograms(model: torch.nn.Module
             **_histograms({names[k]: p for k, p in params.items()}, "whist")}
 
 
+def _own_generators(cfg: Config) -> Callable[[torch.device], torch.Generator]:
+    """A step's own augmentation generator on each device, seeded with
+    ``cfg.seed`` at first use."""
+    own: Dict[torch.device, torch.Generator] = {}
+
+    def get(dev: torch.device) -> torch.Generator:
+        if dev not in own:
+            own[dev] = torch.Generator(device=dev).manual_seed(cfg.seed)
+        return own[dev]
+
+    return get
+
+
+def _mlm_eval_step(model: torch.nn.Module) -> Callable:
+    """The MLM eval step: loss, ``correct`` and ``total`` without
+    augmentation, dropout or any update (on a SupCon model, of its MLM
+    logits)."""
+
+    @torch.inference_mode()
+    def eval_step(state: TrainState, batch: Mapping):
+        b = _to_device(batch, MLM_BATCH_KEYS, model.device)
+        model.set_mode(deterministic=True)
+        logits = model(process_batch(b["image"]), b["tokens"],
+                       b["segment_ids"], b["input_mask"])
+        if isinstance(logits, tuple):
+            logits = logits[0]
+        correct, total = mlm_metrics(logits, b["labels"], b["weights"])
+        return {"loss": weighted_token_nll(logits, b["labels"], b["weights"]),
+                "correct": correct, "total": total}
+
+    return eval_step
+
+
 def make_mlm_steps(
     model: torch.nn.Module, cfg: Config, aug: AugmentSpec = PRETRAIN_AUG,
+    histograms: bool = False,
 ) -> Tuple[Callable, Callable]:
     """Returns ``(train_step, eval_step)`` for ROCO MLM pretraining.
 
@@ -104,22 +141,18 @@ def make_mlm_steps(
     trunk's BatchNorms on batch statistics, which they fold into their
     running statistics), the weighted token NLL, backward, the optimizer
     step; it returns ``(state, metrics)`` with ``loss``, ``correct`` and
-    ``total`` and, under ``cfg.watch``, the per-module gradient norms. The
-    augmentation draws come from ``draws`` if given, else from the step's
-    own generator (seeded with ``cfg.seed``, on the model's device); the
-    dropout masks come from the model's ``dropout_rng``.
+    ``total``, under ``cfg.watch`` the per-module gradient norms and, with
+    ``histograms``, ``grad_weight_histograms`` at the pre-update
+    parameters. The augmentation draws come from ``draws`` if given, else
+    from the step's own generator (seeded with ``cfg.seed``, on the model's
+    device); the dropout masks come from the model's ``dropout_rng``.
     ``eval_step(state, batch)`` returns the three metrics without
     augmentation, dropout or any update.
 
     ``batch`` has the JAX loader's keys: ``image`` uint8 (B, S, S, 3),
     ``tokens``, ``segment_ids``, ``input_mask``, ``labels`` (B, T; 0 =
     unmasked) and ``weights`` (B,) (1 real, 0 padding)."""
-    own: Dict[torch.device, torch.Generator] = {}
-
-    def own_generator(dev: torch.device) -> torch.Generator:
-        if dev not in own:
-            own[dev] = torch.Generator(device=dev).manual_seed(cfg.seed)
-        return own[dev]
+    own_generator = _own_generators(cfg)
 
     def train_step(state: TrainState, batch: Mapping,
                    draws: Optional[AugmentDraws] = None):
@@ -140,20 +173,80 @@ def make_mlm_steps(
             metrics.update(correct=correct, total=total)
             if cfg.watch:
                 metrics.update(grad_norms(model))
+            if histograms:
+                metrics.update(grad_weight_histograms(model))
         state.apply_gradients()
         return state, metrics
 
-    @torch.inference_mode()
-    def eval_step(state: TrainState, batch: Mapping):
-        b = _to_device(batch, MLM_BATCH_KEYS, model.device)
-        model.set_mode(deterministic=True)
-        logits = model(process_batch(b["image"]), b["tokens"],
-                       b["segment_ids"], b["input_mask"])
-        correct, total = mlm_metrics(logits, b["labels"], b["weights"])
-        return {"loss": weighted_token_nll(logits, b["labels"], b["weights"]),
-                "correct": correct, "total": total}
+    return train_step, _mlm_eval_step(model)
 
-    return train_step, eval_step
+
+def make_supcon_steps(
+    model: torch.nn.Module, cfg: Config, aug: AugmentSpec = PRETRAIN_AUG,
+    histograms: bool = False,
+) -> Tuple[Callable, Callable]:
+    """Returns ``(train_step, eval_step)`` for joint MLM + SupCon/SimCLR
+    pretraining (supcon_utils.py:263-323) on a model built with
+    ``cfg.supcon``.
+
+    ``train_step(state, batch, draws=None, sim_mask=None)``: two augmented
+    views of each image (TwoCropTransform, supcon_utils.py:26-32) and the
+    caption and back-translation token views, concatenated along the batch
+    (process_tensors, :253-256), so that the model sees 2B samples; the
+    loss is the weighted token NLL plus ``supcon_loss`` of the two views'
+    features, with ``sim_mask`` (B, B) as its positives where given (the
+    reference's live path passes none, :287). ``draws`` is a pair of
+    ``AugmentDraws``, one a view; where None both come from the step's own
+    generator (seeded with ``cfg.seed``), the first view's first. Returns
+    ``(state, metrics)`` with ``loss``, ``mlm_loss``, ``supcon_loss``,
+    ``correct`` and ``total`` (over the masked tokens of both views), under
+    ``cfg.watch`` the per-module gradient norms and, with ``histograms``,
+    ``grad_weight_histograms`` at the pre-update parameters.
+
+    ``eval_step(state, batch)`` is plain MLM validation on the SupCon model
+    (roco_supcon_train.py:174), as ``make_mlm_steps``' eval step.
+
+    ``batch`` has the MLM keys and ``aug_tokens``, ``aug_labels`` (B, T)."""
+    own_generator = _own_generators(cfg)
+
+    def train_step(state: TrainState, batch: Mapping,
+                   draws: Optional[Tuple[AugmentDraws, AugmentDraws]] = None,
+                   sim_mask: Optional[np.ndarray] = None):
+        if state.model is not model:
+            raise ValueError("train_step: the state holds another model")
+        dev = model.device
+        b = _to_device(batch, SUPCON_BATCH_KEYS, dev)
+        generator = own_generator(dev) if draws is None else None
+        d1, d2 = (None, None) if draws is None else draws
+        with torch.no_grad():
+            img = torch.cat([process_batch(b["image"], generator, aug, True, d1),
+                             process_batch(b["image"], generator, aug, True, d2)])
+        ids = torch.cat([b["tokens"], b["aug_tokens"]])
+        seg = torch.cat([b["segment_ids"]] * 2)
+        mask = torch.cat([b["input_mask"]] * 2)
+        labels = torch.cat([b["labels"], b["aug_labels"]])
+        w = torch.cat([b["weights"]] * 2)
+        positives = (None if sim_mask is None else
+                     torch.as_tensor(np.asarray(sim_mask, np.float32)).to(dev))
+        model.set_mode(deterministic=False)
+        logits, feat = model(img, ids, seg, mask)
+        nll = weighted_token_nll(logits, labels, w)
+        con = supcon_loss(split_two_views(feat), mask=positives)
+        loss = nll + con
+        loss.backward()
+        metrics = {"loss": loss.detach(), "mlm_loss": nll.detach(),
+                   "supcon_loss": con.detach()}
+        with torch.no_grad():
+            correct, total = mlm_metrics(logits, labels, w)
+            metrics.update(correct=correct, total=total)
+            if cfg.watch:
+                metrics.update(grad_norms(model))
+            if histograms:
+                metrics.update(grad_weight_histograms(model))
+        state.apply_gradients()
+        return state, metrics
+
+    return train_step, _mlm_eval_step(model)
 
 
 def make_vqa_steps(
@@ -189,7 +282,7 @@ def make_vqa_steps(
     smoothing = cfg.smoothing if cfg.smoothing else 0.1
     asl = cfg.loss == "ASLSingleLabel"
     tables: Dict[torch.device, torch.Tensor] = {}
-    own: Dict[torch.device, torch.Generator] = {}
+    own_generator = _own_generators(cfg)
 
     def table_on(dev: torch.device) -> torch.Tensor:
         if dev not in tables:
@@ -218,10 +311,9 @@ def make_vqa_steps(
         answers = b["answer"]
         categories = (torch.as_tensor(batch["category"]).to(dev)
                       if "category" in batch else torch.zeros_like(answers))
-        if draws is None and dev not in own:
-            own[dev] = torch.Generator(device=dev).manual_seed(cfg.seed)
+        generator = own_generator(dev) if draws is None else None
         with torch.no_grad():
-            img = process_batch(b["image"], own.get(dev), aug, True, draws)
+            img = process_batch(b["image"], generator, aug, True, draws)
         model.set_mode(deterministic=False, train_cnn=True)
         logits = model(img, b["tokens"], b["segment_ids"], b["input_mask"])
         loss = weighted_mean(criterion(logits, answers, categories),

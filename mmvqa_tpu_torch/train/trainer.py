@@ -12,7 +12,7 @@ host.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterable, List, Mapping, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +50,50 @@ def mlm_epoch(step_fn: Callable, state: TrainState, loader: Iterable[Mapping],
     if "correct" in pulled:
         metrics["acc"] = (100.0 * float(pulled["correct"].sum())
                           / max(float(pulled["total"].sum()), 1.0))
+    for k, v in pulled.items():
+        if k.startswith("gnorm/"):
+            metrics[k] = float(v.mean())
+    return state, metrics
+
+
+def supcon_epoch(step_fn: Callable, state: TrainState,
+                 loader: Iterable[Mapping],
+                 sim_mask_fn: Optional[Callable] = None
+                 ) -> Tuple[TrainState, Dict[str, float]]:
+    """Run ``step_fn`` (the train step of ``make_supcon_steps``) over the
+    batches of ``loader``. ``caption`` and ``aug_caption`` (lists of
+    strings) leave the batch; ``sim_mask_fn(captions, augs)`` builds each
+    step's similarity mask where it is given, and None reproduces the
+    reference's live path (supcon_utils.py:286-287). Returns the state and
+    the means of ``loss``, ``mlm_loss`` and ``supcon_loss`` over the steps,
+    ``acc`` (percent of the masked tokens of both views predicted),
+    ``items_per_sec`` (two views of each real sample over the epoch's wall
+    time) and the mean of every ``gnorm/*`` metric."""
+    per_step: Dict[str, List[torch.Tensor]] = {}
+    n_items = 0
+    t0 = time.perf_counter()
+    for batch in loader:
+        n_items += 2 * int(batch["weights"].sum())
+        batch = dict(batch)
+        captions = batch.pop("caption", None)
+        augs = batch.pop("aug_caption", None)
+        sim_mask = None
+        if sim_mask_fn is not None and captions is not None:
+            sim_mask = sim_mask_fn(captions, augs)
+        state, m = step_fn(state, batch, sim_mask=sim_mask)
+        for k, v in m.items():
+            per_step.setdefault(k, []).append(v)
+    pulled = {k: _pull(v) for k, v in per_step.items()}  # waits for the device
+    dt = time.perf_counter() - t0
+    nan = float("nan")
+    if not pulled:
+        return state, {"loss": nan, "mlm_loss": nan, "supcon_loss": nan,
+                       "acc": nan, "items_per_sec": 0.0}
+    metrics = {k: float(pulled[k].mean())
+               for k in ("loss", "mlm_loss", "supcon_loss")}
+    metrics["acc"] = (100.0 * float(pulled["correct"].sum())
+                      / max(float(pulled["total"].sum()), 1.0))
+    metrics["items_per_sec"] = n_items / max(dt, 1e-9)
     for k, v in pulled.items():
         if k.startswith("gnorm/"):
             metrics[k] = float(v.mean())

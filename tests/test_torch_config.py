@@ -35,7 +35,8 @@ def test_config_fields_and_defaults_equal_the_jax_ones():
     assert _fields(config.Config) == _fields(jax_config.Config)
 
 
-@pytest.mark.parametrize("factory", ["vqa_config", "pretrain_config"])
+@pytest.mark.parametrize("factory", ["vqa_config", "pretrain_config",
+                                     "supcon_config"])
 def test_presets_equal_the_jax_ones(factory):
     port, ref = getattr(config, factory)(), getattr(jax_config, factory)()
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)

@@ -1427,3 +1427,67 @@ def test_host_decoder_and_load_image_on_the_card_machine(dev, tmp_path):
     assert img.shape == (224, 224, 3) and img.dtype.name == "uint8"
     x = torch.from_numpy(img).to(dev)
     assert int(x.sum()) == int(img.astype("int64").sum())
+
+
+# ----------------------------------------------------- SupCon pretraining ----
+
+def test_supcon_step_on_the_card_matches_the_cpu_plain_path(dev):
+    """One fp32 SupCon train step (two views of 4 images, the Jaccard mask)
+    on the card and on the CPU plain path from the same weights, batch and
+    draws: the loss and its two parts to 1e-4 relative, the gradients of the
+    projection head and of the token head's first tap within 2e-3 of their
+    largest entry; the step went through the kernels."""
+    import copy
+
+    import numpy as np
+
+    from mmvqa_tpu_torch.core.config import supcon_config
+    from mmvqa_tpu_torch.data.images import sample_draws
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.similarity import SimilarityCalculator
+    from mmvqa_tpu_torch.train.state import create_train_state
+    from mmvqa_tpu_torch.train.steps import make_supcon_steps
+
+    cfg = supcon_config(cnn_encoder="tf_efficientnetv2_m",
+                        transformer_model="realformer", hidden_size=64,
+                        n_layers=1, tiny_cnn=True, image_size=32,
+                        vocab_size=1300, batch_size=4, dropout_override=0.0)
+    b0, b1 = mlm_batches(cfg, 2, seed=3)
+    batch = dict(b0, aug_tokens=(b1["tokens"] * b0["input_mask"]).astype(
+        np.int32), aug_labels=(b1["labels"] * b0["input_mask"]).astype(
+        np.int32))
+    sim = SimilarityCalculator("jaccard")(
+        ["a b c", "a d", "e f g", "b c"], ["a b", "d e", "f g", "c a b"])
+    gen = torch.Generator().manual_seed(0)
+    draws = (sample_draws(4, 32, gen), sample_draws(4, 32, gen))
+    cpu = MMBert(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    leaves = ("head_0.weight", "head_2.weight", "trans.token_conv_0.weight")
+
+    def run(model):
+        grads = {}
+        state = create_train_state(model, cfg.lr)
+        apply = state.apply_gradients
+
+        def keep():
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in
+                          model.named_parameters() if n in leaves})
+            apply()
+
+        state.apply_gradients = keep
+        step, _ = make_supcon_steps(model, cfg)
+        _, m = step(state, batch, draws, sim_mask=sim)
+        return {k: float(m[k]) for k in ("loss", "mlm_loss",
+                                         "supcon_loss")}, grads
+
+    want, want_g = run(cpu)
+    before = fused_token_head.backward_launches
+    got, got_g = run(card)
+    torch.cuda.synchronize()
+    assert fused_token_head.backward_launches > before
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    for n in leaves:
+        scale = want_g[n].abs().max()
+        assert scale > 0 and (got_g[n] - want_g[n]).abs().max() <= 2e-3 * scale
