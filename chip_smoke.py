@@ -247,9 +247,11 @@ HEADS, HEAD_DIM = 8, 96
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
 # memory rate; dense bf16 tensor rate; fp32 rate outside the tensor cores;
-# special-function rate, 16 units an SM x 132 SMs x 1.98 GHz boost clock.
+# fp32 products on the tensor cores as three TF32 products (a third of the
+# dense TF32 rate, 495 TFLOP/s: csrc/tf32x3.cuh); special-function rate, 16
+# units an SM x 132 SMs x 1.98 GHz boost clock.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "tf32x3": 495e12 / 3}
 SM_CLOCK_HZ = 1.98e9
 PEAK_SFU = 16 * 132 * SM_CLOCK_HZ
 # special-function evaluations per projected element: SERF is exp, log1p
@@ -362,11 +364,13 @@ def rate(nbytes: float, ms: float, bound_ms: float) -> str:
             f"the bound")
 
 
-def k1_bound(B, P, K, C, itemsize, act, direction):
+def k1_bound(B, P, K, C, itemsize, act, direction, tensor_cores=False):
     """Token head: x read (and dx written), W read (dW written in fp32),
     the (B, C) output or its gradient; one product forward, three backward;
-    the activation's special functions."""
-    name = "bf16" if itemsize == 2 else "fp32"
+    the activation's special functions. fp32 products at the CUDA cores'
+    rate, or with ``tensor_cores`` as split-TF32 products."""
+    name = ("bf16" if itemsize == 2 else
+            "tf32x3" if tensor_cores else "fp32")
     x, w, out = B * P * K * itemsize, K * C * itemsize, B * C * itemsize
     products = 2.0 * B * P * K * C
     sfu = SFU_PER_ELEMENT[(act, direction)] * B * P * C
@@ -468,6 +472,20 @@ KERNELS = {
         "no single PyTorch call returns a product and the sums of its "
         "output; the two calls F.conv2d + torch.batch_norm_stats are timed "
         "as context"),
+    # of every launch of the two above, the fp32 ones: split-TF32 products
+    # on the tensor cores (csrc/tf32x3.cuh); their ms, plain_ms and bound_ms
+    # are fp32's: K1-bwd's five taps at the CLI's B=16, K4's 98 sites at
+    # B=128
+    "token_head_bwd_tf32x3": (
+        "mmvqa_tpu_torch/csrc/token_head_bwd.cu",
+        "mmvqa_tpu/ops/pallas_token_head.py:273",
+        "no single PyTorch call gives dx and dW of the fused head"),
+    "conv1x1_stats_tf32x3": (
+        "mmvqa_tpu_torch/csrc/conv1x1_stats.cu",
+        "mmvqa_tpu/ops/pallas_conv_bn.py:81",
+        "no single PyTorch call returns a product and the sums of its "
+        "output; the two calls F.conv2d + torch.batch_norm_stats are timed "
+        "as context"),
     # bn_backward_sums_kernel: one launch, the last block of a channel tile
     # adds the partials
     "bn_backward_sums": (
@@ -480,13 +498,40 @@ KERNELS = {
 WITH_LIBRARY = ("depthwise3x3", "depthwise3x3_bwd", "bn_backward_sums")
 
 
+def add_fp32(r, count, ms, plain, library, bnd):
+    """Adds ``count`` calls to a kernel's fp32 sums (FP32_SUMS)."""
+    f = r["fp32"]
+    f["ms"] += count * ms
+    f["plain_ms"] += count * plain
+    f["library_ms"] += count * library
+    f["bounds"] += [bnd] * count
+
+
+# what a kernel's fp32 sums cover: the CLIs' default dtype at their batch
+# (B=16) where the token head and the attention are concerned, the trunk's
+# kernels at the train path's B=128 as their bf16 sums are; bounds on the
+# tensor cores (split-TF32) for K1-bwd and K4, on the CUDA cores otherwise
+FP32_SUMS = {
+    "token_head": "the five taps at B=16",
+    "token_head_bwd": "the five taps at B=16",
+    "realformer_attention": "one layer at T=75, B=16, prev and mask",
+    "realformer_attention_bwd": "one layer at T=75, B=16, prev and mask",
+    "depthwise3x3": "the 42 sites at B=128",
+    "depthwise3x3_bwd": "the 42 sites at B=128",
+    "conv1x1_stats": "the 98 sites at B=128",
+    "bn_backward_sums": "the 156 sites at B=128",
+}
+
+
 def kernel_phase(torch):
     """Every kernel against its plain version. The summary times are at the
     train path's shapes, bf16 at B=TRAIN_B: the five taps summed for the
     token head, one layer at T=75 with prev and padded queries for the
-    attention. The token head is timed as the trunk's kernels are: each call
-    finds its inputs in device memory and queues behind a sleeping device,
-    so that its time is the card's, not the host's."""
+    attention; their fp32 sums are at the CLIs' B=16 (FP32_SUMS), K1-bwd's
+    on the tensor cores' bound. The token head is timed as the trunk's
+    kernels are: each call finds its inputs in device memory and queues
+    behind a sleeping device, so that its time is the card's, not the
+    host's."""
     from mmvqa_tpu_torch.models.visual_tokens import tap_positions
     from mmvqa_tpu_torch.ops.attention import (
         backward_path,
@@ -507,26 +552,46 @@ def kernel_phase(torch):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def checked_k1_bwd(label, x, w, gout, act):
+        """Two runs of the backward, bit for bit, against the plain version;
+        fp32 launches counted on the split-TF32 path."""
+        tf32x3 = fused_token_head.backward_tf32x3_launches
+        dx, dw = token_head_backward(x, w, gout, act)
+        dx2, dw2 = token_head_backward(x, w, gout, act)
+        dx_p, dw_p = token_head_backward_reference(x, w, gout, act)
+        torch.cuda.synchronize()
+        if (fused_token_head.backward_tf32x3_launches - tf32x3
+                != (2 if x.dtype == torch.float32 else 0)):
+            fail(f"token_head_bwd {label}: fp32 off the split-TF32 path")
+        if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
+            fail(f"token_head_bwd {label}: two runs differ")
+        e_dx, e_dw = check_k1_bwd(label, x, dx, dw, dx_p, dw_p)
+        return dx, dw, e_dx, e_dw
+
     results = {name: {"err": {torch.float32: 0.0, torch.bfloat16: 0.0},
                       "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                      "bounds": []}
+                      "bounds": [],
+                      # fp32's sums at the CLIs' shapes (FP32_SUMS)
+                      "fp32": {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                               "bounds": []}}
                for name in KERNELS}
 
-    def note(name, dtype, err, summary, ms, plain, bnd):
+    def note(name, dtype, err, summary, ms, plain, bnd, fp32_sum=False):
         r = results[name]
         r["err"][dtype] = max(r["err"][dtype], err)
         if summary:
             r["ms"] += ms
             r["plain_ms"] += plain
             r["bounds"].append(bnd)
+        if fp32_sum:
+            add_fp32(r, 1, ms, plain, 0.0, bnd)
 
-    # ---- K1, forward and backward: the five taps at the eval batch (16) in
-    # both dtypes, at the train batch in bf16, stage 0 at the train batch in
-    # fp32
-    k1_cases = ([(torch.float32, EVAL_B, tap) for tap in TAPS]
-                + [(torch.float32, TRAIN_B, TAPS[0])]
-                + [(torch.bfloat16, B, tap) for B in (EVAL_B, TRAIN_B)
-                   for tap in TAPS])
+    # ---- K1, forward and backward: the five taps at the eval batch (16,
+    # the CLI's) and at the train batch, in both dtypes
+    k1_cases = [(dtype, B, tap) for dtype in (torch.float32, torch.bfloat16)
+                for B in (EVAL_B, TRAIN_B) for tap in TAPS]
+    k1_fp32 = {B: [0.0, 0.0, 0.0] for B in (EVAL_B, TRAIN_B)}  # ms, plain, bound
     for dtype, B, (name, side, K) in k1_cases:
         bf16 = dtype == torch.bfloat16
         act = "serf_fast" if bf16 else "serf"
@@ -553,29 +618,38 @@ def kernel_phase(torch):
         print(f"token_head {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms"
               f"  plain {plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})  "
               f"{k1_fwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
-        note("token_head", dtype, err, summary, ms, plain, bnd)
+        note("token_head", dtype, err, summary, ms, plain, bnd,
+             fp32_sum=not bf16 and B == EVAL_B)
         del got, want
 
-        dx, dw = token_head_backward(x, w, gout, act)
-        dx2, dw2 = token_head_backward(x, w, gout, act)
-        dx_p, dw_p = token_head_backward_reference(x, w, gout, act)
-        torch.cuda.synchronize()
-        if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
-            fail(f"token_head_bwd {label}: two runs differ")
-        e_dx, e_dw = check_k1_bwd(label, x, dx, dw, dx_p, dw_p)
-        del dx, dx2, dw2, dx_p, dw_p
+        dx, dw, e_dx, e_dw = checked_k1_bwd(label, x, w, gout, act)
+        del dx, dw
         ms = time_ms(lambda: token_head_backward(x, w, gout, act), reps,
                      flush=flush)
         plain = time_ms(
             lambda: token_head_backward_reference(x, w, gout, act), reps,
             flush=flush)
         bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "bwd")
-        print(f"token_head_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
-              f"{e_dw:.3e}, two runs identical  kernel {ms:.4f} ms  plain "
-              f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})  "
-              f"{k1_bwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
+        line = (f"token_head_bwd {label}: max_abs_err dx {e_dx:.3e} dW "
+                f"{e_dw:.3e}, two runs identical  kernel {ms:.4f} ms  plain "
+                f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})  "
+                f"{k1_bwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
         note("token_head_bwd", dtype, max(e_dx, e_dw), summary, ms, plain, bnd)
+        if not bf16:
+            tc = k1_bound(B, P, K, HIDDEN, 4, act, "bwd", tensor_cores=True)
+            if B == EVAL_B:
+                add_fp32(results["token_head_bwd"], 1, ms, plain, 0.0, tc)
+            line += (f"; on the tensor cores: bound {tc[0]:.4f} ms ({tc[1]})"
+                     f", {100 * tc[0] / ms:.1f}% of it")
+            note("token_head_bwd_tf32x3", dtype, max(e_dx, e_dw),
+                 B == EVAL_B, ms, plain, tc)
+            for i, v in enumerate((ms, plain, tc[0])):
+                k1_fp32[B][i] += v
+        print(line)
         del feat, x
+    for B, (ms, plain, tc) in k1_fp32.items():
+        print(f"token_head_bwd fp32 B={B}, the five taps: kernel {ms:.4f} ms  "
+              f"plain {plain:.4f} ms  bound on the tensor cores {tc:.4f} ms")
 
     # ---- K1 backward at K=2048, the ResNet-152 trunk's last tap (7x7),
     # which the flagship path does not reach: one row a dtype
@@ -589,14 +663,8 @@ def kernel_phase(torch):
              * K ** -0.5).to(dtype)
         gout = torch.randn(B, HIDDEN, device=dev, generator=g)
         label = f"resnet_tap B={B} P={P} K={K} {dtype}"
-        dx, dw = token_head_backward(x, w, gout, act)
-        dx2, dw2 = token_head_backward(x, w, gout, act)
-        dx_p, dw_p = token_head_backward_reference(x, w, gout, act)
-        torch.cuda.synchronize()
-        if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
-            fail(f"token_head_bwd {label}: two runs differ")
-        e_dx, e_dw = check_k1_bwd(label, x, dx, dw, dx_p, dw_p)
-        del dx, dx2, dw2, dx_p, dw_p
+        dx, dw, e_dx, e_dw = checked_k1_bwd(label, x, w, gout, act)
+        del dx, dw
         ms = time_ms(lambda: token_head_backward(x, w, gout, act), 5,
                      flush=flush)
         plain = time_ms(
@@ -608,6 +676,9 @@ def kernel_phase(torch):
               f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})  "
               f"{k1_bwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
         note("token_head_bwd", dtype, max(e_dx, e_dw), False, ms, plain, bnd)
+        if not bf16:
+            note("token_head_bwd_tf32x3", dtype, max(e_dx, e_dw), False, ms,
+                 plain, bnd)
         del feat, x
 
     # ---- K1 backward rounds gact to bf16 as the reference's kernel does:
@@ -710,8 +781,9 @@ def kernel_phase(torch):
               f"two runs identical  kernel {ms:.4f} ms  plain {plain:.4f} ms"
               f"  bound {bnd[0]:.4f} ms ({bnd[1]}); "
               f"{100 * bnd[0] / ms:.1f}% of the bound")
+        k2_fp32 = not bf16 and T == 75 and with_prev and with_mask
         note("realformer_attention", dtype, max(e1, e2, e3), summary, ms,
-             plain, bnd)
+             plain, bnd, fp32_sum=k2_fp32)
         if path == "mma":
             note("realformer_attention_mma", dtype, max(e1, e2, e3), summary,
                  ms, plain, bnd)
@@ -755,7 +827,7 @@ def kernel_phase(torch):
               f"{bnd[0]:.4f} ms ({bnd[1]}); {100 * bnd[0] / ms:.1f}% of the "
               f"bound")
         note("realformer_attention_bwd", dtype, max(e1, e2), summary, ms,
-             plain, bnd)
+             plain, bnd, fp32_sum=k2_fp32)
         if path == "mma":
             note("realformer_attention_bwd_mma", dtype, max(e1, e2), summary,
                  ms, plain, bnd)
@@ -767,6 +839,16 @@ def kernel_phase(torch):
         print(f"kernel {name}: max_abs_err fp32 "
               f"{r['err'][torch.float32]:.3e}, bf16 "
               f"{r['err'][torch.bfloat16]:.3e}; {library}{KERNELS[name][2]}")
+    for name, what in FP32_SUMS.items():
+        f = results[name]["fp32"]
+        by = max(f["bounds"])[1]
+        lib = (f"{f['library_ms']:.4f}" if name in WITH_LIBRARY
+               else f"null (the two calls {f['library_ms']:.4f})"
+               if name == "conv1x1_stats" else "null")
+        print(f"kernel {name} fp32, {what}: ms {f['ms']:.4f}  plain_ms "
+              f"{f['plain_ms']:.4f}  bound_ms "
+              f"{sum(ms for ms, _ in f['bounds']):.4f} ({by})  library_ms "
+              f"{lib}")
     return results
 
 
@@ -859,6 +941,8 @@ def trunk_kernel_phase(torch, results):
             r["plain_ms"] += count * plain
             r["library_ms"] += count * library
             r["bounds"] += [bnd] * count
+        elif name != "conv1x1_stats":  # K4 adds its tensor-core bound
+            add_fp32(r, count, ms, plain, library, bnd)
 
     def maxabs(t):
         return t.float().abs().max().item()
@@ -880,14 +964,17 @@ def trunk_kernel_phase(torch, results):
 
     def check_k4(label, x, w, bf16):
         """y and the sums against the plain version, two runs bit for bit,
-        bf16 through the TMA path; returns the errors and the largest plain
-        sum."""
+        bf16 through the TMA path, fp32 through the split-TF32 kernel;
+        returns the errors and the largest plain sum."""
         tma = conv1x1_stats.tma_launches
+        tf32x3 = conv1x1_stats.tf32x3_launches
         y, st = conv1x1_stats(x, w)
         y2, st2 = conv1x1_stats(x, w)
         if bf16 and conv1x1_stats.tma_launches != tma + 2:
             fail(f"conv1x1_stats {label}: a trunk shape took the mma.sync "
                  f"path")
+        if not bf16 and conv1x1_stats.tf32x3_launches != tf32x3 + 2:
+            fail(f"conv1x1_stats {label}: fp32 off the split-TF32 path")
         y_p, st_p = conv1x1_stats_reference(x, w)
         torch.cuda.synchronize()
         if not (torch.equal(y, y2) and torch.equal(st, st2)):
@@ -914,7 +1001,8 @@ def trunk_kernel_phase(torch, results):
         return s1, s2, err, max(maxabs(p1), maxabs(p2))
 
     small = {name: 0 for name in ("depthwise3x3", "depthwise3x3_bwd",
-                                  "conv1x1_stats", "bn_backward_sums")}
+                                  "conv1x1_stats", "conv1x1_stats_tf32x3",
+                                  "bn_backward_sums")}
 
     def note_small(name, dtype, err):
         r = results[name]
@@ -990,8 +1078,23 @@ def trunk_kernel_phase(torch, results):
                            max(check_k3_bwd(lab, xs, w, dys, bf16)))
             del x, dy, xn, dyn
 
-    # ---- K4: w is the convolution's (C, K) weight as its (K, C) view
+    # ---- K4: w is the convolution's (C, K) weight as its (K, C) view. fp32
+    # is timed at the CLI's batch too, beside the same two library calls
     two_call_ms = 0.0
+    k4_fp32 = {B: [0.0, 0.0, 0.0, 0.0] for B in (CLI_B, TRAIN_B)}
+
+    def k4_bounds(N, K, C, size):
+        """(bf16 or fp32 CUDA cores, split-TF32 on the tensor cores)"""
+        nbytes = (N * K + K * C + N * C) * size + 8 * C
+        ops = 2.0 * N * K * C + 3.0 * N * C
+        return (bound(nbytes, ops, 0, "bf16" if size == 2 else "fp32"),
+                bound(nbytes, ops, 0, "tf32x3"))
+
+    def two_calls(x, wt, bs):
+        xn = x.view(bs, x.shape[0] // bs, 1, x.shape[1]).permute(0, 3, 1, 2)
+        w4 = wt.view(wt.shape[0], wt.shape[1], 1, 1)
+        return timed(lambda: torch.batch_norm_stats(F.conv2d(xn, w4), 1e-3))
+
     for (N, K, C), count in sorted(k4_sites.items()):
         for dtype in dtypes:
             bf16 = dtype == torch.bfloat16
@@ -1005,28 +1108,52 @@ def trunk_kernel_phase(torch, results):
             plain = timed(lambda: conv1x1_stats_reference(x, w))
             # context, not a yardstick: the library's convolution followed by
             # its statistics reduction, two calls
-            xn = x.view(B, N // B, 1, K).permute(0, 3, 1, 2)
-            w4 = wt.view(C, K, 1, 1)
-            two = timed(lambda: torch.batch_norm_stats(F.conv2d(xn, w4),
-                                                       1e-3))
-            size = x.element_size()
-            bnd = bound((N * K + K * C + N * C) * size + 8 * C,
-                        2.0 * N * K * C + 3.0 * N * C, 0,
-                        "bf16" if bf16 else "fp32")
-            print(f"conv1x1_stats {label}: max_abs_err y {e_y:.3e} sums "
-                  f"{e_s:.3e} (of max {s_max:.3e}), two runs "
-                  f"identical  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                  f"bound {bnd[0]:.4f} ms ({bnd[1]})  [conv2d + "
-                  f"batch_norm_stats {two:.4f} ms]")
+            two = two_calls(x, wt, B)
+            bnd, tc = k4_bounds(N, K, C, x.element_size())
+            line = (f"conv1x1_stats {label}: max_abs_err y {e_y:.3e} sums "
+                    f"{e_s:.3e} (of max {s_max:.3e}), two runs "
+                    f"identical  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                    f"bound {bnd[0]:.4f} ms ({bnd[1]})  [conv2d + "
+                    f"batch_norm_stats {two:.4f} ms]")
             note("conv1x1_stats", dtype, e_y, count, ms, plain, 0.0, bnd)
             if bf16:
                 two_call_ms += count * two
-            # the rows of the train steps at their smaller batches
+            else:
+                line += (f"; on the tensor cores: bound {tc[0]:.4f} ms "
+                         f"({tc[1]}), {100 * tc[0] / ms:.1f}% of it")
+                # note() sums bf16 only: the fp32 sub-counter's row by hand
+                r = results["conv1x1_stats_tf32x3"]
+                r["err"][dtype] = max(r["err"][dtype], e_y)
+                r["ms"] += count * ms
+                r["plain_ms"] += count * plain
+                r["bounds"] += [tc] * count
+                add_fp32(results["conv1x1_stats"], count, ms, plain, two, tc)
+                for i, v in enumerate((ms, plain, two, tc[0])):
+                    k4_fp32[B][i] += count * v
+            print(line)
+            # the rows of the train steps at their smaller batches; fp32 at
+            # the CLI's batch timed
             for bs in SMALL_BATCHES[dtype]:
                 ns = N // B * bs
-                note_small("conv1x1_stats", dtype, check_k4(
-                    f"N={ns} K={K} C={C} {dtype}", x[:ns], w, bf16)[0])
-            del x, xn
+                xs = x[:ns]
+                lab = f"N={ns} K={K} C={C} {dtype}"
+                e_y = check_k4(lab, xs, w, bf16)[0]
+                note_small("conv1x1_stats", dtype, e_y)
+                if bf16 or bs != CLI_B:
+                    continue
+                note_small("conv1x1_stats_tf32x3", dtype, e_y)
+                ms = timed(lambda: conv1x1_stats(xs, w))
+                plain = timed(lambda: conv1x1_stats_reference(xs, w))
+                two = two_calls(xs, wt, bs)
+                _, tc = k4_bounds(ns, K, C, 4)
+                print(f"conv1x1_stats {lab} ({count} sites): kernel {ms:.4f} "
+                      f"ms  plain {plain:.4f} ms  [conv2d + batch_norm_stats "
+                      f"{two:.4f} ms]  bound on the tensor cores "
+                      f"{tc[0]:.4f} ms ({tc[1]}), {100 * tc[0] / ms:.1f}% of "
+                      f"it")
+                for i, v in enumerate((ms, plain, two, tc[0])):
+                    k4_fp32[bs][i] += count * v
+            del x
 
     # ---- K5; the library's call takes the (B, C, H, W) view of the same
     # channels-last map
@@ -1074,6 +1201,10 @@ def trunk_kernel_phase(torch, results):
             del x, dy, xn, dyn
     print(f"conv1x1_stats: the two library calls (conv2d + batch_norm_stats) "
           f"take {two_call_ms:.4f} ms over the 98 sites, bf16")
+    for bs, (ms, plain, two, tc) in k4_fp32.items():
+        print(f"conv1x1_stats fp32 B={bs}, the 98 sites: kernel {ms:.4f} ms  "
+              f"plain {plain:.4f} ms  conv2d + batch_norm_stats {two:.4f} ms  "
+              f"bound on the tensor cores {tc:.4f} ms")
     print(f"trunk kernels at the eval batch {EVAL_B} (depthwise3x3 forward, "
           f"fp32 and bf16 with the weight in x's dtype), at the fp32 train "
           f"check's batch {CHECK_B}, the bf16 fine-tune step's batch "
@@ -1303,6 +1434,8 @@ def _counters():
 
     return (("token_head", fused_token_head, "launches"),
             ("token_head_bwd", fused_token_head, "backward_launches"),
+            ("token_head_bwd_tf32x3", fused_token_head,
+             "backward_tf32x3_launches"),
             ("realformer_attention", realformer_attention, "launches"),
             ("realformer_attention_mma", realformer_attention,
              "mma_launches"),
@@ -1314,6 +1447,7 @@ def _counters():
             ("depthwise3x3_bwd", depthwise3x3, "backward_launches"),
             ("conv1x1_stats", conv1x1_stats, "launches"),
             ("conv1x1_stats_tma", conv1x1_stats, "tma_launches"),
+            ("conv1x1_stats_tf32x3", conv1x1_stats, "tf32x3_launches"),
             ("bn_backward_sums", bn_backward_sums, "launches"))
 
 
@@ -1474,14 +1608,67 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
                        f"train bf16 B={TRAIN_B}")
 
 
-def traced_train_steps(torch, run_step, n: int, label: str) -> float:
+def fp32_step_trace(torch, n: int = 3) -> float:
+    """(e) the CLIs' default step: the flagship MLM model in fp32 at their
+    batch (CLI_B), one synthetic batch. Five steps on the host clock, each
+    ending in a synchronise, with every counter at its exact count (K4 and
+    K1-bwd on their split-TF32 kernels); then ``n`` steps under
+    torch.profiler, as the bf16 steps are traced: the card's busy time and
+    the kernels by name. Returns the busy ms a step."""
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.models.mmbert import compute_dtype_of
+    from mmvqa_tpu_torch.train.state import create_train_state
+    from mmvqa_tpu_torch.train.steps import make_mlm_steps
+
+    cfg = flagship_mlm_config(batch_size=CLI_B, lr=TRAIN_LR, seed=SEED)
+    model = MMBert(cfg, compute_dtype=compute_dtype_of(cfg),
+                   generator=torch.Generator().manual_seed(SEED))
+    state = [create_train_state(model, cfg.lr, clip=cfg.clip)]
+    train_step, _ = make_mlm_steps(model, cfg)
+    batch = mlm_batches(cfg, 1, SEED)[0]
+    label = f"train fp32 B={CLI_B}"
+
+    def run_step():
+        state[0], m = train_step(state[0], batch)
+        return m
+
+    times, losses = [], []
+    reset_counts()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run_step()["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check_launches(label, read_counts(), expected_launches(5, 0, False))
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    print(f"{label}: ms per step {['%.1f' % t for t in times]} (median after "
+          f"the first {statistics.median(times[1:]):.2f}); losses "
+          f"{['%.4f' % x for x in losses]}; every K4 and K1-bwd launch on "
+          f"its split-TF32 kernel")
+    busy = traced_train_steps(torch, run_step, n, label, bf16=False)
+    del model, state
+    torch.cuda.empty_cache()
+    return busy
+
+
+def traced_train_steps(torch, run_step, n: int, label: str,
+                       bf16: bool = True) -> float:
     """``n`` calls of ``run_step`` (one train step) under torch.profiler:
     the device's busy share, the eight kernels and what is left of the
     library's batch-norm and depthwise kernels. Fails on a library
     batch-norm kernel, a second pass of the token head, the depthwise
     backward, conv1x1 + statistics or the BN-backward sums, an attention
     kernel other than the tensor-core ones, and a trace without device time
-    (``profiled``). Returns the busy ms per step."""
+    (``profiled``). An fp32 step (``bf16`` False) runs the token head's
+    forward and the attention on their fp32 kernels, whose redesign is still
+    to come (the forward's partial and finalize pair, the attention's
+    one-block kernels), and fails where conv1x1 + statistics or the token
+    head's backward runs any kernel other than its split-TF32 one. Returns
+    the busy ms per step."""
     _, wall, kernels = profiled(
         torch, lambda: [run_step() for _ in range(n)], n, label)
     busy = sum(a.self_device_time_total for a in kernels) / 1e3
@@ -1489,12 +1676,13 @@ def traced_train_steps(torch, run_step, n: int, label: str) -> float:
           f"ms/step, device busy {busy / n:.2f} ms/step "
           f"({100 * busy / wall:.1f}%)")
     ours = ("token_head_fwd_mma", "token_head_partial", "token_head_finalize",
-            "token_head_bwd", "realformer_attn_fwd", "realformer_attn_fwd_mma",
+            "token_head_bwd", "token_head_bwd_rows", "token_head_bwd_tiles",
+            "realformer_attn_fwd", "realformer_attn_fwd_mma",
             "realformer_attn_bwd", "realformer_attn_bwd_mma",
             "depthwise3x3_fwd", "depthwise3x3_bwd",
             "conv1x1_stats_tma", "conv1x1_stats_bf16",
-            "conv1x1_stats_reduce", "bn_backward_sums_kernel",
-            "bn_backward_sums_reduce")
+            "conv1x1_stats_tf32x3", "conv1x1_stats_reduce",
+            "bn_backward_sums_kernel", "bn_backward_sums_reduce")
 
     def total(hit):
         return (sum(a.self_device_time_total for a in hit) / 1e3 / n,
@@ -1527,18 +1715,28 @@ def traced_train_steps(torch, run_step, n: int, label: str) -> float:
     second = [a.key for a in mine if "reduce" in a.key and any(
         t in a.key for t in ("depthwise", "token_head", "conv1x1",
                              "bn_backward_sums"))
-              or "token_head_finalize" in a.key]
+              or (bf16 and "token_head_finalize" in a.key)]
     if second:
         fail(f"{label}: a second pass of the depthwise backward, the token "
              f"head, conv1x1 + statistics or the BN-backward sums ran in the "
              f"train step: {second}")
-    # the attention runs on its tensor-core kernels alone, both ways
+    # bf16: the attention runs on its tensor-core kernels alone, both ways;
+    # fp32: on its fp32 kernels
     for way in ("fwd", "bwd"):
         other = [a.key for a in mine if f"realformer_attn_{way}" in a.key
-                 and f"realformer_attn_{way}_mma" not in a.key]
+                 and (f"realformer_attn_{way}_mma" in a.key) != bf16]
         if other:
             fail(f"{label}: an attention {way} kernel other than the "
-                 f"tensor-core one ran in the train step: {other}")
+                 f"{'tensor-core' if bf16 else 'fp32'} one ran in the train "
+                 f"step: {other}")
+    if not bf16:
+        other = [a.key for a in mine if ("conv1x1" in a.key
+                                         and "tf32x3" not in a.key)
+                 or ("token_head_bwd" in a.key and "_rows_" not in a.key
+                     and "_tiles_" not in a.key)]
+        if other:
+            fail(f"{label}: conv1x1 + statistics or the token head's "
+                 f"backward ran off its split-TF32 kernel: {other}")
     for a in kernels[:14]:
         print(f"  {a.self_device_time_total / 1e3 / n:9.4f} ms/step "
               f"{a.count // n:5d} calls  {a.key[:80]}")
@@ -1610,6 +1808,7 @@ def train_phase(torch):
                 "realformer_attention_bwd_mma": cfg.n_layers,
                 "depthwise3x3": 42, "depthwise3x3_bwd": 42,
                 "conv1x1_stats": 98, "conv1x1_stats_tma": 98,
+                "token_head_bwd_tf32x3": 0, "conv1x1_stats_tf32x3": 0,
                 "bn_backward_sums": 156}
     want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
     other = launches["conv1x1_stats"] - launches["conv1x1_stats_tma"]
@@ -1642,6 +1841,9 @@ def train_phase(torch):
         fail(f"train: eval loss {ev['loss']}")
 
     train_breakdown(torch, model, cfg, state, batch, 3)
+    del model, state
+    torch.cuda.empty_cache()
+    fp32_step_trace(torch)
     return launches
 
 def flagship_vqa_config(**over):
@@ -1813,6 +2015,7 @@ def finetune_phase(torch):
                     "realformer_attention_bwd_mma": cfg.n_layers,
                     "depthwise3x3": 42, "depthwise3x3_bwd": 42,
                     "conv1x1_stats": 98, "conv1x1_stats_tma": 98,
+                    "token_head_bwd_tf32x3": 0, "conv1x1_stats_tf32x3": 0,
                     "bn_backward_sums": 156}
         want = {name: n * FT_STEPS for name, n in per_step.items()}
         other = launches["conv1x1_stats"] - launches["conv1x1_stats_tma"]
@@ -2031,6 +2234,31 @@ class TimedTrainEpochs:
         return False
 
 
+class TF32Off:
+    """Turns PyTorch's two TF32 flags on before a CLI's ``main`` runs and
+    fails unless both are off when it returns: the CLIs turn them off
+    themselves (``cli/common.py::setup_runtime``), whatever the process had,
+    so that their fp32 is fp32 (cuDNN's convolutions run TF32 by default).
+    Leaves them off, as the rest of the smoke runs."""
+
+    def __init__(self, torch, label: str):
+        self.flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+        self.label = label
+
+    def __enter__(self):
+        for f in self.flags:
+            f.allow_tf32 = True
+        return self
+
+    def __exit__(self, kind, *_):
+        on = [f.allow_tf32 for f in self.flags]
+        for f in self.flags:
+            f.allow_tf32 = False
+        if kind is None and any(on):
+            fail(f"{self.label}: TF32 still on after main (matmul, cudnn: "
+                 f"{on}); the CLI must turn it off itself")
+
+
 class Tee:
     """Within ``with``, standard output goes on to the terminal and is kept
     in ``text``."""
@@ -2062,9 +2290,12 @@ def expected_launches(train: int, forwards: int, bf16: bool) -> dict:
     """Each counter after ``train`` train steps (forward and backward, the
     trunk on batch statistics) and ``forwards`` eval forwards of the
     flagship model; in bf16 every attention call takes the tensor-core
-    kernels and every conv1x1 + statistics call its TMA path."""
+    kernels and every conv1x1 + statistics call its TMA path, in fp32 every
+    conv1x1 + statistics call and every token-head backward its split-TF32
+    kernel."""
     f = train + forwards
     return {"token_head": 5 * f, "token_head_bwd": 5 * train,
+            "token_head_bwd_tf32x3": 0 if bf16 else 5 * train,
             "realformer_attention": 4 * f,
             "realformer_attention_mma": 4 * f if bf16 else 0,
             "realformer_attention_bwd": 4 * train,
@@ -2072,6 +2303,7 @@ def expected_launches(train: int, forwards: int, bf16: bool) -> dict:
             "depthwise3x3": 42 * f, "depthwise3x3_bwd": 42 * train,
             "conv1x1_stats": 98 * train,
             "conv1x1_stats_tma": 98 * train if bf16 else 0,
+            "conv1x1_stats_tf32x3": 0 if bf16 else 98 * train,
             "bn_backward_sums": 156 * train}
 
 
@@ -2099,7 +2331,8 @@ def cli_phase(torch, work: str):
     before and read after (every one of the eight kernels must move, at the
     exact count of its train steps and eval forwards), finite losses, the
     weights file and the metric lines, train items/s and the share of each
-    train epoch the loop waited on the loader. The fixture and the bf16
+    train epoch the loop waited on the loader; both TF32 flags turned on
+    before ``main`` and off after it (``TF32Off``). The fixture and the bf16
     run's weights stay in ``work`` for the drivers phase. Returns the
     launches of both runs."""
     from mmvqa_tpu_torch.cli import roco_train
@@ -2135,7 +2368,8 @@ def cli_phase(torch, work: str):
         save = os.path.join(work, label)
         reset_counts()
         t0 = time.perf_counter()
-        with TimedTrainEpochs(roco_train, "mlm_epoch") as timer:
+        with TF32Off(torch, f"cli {label}"), TimedTrainEpochs(
+                roco_train, "mlm_epoch") as timer:
             roco_train.main(["-r", f"cli_{label}", "--data_dir", data,
                              "--save_dir", save, "--epochs", str(n_epochs),
                              *CLI_ARGS, *extra])
@@ -2240,8 +2474,8 @@ def drivers_phase(torch, work: str) -> dict:
     pretraining on the CLI phase's ROCO fixture, the fp32 SupCon step card
     vs CPU, fine-tuning from the CLI phase's bf16 weights on a VQA fixture
     the port writes, and evaluation (one model and an ensemble of two).
-    Every run has each counter at its exact count; returns the launches of
-    all the runs."""
+    Every run has each counter at its exact count and turns TF32 off itself
+    (``TF32Off``); returns the launches of all the runs."""
     from mmvqa_tpu_torch.cli import roco_supcon_train, vqa_eval, vqa_train
     from mmvqa_tpu_torch.data.fixtures import make_vqa_fixture
     from mmvqa_tpu_torch.train import checkpoint
@@ -2260,7 +2494,8 @@ def drivers_phase(torch, work: str) -> dict:
         save = os.path.join(work, run)
         reset_counts()
         t0 = time.perf_counter()
-        with TimedTrainEpochs(roco_supcon_train, "supcon_epoch") as timer:
+        with TF32Off(torch, f"drivers {run}"), TimedTrainEpochs(
+                roco_supcon_train, "supcon_epoch") as timer:
             roco_supcon_train.main([
                 "-r", run, "--data_dir", roco, "--save_dir", save,
                 "--epochs", str(n_epochs), "--con_task", "supcon",
@@ -2318,7 +2553,8 @@ def drivers_phase(torch, work: str) -> dict:
         hist = n_epochs if "--watch_histograms" in extra else 0
         reset_counts()
         t0 = time.perf_counter()
-        with Tee() as out, TimedTrainEpochs(vqa_train, "vqa_epoch") as timer:
+        with TF32Off(torch, f"drivers {run}"), Tee() as out, \
+                TimedTrainEpochs(vqa_train, "vqa_epoch") as timer:
             vqa_train.main(["--run_name", run, "--save_dir", save,
                             "--epochs", str(n_epochs), "--use_pretrained",
                             "--model_dir", pretrained, *vqa_flags, *extra])
@@ -2386,9 +2622,10 @@ def drivers_phase(torch, work: str) -> dict:
         name = os.path.basename(dirs[0])
         reset_counts()
         t0 = time.perf_counter()
-        vqa_eval.main(["--run_name", "eval", "--save_dir", save,
-                       "--mixed_precision", *vqa_flags, "--model_dir",
-                       dirs[0], "--model_dirs", *dirs])
+        with TF32Off(torch, f"drivers eval {label}"):
+            vqa_eval.main(["--run_name", "eval", "--save_dir", save,
+                           "--mixed_precision", *vqa_flags, "--model_dir",
+                           dirs[0], "--model_dirs", *dirs])
         wall = time.perf_counter() - t0
         got = read_counts()
         print(f"drivers eval {label}: vqa_eval.main of "
@@ -2464,7 +2701,9 @@ def main() -> None:
     # ms, plain_ms, bound_ms, library_ms: at the train path's shapes in bf16,
     # B=TRAIN_B, summed over the calls of one pass (the trunk's kernels:
     # every site of a step, inputs not in the L2 cache); bound_by: what
-    # binds the largest.
+    # binds the largest. The two _tf32x3 rows are fp32's, bounds on the
+    # tensor cores: K1-bwd's five taps at B=CLI_B, K4's 98 sites at
+    # B=TRAIN_B.
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

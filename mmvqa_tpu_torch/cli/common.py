@@ -218,7 +218,16 @@ def setup_runtime(cfg: Config,
                   ) -> Tuple[torch.device, torch.dtype]:
     """Checks the config and returns (device, compute dtype): the CUDA card
     unless the caller names another device, bf16 compute under
-    ``--mixed_precision``, else fp32."""
+    ``--mixed_precision``, else fp32.
+
+    Turns TF32 off for PyTorch's fp32 matrix products and cuDNN's fp32
+    convolutions, process-wide: the port's fp32 is the JAX package's fp32,
+    and cuDNN would otherwise run the trunk's 3x3 and stride-2 convolutions
+    with 10-bit mantissas (``torch.backends.cudnn.allow_tf32`` is True by
+    default). The hand-written kernels keep fp32 accuracy on their own
+    (split-TF32 products, ``csrc/tf32x3.cuh``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cfg.validate()  # fail fast with a readable error, not a reshape crash
     off = {k: getattr(cfg, k) for k, v in MESH_DEFAULTS.items()
            if getattr(cfg, k) != v}

@@ -12,9 +12,13 @@
 // the trunk hands over the convolution's (C, K) weight as its (K, C) view,
 // K-major, which is what both tensor-core paths want for their B operand.
 //
-// What bounds it on an H100: bytes at 15 of the flagship trunk's 18 site
-// shapes (32-250 operations a byte against the card's 295), operations at
-// the three with K or C of 1824 and 3072.
+// What bounds it on an H100: in bf16, bytes at 15 of the flagship trunk's 18
+// site shapes (32-250 operations a byte against the card's 295), operations
+// at the three with K or C of 1824 and 3072. In fp32, with the products as
+// three TF32 products on the tensor cores (165 TFLOP/s of fp32 products,
+// csrc/tf32x3.cuh), operations at 13 of the 18 shapes and bytes at the five
+// with C of 48 and 80 (the bound of all 98 sites at B=128: 5.36 ms, 4.56 of
+// it at sites held by operations).
 //
 // bf16, TMA + wgmma (conv1x1_stats_tma_kernel; x dense with K % 8 = 0, W a
 // K-major view with its row stride a multiple of 8, C % 8 = 0, 16-byte
@@ -44,15 +48,35 @@
 // 128 (or 64) columns, K staged 32 deep through shared memory by register
 // loads (rows padded to 40 halves), each of 8 warps issuing
 // mma.sync.m16n8k16 on a 32 x 64 (32 x 32) tile; a path chosen by shape,
-// as K3's element copies are. fp32: a register-tiled product on CUDA cores
-// in full fp32, never TF32: it is the path held against the CPU. Both walk
-// several row tiles a block, keep their columns' sums, write one (2, C)
-// partial a block, and a second kernel adds the partials in block order.
+// as K3's element copies are. It walks several row tiles a block, keeps its
+// columns' sums, writes one (2, C) partial a block, and a second kernel adds
+// the partials in block order.
+//
+// fp32, every shape (conv1x1_stats_tf32x3_kernel): fp32 accuracy from three
+// TF32 products a product on mma.sync (csrc/tf32x3.cuh: the split in
+// registers, fragments by ldmatrix from 128-byte rows swizzled against bank
+// conflicts). A block of 256 threads (8 warps, 2 x 4) owns a (BM, BN) tile
+// of 128 or 64 each, x and W staged 32 deep through a three-stage cp.async
+// ring (16-byte copies where the rows allow, element copies by W's strides
+// otherwise, zeros past N, K and C), two blocks an SM. Below 128 x 128 the
+// tensor cores sum a whole chunk before each fp32 add. The blocks walk row
+// tiles as the other kernels do and keep their columns' sums in registers;
+// the last block of a column tile adds the partials in block order (one
+// launch, no float atomics). The tile, the blocks along the rows and the
+// slices of K come from a model of the busiest SM's time read off the card
+// (ops/conv_bn.py::tf32_plan). At the 7x7 sites of B=16 (N = 784, the
+// CLI's batch) the tiles are fewer than the SMs and K is deep: K is cut
+// into 2-4 slices, one a block, each writing its tile's sums to scratch,
+// and the last of a tile's slices adds them in order before y and the
+// column sums are taken. It reaches well under half of its bound at every
+// site shape, held by the split's instructions and the chains of dependent
+// products more than by the tensor cores (PERF.md §6 has the shares).
 #include <cuda.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "tf32x3.cuh"
 
 namespace mmvqa {
 namespace k4 {
@@ -248,96 +272,199 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ------------------------------------------------------------------ fp32 ----
-constexpr int kFM = 64, kFN = 64, kFK = 16;  // tile; 16 x 16 threads, 4 x 4 each
+namespace f32 {
 
-__global__ void __launch_bounds__(kThreads)
-    conv1x1_stats_fma_kernel(const float* __restrict__ x,
-                             const float* __restrict__ w, long long swk,
-                             long long swc, float* __restrict__ y,
-                             float* __restrict__ partial, int N, int K, int C,
-                             int mtiles) {
-  __shared__ __align__(16) float As[kFK][kFM + 4];  // [k][row]
-  __shared__ __align__(16) float Bs[kFK][kFN];      // [k][column]
-  __shared__ float red[16][2][kFN];
+constexpr int kStages = 3;  // of the ring: two (BM + BN) x 32 chunks ahead
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns 4 * tx ..
-  const int ty = tid / 16;  // rows 4 * ty ..
-  const int c0 = blockIdx.x * kFN;
+// Dynamic shared memory of a (bm, bn) tile: the ring; at the end the warps'
+// column sums reuse it.
+__host__ __device__ inline int smem_bytes(int bm, int bn) {
+  return 4 * kStages * (bm + bn) * tf32::kChunk;
+}
 
-  float cs[4] = {0.0f, 0.0f, 0.0f, 0.0f}, cq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+// grid (ceil(C / BN), nrb), block 256, two blocks an SM. The tensor cores
+// sum a whole 32-deep chunk before the fp32 add (tf32::product's CHUNK)
+// where the accumulators leave the registers for it, below 128 x 128.
+// Block (ct, r) owns columns
+// [ct * BN, + BN) of the row tiles r, r + nrb, ... and writes their column
+// sums as its (2, BN) partial; rows past N are zeros and add nothing. The
+// last block of a column tile (an atomicInc counter that wraps to 0, one
+// buffer a stream) adds the partials in block order: one launch.
+// With ks > 1 (few tiles and a deep K: the 7x7 sites at B=16) the grid is
+// (ceil(C / BN), row tiles, ks) and block (ct, mt, z) sums the z-th of ks
+// slices of K (kseg deep, whole chunks) into ypart[z]; the last of a tile's
+// ks blocks (a counter a tile) adds the slices in z order into y and takes
+// the tile's column sums, which the column tile's last tile adds as above.
+template <int BM, int BN>
+__global__ void __launch_bounds__(tf32::kThreads, 2)
+    conv1x1_stats_tf32x3_kernel(tf32::Dense xs, tf32::Dense ws,
+                                float* __restrict__ y,
+                                float* __restrict__ part,
+                                float* __restrict__ stats,
+                                unsigned* __restrict__ counter,
+                                float* __restrict__ ypart, int N, int K,
+                                int C, int mtiles, int kseg) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ int last;
+  const int ks = gridDim.z, z = blockIdx.z;
+  constexpr int MI = BM / 32, NI = BN / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = (warp / 4) * (BM / 2), wn = (warp % 4) * (BN / 4);
+  const int c0 = blockIdx.x * BN;
+  const bool pairs = C % 2 == 0;
+  float cs[NI][2], cq[NI][2];
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+    cs[j][0] = cs[j][1] = cq[j][0] = cq[j][1] = 0.0f;
 
   for (int mt = blockIdx.y; mt < mtiles; mt += gridDim.y) {
-    const int m0 = mt * kFM;
-    float acc[4][4];
+    const int m0 = mt * BM;
+    float acc[MI][NI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < K; k0 += kFK) {
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+    tf32::product<BM, BN, kStages, tf32::kOuterRows, tf32::kOuterRows, 1,
+                  BM * BN < 128 * 128>(
+        acc, ring, xs, m0, z * kseg, ws, c0, z * kseg,
+        min(kseg, K - z * kseg));
+    if (ks > 1) {
+      // this slice's sums to ypart[z]; the tile's last slice adds them all,
+      // in z order, in place of acc
+      float* mine = ypart + (long long)z * N * C;
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = m0 + wm + i * 16 + (e / 2) * 8 + g;
+            const int col = c0 + wn + j * 8 + 2 * q + e % 2;
+            if (row < N && col < C) mine[(long long)row * C + col] = acc[i][j][e];
+          }
+      __threadfence();
       __syncthreads();
-      for (int i = tid; i < kFM * kFK; i += kThreads) {
-        const int row = i / kFK, k = i % kFK;  // K is x's unit-stride axis
-        As[k][row] = (m0 + row < N && k0 + k < K)
-                         ? x[(long long)(m0 + row) * K + k0 + k]
-                         : 0.0f;
-      }
-      for (int i = tid; i < kFN * kFK; i += kThreads) {
-        int k, n;
-        if (swc == 1) {
-          k = i / kFN;
-          n = i % kFN;
-        } else {
-          n = i / kFK;
-          k = i % kFK;
+      if (threadIdx.x == 0)
+        last = atomicInc(&counter[gridDim.x + mt * gridDim.x + blockIdx.x],
+                         ks - 1) == ks - 1;
+      __syncthreads();
+      if (!last) return;
+      __threadfence();
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = m0 + wm + i * 16 + (e / 2) * 8 + g;
+            const int col = c0 + wn + j * 8 + 2 * q + e % 2;
+            float v = 0.0f;
+            if (row < N && col < C)
+              for (int r = 0; r < ks; ++r)
+                v += __ldcg(&ypart[((long long)r * N + row) * C + col]);
+            acc[i][j][e] = v;
+          }
+    }
+    // y, and the sums of this thread's columns over its rows
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+          cs[j][0] += v0;
+          cs[j][1] += v1;
+          cq[j][0] = fmaf(v0, v0, cq[j][0]);
+          cq[j][1] = fmaf(v1, v1, cq[j][1]);
+          const int row = m0 + wm + i * 16 + h * 8 + g;
+          const int col = c0 + wn + j * 8 + 2 * q;
+          if (row < N && col < C) {
+            float* dst = y + (long long)row * C + col;
+            if (pairs) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (col + 1 < C) dst[1] = v1;
+            }
+          }
         }
-        Bs[k][n] = (c0 + n < C && k0 + k < K)
-                       ? w[(long long)(k0 + k) * swk + (long long)(c0 + n) * swc]
-                       : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kFK; ++k) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
-        const float a[4] = {av.x, av.y, av.z, av.w};
-        const float b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + 4 * tx + j;
-        cs[j] += acc[i][j];
-        cq[j] = fmaf(acc[i][j], acc[i][j], cq[j]);
-        if (row < N && col < C)
-          y[(long long)row * C + col] = acc[i][j];
-      }
-    }
   }
 
+  // the 8 row lanes that share a column, then the two warp rows in order
+  // (the ring is free: the last product ended with a barrier)
+  float* red = ring;  // [warp row][stat][BN]
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[ty][0][4 * tx + j] = cs[j];
-    red[ty][1][4 * tx + j] = cq[j];
-  }
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        cs[j][e] += __shfl_xor_sync(0xffffffffu, cs[j][e], off);
+        cq[j][e] += __shfl_xor_sync(0xffffffffu, cq[j][e], off);
+      }
+      if (g == 0) {
+        const int n = wn + j * 8 + 2 * q + e;
+        red[((warp / 4) * 2 + 0) * BN + n] = cs[j][e];
+        red[((warp / 4) * 2 + 1) * BN + n] = cq[j][e];
+      }
+    }
   __syncthreads();
-  for (int i = tid; i < 2 * kFN; i += kThreads) {
-    const int which = i / kFN, n = i % kFN;
+  const long long cpad = (long long)gridDim.x * BN;
+  for (int i = threadIdx.x; i < 2 * BN; i += tf32::kThreads) {
+    const int stat = i / BN, n = i % BN;
+    part[((long long)blockIdx.y * 2 + stat) * cpad + c0 + n] =
+        red[stat * BN + n] + red[(2 + stat) * BN + n];
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicInc(&counter[blockIdx.x], gridDim.y - 1) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < 2 * BN; i += tf32::kThreads) {
+    const int stat = i / BN, n = i % BN;
     if (c0 + n >= C) continue;
-    float s = 0.0f;
-#pragma unroll
-    for (int m = 0; m < 16; ++m) s += red[m][which][n];
-    partial[((long long)blockIdx.y * 2 + which) * C + c0 + n] = s;
+    float sum = 0.0f;
+    for (int r = 0; r < (int)gridDim.y; ++r)
+      sum += __ldcg(&part[((long long)r * 2 + stat) * cpad + c0 + n]);
+    stats[(long long)stat * C + c0 + n] = sum;
   }
 }
+
+// The shared memory each tile's kernel may use, asked for once (an array of
+// this file: see tma_granted below)
+static int granted[4];
+
+template <int BM, int BN>
+cudaError_t launch(const tf32::Dense& xs, const tf32::Dense& ws, float* y,
+                   float* part, float* stats, unsigned* counter,
+                   float* ypart, int N, int K, int C, int nrb, int ks,
+                   int smem, int slot, cudaStream_t s) {
+  auto kern = conv1x1_stats_tf32x3_kernel<BM, BN>;
+  if (smem > granted[slot]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+    granted[slot] = smem;
+  }
+  // K's slices in whole chunks
+  const int kseg = ((K + ks - 1) / ks + tf32::kChunk - 1) / tf32::kChunk *
+                   tf32::kChunk;
+  kern<<<dim3((C + BN - 1) / BN, nrb, ks), tf32::kThreads, smem, s>>>(
+      xs, ws, y, part, stats, counter, ypart, N, K, C, (N + BM - 1) / BM,
+      kseg);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
 
 __global__ void conv1x1_stats_reduce_kernel(const float* __restrict__ part,
                                             float* __restrict__ out,
@@ -775,10 +902,10 @@ inline bool aligned16(const void* p) {
 }  // namespace k4
 }  // namespace mmvqa
 
-// fp32, and bf16 shapes the TMA path does not take: x (N, K) dense; w (K, C)
-// by element strides (swk, swc); y (N, C) dense; all of one dtype. partial: (nrb, 2, C) fp32 scratch; stats: (2, C) fp32 out.
-// nrb blocks along the rows share the ceil(N / tile_m) row tiles, tile_m 128
-// for bf16 and 64 for fp32 (ops/conv_bn.py::launch_plan); nrb <= that count.
+// bf16 shapes the TMA path does not take: x (N, K) dense; w (K, C) by
+// element strides (swk, swc); y (N, C) dense; all bf16. partial: (nrb, 2, C)
+// fp32 scratch; stats: (2, C) fp32 out. nrb blocks along the rows share the
+// ceil(N / 128) row tiles (ops/conv_bn.py::launch_plan); nrb <= that count.
 extern "C" int conv1x1_stats(const void* x, int dtype, const void* w,
                              long long swk, long long swc, void* y,
                              void* partial, void* stats, int N, int K, int C,
@@ -787,13 +914,7 @@ extern "C" int conv1x1_stats(const void* x, int dtype, const void* w,
   using namespace mmvqa::k4;
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(partial);
-  if (dtype == kFloat32) {
-    const int mtiles = (N + kFM - 1) / kFM;
-    const dim3 grid((C + kFN - 1) / kFN, nrb);
-    conv1x1_stats_fma_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), swk, swc,
-        static_cast<float*>(y), part, N, K, C, mtiles);
-  } else if (dtype == kBFloat16) {
+  if (dtype == kBFloat16) {
     auto xp = static_cast<const __nv_bfloat16*>(x);
     auto wp = static_cast<const __nv_bfloat16*>(w);
     auto yp = static_cast<__nv_bfloat16*>(y);
@@ -819,6 +940,55 @@ extern "C" int conv1x1_stats(const void* x, int dtype, const void* w,
   conv1x1_stats_reduce_kernel<<<reduce_blocks(n), kReduceThreads, 0, s>>>(
       part, static_cast<float*>(stats), n, nrb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// fp32, split-TF32 products: x (N, K) dense; w (K, C) by element strides
+// (swk, swc); y (N, C) dense. part: (nrb, 2, ceil(C / bn) * bn) fp32
+// scratch; stats: (2, C) fp32 out; counter: ceil(C / bn) * (1 + row tiles)
+// unsigned ints, zero on entry and on exit, one buffer a stream; ypart:
+// (ks, N, C) fp32 scratch where ks > 1 (else unused). The plan
+// (ops/conv_bn.py::tf32_plan): a (bm, bn) tile, each 128 or 64; nrb blocks
+// along the rows, no more than the row tiles (all of them where ks > 1); ks
+// slices of K; smem bytes of the ring.
+extern "C" int conv1x1_stats_tf32x3(const void* x, const void* w,
+                                    long long swk, long long swc, void* y,
+                                    void* part, void* stats, void* counter,
+                                    void* ypart, int N, int K, int C, int bm,
+                                    int bn, int nrb, int ks, int smem,
+                                    void* stream) {
+  using namespace mmvqa;
+  using namespace mmvqa::k4;
+  const int mtiles = bm > 0 ? (N + bm - 1) / bm : 0;
+  if (N < 1 || K < 1 || C < 1 || nrb < 1 || nrb > mtiles || nrb > 65535 ||
+      ks < 1 || ks > 64 || (ks > 1 && (nrb != mtiles || ypart == nullptr)) ||
+      (ks - 1) * tf32::kChunk >= K || smem != f32::smem_bytes(bm, bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto xp = static_cast<const float*>(x);
+  auto wp = static_cast<const float*>(w);
+  // W's (c, k) element: its rows are the columns of y
+  const tf32::Dense xs{xp, K, 1, N, K, K % 4 == 0 && aligned16(x)};
+  const tf32::Dense ws{wp, swc, swk, C, K,
+                       swk == 1 && swc % 4 == 0 && K % 4 == 0 &&
+                           aligned16(w)};
+  auto yp = static_cast<float*>(y);
+  auto p = static_cast<float*>(part);
+  auto st = static_cast<float*>(stats);
+  auto cnt = static_cast<unsigned*>(counter);
+  auto yparts = static_cast<float*>(ypart);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bm == 128 && bn == 128)
+    return f32::launch<128, 128>(xs, ws, yp, p, st, cnt, yparts, N, K, C, nrb,
+                                 ks, smem, 0, s);
+  if (bm == 128 && bn == 64)
+    return f32::launch<128, 64>(xs, ws, yp, p, st, cnt, yparts, N, K, C, nrb,
+                                ks, smem, 1, s);
+  if (bm == 64 && bn == 128)
+    return f32::launch<64, 128>(xs, ws, yp, p, st, cnt, yparts, N, K, C, nrb,
+                                ks, smem, 2, s);
+  if (bm == 64 && bn == 64)
+    return f32::launch<64, 64>(xs, ws, yp, p, st, cnt, yparts, N, K, C, nrb,
+                               ks, smem, 3, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bf16, the TMA path: x (N, K) dense; w (K, C) with unit stride on K and

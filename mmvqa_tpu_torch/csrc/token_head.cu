@@ -706,7 +706,7 @@ extern "C" int token_head_fwd_mma(const void* x, long long sb, long long sp,
       slots < (B < (rows_pb - 1) / P + 2 ? B : (rows_pb - 1) / P + 2))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{x, sb, sp, sk, w, nullptr, nullptr, 0, 0, 0, nullptr, nullptr,
-         nullptr, B, P, K, C, tp, per_block, 0};
+         nullptr, B, P, K, C, tp, per_block, mode};
   Out o{static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
         static_cast<unsigned*>(counter), per_block, slots, ctiles * kTileC};
   const int vec_x = vec_x_ok(x, sb, sp, sk, K);

@@ -9,15 +9,20 @@
 //   dx   = gact W^T                  (B, P, K), x's dtype, through dx's strides
 //   dW   = sum_{b, p} x^T gact       (K, C), fp32
 //
-// Like the forward it never writes a (B, P, C) array. Positions are taken as
-// one axis of B * P rows: a tile of rows may straddle two images, so that
-// the small maps (P = 49, 196) waste no padded tile per image.
+// Like the forward it writes no (B, P, C) array, but for fp32's tiles mode
+// at the deep taps, whose gact is small. Positions are taken as one axis of
+// B * P rows: a tile of rows may straddle two images, so that the small maps
+// (P = 49, 196) waste no padded tile per image.
 //
 // What bounds it on an H100: operations. At the flagship stage-0 tap (B=128,
 // P=112*112, K=24, C=768) the three products are 29.6 G multiply-adds each
 // and act' is taken 1.2 G times (the bf16 path's polynomial SERF: an exp and
 // a reciprocal on the special-function units, two an element, which is the
-// bound), against 77 MB of x read and 77 MB of dx written in bf16.
+// bound), against 77 MB of x read and 77 MB of dx written in bf16. In fp32
+// the products run as three TF32 products on the tensor cores (165 TFLOP/s
+// of fp32 products, csrc/tf32x3.cuh) and exact SERF's derivative takes six
+// special functions an element (at 4.18 T/s); those bound stage 0 (0.22 ms
+// against 0.13 for the products at B=16), the products the deeper taps.
 //
 // bf16: the three products on the tensor cores (mma.sync m16n8k16, fp32
 // sums, fragments by ldmatrix). A block of 512 threads owns tiles of TP rows
@@ -41,39 +46,56 @@
 // of six stages, five ahead, in 32-k chunks: (x, W) chunks for s, W chunks
 // for dx, x chunks for dW. The ring runs on across the block's tiles.
 //
-// fp32: the same function on CUDA cores, never TF32 (the fp32 path serves the
-// fp32 checks): register-tiled FMA products per (64-row tile, 128-channel
-// tile), dx summed over the channel tiles in a (64, K + 1) shared tile where
-// it fits and in dx itself (fp32, owned by one thread) where K is larger,
-// dW added into the block's partial.
+// fp32 (k1::bwd::f32): gact stays fp32, as the plain version keeps it, and
+// the three products are split-TF32 products on the tensor cores; 256
+// threads a block, launched cooperatively; two modes by K alone
+// (ops/token_head.py::backward_tile):
+//   rows (K <= 96, stages 0-2): a block walks its share of the row tiles
+//     once for each 128-channel tile, with W's K x 128 tile staged once per
+//     channel tile: s, gact into shared memory, dx added into dx itself
+//     (the block's own rows), dW for the channel tile held in registers
+//     across the block's row tiles and written to the block's (K, C)
+//     partial, which the blocks add after a grid barrier. At stage 0 K = 24
+//     makes that partial 74 KB: the sum costs microseconds.
+//   tiles (K > 96, stages 4 and 6): few rows and a wide K, where the row
+//     tiles alone cannot fill the card (stage 6 at B=16 has 13 of 64 rows)
+//     and a (K, C) partial a block would cost more than the products (1.5 MB
+//     each at stage 6). gact goes to device memory (2.4 MB at stage 6,
+//     B=16: it stays in the L2 cache), and after a grid barrier every 64 x
+//     64 tile of dW (over the rows) and of dx (over the channels) is summed
+//     whole by one block; dW's rows are cut into segments, added after a
+//     second barrier, only where its tiles would be few and long.
 //
-// dW across blocks: a block's partial is (K, C) fp32; the blocks are
-// launched cooperatively, so that all of them are resident at once, meet at
-// a barrier of two counters (arrivals, departures; both back at 0 when the
-// kernel ends), and then each sums a share of dW's entries over the partials
-// in block order. No float atomics: two runs give identical bits. One
-// barrier buffer a (device, stream): the wrapper owns them.
+// dW across blocks (bf16; fp32's rows mode): a block's partial is (K, C)
+// fp32; the blocks are launched cooperatively, so that all of them are
+// resident at once, meet at a barrier of two counters (arrivals,
+// departures; both back at 0 when the kernel ends), and then each sums a
+// share of dW's entries over the partials in block order. No float atomics:
+// two runs give identical bits. One barrier buffer a (device, stream): the
+// wrapper owns them (two barriers' counters, for fp32's tiles mode).
 //
 // x is read, and dx written, by strides, so the trunk's channels-last map
 // and its gradient go through as views with no transposing copy.
-#include <type_traits>
-
+#include "tf32x3.cuh"
 #include "token_head_tile.cuh"
 
 namespace mmvqa {
 namespace k1 {
 namespace bwd {
 
-constexpr int kThreads = 256;  // a block of the fp32 kernel
-
 // derivative of the activation (mmvqa_tpu/ops/pallas_token_head.py::_act_grad)
 template <int ACT>
 __device__ __forceinline__ float act_grad(float s) {
   if (ACT == kSerf) {
-    const float y = log1pf(expf(fminf(s, 50.0f)));
-    const float sig = 1.0f / (1.0f + expf(-s));
+    // the special-function unit's exp and log (errors of a few ulps, and
+    // 2^-21 absolute for the log near 1: far inside the gradients'
+    // tolerances, which hold sums of these terms to 1e-4), erf in full
+    // sigmoid(s) = e / (1 + e) from the same e (1 to fp32 where s >= 50)
+    const float e = __expf(fminf(s, 50.0f));
+    const float y = __logf(1.0f + e);
+    const float sig = __fdividef(e, 1.0f + e);
     // 2 / sqrt(pi)
-    return erff(y) + s * 1.1283791670955126f * expf(-y * y) * sig;
+    return erff(y) + s * 1.1283791670955126f * __expf(-y * y) * sig;
   } else if (ACT == kSerfFast) {
     // x * sigmoid(p5(x)) with ops/activations.py::SERF_P5
     constexpr float c0 = 4.743144768698157e-04f, c1 = 9.427917061937980e-03f,
@@ -624,352 +646,369 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   sum_partials(a.part, a.dw, (long long)a.K * a.C, gridDim.x);
 }
 
-// ------------------------------------------------------ fp32: CUDA cores
+// ------------------------------------------------------ fp32: tensor cores
+//
+// Both modes run the three products as split-TF32 products on the tensor
+// cores (csrc/tf32x3.cuh), gact in fp32 as the plain version keeps it, 256
+// threads a block, launched cooperatively.
 
-constexpr int kTileP = 64;    // rows of a tile
-constexpr int kTileC = 128;   // channels of a channel tile
-constexpr int kChunk2 = 32;   // k's staged per step
-constexpr int kRegP = 4;      // s: rows per thread
-constexpr int kRegC = 8;      // s: channels per thread (contiguous)
-constexpr int kGroupsP = kTileP / kRegP;
-constexpr int kGroupsC = kTileC / kRegC;
-static_assert(kGroupsP * kGroupsC == kThreads, "thread tile");
-// row stride of the W and gact tiles: 16-byte aligned rows whose starts fall
-// on different banks, so that eight rows are read without a conflict
-constexpr int kRowC = kTileC + 4;
+namespace f32 {
 
-// two stages of x and W chunks, then as the bf16 kernel's tables
-__host__ __device__ inline int fma_smem_bytes(int K, int C, int dx_tile) {
-  return 4 * (2 * (kChunk2 * kTileP + kChunk2 * kRowC) + kTileP * kRowC +
-              (dx_tile ? kTileP * (K + 1) : 0)) +
-         kTileP * (8 + 8 + 4) +  // row offsets of x and dx, images
-         4 * g_cache_floats(C);
+constexpr int kRowsMaxK = 96;  // the rows mode takes K up to this
+constexpr int kCT = 128;       // the rows mode's channel tile
+constexpr int kTile = 64;      // the tiles mode's output tiles, 64 x 64
+constexpr int kStages = 4;     // the tiles mode's ring
+enum Mode : int { kRows = 0, kTiles = 1 };
+
+__host__ __device__ inline int kpad(int K) { return (K + 31) / 32 * 32; }
+
+// W's K x 128 channel tile, two x tiles of tp x K, gact's tp x 128 tile (K
+// in 32s, fp32)
+__host__ __device__ inline int rows_smem_bytes(int tp, int K) {
+  return 4 * (kpad(K) * kCT + 2 * tp * kpad(K) + tp * kCT);
+}
+// the ring of (64 x 32, 32 x 64) chunk pairs
+__host__ __device__ inline int tiles_smem_bytes() {
+  return 4 * kStages * 2 * kTile * tf32::kChunk;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-// Start the copies of x[rows, k0 .. k0 + 32] into xs[k][row] and W[k0 ..
-// k0 + 32, c0 .. c0 + 128] into ws[k][c] and commit them as one group;
-// out-of-range entries arrive as zeros (xoff < 0: no row). W by 16 bytes
-// where C % 4 = 0 and w is 16-byte aligned (vec_w).
-__device__ __forceinline__ void fma_issue(const float* __restrict__ x,
-                                          const long long* xoff, long long sp,
-                                          long long sk,
-                                          const float* __restrict__ w,
-                                          bool vec_w, float* xs, float* ws,
-                                          int k0, int c0, int K, int C) {
-  for (int i = threadIdx.x; i < kChunk2 * kTileP; i += kThreads) {
-    int k, p;
-    if (sp == 1) {
-      k = i / kTileP;
-      p = i % kTileP;
-    } else {
-      p = i / kChunk2;
-      k = i % kChunk2;
-    }
-    const int gk = k0 + k;
-    const bool in = xoff[p] >= 0 && gk < K;
-    cp_async4(&xs[k * kTileP + p], in ? x + xoff[p] + (long long)gk * sk : x,
-              in);
-  }
-  if (vec_w) {
-    for (int i = threadIdx.x; i < kChunk2 * kTileC / 4; i += kThreads) {
-      const int k = i / (kTileC / 4);
-      const int c = (i % (kTileC / 4)) * 4;
-      const int gk = k0 + k, gc = c0 + c;
-      const bool in = gk < K && gc < C;
-      cp_async16(&ws[k * kRowC + c], in ? w + (long long)gk * C + gc : w, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kChunk2 * kTileC; i += kThreads) {
-      const int k = i / kTileC;
-      const int c = i % kTileC;
-      const int gk = k0 + k, gc = c0 + c;
-      const bool in = gk < K && gc < C;
-      cp_async4(&ws[k * kRowC + c], in ? w + (long long)gk * C + gc : w, in);
-    }
-  }
-  commit();
-}
-
-template <int ACT>
-__global__ void __launch_bounds__(kThreads, 2)
-    token_head_bwd_fma_kernel(Args a) {
+// The rows mode (K <= 96: the taps with many positions and few channels).
+// Block j takes the row tiles [j * n / nblocks, (j + 1) * n / nblocks) of the
+// n = ceil(B * P / 32) tiles and walks them once for each 128-channel tile
+// ct, with W's K x 128 tile staged once per ct and each row tile's x (all K)
+// staged a tile ahead:
+//   s = x W[:, ct] (32 x 128), gact = act'(s) g / P into shared memory;
+//   dx += gact W[:, ct]^T (32 x K): written at ct = 0, read and added after
+//     (the block owns its rows of dx: fp32, through dx's strides);
+//   dW[:, ct] += x^T gact (K x 128), in registers across the block's tiles.
+// At the end of a ct the block writes its (K, 128) slice of its (K, C)
+// partial; after a grid barrier all blocks add the partials in block order.
+// Warps: s 2 x 4 (16 rows x 32 channels each); dx 2 along the rows, the
+// n8 columns of K dealt out among the 4 of a row; dW all of K by 16
+// channels. KP is K in 32s: it sizes the accumulators, so that two blocks
+// fit an SM.
+template <int TP, int KP, int ACT>
+__global__ void __launch_bounds__(tf32::kThreads, 2)
+    token_head_bwd_rows_kernel(Args a, tf32::Positions xsrc, int vec_w) {
+  using namespace tf32;
+  constexpr int MIS = TP / 32;        // s: m16 tiles a warp
+  constexpr int WMX = TP / 16;        // dx: warps along the rows
+  constexpr int WNX = 8 / WMX;        // dx: warps sharing a row's columns
+  constexpr int DXN = KP / 8 / WNX;   // dx: n8 tiles a warp
+  constexpr int DWM = KP / 16;        // dW: m16 tiles a warp
   extern __shared__ __align__(16) float smem[];
-  constexpr int kStage = kChunk2 * kTileP + kChunk2 * kRowC;
-  float* ring = smem;                         // 2 x {[kChunk2][kTileP] x,
-                                              //      [kChunk2][kRowC] W}
-  float* gs = ring + 2 * kStage;              // [kTileP][kRowC]  gact tile
-  float* dxs = gs + kTileP * kRowC;           // [kTileP][K + 1]  dx tile
-  long long* xoff = reinterpret_cast<long long*>(
-      dxs + (a.dx_tile ? kTileP * (a.K + 1) : 0));  // [kTileP]
-  long long* dxoff = xoff + kTileP;                 // [kTileP]
-  int* brow = reinterpret_cast<int*>(dxoff + kTileP);  // [kTileP]
-  float* gcache = reinterpret_cast<float*>(brow + kTileP);  // as bf16's
-  const int c4 = g_cache_floats(a.C) / 2;
-  int gimg = -1;
-  bool gcached = false;
-  const int kx = a.K + 1;
-  const float* x = static_cast<const float*>(a.x);
+  const int N = a.B * a.P, K = a.K, C = a.C;
+  float* ws = smem;                // [KP][128]: W rows k
+  float* xbuf = ws + KP * kCT;     // 2 x [TP][KP]
+  float* gs = xbuf + 2 * TP * KP;  // [TP][128]
+  const int n_items = (N + TP - 1) / TP;
+  const int first = (int)((long long)blockIdx.x * n_items / gridDim.x);
+  const int last = (int)((long long)(blockIdx.x + 1) * n_items / gridDim.x);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wms = (warp / 4) * (TP / 2), wns = (warp % 4) * 32;
+  const int mx = (warp % WMX) * 16, jx = warp / WMX;
+  const float inv_p = 1.0f / (float)a.P;
   const float* w = static_cast<const float*>(a.w);
   float* dx = static_cast<float*>(a.dx);
-  const int K = a.K, C = a.C;
-
-  const int tid = threadIdx.x;
-  const int tc = tid % kGroupsC;
-  const int tp = tid / kGroupsC;
-  const int n_ctiles = (C + kTileC - 1) / kTileC;
-  const int N = a.B * a.P;
-  const int n_items = (N + kTileP - 1) / kTileP;
-  const int first = blockIdx.x * a.items_per_block;
-  const int last = min(n_items, first + a.items_per_block);
+  const Dense wsrc{w, C, 1, K, C, vec_w != 0};
   float* mypart = a.part + (long long)blockIdx.x * K * C;
-  const float inv_p = 1.0f / (float)a.P;
-  const bool vec_w = C % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0;
-  const int n_kc = (K + kChunk2 - 1) / kChunk2;
-  // chunk kc of channel tile c0 into ring buffer buf
-  auto issue = [&](int kc, int c0, int buf) {
-    fma_issue(x, xoff, a.sp, a.sk, w, vec_w, ring + buf * kStage,
-              ring + buf * kStage + kChunk2 * kTileP, kc * kChunk2, c0, K, C);
-  };
+  // the k8 steps, n8 tiles and m16 tiles that hold some k < K (K in 32s
+  // pads the tiles, not the work: stage 0's K = 24 is three k8 steps)
+  const int k8s = (K + 7) / 8 * 8, m16s = (K + 15) / 16;
 
-  for (int item = first; item < last; ++item) {
-    const bool fresh = item == first;  // the partial holds nothing yet
-    __syncthreads();  // the previous tile's offsets and dx tile are consumed
-    const int b_first = item * kTileP / a.P;
-    const int b_last = (min(N, item * kTileP + kTileP) - 1) / a.P;
-    if (tid < kTileP) {
-      const int n = item * kTileP + tid;
-      const bool in = n < N;
-      xoff[tid] = in ? row_offset(n, a.P, a.sb, a.sp) : -1;
-      dxoff[tid] = in ? row_offset(n, a.P, a.dsb, a.dsp) : -1;
-      brow[tid] = in ? n / a.P : b_last;
-    }
-    gcached = b_last - b_first <= 1;
-    if (gcached && b_first != gimg) {  // g / P of the tile's two images
-      for (int i = tid; i < 2 * C; i += kThreads) {
-        const int j = i / C, c = i % C;
-        gcache[j * c4 + c] =
-            b_first + j < a.B ? a.g[(long long)(b_first + j) * C + c] * inv_p
-                              : 0.0f;
-      }
-      gimg = b_first;
-    }
-    if (a.dx_tile)
-      for (int i = tid; i < kTileP * kx; i += kThreads) dxs[i] = 0.0f;
+  for (int c0 = 0; c0 < C; c0 += kCT) {
+    float wacc[DWM][2][4];
+#pragma unroll
+    for (int i = 0; i < DWM; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wacc[i][j][e] = 0.0f;
+    stage(ws, KP, kCT, wsrc, 0, c0, threadIdx.x, kThreads);
+    stage(xbuf, TP, KP, xsrc, first * TP, 0, threadIdx.x, kThreads);
+    commit();
+    for (int it = first; it < last; ++it) {
+      const int buf = (it - first) & 1;
+      if (it + 1 < last)
+        stage(xbuf + (buf ^ 1) * TP * KP, TP, KP, xsrc, (it + 1) * TP, 0,
+              threadIdx.x, kThreads);
+      commit();
+      wait_groups<1>();
+      __syncthreads();  // this tile's x (and W) are in
+      const float* xs = xbuf + buf * TP * KP;
 
-    for (int ct = 0; ct < n_ctiles; ++ct) {
-      const int c0 = ct * kTileC;
-      __syncthreads();  // the previous tile's gact is consumed
-
-      // 1. s = x W for this tile, as the forward computes it; chunk kc + 1
-      // arrives while chunk kc is used
-      float acc[kRegP][kRegC];
+      // 1. s = x W[:, ct]; 2. gact into shared memory, zero past the rows
+      // and channels
+      float sacc[MIS][4][4];
 #pragma unroll
-      for (int i = 0; i < kRegP; ++i)
+      for (int i = 0; i < MIS; ++i)
 #pragma unroll
-        for (int j = 0; j < kRegC; ++j) acc[i][j] = 0.0f;
-      issue(0, c0, 0);
-      for (int kc = 0; kc < n_kc; ++kc) {
-        if (kc + 1 < n_kc) issue(kc + 1, c0, (kc + 1) % 2);
-        else commit();
-        wait_groups<1>();
-        __syncthreads();  // chunk kc is in
-        const float* xs = ring + (kc % 2) * kStage;
-        const float* ws = xs + kChunk2 * kTileP;
-        const int depth = min(kChunk2, K - kc * kChunk2);
-#pragma unroll 4
-        for (int k = 0; k < depth; ++k) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(&xs[k * kTileP + tp * kRegP]);
-          const float4 wa =
-              *reinterpret_cast<const float4*>(&ws[k * kRowC + tc * kRegC]);
-          const float4 wb =
-              *reinterpret_cast<const float4*>(&ws[k * kRowC + tc * kRegC + 4]);
-          const float xr[kRegP] = {xv.x, xv.y, xv.z, xv.w};
-          const float wr[kRegC] = {wa.x, wa.y, wa.z, wa.w,
-                                   wb.x, wb.y, wb.z, wb.w};
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int i = 0; i < kRegP; ++i)
+          for (int e = 0; e < 4; ++e) sacc[i][j][e] = 0.0f;
+#pragma unroll 1
+      for (int k0 = 0; k0 < k8s; k0 += 8) {
+        FragB fb[4];
 #pragma unroll
-            for (int j = 0; j < kRegC; ++j)
-              acc[i][j] = fmaf(xr[i], wr[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) load_b(fb[j], ws, kCT, k0, wns + j * 8, g, q);
+#pragma unroll
+        for (int i = 0; i < MIS; ++i) {
+          FragA fa;
+          ldsm_a(fa, xs, KP, wms + i * 16, k0, lane);
+          mma3_row_into(sacc[i], fa, fb);
         }
-        __syncthreads();  // chunk kc is used: its buffer may be refilled
       }
-      // gact, zero at rows past the end and at padded channels; g / P from
-      // the cache, or from g where the tile spans more images
-      // (read once for the thread's rows where they are of one image)
-      float gv[kRegC];
-      int gb = -1;
 #pragma unroll
-      for (int i = 0; i < kRegP; ++i) {
-        const int p = tp * kRegP + i;
-        const bool valid = xoff[p] >= 0;
-        if (brow[p] != gb) {
-          gb = brow[p];
+      for (int i = 0; i < MIS; ++i)
 #pragma unroll
-          for (int j = 0; j < kRegC; ++j) {
-            const int c = c0 + tc * kRegC + j;
-            gv[j] = c >= C    ? 0.0f
-                    : gcached ? gcache[(gb - gimg) * c4 + c]
-                              : __ldg(a.g + (long long)gb * C + c) * inv_p;
+        for (int h = 0; h < 2; ++h) {
+          const int r = wms + i * 16 + h * 8 + g;
+          const int n = it * TP + r;
+          const float* grow = a.g + (long long)(n < N ? n / a.P : 0) * C;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = wns + j * 8 + 2 * q;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cc = c0 + c + e;
+              v[e] = (n < N && cc < C)
+                         ? act_grad<ACT>(sacc[i][j][2 * h + e]) *
+                               (__ldg(grow + cc) * inv_p)
+                         : 0.0f;
+            }
+            *reinterpret_cast<float2*>(at(gs, kCT, r, c)) =
+                make_float2(v[0], v[1]);
           }
         }
-        float out[kRegC];
+      __syncthreads();  // gact is in
+
+      // 3. dx += gact W[:, ct]^T
+      float dacc[DXN][4];
 #pragma unroll
-        for (int j = 0; j < kRegC; ++j)
-          out[j] = valid ? act_grad<ACT>(acc[i][j]) * gv[j] : 0.0f;
-        float4* dst = reinterpret_cast<float4*>(&gs[p * kRowC + tc * kRegC]);
-        dst[0] = make_float4(out[0], out[1], out[2], out[3]);
-        dst[1] = make_float4(out[4], out[5], out[6], out[7]);
+      for (int i = 0; i < DXN; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dacc[i][e] = 0.0f;
+#pragma unroll 1
+      for (int c8 = 0; c8 < kCT; c8 += 8) {
+        FragA fa;
+        ldsm_a(fa, gs, kCT, mx, c8, lane);
+#pragma unroll
+        for (int i = 0; i < DXN; ++i) {
+          if ((jx + WNX * i) * 8 < K) {  // else all padding (warp-uniform)
+            FragB fb;
+            ldsm_b1(fb, ws, kCT, c8, (jx + WNX * i) * 8, lane);
+            mma3_into(dacc[i], fa, fb);
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = it * TP + mx + h * 8 + g;
+        if (n >= N) continue;
+        float* row = dx + row_offset(n, a.P, a.dsb, a.dsp);
+#pragma unroll
+        for (int i = 0; i < DXN; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = (jx + WNX * i) * 8 + 2 * q + e;
+            if (k < K) {
+              float* d = row + (long long)k * a.dsk;
+              *d = c0 == 0 ? dacc[i][2 * h + e] : *d + dacc[i][2 * h + e];
+            }
+          }
       }
 
-      // 2. both gradient products, K staged 32 at a time, last chunk
-      // first (phase 1 left it staged), the next lower chunk arriving
-      // while one is used
-      for (int kc = n_kc - 1; kc >= 0; --kc) {
-        if (kc > 0) issue(kc - 1, c0, (kc - 1) % 2);
-        else commit();
-        wait_groups<1>();
-        __syncthreads();  // gact is parked; chunk kc is in
-        const float* xs = ring + (kc % 2) * kStage;
-        const float* ws = xs + kChunk2 * kTileP;
-        const int k0 = kc * kChunk2;
-        {
-          // dx[p, k] += sum_c gact[p, c] W[k, c]: rows p0 .. p0 + 4, k's ka
-          // and ka + 16 (neighbouring lanes read neighbouring rows)
-          const int ka = tid % 16;
-          const int p0 = (tid / 16) * 4;
-          float s[4][2];
+      // 4. dW[:, ct] += x^T gact
+#pragma unroll 1
+      for (int r8 = 0; r8 < TP; r8 += 8) {
+        FragB fb[2];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.0f;
-#pragma unroll 4
-          for (int c = 0; c < kTileC; c += 4) {
-            const float4 w0 =
-                *reinterpret_cast<const float4*>(&ws[ka * kRowC + c]);
-            const float4 w1 =
-                *reinterpret_cast<const float4*>(&ws[(ka + 16) * kRowC + c]);
+        for (int j = 0; j < 2; ++j)
+          load_b(fb[j], gs, kCT, r8, warp * 16 + j * 8, g, q);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float4 gv =
-                  *reinterpret_cast<const float4*>(&gs[(p0 + i) * kRowC + c]);
-              s[i][0] = fmaf(gv.x, w0.x, s[i][0]);
-              s[i][0] = fmaf(gv.y, w0.y, s[i][0]);
-              s[i][0] = fmaf(gv.z, w0.z, s[i][0]);
-              s[i][0] = fmaf(gv.w, w0.w, s[i][0]);
-              s[i][1] = fmaf(gv.x, w1.x, s[i][1]);
-              s[i][1] = fmaf(gv.y, w1.y, s[i][1]);
-              s[i][1] = fmaf(gv.z, w1.z, s[i][1]);
-              s[i][1] = fmaf(gv.w, w1.w, s[i][1]);
-            }
-          }
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            const int gk = k0 + ka + 16 * m;
-            if (gk < K) {
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                if (a.dx_tile) {
-                  dxs[(p0 + i) * kx + gk] += s[i][m];
-                } else if (dxoff[p0 + i] >= 0) {
-                  // dx itself holds the sum: this thread owns the entry
-                  float* d = dx + dxoff[p0 + i] + (long long)gk * a.dsk;
-                  *d = ct == 0 ? s[i][m] : *d + s[i][m];
-                }
-              }
-            }
+        for (int i = 0; i < DWM; ++i) {
+          if (i < m16s) {
+            FragA fa;
+            load_a_t(fa, xs, KP, i * 16, r8, g, q);
+            mma3_row(wacc[i], fa, fb);
           }
         }
-        {
-          // dW[k, c] += sum_p x[p, k] gact[p, c]: k's ka * 2 and ka * 2 + 1,
-          // channels cg * 4 .. + 4 and 64 + cg * 4 .. + 4 (neighbouring
-          // lanes read neighbouring float4s)
-          const int ka = (tid / 16) * 2;
-          const int cg = (tid % 16) * 4;
-          // (both k's padding, at K=24 two whole warps: nothing to do)
-          if (k0 + ka < K) {
-            // the sums start from the partial's values, read ahead of the
-            // product so that their latency hides behind it
-            float s[2][8];
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              const int gk = k0 + ka + m;
-              const float* row = mypart + (long long)gk * C + c0;
-#pragma unroll
-              for (int j = 0; j < 8; ++j) {
-                const int c = cg + (j < 4 ? j : 60 + j);
-                s[m][j] = (!fresh && gk < K && c0 + c < C) ? row[c] : 0.0f;
-              }
-            }
-#pragma unroll 4
-            for (int p = 0; p < kTileP; ++p) {
-              const float x0 = xs[ka * kTileP + p];
-              const float x1 = xs[(ka + 1) * kTileP + p];
-              const float4 ga =
-                  *reinterpret_cast<const float4*>(&gs[p * kRowC + cg]);
-              const float4 gb =
-                  *reinterpret_cast<const float4*>(&gs[p * kRowC + 64 + cg]);
-              const float gr[8] = {ga.x, ga.y, ga.z, ga.w,
-                                   gb.x, gb.y, gb.z, gb.w};
-#pragma unroll
-              for (int j = 0; j < 8; ++j) {
-                s[0][j] = fmaf(x0, gr[j], s[0][j]);
-                s[1][j] = fmaf(x1, gr[j], s[1][j]);
-              }
-            }
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              const int gk = k0 + ka + m;
-              if (gk < K) {
-                float* row = mypart + (long long)gk * C + c0;
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                  const int c = cg + (j < 4 ? j : 60 + j);
-                  if (c0 + c < C) row[c] = s[m][j];
-                }
-              }
-            }
-          }
-        }
-        __syncthreads();  // chunk kc is used: its buffer may be refilled
       }
+      __syncthreads();  // x, gact and (at the last tile) W are consumed
     }
-
-    if (a.dx_tile) {
-      __syncthreads();  // every channel tile is in dxs
-      for (int i = tid; i < kTileP * K; i += kThreads) {
-        int k, p;
-        if (a.dsp == 1) {
-          k = i / kTileP;
-          p = i % kTileP;
-        } else {
-          p = i / K;
-          k = i % K;
+    // this ct's slice of the block's partial
+#pragma unroll
+    for (int i = 0; i < DWM; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = i * 16 + h * 8 + g;
+          const int c = c0 + warp * 16 + j * 8 + 2 * q;
+          if (k < K) {
+            if (c < C) mypart[(long long)k * C + c] = wacc[i][j][2 * h];
+            if (c + 1 < C)
+              mypart[(long long)k * C + c + 1] = wacc[i][j][2 * h + 1];
+          }
         }
-        if (dxoff[p] >= 0) dx[dxoff[p] + (long long)k * a.dsk] = dxs[p * kx + k];
-      }
-    }
   }
+  wait_groups<0>();
 
   grid_barrier(a.bar, gridDim.x);
   sum_partials(a.part, a.dw, (long long)K * C, gridDim.x);
 }
 
+// The tiles mode (K > 96: the taps with few positions and many channels,
+// where the rows alone cannot fill the card and a (K, C) partial a block
+// would cost more than the products). Phases with a grid barrier between,
+// each a list of 64 x 64 output tiles dealt out to the blocks in turn, each
+// tile summed by one block through a ring of 32-deep chunks:
+//   A: gact = act'(x W) g / P for a (64 rows, 64 channels) tile, written to
+//      `part` as an fp32 (B * P, C) array (at the small taps it stays in
+//      the L2 cache: 2.4 MB at stage 6, B=16);
+//   B: dW for a (64 k's, 64 channels) tile, summed over the rows
+//      (dW = x^T gact), then dx for a (64 rows, 64 k's) tile, summed over
+//      every channel (dx = gact W^T), through dx's strides.
+// Where dW has too few tiles to share the card with dx, its rows are cut
+// into `rsplit` segments (of whole 32-row chunks): each (tile, segment)
+// writes its sums after gact in `part`, and a third phase adds the
+// segments in order. With rsplit = 1 (stage 6 at B=16) every entry of dx
+// and dW is written once, with no partial and no third phase.
+template <int ACT>
+__global__ void __launch_bounds__(tf32::kThreads, 2)
+    token_head_bwd_tiles_kernel(Args a, tf32::Positions xsrc, int vec_w,
+                                int rsplit) {
+  using namespace tf32;
+  extern __shared__ __align__(16) float ring[];
+  const int N = a.B * a.P, K = a.K, C = a.C;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = (warp / 4) * 32, wn = (warp % 4) * 16;
+  const float inv_p = 1.0f / (float)a.P;
+  const float* w = static_cast<const float*>(a.w);
+  float* gact = a.part;
+  float* segs = a.part + (long long)N * C;  // [rsplit][K][C] where > 1
+  float* dx = static_cast<float*>(a.dx);
+  const Dense wsrc{w, C, 1, K, C, vec_w != 0};
+  const Dense gsrc{gact, C, 1, N, C, C % 4 == 0};
+  const int nr = (N + kTile - 1) / kTile, nc = (C + kTile - 1) / kTile;
+  const int nk = (K + kTile - 1) / kTile;
+  // rows of a segment: whole chunks
+  const int seg_rows =
+      ((N + rsplit - 1) / rsplit + kChunk - 1) / kChunk * kChunk;
+  float acc[2][2][4];
+  auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  };
+  // (row, column) of accumulator (i, j, e) of this thread, in the tile
+  auto rc = [&](int i, int j, int e, int& r, int& c) {
+    r = wm + i * 16 + (e / 2) * 8 + g;
+    c = wn + j * 8 + 2 * q + e % 2;
+  };
+
+  for (int item = blockIdx.x; item < nr * nc; item += gridDim.x) {
+    const int r0 = item / nc * kTile, c0 = item % nc * kTile;
+    zero();
+    product<kTile, kTile, kStages, kOuterRows, kInnerRows, 2>(
+        acc, ring, xsrc, r0, 0, wsrc, 0, c0, K);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int r, c;
+          rc(i, j, e, r, c);
+          const int n = r0 + r, cc = c0 + c;
+          if (n < N && cc < C)
+            gact[(long long)n * C + cc] =
+                act_grad<ACT>(acc[i][j][e]) *
+                (__ldg(a.g + (long long)(n / a.P) * C + cc) * inv_p);
+        }
+  }
+
+  grid_barrier(a.bar, gridDim.x);
+
+  const int n_dw = nk * nc * rsplit;
+  for (int item = blockIdx.x; item < n_dw + nr * nk; item += gridDim.x) {
+    zero();
+    if (item < n_dw) {  // dW[k0.., c0..] over a segment's rows: x^T gact
+      const int t = item / rsplit, seg = item % rsplit;
+      const int k0 = t / nc * kTile, c0 = t % nc * kTile;
+      const int s0 = seg * seg_rows;
+      product<kTile, kTile, kStages, kInnerRows, kInnerRows, 2>(
+          acc, ring, xsrc, s0, k0, gsrc, s0, c0, min(seg_rows, N - s0));
+      float* out = rsplit > 1 ? segs + (long long)seg * K * C : a.dw;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            int r, c;
+            rc(i, j, e, r, c);
+            if (k0 + r < K && c0 + c < C)
+              out[(long long)(k0 + r) * C + c0 + c] = acc[i][j][e];
+          }
+    } else {  // dx[n0.., k0..] = sum over channels of gact W^T
+      const int j0 = item - n_dw;
+      const int n0 = j0 / nk * kTile, k0 = j0 % nk * kTile;
+      product<kTile, kTile, kStages, kOuterRows, kOuterRows, 2>(
+          acc, ring, gsrc, n0, 0, wsrc, k0, 0, C);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            int r, c;
+            rc(i, j, e, r, c);
+            const int n = n0 + r, k = k0 + c;
+            if (n < N && k < K)
+              dx[row_offset(n, a.P, a.dsb, a.dsp) + (long long)k * a.dsk] =
+                  acc[i][j][e];
+          }
+    }
+  }
+  if (rsplit > 1) {
+    // a barrier of its own: a block that left the first one may arrive
+    // here before the last block has left it and set its counters back
+    grid_barrier(a.bar + 2, gridDim.x);
+    sum_partials(segs, a.dw, (long long)K * C, rsplit);
+  }
+}
+
+}  // namespace f32
+
 // -------------------------------------------------------------- launches
 
+// kp: K in 32s, which sizes the fp32 rows kernel's accumulators
 template <typename F>
-cudaError_t for_kernel(int dtype, int act, int tp, int resident, F&& f) {
+cudaError_t for_kernel(int dtype, int act, int tp, int mode, int kp, F&& f) {
   auto pick = [&](auto act_c) -> cudaError_t {
     constexpr int A = decltype(act_c)::value;
-    if (dtype == kFloat32) return f(token_head_bwd_fma_kernel<A>);
+    if (dtype == kFloat32) {
+      if (mode == f32::kTiles)
+        return tp == f32::kTile ? f(f32::token_head_bwd_tiles_kernel<A>)
+                                : cudaErrorInvalidValue;
+      // the row tile the plan gives each K in 32s
+      // (ops/token_head.py::FP32_ROWS_TP)
+      switch (tp * 1000 + kp) {
+        case 64032: return f(f32::token_head_bwd_rows_kernel<64, 32, A>);
+        case 32064: return f(f32::token_head_bwd_rows_kernel<32, 64, A>);
+        case 32096: return f(f32::token_head_bwd_rows_kernel<32, 96, A>);
+      }
+      return cudaErrorInvalidValue;
+    }
     if (dtype != kBFloat16) return cudaErrorInvalidValue;
-    switch (tp * 2 + (resident ? 1 : 0)) {
+    switch (tp * 2 + (mode ? 1 : 0)) {
       case 128: return f(token_head_bwd_mma_kernel<64, A, false>);
       case 129: return f(token_head_bwd_mma_kernel<64, A, true>);
       case 64: return f(token_head_bwd_mma_kernel<32, A, false>);
@@ -990,65 +1029,81 @@ cudaError_t for_kernel(int dtype, int act, int tp, int resident, F&& f) {
 }  // namespace k1
 }  // namespace mmvqa
 
-// Blocks of the backward kernel for (dtype, act, tp, mode) that an SM holds
-// at once with `smem` bytes of shared memory: the cooperative launch takes
-// no more than this many times the SMs.
+// Blocks of the backward kernel for (dtype, act, tp, mode, K) that an SM
+// holds at once with `smem` bytes of shared memory: the cooperative launch
+// takes no more than this many times the SMs.
 extern "C" int token_head_bwd_occupancy(int dtype, int act, int tp, int mode,
-                                        int smem, int* blocks) {
+                                        int K, int smem, int* blocks) {
   using namespace mmvqa;
   using namespace mmvqa::k1;
   using namespace mmvqa::k1::bwd;
-  return static_cast<int>(for_kernel(dtype, act, tp, mode, [&](auto kern) {
+  return static_cast<int>(for_kernel(
+      dtype, act, tp, mode, f32::kpad(K), [&](auto kern) {
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, kern, dtype == kFloat32 ? kThreads : kMmaThreads, smem);
+        blocks, kern, dtype == kFloat32 ? tf32::kThreads : kMmaThreads, smem);
   }));
 }
 
 // x, dx: (B, P, K) by element strides, x's dtype; w: (K, C) contiguous, x's
-// dtype; g: (B, C) fp32 contiguous, the gradient of the output; part:
-// (nblocks, K, C) fp32 scratch; dw: (K, C) fp32 out; bar: two unsigned ints,
-// zero on entry and on exit, one pair a stream. The plan
-// (ops/token_head.py::backward_plan): tp rows a tile (64 in fp32; 64, 32 or
-// 16 in bf16), items_per_block tiles a block, nblocks blocks with none left
-// empty, all resident at once; mode: in fp32, 1 where dx is summed in a
-// shared tile (fma_smem_bytes), in bf16, 1 where W is resident in shared
-// memory (mma_smem_bytes); smem bytes.
+// dtype; g: (B, C) fp32 contiguous, the gradient of the output; dw: (K, C)
+// fp32 out; bar: four unsigned ints (two barriers' counters), zero on entry
+// and on exit, one buffer a stream. The plan (ops/token_head.py::backward_plan): tp rows a tile,
+// items_per_block tiles a block at most, nblocks blocks, all resident at
+// once, none left empty; mode; smem bytes; rsplit. bf16: tp 64, 32 or 16,
+// mode 1 where W is resident in shared memory (mma_smem_bytes), part
+// (nblocks, K, C) fp32 scratch, rsplit 1. fp32: mode kRows (K <= 96; tp 32;
+// part (nblocks, K, C); rsplit 1) or kTiles (tp 64; part the (B * P, C)
+// fp32 gact, then rsplit (K, C) segments of dW where rsplit > 1).
 extern "C" int token_head_bwd(const void* x, int dtype, long long sb,
                               long long sp, long long sk, const void* w,
                               const void* g, void* dx, long long dsb,
                               long long dsp, long long dsk, void* part,
                               void* dw, void* bar, int B, int P, int K, int C,
                               int act, int tp, int items_per_block,
-                              int nblocks, int mode, int smem, void* stream) {
+                              int nblocks, int mode, int smem, int rsplit,
+                              void* stream) {
   using namespace mmvqa;
   using namespace mmvqa::k1;
   using namespace mmvqa::k1::bwd;
-  const int need = dtype == kFloat32 ? fma_smem_bytes(K, C, mode)
-                                     : mma_smem_bytes(tp, K, C, mode);
-  const long long items = ((long long)B * P + tp - 1) / tp;
-  if ((dtype == kFloat32 && tp != kTileP) || smem != need || nblocks < 1 ||
-      (long long)B * P >= (1ll << 31) ||
-      (long long)nblocks * items_per_block < items ||
-      (long long)(nblocks - 1) * items_per_block >= items)
+  if (tp < 1 || nblocks < 1 || (long long)B * P >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = ((long long)B * P + tp - 1) / tp;
+  bool ok;
+  if (dtype == kFloat32 && mode == f32::kTiles) {
+    ok = tp == f32::kTile && smem == f32::tiles_smem_bytes() && rsplit >= 1;
+  } else if (dtype == kFloat32) {
+    ok = mode == f32::kRows && K <= f32::kRowsMaxK &&
+         smem == f32::rows_smem_bytes(tp, K) && nblocks <= items &&
+         rsplit == 1;
+  } else {
+    ok = rsplit == 1 && smem == mma_smem_bytes(tp, K, C, mode) &&
+         (long long)nblocks * items_per_block >= items &&
+         (long long)(nblocks - 1) * items_per_block < items;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Args a{x,  sb,  sp,  sk, w,  static_cast<const float*>(g), dx, dsb, dsp,
          dsk, static_cast<float*>(part), static_cast<float*>(dw),
-         static_cast<unsigned*>(bar), B, P, K, C, tp, items_per_block,
-         dtype == kFloat32 ? mode : 0};
+         static_cast<unsigned*>(bar), B, P, K, C, tp, items_per_block, mode};
   // 16-byte copies where every row of x (and W) starts on 16 bytes
   int vec_x = vec_x_ok(x, sb, sp, sk, K);
   int vec_w = vec_w_ok(w, C);
+  const tf32::Positions xsrc{
+      static_cast<const float*>(x), sb, sp, sk, P, B * P, K,
+      sk == 1 && K % 4 == 0 && sp % 4 == 0 && sb % 4 == 0 &&
+          reinterpret_cast<size_t>(x) % 16 == 0};
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(for_kernel(dtype, act, tp, mode, [&](auto kern) {
+  return static_cast<int>(for_kernel(
+      dtype, act, tp, mode, f32::kpad(K), [&](auto kern) {
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
-    void* fp32_args[] = {&a};
+    void* fp32_args[] = {&a, const_cast<tf32::Positions*>(&xsrc), &vec_w,
+                         &rsplit};
     void* bf16_args[] = {&a, &vec_x, &vec_w};
     err = cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(kern), dim3(nblocks),
-        dim3(dtype == kFloat32 ? kThreads : kMmaThreads),
+        dim3(dtype == kFloat32 ? tf32::kThreads : kMmaThreads),
         dtype == kFloat32 ? fp32_args : bf16_args, (size_t)smem, st);
     if (err != cudaSuccess) cudaGetLastError();
     return err;

@@ -120,7 +120,7 @@ BWD_ARGTYPES = [
     _p, _ll, _ll, _ll,          # dx, strides (b, p, k)
     _p, _p, _p,                 # partials, dw, barrier counters
     _i, _i, _i, _i, _i,         # B, P, K, C, act
-    _i, _i, _i, _i, _i,         # ops/token_head.py::BwdPlan
+    _i, _i, _i, _i, _i, _i,     # ops/token_head.py::BwdPlan
     _p,                         # stream
 ]
 FWD_ARGTYPES = [
@@ -150,7 +150,7 @@ BN_SUMS_ARGTYPES = [
     _p,                         # stream
 ]
 BWD_OCCUPANCY_ARGTYPES = [
-    _i, _i, _i, _i, _i,         # dtype, act, tile rows, mode, smem
+    _i, _i, _i, _i, _i, _i,     # dtype, act, tile rows, mode, K, smem
     ctypes.POINTER(_i),         # blocks an SM holds
 ]
 
@@ -232,6 +232,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.conv1x1_stats_tma.restype = _i
     lib.conv1x1_stats_tma.argtypes = TMA_ARGTYPES
+    lib.conv1x1_stats_tf32x3.restype = _i
+    lib.conv1x1_stats_tf32x3.argtypes = [
+        _p, _p, _ll, _ll,           # x, w, w's strides (k, c)
+        _p, _p, _p, _p, _p,         # y, partial, stats, counters, K slices
+        _i, _i, _i,                 # N, K, C
+        _i, _i, _i, _i, _i,         # ops/conv_bn.py::Tf32Plan
+        _p,                         # stream
+    ]
     lib.bn_backward_sums.restype = _i
     lib.bn_backward_sums.argtypes = BN_SUMS_ARGTYPES
     lib.bn_backward_sums_occupancy.restype = _i

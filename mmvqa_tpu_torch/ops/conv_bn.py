@@ -4,9 +4,11 @@ from the same pass.
 Counterpart of mmvqa_tpu/ops/pallas_conv_bn.py. The CUDA kernels are in
 ``csrc/conv1x1_stats.cu``: in bf16 a TMA-fed ``wgmma`` kernel for the shapes
 its tensor maps take (every site of the trunk; ``takes_tma``) and an
-``mma.sync`` kernel for the rest, in fp32 a CUDA-core kernel. This module
-holds their launch plans, the wrapper, the ``torch.autograd.Function``
-around it and the plain PyTorch version.
+``mma.sync`` kernel for the rest; in fp32 one kernel for every shape, its
+products split into three TF32 products on the tensor cores to keep fp32
+accuracy (``csrc/tf32x3.cuh``). This module holds their launch plans, the
+wrapper, the ``torch.autograd.Function`` around it and the plain PyTorch
+version.
 
 Layout, as the JAX function: ``x`` is (N, K), the channels-last map
 flattened to rows, ``w`` is (K, C), ``y`` is (N, C), ``stats`` is fp32 (2, C)
@@ -38,8 +40,16 @@ import torch
 from mmvqa_tpu_torch.native import loader
 from mmvqa_tpu_torch.ops import tiling
 
-TILE_M = {torch.bfloat16: 128, torch.float32: 64}  # kBM, kFM of the source
+TILE_M = 128       # kBM of the bf16 mma.sync kernel
 BLOCKS_PER_SM = 4  # two resident, two waves
+
+# the fp32 kernel (k4::f32 in the source): (rows, columns) of a tile and
+# its time a tile's area relative to 128 x 128's (read on the card at the
+# trunk's shapes: PERF.md §6); two blocks an SM hold any of them
+TF32_TILES = ((128, 128, 1.0), (128, 64, 1.14), (64, 128, 1.02),
+              (64, 64, 1.37))
+TF32_BLOCKS_PER_SM = 2
+TF32_STAGES = 3            # kStages: the ring
 
 # the TMA path (k4::tma in the source)
 TMA_TILE_N = (64, 128, 192)  # column tiles a kernel is built for
@@ -58,26 +68,86 @@ class TmaPlan(NamedTuple):
     smem: int    # dynamic shared memory, bytes
 
 
-def _tile_n(dtype: torch.dtype, C: int) -> int:
-    if dtype == torch.float32:
-        return 64
-    return 64 if C <= 64 else 128
-
-
-def launch_plan(N: int, K: int, C: int, dtype: torch.dtype, sms: int) -> int:
-    """The number of blocks along the rows. Each walks over every
-    ``nrb``-th row tile and writes one (2, C) partial of the sums; there are
-    enough of them to fill the card and no more than row tiles."""
+def _check_shape(N: int, K: int, C: int) -> None:
     if min(N, K, C) < 1:
         raise ValueError(f"conv1x1_stats: empty shape N={N} K={K} C={C}")
-    if max(N, K, C) > 2**31 - 1 - 128:
+    if max(N, K, C) > 2**31 - 1 - 192:
         raise ValueError(f"conv1x1_stats: N={N} K={K} C={C} beyond int32")
-    mtiles = tiling.cdiv(N, TILE_M[dtype])
-    ctiles = tiling.cdiv(C, _tile_n(dtype, C))
-    nrb = max(1, min(mtiles, tiling.cdiv(BLOCKS_PER_SM * sms, ctiles)))
-    if nrb > 65535:
-        raise ValueError(f"conv1x1_stats: grid too large for N={N}, C={C}")
-    return nrb
+
+
+def launch_plan(N: int, K: int, C: int, sms: int) -> int:
+    """The bf16 mma.sync kernel's blocks along the rows. Each walks over
+    every ``nrb``-th row tile and writes one (2, C) partial of the sums;
+    there are enough of them to fill the card and no more than row tiles."""
+    _check_shape(N, K, C)
+    mtiles = tiling.cdiv(N, TILE_M)
+    ctiles = tiling.cdiv(C, 64 if C <= 64 else 128)
+    return max(1, min(mtiles, tiling.cdiv(BLOCKS_PER_SM * sms, ctiles),
+                      65535))
+
+
+class Tf32Plan(NamedTuple):
+    """The fp32 launch; the fields in the order of the C entry point's plan
+    arguments."""
+    bm: int    # rows of a tile
+    bn: int    # columns (channels) of a tile
+    nrb: int   # blocks along the rows, each walking every nrb-th row tile
+    ks: int    # slices of K, each a block's (1: none; else nrb = row tiles)
+    smem: int  # dynamic shared memory, bytes
+
+
+def tf32_smem_bytes(bm: int, bn: int) -> int:
+    """k4::f32::smem_bytes: the ring's stages of a bm x 32 x chunk and a
+    bn x 32 W chunk, fp32."""
+    return 4 * TF32_STAGES * (bm + bn) * 32
+
+
+TF32_KSPLIT = (1, 2, 4)     # slices of K a plan may take
+TF32_KSPLIT_MIN_K = 1024    # the depth below which K is not sliced
+TF32_KSPLIT_COST = 0.25     # each slice past the first: its sums written,
+                            # read back and added, relative to the tile
+TF32_LONE_BLOCK = 0.7       # an SM's rate with one block, relative to two
+
+
+def tf32_plan(N: int, K: int, C: int, sms: int) -> Tf32Plan:
+    """The fp32 kernel's tile, its blocks along the rows and its slices of
+    K, by a model of the busiest SM's time read off the card (PERF.md §6).
+    Unsliced, the blocks along the rows are as many as fill the card's
+    slots once with every column tile, no more than the row tiles, each
+    walking every nrb-th row tile; where K is deep (TF32_KSPLIT_MIN_K) it
+    may be cut into ks slices, one a block, every row tile a block of its
+    own, in as many full waves as that takes. The time: waves of the slots,
+    times a block's row tiles, times a tile's cost over ks and
+    TF32_KSPLIT_COST a slice past the first, slower by TF32_LONE_BLOCK
+    where an SM gets one block. Of the plans whose grid gives every SM a
+    block (or, where none does, as many blocks as the most any gives), the
+    fastest. So at N = 6272, C = 304 the 147 tiles of 128 x 128 would leave
+    15 SMs two blocks each and 128 x 64 is taken, and at N = 784, K = 1824,
+    C = 304 (B=16, 7x7) 64 x 64 in four slices of K."""
+    _check_shape(N, K, C)
+    slots = TF32_BLOCKS_PER_SM * sms
+
+    def plan(tile, ks):  # (blocks along the rows, grid, time), None: no
+        bm, bn, rel = tile
+        mtiles, ctiles = tiling.cdiv(N, bm), tiling.cdiv(C, bn)
+        if ks > 1 and (K < TF32_KSPLIT_MIN_K or mtiles > 65535):
+            return None
+        nrb = (mtiles if ks > 1
+               else max(1, min(mtiles, slots // ctiles, 65535)))
+        grid = ctiles * nrb * ks
+        time = (tiling.cdiv(grid, slots) * tiling.cdiv(mtiles, nrb)
+                * bm * bn * rel / ks * (1 + TF32_KSPLIT_COST * (ks - 1))
+                / (TF32_LONE_BLOCK if grid <= sms else 1.0))
+        return nrb, grid, time
+
+    plans = {(t, ks): p for t in TF32_TILES for ks in TF32_KSPLIT
+             if (p := plan(t, ks)) is not None}
+    need = min(sms, max(p[1] for p in plans.values()))
+    (tile, ks), (nrb, _, _) = min(
+        ((key, p) for key, p in plans.items() if p[1] >= need),
+        key=lambda kp: kp[1][2])
+    return Tf32Plan(tile[0], tile[1], nrb, ks,
+                    tf32_smem_bytes(tile[0], tile[1]))
 
 
 def tma_smem_bytes(bn: int, stages: int) -> int:
@@ -106,10 +176,7 @@ def tma_plan(N: int, K: int, C: int, sms: int) -> TmaPlan:
     tile walk its row tiles in turn. Where ``tma_tile_n``'s tiles would leave
     more than a quarter of the SMs idle (few row tiles: N = 6272, C = 304),
     narrower ones that fill more of them are taken."""
-    if min(N, K, C) < 1:
-        raise ValueError(f"conv1x1_stats: empty shape N={N} K={K} C={C}")
-    if max(N, K, C) > 2**31 - 1 - TMA_TILE_M:
-        raise ValueError(f"conv1x1_stats: N={N} K={K} C={C} beyond int32")
+    _check_shape(N, K, C)
     mtiles = tiling.cdiv(N, TMA_TILE_M)
 
     def nrb(bn):  # blocks along the rows
@@ -176,9 +243,10 @@ def conv1x1_stats_backward(
     return dx, dw
 
 
-# the TMA kernel's last-block counters, one a column tile
+# the TMA and fp32 kernels' last-block counters, one a column tile
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 _TMA_PLANS: Dict[tuple, TmaPlan] = {}
+_TF32_PLANS: Dict[tuple, Tf32Plan] = {}
 
 
 def _launch_tma(x: torch.Tensor, w: torch.Tensor
@@ -204,18 +272,53 @@ def _launch_tma(x: torch.Tensor, w: torch.Tensor
     return y, stats
 
 
+def _launch_tf32x3(x: torch.Tensor, w: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    N, K = x.shape
+    C = w.shape[1]
+    key = (x.device, N, K, C)
+    plan = _TF32_PLANS.get(key)
+    if plan is None:
+        plan = _TF32_PLANS[key] = tf32_plan(N, K, C, tiling.sm_count(x))
+    ctiles = tiling.cdiv(C, plan.bn)
+    y = torch.empty((N, C), device=x.device, dtype=x.dtype)
+    part = torch.empty((plan.nrb, 2, ctiles * plan.bn), device=x.device,
+                       dtype=torch.float32)
+    stats = torch.empty((2, C), device=x.device, dtype=torch.float32)
+    ypart = (torch.empty((plan.ks, N, C), device=x.device,
+                         dtype=torch.float32) if plan.ks > 1 else None)
+    ptr = loader.ptr
+    stream = tiling.current_stream(x.device)
+    # a column tile's counter, then a (row tile, column tile)'s where K is
+    # sliced
+    counters = tiling.stream_counters(
+        _COUNTERS, x.device, stream,
+        ctiles * (1 + (tiling.cdiv(N, plan.bm) if plan.ks > 1 else 0)))
+    code = loader.library().conv1x1_stats_tf32x3(
+        ptr(x), ptr(w), *w.stride(), ptr(y), ptr(part), ptr(stats),
+        ptr(counters), ctypes.c_void_p(None if ypart is None
+                                       else ypart.data_ptr()),
+        N, K, C, *plan, ctypes.c_void_p(stream))
+    loader.check(code, "conv1x1_stats_tf32x3")
+    return y, stats
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     loader.require_cuda("conv1x1_stats", x, w)
     if w.dtype != x.dtype:
         raise ValueError(f"conv1x1_stats: x is {x.dtype}, w is {w.dtype}")
     tiling.require_dense("conv1x1_stats", x)
+    if x.dtype == torch.float32:
+        out = _launch_tf32x3(x, w)
+        conv1x1_stats.tf32x3_launches += 1
+        return out
     if takes_tma(x, w):
         out = _launch_tma(x, w)
         conv1x1_stats.tma_launches += 1
         return out
     N, K = x.shape
     C = w.shape[1]
-    nrb = launch_plan(N, K, C, x.dtype, tiling.sm_count(x))
+    nrb = launch_plan(N, K, C, tiling.sm_count(x))
     y = torch.empty((N, C), device=x.device, dtype=x.dtype)
     partial = torch.empty((nrb, 2, C), device=x.device, dtype=torch.float32)
     stats = torch.empty((2, C), device=x.device, dtype=torch.float32)
@@ -270,5 +373,6 @@ def conv1x1_stats(x: torch.Tensor,
     return _forward(x, w)
 
 
-conv1x1_stats.launches = 0      # every launch, of any path
-conv1x1_stats.tma_launches = 0  # those of the TMA path
+conv1x1_stats.launches = 0         # every launch, of any path
+conv1x1_stats.tma_launches = 0     # those of the bf16 TMA path
+conv1x1_stats.tf32x3_launches = 0  # those of the fp32 path

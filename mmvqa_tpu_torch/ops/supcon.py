@@ -9,11 +9,13 @@ without gradient. ``contrast_mode`` 'all' anchors every view, 'one' the
 first.
 
 The features may come in the model's compute dtype; the loss runs in fp32.
-The product ``anchor @ contrast.T`` is a true fp32 product (TF32 off for that
-call, whatever the global flags say): the 1/0.07 scale magnifies any
-reduced-precision pass, which is why the JAX package computes it at
-``Precision.HIGHEST``. It is a plain product outside any Pallas kernel of the
-JAX package, so it stays a library matmul here.
+The product ``anchor @ contrast.T`` must be a true fp32 product: the 1/0.07
+scale magnifies any reduced-precision pass, which is why the JAX package
+computes it at ``Precision.HIGHEST``. PyTorch's fp32 matrix products are
+TF32-free unless a caller turns ``torch.backends.cuda.matmul.allow_tf32`` on,
+and the CLIs turn it off (``cli/common.py::setup_runtime``). It is a plain
+product outside any Pallas kernel of the JAX package, so it stays a library
+matmul here.
 
 The JAX package's ``axis_name`` gathers the features of a data-parallel mesh
 so that the denominator sees the global batch; that waits for the port's
@@ -25,17 +27,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-
-
-def _fp32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in fp32 with TF32 off for this call."""
-    flags = torch.backends.cuda.matmul
-    saved = flags.allow_tf32
-    flags.allow_tf32 = False
-    try:
-        return torch.matmul(a, b)
-    finally:
-        flags.allow_tf32 = saved
 
 
 def supcon_loss(
@@ -85,7 +76,7 @@ def supcon_loss(
     else:
         raise ValueError(f"unknown contrast_mode {contrast_mode}")
 
-    logits = _fp32_product(anchor, contrast.T) / temperature
+    logits = torch.matmul(anchor, contrast.T) / temperature
     logits = logits - torch.amax(logits, dim=1, keepdim=True).detach()
 
     mask = mask.repeat(anchor_count, n_views)

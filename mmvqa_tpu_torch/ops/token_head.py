@@ -2,10 +2,12 @@
 
 Counterpart of mmvqa_tpu/ops/pallas_token_head.py. The CUDA kernels are
 ``csrc/token_head.cu`` (forward: the bf16 kernel on the tensor cores, the
-fp32 one on CUDA cores) and ``csrc/token_head_bwd.cu`` (backward), with the
-bf16 tile machinery of both in ``csrc/token_head_tile.cuh``; this module
-holds their launch plans, their wrappers, the ``torch.autograd.Function``
-that joins them, and their plain PyTorch versions.
+fp32 one on CUDA cores) and ``csrc/token_head_bwd.cu`` (backward: bf16 on
+the tensor cores, fp32 as split-TF32 products on the tensor cores, with
+fp32 accuracy, ``csrc/tf32x3.cuh``), with the bf16 tile machinery of both
+in ``csrc/token_head_tile.cuh``; this module holds their launch plans, their
+wrappers, the ``torch.autograd.Function`` that joins them, and their plain
+PyTorch versions.
 
 The wrappers route by where the input lies: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. There is no other
@@ -58,7 +60,23 @@ SMEM_PER_SM = 233472      # an SM's, of which each block reserves 1 KB
 # W resident beside gact with 64 or 32 rows (the narrow taps; faster there on
 # the card, PERF.md), else the widest tile with W streamed
 BWD_TILES = ((64, 1), (32, 1), (64, 0), (32, 0), (16, 0))
-BARRIER_WORDS = 2         # the backward's arrival and departure counters
+BARRIER_WORDS = 4         # the backward's two barriers' arrival and
+                          # departure counters (fp32's tiles mode: two)
+# the fp32 backward (k1::bwd::f32 in csrc/token_head_bwd.cu): the rows mode
+# for K up to FP32_ROWS_MAX_K (row tiles, each walked once a 128-channel
+# tile, a (K, C) partial a block), the tiles mode beyond (gact
+# through device memory, 64 x 64 output tiles, dW's rows cut into segments
+# only where its tiles are too few)
+FP32_ROWS, FP32_TILES = 0, 1
+FP32_ROWS_MAX_K = 96      # kRowsMaxK
+# the rows mode's row tile: 64 where K <= 32 (stage 0: the taps with the
+# most rows, whose fixed costs a tile halves), else 32 (read on the card,
+# PERF.md §6)
+FP32_ROWS_TP = {32: 64, 64: 32, 96: 32}
+FP32_CT = 128             # kCT: the rows mode's channel tile
+FP32_TILE = 64            # kTile: the tiles mode's output tile
+FP32_STAGES = 4           # kStages: the tiles mode's ring
+FP32_SEGMENT_ROWS = 1024  # the tiles mode cuts dW's rows no finer
 
 
 class Plan(NamedTuple):
@@ -85,8 +103,9 @@ class BwdPlan(NamedTuple):
     per_block: int  # consecutive tiles a block walks
     nblocks: int   # blocks, all resident at once; none is left empty
     mode: int      # bf16: W resident in shared memory (1) or streamed (0);
-                   # fp32: dx summed in a shared tile (1) or in dx (0)
+                   # fp32: FP32_ROWS or FP32_TILES
     smem: int      # dynamic shared memory, bytes
+    rsplit: int = 1  # fp32 tiles mode: segments of dW's rows
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -185,13 +204,16 @@ def _g_cache_bytes(C: int) -> int:
     return 4 * 2 * _cdiv(C, 4) * 4
 
 
-def fma_smem_bytes(K: int, C: int, dx_tile: bool) -> int:
-    """fma_smem_bytes in csrc/token_head_bwd.cu: two stages of x and W
-    chunks and the gact tile in fp32, the (64, K + 1) dx tile where it is
-    used, each row's offsets, and g / P of the two images a tile spans."""
-    return (4 * (2 * (32 * 64 + 32 * 132) + 64 * 132
-                 + (64 * (K + 1) if dx_tile else 0)) + 64 * 20
-            + _g_cache_bytes(C))
+def fp32_rows_smem_bytes(tp: int, K: int) -> int:
+    """f32::rows_smem_bytes in csrc/token_head_bwd.cu: W's K x 128 channel
+    tile, two x tiles of tp x K and gact's tp x 128 tile, K in 32s, fp32."""
+    kp = _cdiv(K, 32) * 32
+    return 4 * (kp * FP32_CT + 2 * tp * kp + tp * FP32_CT)
+
+
+def fp32_tiles_smem_bytes() -> int:
+    """f32::tiles_smem_bytes: the ring's stages of two 64 x 32 chunks."""
+    return 4 * FP32_STAGES * 2 * FP32_TILE * 32
 
 
 def backward_tile(K: int, C: int, itemsize: int) -> Tuple[int, int, int]:
@@ -200,7 +222,8 @@ def backward_tile(K: int, C: int, itemsize: int) -> Tuple[int, int, int]:
     bf16 (``itemsize`` 2) parks a tile's gact for all C channels in shared
     memory, with the first (rows, W resident) of BWD_TILES that fits; the
     streamed tiles take any K. Raises for a C that not even 16 rows fit.
-    fp32 takes 64 rows and any C; its dx tile is used where it fits."""
+    fp32 takes the rows mode, FP32_ROWS_TP rows a tile, up to K =
+    FP32_ROWS_MAX_K and the tiles mode beyond; neither limits C."""
     if itemsize == 2:
         fits = [(tp, mode) for tp, mode in BWD_TILES
                 if mma_smem_bytes(tp, K, C, bool(mode)) <= SMEM_LIMIT]
@@ -211,28 +234,74 @@ def backward_tile(K: int, C: int, itemsize: int) -> Tuple[int, int, int]:
                 f"for 16 rows of gact, a block has {SMEM_LIMIT}")
         tp, mode = fits[0]
         return tp, mode, mma_smem_bytes(tp, K, C, bool(mode))
-    mode = int(fma_smem_bytes(K, C, True) <= SMEM_LIMIT)
-    return TILE_P, mode, fma_smem_bytes(K, C, bool(mode))
+    if K > FP32_ROWS_MAX_K:
+        return FP32_TILE, FP32_TILES, fp32_tiles_smem_bytes()
+    tp = FP32_ROWS_TP[_cdiv(K, 32) * 32]
+    return tp, FP32_ROWS, fp32_rows_smem_bytes(tp, K)
+
+
+def fp32_tiles_items(N: int, K: int, C: int,
+                     rsplit: int = 1) -> Tuple[int, int]:
+    """The tiles mode's (phase A, phase B) output tiles of 64 x 64: gact
+    (rows x channels); dW (k's x channels, each ``rsplit`` times) and dx
+    (rows x k's)."""
+    nr, nk, nc = (_cdiv(n, FP32_TILE) for n in (N, K, C))
+    return nr * nc, nk * nc * rsplit + nr * nk
+
+
+def fp32_tiles_rsplit(N: int, C: int) -> int:
+    """Segments of dW's rows in the tiles mode: about as many rows a
+    segment as a dx tile sums channels (C), so that the blocks' shares of
+    phase B come out even, and no segment under FP32_SEGMENT_ROWS rows (so
+    stage 6 at B=16, 784 rows, has one: no partial)."""
+    return max(1, min(_cdiv(N, FP32_SEGMENT_ROWS), N // C))
 
 
 def backward_plan(B: int, P: int, K: int, C: int, itemsize: int, sms: int,
                   slots: int) -> BwdPlan:
-    """How the backward launch shares the ``ceil(B * P / tp)`` row tiles
-    among ``nblocks`` blocks of ``per_block`` consecutive tiles, on a card of
-    ``sms`` multiprocessors that hold ``slots`` such blocks each (the
-    wrapper asks the card). The launch is cooperative, so there are no more
-    blocks than fit at once. The tile is ``backward_tile``'s."""
+    """How the backward launch shares its work among ``nblocks`` blocks on
+    a card of ``sms`` multiprocessors that hold ``slots`` such blocks each
+    (the wrapper asks the card). The launch is cooperative, so there are no
+    more blocks than fit at once. The tile is ``backward_tile``'s.
+
+    bf16 hands each block ``per_block`` consecutive row tiles of the
+    ``ceil(B * P / tp)``. fp32's rows mode deals the row tiles out evenly,
+    block j the tiles [j * n // nblocks, (j + 1) * n // nblocks), to as many
+    blocks as there are tiles or slots; the tiles mode deals each phase's
+    output tiles out in turn, to as many blocks as the larger phase has
+    tiles or the card has slots; ``per_block`` is then the most a block
+    takes."""
     if min(B, P, K, C) < 1:
         raise ValueError(f"token head: empty shape B={B} P={P} K={K} C={C}")
     if slots < 1:
         raise ValueError(f"token head backward: {slots} blocks an SM")
+    N = B * P
+    if N > 2**31 - 1 or K * C >= 2**31:
+        raise ValueError(f"token head: grid too large for B={B}, P={P}")
     tp, mode, smem = backward_tile(K, C, itemsize)
-    items = _cdiv(B * P, tp)
+    if itemsize == 4 and mode == FP32_TILES:
+        rsplit = fp32_tiles_rsplit(N, C)
+        items = max(fp32_tiles_items(N, K, C, rsplit))
+        nblocks = min(items, slots * sms)
+        return BwdPlan(tp, _cdiv(items, nblocks), nblocks, mode, smem, rsplit)
+    items = _cdiv(N, tp)
+    if itemsize == 4:
+        nblocks = min(items, slots * sms)
+        return BwdPlan(tp, _cdiv(items, nblocks), nblocks, mode, smem)
     per_block = _cdiv(items, slots * sms)
     nblocks = _cdiv(items, per_block)
-    if items > 2**31 - 1 or K * C >= 2**31:
-        raise ValueError(f"token head: grid too large for B={B}, P={P}")
     return BwdPlan(tp, per_block, nblocks, mode, smem)
+
+
+def backward_scratch(plan: BwdPlan, itemsize: int, B: int, P: int, K: int,
+                     C: int) -> Tuple[int, ...]:
+    """The fp32 scratch of a backward launch: a (K, C) partial of dW a
+    block, which the blocks add after a grid barrier; or, in fp32's tiles
+    mode, gact itself, (B * P, C), with no partial, and after it the dW of
+    each segment of the rows where there are several."""
+    if itemsize == 4 and plan.mode == FP32_TILES:
+        return (B * P * C + (plan.rsplit * K * C if plan.rsplit > 1 else 0),)
+    return (plan.nblocks, K, C)
 
 
 def _activate(s: torch.Tensor, act: str) -> torch.Tensor:
@@ -376,12 +445,13 @@ def _backward_plan(x: torch.Tensor, K: int, C: int, act: str) -> BwdPlan:
     kernel and shared memory size."""
     B, P = x.shape[0], x.shape[1]
     tp, mode, smem = backward_tile(K, C, x.element_size())
-    key = (x.device, x.dtype, act, tp, mode, smem)
+    # the fp32 rows kernel's accumulators are sized by K in 32s
+    key = (x.device, x.dtype, act, tp, mode, smem, _cdiv(K, 32))
     slots = _BWD_SLOTS.get(key)
     if slots is None:
         n = ctypes.c_int(0)
         loader.check(loader.library().token_head_bwd_occupancy(
-            loader.DTYPE_CODES[x.dtype], ACTS[act], tp, mode, smem,
+            loader.DTYPE_CODES[x.dtype], ACTS[act], tp, mode, K, smem,
             ctypes.byref(n)), "token_head_bwd occupancy")
         if n.value < 1:
             raise RuntimeError(f"token head backward: no block with "
@@ -403,8 +473,8 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     # through the views that made x (models/visual_tokens.py::tap_positions)
     # without a copy
     dx = torch.empty_like(x)
-    part = torch.empty((plan.nblocks, K, C), device=x.device,
-                       dtype=torch.float32)
+    part = torch.empty(backward_scratch(plan, x.element_size(), B, P, K, C),
+                       device=x.device, dtype=torch.float32)
     dw = torch.empty((K, C), device=x.device, dtype=torch.float32)
 
     def ptr(t):
@@ -430,6 +500,8 @@ def token_head_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
         return token_head_backward_reference(x, w, g, act)
     out = _launch_backward(x, w, g, act)
     fused_token_head.backward_launches += 1
+    if x.dtype == torch.float32:
+        fused_token_head.backward_tf32x3_launches += 1
     return out
 
 
@@ -487,4 +559,5 @@ def fused_token_head(x: torch.Tensor, w: torch.Tensor,
 
 
 fused_token_head.launches = 0
-fused_token_head.backward_launches = 0
+fused_token_head.backward_launches = 0         # every backward launch
+fused_token_head.backward_tf32x3_launches = 0  # those in fp32

@@ -42,8 +42,19 @@ B, HIDDEN = 128, 768
 # only the kernels the three taps launch: bf16, 64-row tiles (W resident
 # or streamed), SERF's polynomial and ReLU
 TRIM = [
-    ("    if (dtype == kFloat32) return f(token_head_bwd_fma_kernel<A>);",
-     "    if (dtype == kFloat32) return cudaErrorInvalidValue;"),
+    ("""    if (dtype == kFloat32) {
+      if (mode == f32::kTiles)
+        return tp == f32::kTile ? f(f32::token_head_bwd_tiles_kernel<A>)
+                                : cudaErrorInvalidValue;
+      // the row tile the plan gives each K in 32s
+      // (ops/token_head.py::FP32_ROWS_TP)
+      switch (tp * 1000 + kp) {
+        case 64032: return f(f32::token_head_bwd_rows_kernel<64, 32, A>);
+        case 32064: return f(f32::token_head_bwd_rows_kernel<32, 64, A>);
+        case 32096: return f(f32::token_head_bwd_rows_kernel<32, 96, A>);
+      }
+      return cudaErrorInvalidValue;
+    }""", "    if (dtype == kFloat32) return cudaErrorInvalidValue;"),
     ("      case 64: return f(token_head_bwd_mma_kernel<32, A, false>);\n"
      "      case 65: return f(token_head_bwd_mma_kernel<32, A, true>);\n"
      "      case 32: return f(token_head_bwd_mma_kernel<16, A, false>);\n", ""),
@@ -209,7 +220,7 @@ def main() -> None:
             for name, lib in libs.items():
                 n = ctypes.c_int(0)
                 loader.check(lib.token_head_bwd_occupancy(
-                    1, th.ACTS[act], tp, mode, smem, ctypes.byref(n)),
+                    1, th.ACTS[act], tp, mode, K, smem, ctypes.byref(n)),
                     f"{name} occupancy")
                 plan = th.backward_plan(B, P, K, HIDDEN, 2, sms, n.value)
                 part = torch.empty(plan.nblocks, K, HIDDEN, device=dev)

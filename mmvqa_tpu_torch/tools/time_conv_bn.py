@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time conv1x1 + BatchNorm statistics (K4) of one checkout on the card.
 
-    python3 mmvqa_tpu_torch/tools/time_conv_bn.py [CHECKOUT]
+    python3 mmvqa_tpu_torch/tools/time_conv_bn.py [--fp32 [B]] [CHECKOUT]
 
 Imports ``mmvqa_tpu_torch`` from CHECKOUT (default: the checkout this file
 lies in), builds its kernels and, at each of the 18 site shapes of the
@@ -12,8 +12,10 @@ the same results (``F.conv2d`` then ``torch.batch_norm_stats``) and the
 bound: CUDA events, median of 10, each call queued behind a sleeping device
 with the L2 cache overwritten first (as ``chip_smoke.py`` times them), and
 the host's cost of a call: microseconds on the host clock over 200 calls
-queued back to back. Then the sums over one train step's 98 sites. To
-compare two versions, unpack the
+queued back to back. Then the sums over one train step's 98 sites. With
+``--fp32`` the same in fp32 at batch B (default 128) with TF32 off, the
+plain version timed too and the bound on the tensor cores as three TF32
+products (a third of 495 TFLOP/s). To compare two versions, unpack the
 other one (``git archive``) into a directory and run this script on both
 checkouts in turns within one job on one card: A, B, B, A.
 """
@@ -32,9 +34,9 @@ SITES = {(49, 304, 1824): 18, (49, 512, 3072): 4, (49, 1056, 304): 1,
          (196, 320, 160): 1, (196, 640, 160): 6, (196, 960, 176): 1,
          (196, 1056, 176): 13, (784, 80, 320): 1, (784, 192, 80): 1,
          (784, 320, 80): 4, (3136, 96, 48): 1, (3136, 192, 48): 4}
-B = 128
 SM_CLOCK_HZ = 1.98e9
-PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12  # the H100 SXM data sheet
+# the H100 SXM data sheet: bytes, dense bf16, a third of dense TF32
+PEAK_BYTES, PEAK_BF16, PEAK_TF32X3 = 3.35e12, 989e12, 495e12 / 3
 
 
 def time_ms(torch, fn, flush, reps: int = 10, warmup: int = 3) -> float:
@@ -73,13 +75,24 @@ def host_us(torch, fn, reps: int = 200, warmup: int = 20) -> float:
 
 
 def main() -> None:
+    args = sys.argv[1:]
+    fp32 = args[:1] == ["--fp32"]
+    B = 128
+    if fp32:
+        args = args[1:]
+        if args[:1] and args[0].isdigit():
+            B, args = int(args[0]), args[1:]
     here = os.path.dirname(os.path.abspath(__file__))
     checkout = os.path.abspath(
-        sys.argv[1] if len(sys.argv) > 1 else os.path.join(here, "..", ".."))
+        args[0] if args else os.path.join(here, "..", ".."))
     sys.path.insert(0, checkout)
     import torch
     import torch.nn.functional as F
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    size, peak = (4, PEAK_TF32X3) if fp32 else (2, PEAK_BF16)
     from mmvqa_tpu_torch.ops.conv_bn import (
         conv1x1_stats,
         conv1x1_stats_reference,
@@ -90,18 +103,21 @@ def main() -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    print(f"{checkout} on {torch.cuda.get_device_name(0)}")
-    total = {"kernel": 0.0, "library": 0.0, "bound": 0.0, "host": 0.0}
+    print(f"{checkout} on {torch.cuda.get_device_name(0)}, {dtype}, B={B}")
+    total = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0,
+             "host": 0.0}
     for (rows, K, C), count in sorted(SITES.items()):
         N = B * rows
-        x = torch.randn(N, K, device=dev, generator=g).bfloat16()
-        wt = (torch.randn(C, K, device=dev, generator=g) * K ** -0.5).bfloat16()
+        x = torch.randn(N, K, device=dev, generator=g).to(dtype)
+        wt = (torch.randn(C, K, device=dev, generator=g) * K ** -0.5).to(dtype)
         w = wt.t()
         y, st = conv1x1_stats(x, w)
         y_p, st_p = conv1x1_stats_reference(x, w)
-        # bf16 y: two ulps; the sums: 1e-4 of their largest (chip_smoke.py)
+        # y: bf16 two ulps, fp32 TOL_K4_F32; the sums: 1e-4 of their largest
+        # (chip_smoke.py)
+        rtol, atol = (2e-5, 2e-5) if fp32 else (8e-3, 2e-3)
         err = (y.float() - y_p.float()).abs()
-        if (err > 2e-3 + 8e-3 * y_p.float().abs()).any() or any(
+        if (err > atol + rtol * y_p.float().abs()).any() or any(
                 (st[i] - st_p[i]).abs().max() > 1e-4 * st_p[i].abs().max()
                 for i in (0, 1)):
             sys.exit(f"K4 disagrees at N={N} K={K} C={C}")
@@ -109,20 +125,25 @@ def main() -> None:
         xn = x.view(B, rows, 1, K).permute(0, 3, 1, 2)
         w4 = wt.view(C, K, 1, 1)
         ms = time_ms(torch, lambda: conv1x1_stats(x, w), flush)
+        plain = (time_ms(torch, lambda: conv1x1_stats_reference(x, w), flush)
+                 if fp32 else 0.0)
         lib = time_ms(torch, lambda: torch.batch_norm_stats(
             F.conv2d(xn, w4), 1e-3), flush)
-        bound = 1e3 * max(((N * K + K * C + N * C) * 2 + 8 * C) / PEAK_BYTES,
-                          (2.0 * N * K * C + 3.0 * N * C) / PEAK_BF16)
+        bound = 1e3 * max(
+            ((N * K + K * C + N * C) * size + 8 * C) / PEAK_BYTES,
+            (2.0 * N * K * C + 3.0 * N * C) / peak)
         host = host_us(torch, lambda: conv1x1_stats(x, w))
         print(f"  N={N:6d} K={K:4d} C={C:4d} x{count:2d}: kernel {ms:.4f} ms"
-              f"  conv2d + batch_norm_stats {lib:.4f} ms  bound {bound:.4f}"
+              + (f"  plain {plain:.4f} ms" if fp32 else "")
+              + f"  conv2d + batch_norm_stats {lib:.4f} ms  bound {bound:.4f}"
               f" ms ({100 * bound / ms:.1f}%)  host {host:.1f} us a call")
-        for key, v in (("kernel", ms), ("library", lib), ("bound", bound),
-                       ("host", host / 1e3)):
+        for key, v in (("kernel", ms), ("plain", plain), ("library", lib),
+                       ("bound", bound), ("host", host / 1e3)):
             total[key] += count * v
         del x, xn
-    print(f"  98 sites: kernel {total['kernel']:.3f} ms  conv2d + "
-          f"batch_norm_stats {total['library']:.3f} ms  bound "
+    print(f"  98 sites: kernel {total['kernel']:.3f} ms"
+          + (f"  plain {total['plain']:.3f} ms" if fp32 else "")
+          + f"  conv2d + batch_norm_stats {total['library']:.3f} ms  bound "
           f"{total['bound']:.3f} ms  host {total['host']:.3f} ms")
 
 

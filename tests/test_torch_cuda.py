@@ -1491,3 +1491,209 @@ def test_supcon_step_on_the_card_matches_the_cpu_plain_path(dev):
     for n in leaves:
         scale = want_g[n].abs().max()
         assert scale > 0 and (got_g[n] - want_g[n]).abs().max() <= 2e-3 * scale
+
+
+# ------------------------------------------ fp32 on the tensor cores ----
+# K4 and K1-bwd in fp32 take split-TF32 kernels (csrc/tf32x3.cuh) at every
+# shape; chip_smoke.py's tolerances: K4's y TOL_K4_F32 (rtol and atol 2e-5)
+# and its sums 1e-4 of their largest entry, K1-bwd's dx and dW RTOL_K1_BWD
+# (1e-4) of their largest entry.
+
+# ragged N, K and C (K no multiple of 4 or 32, C no multiple of a column
+# tile), W as the trunk passes it (the (C, K) weight's view), dense (K, C)
+# and by strides (element copies), the deep K at B=16's 7x7 sites
+TF32X3_K4_SHAPES = [
+    (1, 1, 1, "t"), (37, 3, 5, "dense"), (700, 24, 64, "dense"),
+    (513, 176, 1056, "t"), (300, 35, 77, "strided"), (129, 304, 65, "t"),
+    (4099, 96, 48, "t"), (999, 1824, 304, "t"), (257, 3072, 512, "t"),
+    (784, 1824, 304, "t"), (3136, 1056, 176, "strided"),
+]
+
+
+def _k4_fp32_inputs(dev, N, K, C, layout):
+    g = _gen(dev)
+    x = torch.randn(N, K, device=dev, generator=g)
+    if layout == "t":
+        w = (torch.randn(C, K, device=dev, generator=g) * K ** -0.5).t()
+    elif layout == "strided":
+        w = (torch.randn(C, 2 * K, device=dev, generator=g)
+             * K ** -0.5)[:, ::2].t()
+    else:
+        w = torch.randn(K, C, device=dev, generator=g) * K ** -0.5
+    return x, w
+
+
+@pytest.mark.parametrize("N,K,C,layout", TF32X3_K4_SHAPES)
+def test_conv1x1_stats_fp32_split_tf32_matches_plain(dev, N, K, C, layout):
+    """One launch, counted on both counters; y and the sums within the
+    smoke's fp32 tolerances of the plain version; two runs give the same
+    bits; the stream's last-block counters end at 0."""
+    from mmvqa_tpu_torch.ops import conv_bn
+
+    x, w = _k4_fp32_inputs(dev, N, K, C, layout)
+    before = (conv1x1_stats.launches, conv1x1_stats.tf32x3_launches)
+    y, stats = conv1x1_stats(x, w)
+    y2, stats2 = conv1x1_stats(x, w)
+    torch.cuda.synchronize()
+    assert (conv1x1_stats.launches, conv1x1_stats.tf32x3_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(y2, y) and torch.equal(stats2, stats)
+    y_p, stats_p = conv1x1_stats_reference(x, w)
+    torch.testing.assert_close(y, y_p, rtol=2e-5, atol=2e-5)
+    _normwise(stats[0], stats_p[0], 1e-4)
+    _normwise(stats[1], stats_p[1], 1e-4)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    assert not conv_bn._COUNTERS[(x.device, stream)].any()
+
+
+def test_conv1x1_stats_fp32_is_one_kernel_on_two_streams(dev):
+    """No reduce kernel in fp32 either: the last block of a column tile adds
+    the partials. Calls queued on two streams at once count into their own
+    stream's counters and give the default stream's bits."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from mmvqa_tpu_torch.ops import conv_bn
+
+    cases = [_k4_fp32_inputs(dev, *shape, "t")
+             for shape in ((25088, 176, 1056), (784, 1824, 304),
+                           (100352, 320, 80))]
+    want = [conv1x1_stats(x, w) for x, w in cases]
+    torch.cuda.synchronize()
+    # the profiler drops the records of short traces on some machines
+    # (chip_smoke.py::profiled): twenty calls a trace, one more trace where
+    # the first kept none
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for x, w in cases:
+                for _ in range(10):
+                    conv1x1_stats(x, w)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        if any("conv1x1" in n for n in names):
+            break
+    assert [n for n in names if "conv1x1" in n] == [
+        n for n in names if "conv1x1_stats_tf32x3" in n] != [], names
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    got = [[] for _ in cases]
+    for _ in range(3):
+        for i, (stream, (x, w)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(1000)
+                got[i].append(conv1x1_stats(x, w))
+    torch.cuda.synchronize()
+    for (y, st), runs in zip(want, got):
+        for ry, rst in runs:
+            assert torch.equal(ry, y) and torch.equal(rst, st)
+    device = cases[0][0].device
+    for s in streams:
+        assert not conv_bn._COUNTERS[(device, s.cuda_stream)].any()
+
+
+# both modes: rows (K <= 96: K in 32s of 32, 64 and 96, row tiles of 64 and
+# 32) and tiles (dW's rows in one segment, and in several: the second
+# barrier), ragged K, P and C, x as the trunk gives it and transposed
+TF32X3_K1_CASES = [
+    ("serf", 2, 112 * 112, 24, 768, "nhwc"),
+    ("relu", 3, 130, 40, 776, "dense"),
+    ("serf_fast", 2, 1000, 96, 200, "nchw"),
+    ("serf", 3, 37, 3, 100, "dense"),
+    ("serf", 16, 14 * 14, 176, 768, "nhwc"),
+    ("serf", 16, 7 * 7, 512, 768, "nhwc"),
+    ("serf_fast", 5, 9, 600, 100, "nchw"),
+    ("relu", 4, 700, 97, 64, "dense"),
+]
+
+
+@pytest.mark.parametrize("act,B,P,K,C,layout", TF32X3_K1_CASES)
+def test_token_head_fp32_backward_split_tf32_matches_plain(dev, act, B, P, K,
+                                                           C, layout):
+    """One launch, counted on both counters, in the mode the plan names;
+    dx (in x's layout) and dW within RTOL_K1_BWD of their largest entry of
+    the plain version; two runs give the same bits; the barriers' counters
+    end at 0."""
+    from mmvqa_tpu_torch.ops import token_head
+
+    x, w, gout = _token_head_inputs(dev, torch.float32, B, P, K, C, layout)
+    before = (fused_token_head.backward_launches,
+              fused_token_head.backward_tf32x3_launches)
+    dx, dw = token_head_backward(x, w, gout, act)
+    dx2, dw2 = token_head_backward(x, w, gout, act)
+    torch.cuda.synchronize()
+    assert (fused_token_head.backward_launches,
+            fused_token_head.backward_tf32x3_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dx.stride() == x.stride()
+    dx_p, dw_p = token_head_backward_reference(x, w, gout, act)
+    _normwise(dx, dx_p, 1e-4)
+    _normwise(dw, dw_p, 1e-4)
+    plan = token_head._backward_plan(x, K, C, act)
+    assert plan.mode == (token_head.FP32_ROWS if K <= 96
+                         else token_head.FP32_TILES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    assert not token_head._BARRIERS[(x.device, stream)].any()
+
+
+def test_token_head_fp32_backward_cuts_dw_rows_at_stage_4():
+    """The stage-4 case above (B=16, 196 positions, K=176) is the one whose
+    dW rows the tiles mode cuts into segments on an H100, so that the
+    second barrier runs there."""
+    from mmvqa_tpu_torch.ops.token_head import backward_plan
+
+    assert backward_plan(16, 196, 176, 768, 4, 132, 2).rsplit > 1
+    assert backward_plan(16, 49, 512, 768, 4, 132, 2).rsplit == 1
+
+
+def test_token_head_fp32_backward_on_three_streams_at_once(dev):
+    """Both modes queued on three streams at once, each meeting at its own
+    stream's barriers: every dx and dW is the default stream's, bit for bit,
+    and every counter ends at 0."""
+    from mmvqa_tpu_torch.ops import token_head
+
+    cases = [_token_head_inputs(dev, torch.float32, 16, P, K, 768, "nhwc")
+             for P, K in ((112 * 112, 24), (14 * 14, 176), (7 * 7, 512))]
+    want = [token_head_backward(*case, "serf") for case in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    got = [[] for _ in cases]
+    for _ in range(3):
+        for i, (stream, case) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(1000)
+                got[i].append(token_head_backward(*case, "serf"))
+    torch.cuda.synchronize()
+    for (dx, dw), runs in zip(want, got):
+        for rdx, rdw in runs:
+            assert torch.equal(rdx, dx) and torch.equal(rdw, dw)
+    device = cases[0][0].device
+    for s in streams:
+        assert not token_head._BARRIERS[(device, s.cuda_stream)].any()
+
+
+def test_fp32_train_step_takes_the_split_tf32_kernels(dev):
+    """The CLIs' default step, fp32 at B=16, the flagship MLM model: through
+    autograd every one of its 98 conv1x1 + statistics launches and 5
+    token-head backward launches takes its split-TF32 kernel, and the loss
+    is finite."""
+    from mmvqa_tpu_torch.core.config import pretrain_config
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.train.state import create_train_state
+    from mmvqa_tpu_torch.train.steps import make_mlm_steps
+
+    cfg = pretrain_config(cnn_encoder="tf_efficientnetv2_m",
+                          transformer_model="realformer", batch_size=16)
+    model = MMBert(cfg, generator=torch.Generator().manual_seed(0))
+    assert model.dtype == torch.float32
+    state = create_train_state(model, cfg.lr)
+    step, _ = make_mlm_steps(model, cfg)
+    batch = mlm_batches(cfg, 1, 0)[0]
+    counters = ((conv1x1_stats, "launches"), (conv1x1_stats, "tf32x3_launches"),
+                (fused_token_head, "backward_launches"),
+                (fused_token_head, "backward_tf32x3_launches"))
+    before = [getattr(fn, attr) for fn, attr in counters]
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)
+            ] == [98, 98, 5, 5]
+    assert torch.isfinite(torch.as_tensor(m["loss"]))

@@ -46,8 +46,12 @@ from mmvqa_tpu_torch.ops.attention import (
 from mmvqa_tpu_torch.ops.token_head import (
     SMEM_LIMIT,
     _act_grad,
+    FP32_ROWS,
+    FP32_TILES,
     backward_plan,
+    backward_scratch,
     backward_tile,
+    fp32_tiles_items,
     fused_token_head,
     token_head_backward_reference,
     token_head_reference,
@@ -232,23 +236,44 @@ def test_token_head_backward_plan_covers_every_item(B, P, K):
     row, position) once) go to the blocks in order, none twice and none left
     out; no block is empty; the blocks fit the card at once (the launch is
     cooperative); a block's shared memory fits an H100's 227 KB; and the
-    partials, one (K, C) a block, are as many as the blocks."""
+    partials, one (K, C) a block, are as many as the blocks. bf16 hands a
+    block ``per_block`` consecutive tiles, fp32's rows mode deals them out
+    evenly; fp32's tiles mode (K > 96) has no partial a block: its scratch
+    is gact, (B * P, C), and the dW of each segment of the rows where there
+    are several, and its blocks are no more than the larger phase's tiles."""
     N = B * P
     for itemsize in (2, 4):
         for C in (768, 1024, 2048):
             tp, mode, smem = backward_tile(K, C, itemsize)
             assert smem <= SMEM_LIMIT == 227 * 1024
-            assert tp in ((64,) if itemsize == 4 else (64, 32, 16))
+            assert tp in ((32, 64) if itemsize == 4 else (64, 32, 16))
             for sms, slots in itertools.product(SM_COUNTS, (1, 2, 3)):
                 plan = backward_plan(B, P, K, C, itemsize, sms, slots)
                 assert (plan.tp, plan.mode, plan.smem) == (tp, mode, smem)
                 assert plan.nblocks <= slots * sms
                 tiles = -(-N // plan.tp)
-                assert plan.nblocks == -(-tiles // plan.per_block)
+                scratch = backward_scratch(plan, itemsize, B, P, K, C)
+                if itemsize == 4 and mode == FP32_TILES:
+                    r = plan.rsplit
+                    assert 1 <= r <= -(-N // 1024)
+                    assert scratch == (N * C + (r * K * C if r > 1 else 0),)
+                    assert plan.nblocks == min(
+                        max(fp32_tiles_items(N, K, C, r)), slots * sms)
+                    continue
+                assert plan.rsplit == 1
+                assert scratch == (plan.nblocks, K, C)
+                if itemsize == 4:
+                    assert plan.nblocks == min(tiles, slots * sms)
+                    ranges = [(j * tiles // plan.nblocks,
+                               (j + 1) * tiles // plan.nblocks)
+                              for j in range(plan.nblocks)]
+                else:
+                    assert plan.nblocks == -(-tiles // plan.per_block)
+                    ranges = [(j * plan.per_block,
+                               min(tiles, (j + 1) * plan.per_block))
+                              for j in range(plan.nblocks)]
                 covered = 0
-                for j in range(plan.nblocks):
-                    lo = j * plan.per_block
-                    hi = min(tiles, lo + plan.per_block)
+                for lo, hi in ranges:
                     assert lo < hi  # not empty
                     first, last = lo * plan.tp, min(N, hi * plan.tp)
                     assert first == covered  # in order, no gap or overlap
@@ -261,8 +286,9 @@ def test_token_head_backward_plan_covers_every_item(B, P, K):
 def test_token_head_backward_plan_takes_any_k_and_refuses_only_too_wide_a_c():
     """bf16 parks 64 rows of gact for C up to 1024 (the reference's hidden
     768 and 1024), 32 rows up to 2176 (2048), 16 rows up to 4224; K never
-    limits it, and W is resident beside gact for the narrow taps. fp32 sums
-    dx in a shared tile up to K = 550 (at C = 768) and in dx itself beyond."""
+    limits it, and W is resident beside gact for the narrow taps. fp32 takes
+    the rows mode up to K = 96 (row tiles of 64 up to K = 32, of 32 above)
+    and the tiles mode beyond, at any C."""
     for C, tp in ((768, 64), (1024, 64), (1025, 32), (2048, 32), (2176, 32),
                   (2177, 16), (4224, 16)):
         assert backward_tile(100000, C, 2)[:2] == (tp, 0)
@@ -271,9 +297,12 @@ def test_token_head_backward_plan_takes_any_k_and_refuses_only_too_wide_a_c():
     for K, tp, mode in ((24, 64, 1), (48, 64, 1), (80, 32, 1), (176, 64, 0),
                         (512, 64, 0)):
         assert backward_tile(K, 768, 2)[:2] == (tp, mode)
-    assert backward_tile(550, 768, 4)[1] == 1
-    assert backward_tile(551, 768, 4)[1] == 0
-    assert backward_tile(2048, 8192, 4)[2] <= SMEM_LIMIT
+    assert backward_tile(32, 768, 4)[:2] == (64, FP32_ROWS)
+    assert backward_tile(33, 768, 4)[:2] == (32, FP32_ROWS)
+    assert backward_tile(96, 768, 4)[:2] == (32, FP32_ROWS)
+    assert backward_tile(97, 768, 4)[:2] == (64, FP32_TILES)
+    for K, C in ((2048, 8192), (96, 8192), (24, 100000)):
+        assert backward_tile(K, C, 4)[2] <= SMEM_LIMIT
 
 
 # ---------------------------------------------------------------- K2 ----

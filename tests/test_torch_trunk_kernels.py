@@ -37,6 +37,7 @@ from mmvqa_tpu_torch.ops.conv_bn import (
     conv1x1_stats_reference,
     launch_plan,
     takes_tma,
+    tf32_plan,
     tma_plan,
 )
 from mmvqa_tpu_torch.ops.depthwise import (
@@ -200,11 +201,17 @@ def test_conv1x1_stats_bf16_sums_come_from_the_unrounded_product(rng):
     (1, 1, 1, torch.float32), (129, 7, 65, torch.bfloat16),
 ])
 def test_conv1x1_stats_launch_plan(N, K, C, dtype):
-    nrb = launch_plan(N, K, C, dtype, 132)
-    tile_m = 128 if dtype == torch.bfloat16 else 64
+    """Blocks along the rows of the bf16 mma.sync kernel and of the fp32
+    kernel: at least one, no more than the row tiles."""
+    if dtype == torch.bfloat16:
+        nrb, tile_m = launch_plan(N, K, C, 132), 128
+    else:
+        plan = tf32_plan(N, K, C, 132)
+        nrb, tile_m = plan.nrb, plan.bm
     assert 1 <= nrb <= -(-N // tile_m)
     with pytest.raises(ValueError, match="empty"):
-        launch_plan(0, K, C, dtype, 132)
+        (launch_plan(0, K, C, 132) if dtype == torch.bfloat16
+         else tf32_plan(0, K, C, 132))
 
 
 # (N / B, K, C) of the flagship trunk's 18 K4 site shapes (chip_smoke.py::
