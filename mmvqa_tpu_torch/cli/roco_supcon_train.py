@@ -3,8 +3,8 @@ mmvqa_tpu/cli/roco_supcon_train.py).
 
     python -m mmvqa_tpu_torch.cli.roco_supcon_train -r RUN \\
         --data_dir DIR/roco --mlm_prob 0.15 --con_task supcon \\
-        --similarity jaccard --cnn_encoder tf_efficientnetv2_m \\
-        --transformer_model realformer [--use_sim_mask] [--mixed_precision]
+        --similarity jaccard [--cnn_encoder tf_efficientnetv2_m \\
+        --transformer_model realformer] [--use_sim_mask] [--mixed_precision]
 
 The reference's flags and protocol (pretrain/roco_supcon_train.py): the
 similarity calculator, the loader at ``batch_size // 2`` (the two views
@@ -15,11 +15,11 @@ weights at ``--resume_dir``, and the weights at each better validation
 loss. As in the reference, the similarity mask is computed but not passed to
 the loss (supcon_utils.py:286-287) unless ``--use_sim_mask`` is set. It runs
 on the CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the
-host (tests). What the port lacks raises: ``--transformer_model`` other than
-realformer and ``--cnn_encoder`` other than the EfficientNetV2 trunks
-(ROADMAP.md Queue 1, item 8), the mesh flags and a pipeline-layout
-checkpoint (item 10); the similarity backends other than ``jaccard`` need
-their packages and local weights.
+host (tests). Without encoder flags the model is the reference's default,
+ResNet-152 and the pre-norm BERT encoder. What the port lacks raises:
+``--transformer_model feedback-transformer`` (ROADMAP.md Queue 1, item 8),
+the mesh flags and a pipeline-layout checkpoint (item 10); the similarity
+backends other than ``jaccard`` need their packages and local weights.
 """
 
 from __future__ import annotations

@@ -1,16 +1,19 @@
 """ROCO MLM pretraining CLI (counterpart of mmvqa_tpu/cli/roco_train.py).
 
     python -m mmvqa_tpu_torch.cli.roco_train -r RUN --data_dir DIR/roco \\
-        --mlm_prob 0.15 --cnn_encoder tf_efficientnetv2_m \\
-        --transformer_model realformer [--mixed_precision] ...
+        --mlm_prob 0.15 [--cnn_encoder tf_efficientnetv2_m \\
+        --transformer_model realformer] [--mixed_precision] ...
+
+Without encoder flags it pretrains the reference's default model, ResNet-152
+and the pre-norm BERT encoder; the two flags above select the flagship.
 
 The reference's flags and epoch protocol: train -> validate -> plateau LR
 on the validation loss -> the recorder every 5 epochs -> the weights at
 each better validation loss, with the same metric names. It runs on the
 CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the host
-(tests). Encoders and tasks the port lacks raise: ``--transformer_model``
-other than realformer and ``--cnn_encoder`` other than the EfficientNetV2
-trunks (ROADMAP.md Queue 1, item 8), ``--task distillation`` (item 7).
+(tests). What the port lacks raises: ``--transformer_model
+feedback-transformer`` (ROADMAP.md Queue 1, item 8), ``--task
+distillation`` (item 7), the mesh flags (item 10).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ mmvqa_tpu/cli/vqa_eval.py).
 
     python -m mmvqa_tpu_torch.cli.vqa_eval --run_name RUN \\
         --data_dir DIR/vqa --save_dir OUT --num_vis 5 \\
-        --cnn_encoder tf_efficientnetv2_m --transformer_model realformer \\
+        [--cnn_encoder tf_efficientnetv2_m --transformer_model realformer] \\
         --hidden_size 768 --model_dir SAVE/MLM/RUN \\
         [--model_dirs A B ...] [--mixed_precision]
 
@@ -14,8 +14,8 @@ where ``--model_dirs`` names several, final_test of utils.py:845-872),
 per-category accuracy and BLEU, and ``<model>_preds.csv`` and the
 pipe-separated ImageCLEF ``<model>_res.txt`` in ``--save_dir``. It runs on
 the CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the host
-(tests). What the port lacks raises as in ``cli/vqa_train.py``: other
-encoders and trunks (ROADMAP.md Queue 1, item 8), ``--task distillation``
+(tests). What the port lacks raises as in ``cli/vqa_train.py``: the
+feedback transformer (ROADMAP.md Queue 1, item 8), ``--task distillation``
 (item 7), the mesh flags and a pipeline-layout checkpoint (item 10).
 """
 

@@ -2,7 +2,7 @@
 
     python -m mmvqa_tpu_torch.cli.vqa_train --run_name RUN \\
         --data_dir DIR/vqa --save_dir SAVE --num_vis 5 \\
-        --cnn_encoder tf_efficientnetv2_m --transformer_model realformer \\
+        [--cnn_encoder tf_efficientnetv2_m --transformer_model realformer] \\
         --hidden_size 768 [--use_pretrained --model_dir SAVE/MLM/RUN \\
         --vocab_file DIR/roco/vocab.txt] [--mixed_precision] ...
 
@@ -15,10 +15,11 @@ train, a val and a test pass, the plateau LR on the val loss, two best
 checkpoints (``<run>_loss`` by val loss, ``<run>`` by val accuracy) and
 early stopping after ``--counter`` epochs without a better accuracy. It runs
 on the CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the
-host (tests). What the port lacks raises: ``--transformer_model`` other than
-realformer and ``--cnn_encoder`` other than the EfficientNetV2 trunks
-(ROADMAP.md Queue 1, item 8), ``--task distillation`` (item 7), the mesh
-flags and a pipeline-layout checkpoint (item 10).
+host (tests). Without encoder flags the model is the reference's default,
+ResNet-152 and the pre-norm BERT encoder. What the port lacks raises:
+``--transformer_model feedback-transformer`` (ROADMAP.md Queue 1, item 8),
+``--task distillation`` (item 7), the mesh flags and a pipeline-layout
+checkpoint (item 10).
 """
 
 from __future__ import annotations

@@ -1,5 +1,11 @@
 """Top-level multimodal model (counterpart of mmvqa_tpu/models/mmbert.py):
-EfficientNetV2 visual tokens, BERT embeddings, RealFormer.
+visual tokens from the ResNet-152 or the EfficientNetV2 trunk, BERT
+embeddings, and the encoder the config names, as ``MMBert.setup`` of the JAX
+package selects it: ``transformer`` (the default, the reference's MMBERT) is
+the pre-norm ``BertEncoder`` with ``cfg.heads`` heads and dropout
+``hidden_dropout_prob``; ``realformer`` the RealFormer with 8 heads. The
+feedback transformer (ROADMAP.md Queue 1, item 8) and the pipeline-parallel
+encoders (item 10) raise.
 
 Text tokens are embedded BERT-style; the visual tokens then OVERWRITE
 embedded positions 0..num_vis-1, [CLS] included (the reference's fusion
@@ -45,6 +51,7 @@ from mmvqa_tpu_torch.models.effnetv2 import BatchNorm2d
 from mmvqa_tpu_torch.models.embeddings import BertEmbeddings
 from mmvqa_tpu_torch.models.layers import DropoutRng, LayerNorm, Linear
 from mmvqa_tpu_torch.models.realformer import RealFormerEncoder
+from mmvqa_tpu_torch.models.transformer import BertEncoder
 from mmvqa_tpu_torch.models.visual_tokens import TokenHead, VisualTokenizer
 from mmvqa_tpu_torch.ops.activations import serf
 
@@ -110,8 +117,11 @@ class MMBert(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if "realformer" not in cfg.transformer_model:
+        if "feedback-transformer" in cfg.transformer_model:
             raise _not_ported(f"transformer_model {cfg.transformer_model!r}", "8")
+        if not any(k in cfg.transformer_model
+                   for k in ("realformer", "transformer")):
+            raise NotImplementedError(cfg.transformer_model)
         if cfg.dataset == "roco" and cfg.task != "MLM":
             raise _not_ported(f"task {cfg.task!r}", "7")
         if cfg.dataset not in ("roco", "VQA-Med"):
@@ -137,9 +147,14 @@ class MMBert(nn.Module):
             cnn_encoder=cfg.cnn_encoder, num_vis=cfg.num_vis, hidden_size=H,
             use_relu=cfg.use_relu, tiny=cfg.tiny_cnn,
         )
-        self.encoder = RealFormerEncoder(
-            H, cfg.n_layers, head_cnt=cfg.head_count, dp1=dp(0.1),
-            dp2=dp(0.1), rng=self.dropout_rng)
+        if "realformer" in cfg.transformer_model:
+            self.encoder = RealFormerEncoder(
+                H, cfg.n_layers, head_cnt=cfg.head_count, dp1=dp(0.1),
+                dp2=dp(0.1), rng=self.dropout_rng)
+        else:
+            self.encoder = BertEncoder(
+                H, cfg.n_layers, cfg.heads, dp(cfg.hidden_dropout_prob),
+                share="none", norm_pos="pre", rng=self.dropout_rng)
         self.fc1 = Linear(H, H)
         self.classifier_0 = Linear(H, H)
         self.classifier_ln = LayerNorm(H, eps=1e-12)

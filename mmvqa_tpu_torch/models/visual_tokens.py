@@ -1,12 +1,21 @@
 """Multi-scale visual tokens: per-stage 1x1 projection -> activation -> GAP.
 
-Counterpart of mmvqa_tpu/models/visual_tokens.py, EfficientNetV2 branch.
-The trunk runs once; each tapped map goes through the fused token head
-(K1, ``ops/token_head.py``), which never materializes the (B, H*W, hidden)
-projection. Every tap takes K1 on the card: there is no size routing.
+Counterpart of mmvqa_tpu/models/visual_tokens.py, ResNet-152 and
+EfficientNetV2 branches. The trunk runs once; each tapped map goes through
+the fused token head (K1, ``ops/token_head.py``), which never materializes
+the (B, H*W, hidden) projection. Every tap of either trunk takes K1 on the
+card, forward and backward: there is no size routing.
 
-Token order is shallow-first: five taps at stages (0, 1, 2, 4, 6), or all
-seven stages (always SERF) for ``num_vis=7``.
+Token order follows the reference's encoders:
+
+* resnet152 (``num_vis=5`` only): deepest-first, ``token_conv_0`` on the
+  2048-channel map at 7x7 down to ``token_conv_4`` on the 64-channel stem at
+  112x112 (224 px);
+* tf_efficientnetv2_m: shallow-first, five taps at stages (0, 1, 2, 4, 6), or
+  all seven stages (always SERF) for ``num_vis=7``.
+
+The Grad-CAM perturbation of the deepest map (``perturb`` of the JAX module)
+is not ported (ROADMAP.md Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -21,6 +30,11 @@ from mmvqa_tpu_torch.models.effnetv2 import (
     TINY_EFFNET_ARCH,
     V2_M_ARCH,
     EffNetV2Features,
+)
+from mmvqa_tpu_torch.models.resnet import (
+    RESNET152_STAGES,
+    TAP_CHANNELS,
+    ResNetFeatures,
 )
 from mmvqa_tpu_torch.ops.token_head import fused_token_head
 
@@ -58,20 +72,26 @@ class VisualTokenizer(nn.Module):
                  num_vis: int = 5, hidden_size: int = 768,
                  use_relu: bool = False, tiny: bool = False):
         super().__init__()
-        if "efficientnetv2" not in cnn_encoder:
-            raise NotImplementedError(
-                f"cnn_encoder {cnn_encoder!r} is not ported yet (ROADMAP.md "
-                "Queue 1, item 8)"
-            )
-        if num_vis not in (5, 7):
-            raise ValueError("efficientnetv2 supports num_vis in {5, 7}")
-        arch = TINY_EFFNET_ARCH if tiny else V2_M_ARCH
-        self.trunk = EffNetV2Features(arch=arch)
-        self.taps = FIVE_TAP_STAGES if num_vis == 5 else tuple(range(7))
+        if "resnet" in cnn_encoder:
+            if num_vis != 5:
+                raise ValueError("resnet152 supports num_vis=5 only")
+            self.trunk = ResNetFeatures((1, 1, 1, 1) if tiny
+                                        else RESNET152_STAGES)
+            self.taps = (4, 3, 2, 1, 0)  # deepest first
+            channels = TAP_CHANNELS
+        elif "efficientnetv2" in cnn_encoder:
+            if num_vis not in (5, 7):
+                raise ValueError("efficientnetv2 supports num_vis in {5, 7}")
+            arch = TINY_EFFNET_ARCH if tiny else V2_M_ARCH
+            self.trunk = EffNetV2Features(arch=arch)
+            self.taps = FIVE_TAP_STAGES if num_vis == 5 else tuple(range(7))
+            channels = tuple(stage[5] for stage in arch)
+        else:
+            raise NotImplementedError(cnn_encoder)
         act = "relu" if (use_relu and num_vis == 5) else "serf"
         for i, stage in enumerate(self.taps):
             self.add_module(f"token_conv_{i}",
-                            TokenHead(arch[stage][5], hidden_size, act))
+                            TokenHead(channels[stage], hidden_size, act))
 
     def forward(self, img_nhwc: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """img: (B, H, W, 3). Returns one (B, hidden) token per tap."""

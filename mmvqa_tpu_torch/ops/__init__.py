@@ -1,9 +1,10 @@
-from mmvqa_tpu_torch.ops.activations import serf
+from mmvqa_tpu_torch.ops.activations import gelu_erf, serf
 from mmvqa_tpu_torch.ops.attention import (
     realformer_attention,
     realformer_attention_backward_reference,
     realformer_attention_packed,
     realformer_attention_reference,
+    vanilla_attention,
 )
 from mmvqa_tpu_torch.ops.bn_sums import (
     bn_backward_sums,
@@ -27,6 +28,8 @@ from mmvqa_tpu_torch.ops.token_head import (
 
 __all__ = [
     "serf",
+    "gelu_erf",
+    "vanilla_attention",
     "realformer_attention",
     "realformer_attention_backward_reference",
     "realformer_attention_packed",

@@ -39,3 +39,11 @@ def serf(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         return serf_fast(x)
     return serf_exact(x)
+
+
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU of the BERT encoder's feed-forward, in the JAX
+    package's op order: ``x * 0.5 * (1 + erf(x / sqrt(2)))``, each step in
+    x's dtype, sqrt(2) rounded to that dtype first."""
+    root2 = float(torch.tensor(2.0, dtype=x.dtype).sqrt())
+    return x * 0.5 * (1.0 + torch.erf(x / root2))

@@ -24,13 +24,18 @@ them.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.
+
+The vanilla BERT encoder's core (``vanilla_attention``, counterpart of
+mmvqa_tpu/ops/attention.py::vanilla_attention) is here too: the JAX package
+computes it with XLA's own products, so its port is plain tensor operations,
+no kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -375,3 +380,37 @@ realformer_attention.launches = 0
 realformer_attention.mma_launches = 0  # of those, the tensor cores'
 realformer_attention.backward_launches = 0
 realformer_attention.backward_mma_launches = 0  # of those, the tensor cores'
+
+
+def vanilla_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    key_mask: Optional[torch.Tensor], *,
+    dropout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """The BERT encoder's attention core, the JAX package's 'xla' path:
+    q, k, v (B, H, T, D), key_mask (B, T) (1 real, 0 pad) or None ->
+    (B, H, T, D) in q's dtype.
+
+    ``scores = q kT / sqrt(D) - 10000 (1 - mask)`` over the KEYS, product,
+    scale and mask in q's dtype (sqrt(D) rounded to it); the softmax in fp32,
+    cast back; ``dropout`` (the layer's ``models.layers.Dropout``, which
+    draws from the model's generator) on the probabilities; then ``p v``.
+    The JAX package computes this outside any Pallas kernel, so these are
+    plain tensor operations on every device. ``impl='ring'`` (blockwise
+    ring attention over a context group) is not ported."""
+    if impl == "ring":
+        raise NotImplementedError(
+            "vanilla_attention impl='ring' is not ported to mmvqa_tpu_torch "
+            "yet (ROADMAP.md Queue 1, item 10)")
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"vanilla_attention: unknown impl {impl!r}")
+    scale = float(torch.tensor(float(q.shape[-1])).sqrt().to(q.dtype))
+    scores = torch.matmul(q, k.to(q.dtype).transpose(-1, -2)) / scale
+    if key_mask is not None:
+        neg = NEG_BIG * (1.0 - key_mask.to(scores.dtype))
+        scores = scores - neg[:, None, None, :]
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    if dropout is not None:
+        probs = dropout(probs)
+    return torch.matmul(probs, v)

@@ -1697,3 +1697,121 @@ def test_fp32_train_step_takes_the_split_tf32_kernels(dev):
     assert [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)
             ] == [98, 98, 5, 5]
     assert torch.isfinite(torch.as_tensor(m["loss"]))
+
+
+# ------------------------------------------- the CLIs' default model ----
+
+# ResNet-152's K4 sites, (N / B, K, C): conv1 and conv3 of its blocks and
+# layer1's downsample (models/resnet.py), and its K5 sites, (N / B, C)
+RESNET_K4_SITES = [(3136, 64, 64), (3136, 256, 64), (3136, 64, 256),
+                   (3136, 256, 128), (784, 128, 512), (784, 512, 128),
+                   (784, 512, 256), (196, 256, 1024), (196, 1024, 256),
+                   (196, 1024, 512), (49, 512, 2048), (49, 2048, 512)]
+RESNET_K5_SITES = [(12544, 64), (3136, 64), (3136, 256), (3136, 128),
+                   (784, 128), (784, 512), (784, 256), (196, 256),
+                   (196, 1024), (196, 512), (49, 512), (49, 2048)]
+# the five taps deepest first, (P, K)
+RESNET_TAPS = [(49, 2048), (196, 1024), (784, 512), (3136, 256),
+               (12544, 64)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,K,C", RESNET_K4_SITES)
+def test_conv1x1_stats_at_the_resnet_sites(dev, dtype, rows, K, C):
+    """At B=4, w as the trunk passes it: bf16 on the TMA path, fp32 on the
+    split-TF32 kernel, both against the plain version with
+    test_conv1x1_stats_kernel_matches_plain's tolerances, two runs bit for
+    bit."""
+    g = _gen(dev)
+    N = 4 * rows
+    x = torch.randn(N, K, device=dev, generator=g).to(dtype)
+    w = (torch.randn(C, K, device=dev, generator=g) * K ** -0.5).to(dtype).t()
+    before = (conv1x1_stats.tma_launches, conv1x1_stats.tf32x3_launches)
+    y, stats = conv1x1_stats(x, w)
+    y2, stats2 = conv1x1_stats(x, w)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (conv1x1_stats.tma_launches - before[0],
+            conv1x1_stats.tf32x3_launches - before[1]) == (
+        (2, 0) if bf16 else (0, 2))
+    assert torch.equal(y2, y) and torch.equal(stats2, stats)
+    y_p, stats_p = conv1x1_stats_reference(x, w)
+    tol = TOL[torch.bfloat16] if bf16 else dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(y.float(), y_p.float(), **tol)
+    _normwise(stats[0], stats_p[0], 1e-4)
+    _normwise(stats[1], stats_p[1], 1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,C", RESNET_K5_SITES)
+def test_bn_backward_sums_at_the_resnet_sites(dev, dtype, rows, C):
+    g = _gen(dev)
+    shape = (4, rows, 1, C)
+    x = (torch.randn(shape, device=dev, generator=g) * 2 + 1).to(dtype)
+    dy = torch.randn(shape, device=dev, generator=g).to(dtype)
+    mean = torch.randn(C, device=dev, generator=g)
+    inv_std = 1 + torch.rand(C, device=dev, generator=g)
+    before = bn_backward_sums.launches
+    s1, s2 = bn_backward_sums(x, dy, mean, inv_std)
+    again = bn_backward_sums(x, dy, mean, inv_std)
+    torch.cuda.synchronize()
+    assert bn_backward_sums.launches == before + 2
+    assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+    p1, p2 = bn_backward_sums_reference(x, dy, mean, inv_std)
+    _normwise(s1, p1, 1e-4)
+    _normwise(s2, p2, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,K", RESNET_TAPS)
+def test_token_head_at_the_resnet_taps(dev, dtype, P, K):
+    """Forward and backward at B=4, x as the trunk gives it (a channels-last
+    map's (B, P, K) view), C = 768, SERF (bf16: its fast form): the forward
+    with the module's tolerances, the backward with
+    test_token_head_backward_kernel_matches_plain's."""
+    act = "serf_fast" if dtype == torch.bfloat16 else "serf"
+    x, w, gout = _token_head_inputs(dev, dtype, 4, P, K, 768, "nhwc")
+    before = (fused_token_head.launches, fused_token_head.backward_launches)
+    out = fused_token_head(x, w, act)
+    dx, dw = token_head_backward(x, w, gout, act)
+    torch.cuda.synchronize()
+    assert (fused_token_head.launches - before[0],
+            fused_token_head.backward_launches - before[1]) == (1, 1)
+    torch.testing.assert_close(out.float(),
+                               token_head_reference(x, w, act).float(),
+                               **TOL[dtype])
+    dx_p, dw_p = token_head_backward_reference(x, w, gout, act)
+    bf16 = dtype == torch.bfloat16
+    rel_dw, rel_dx = (1e-3, 8e-3) if bf16 else (1e-4, 1e-4)
+    _normwise(dw, dw_p, rel_dw)
+    _normwise(dx, dx_p, rel_dx)
+
+
+def test_default_model_eval_on_the_card_matches_the_cpu(dev):
+    """The CLIs' default VQA model (ResNet-152, the pre-norm BERT encoder,
+    hidden 768, 12 heads, 4 layers) in fp32 at 224 px, B=2: the card's
+    logits within the smoke's 1e-3 of the CPU plain path's, and five K1
+    launches a forward, no other kernel."""
+    import copy
+
+    from mmvqa_tpu_torch.core.config import vqa_config
+    from mmvqa_tpu_torch.data.synthetic import vqa_batches
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.train.steps import make_vqa_eval_step
+
+    cfg = vqa_config(num_classes=40, batch_size=2)
+    assert (cfg.cnn_encoder, cfg.transformer_model) == ("resnet152",
+                                                       "transformer")
+    batch = vqa_batches(cfg, 1, 40, 0, 0)[0]
+    cpu = MMBert(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    want = make_vqa_eval_step(cpu, cfg)(batch)["logits"]
+    counters = [(fused_token_head, "launches"), (conv1x1_stats, "launches"),
+                (bn_backward_sums, "launches"),
+                (realformer_attention, "launches"), (depthwise3x3, "launches")]
+    before = [getattr(fn, attr) for fn, attr in counters]
+    got = make_vqa_eval_step(card, cfg)(batch)["logits"]
+    torch.cuda.synchronize()
+    assert [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)
+            ] == [5, 0, 0, 0, 0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)

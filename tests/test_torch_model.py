@@ -165,8 +165,9 @@ def test_weights_come_from_the_generator():
 
 
 @pytest.mark.parametrize("over,what", [
-    ({"cnn_encoder": "resnet152"}, "cnn_encoder"),
-    ({"transformer_model": "transformer", "heads": 8}, "transformer_model"),
+    # the id the transformer case had before the default encoder was ported
+    pytest.param({"transformer_model": "feedback-transformer", "heads": 8},
+                 "transformer_model", id="over1-transformer_model"),
 ])
 def test_unported_parts_name_the_roadmap(over, what):
     cfg, _ = configs("vqa5", **over)
@@ -175,10 +176,11 @@ def test_unported_parts_name_the_roadmap(over, what):
 
 
 @pytest.mark.parametrize("case,over,words", [
-    ("vqa5", {"cnn_encoder": "resnet152"}, "encoders and trunks"),
-    ("vqa5", {"transformer_model": "transformer", "heads": 8},
-     "encoders and trunks"),
-    # ids as they were before the SupCon case (ported) left the list
+    # ids as they were before the SupCon case and the two default-encoder
+    # cases (ported) left the list
+    pytest.param("vqa5", {"transformer_model": "feedback-transformer",
+                          "heads": 8}, "encoders and trunks",
+                 id="vqa5-over1-encoders and trunks"),
     pytest.param("mlm", {"task": "distillation"}, "Distillation",
                  id="mlm-over3-Distillation"),
     pytest.param("vqa5", {"pp_size": 2}, "Multi-GPU",
