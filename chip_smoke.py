@@ -22,8 +22,10 @@
    tensor-core kernels where forward_path and backward_path say so, and two
    runs of it must give identical bits. The token head's forward prints its
    rate (TFLOP/s of its products) and its share of the bound per tap at B=128
-   and B=16; conv1x1 + statistics must take its TMA + wgmma path at every
-   bf16 trunk site shape; the attention at T=75 and T=28, forward and
+   and B=16; in fp32 every call must take its split-TF32 kernel, one launch,
+   and two runs must give identical bits; conv1x1 + statistics must take
+   its TMA + wgmma path at every bf16 trunk site shape; the attention at
+   T=75 and T=28, forward and
    backward, and the BN-backward sums at every site shape print their
    share of the bound.
 3. Eval slice: the flagship VQA model (EfficientNetV2-M + RealFormer, hidden
@@ -55,7 +57,10 @@
    the run, and so does a second pass (a reduce or finalize kernel) of the
    token head, forward or backward, of the depthwise backward, of conv1x1 +
    statistics or of the BN-backward sums, and an attention kernel, forward
-   or backward, other than the tensor-core ones.
+   or backward, other than the tensor-core ones. Every traced step and eval
+   batch fails where the token head's forward runs a kernel other than its
+   dtype's: ``token_head_fwd_mma`` in bf16, ``token_head_fwd_tf32x3`` in
+   fp32.
 
 5. Fine-tune slice: VQA-Med fine-tuning of the flagship model. (a) One
    fp32 VQA train step at B=8 on the card and on the CPU plain path under
@@ -120,14 +125,17 @@
    the reference's MMBERT (ResNet-152, five visual tokens deepest first,
    four pre-norm BERT layers of 12 heads at hidden 768), seeded random
    weights, 224 px. (a) K1 at its five taps, K4 and K5 at every distinct
-   site shape, at B=16 in fp32 and B=128 in bf16, each against its plain
-   version (two runs bit for bit) and timed beside it, its bound and, for
-   K4 and K5, the library's calls. (b) Eval at B=16, T=28: fp32 logits
+   site shape, at B=16 in fp32 and B=128 in bf16, and K1's forward in fp32
+   at B=128 too, each against its plain version (two runs bit for bit) and
+   timed beside it, its bound and, for K4 and K5, the library's calls. (b)
+   Eval at B=16, T=28: fp32 logits
    against the CPU plain path, bf16 as the eval slice holds them, five K1
    launches a forward and no other kernel. (c) One fp32 MLM train step at
    B=8, T=75, card against the CPU, with its own leaves and statistics
    (``default_train_check_fp32`` says why the bn3 scales are lowered and the
-   trunk's leaves allowed a ReLU-flip term). (d) The bf16 main path at
+   trunk's leaves allowed a ReLU-flip term); then the CLIs' fp32 step at
+   B=16, five steps at exact counts and three traced (the card's busy
+   time, the fp32 trace rules). (d) The bf16 main path at
    B=128 through ``mlm_epoch``: the loss falls; per step K1 5 and 5, K4 101
    on its TMA path, K5 155; the train slice's profiler rules. (e)
    ``roco_train.main`` (bf16 and fp32), ``vqa_train.main`` from its bf16
@@ -410,6 +418,30 @@ def k1_bwd_rate(B, P, K, C, ms, bound_ms) -> str:
             f"{100 * bound_ms / ms:.1f}% of the bound")
 
 
+def checked_k1_fwd(label, x, w, act):
+    """The forward twice, bit for bit, against the plain version; in fp32
+    one launch a call on the split-TF32 kernel. Returns the error."""
+    import torch
+
+    from mmvqa_tpu_torch.ops.token_head import (
+        fused_token_head,
+        token_head_reference,
+    )
+
+    fp32 = x.dtype == torch.float32
+    tf32x3 = fused_token_head.tf32x3_launches
+    got = fused_token_head(x, w, act)
+    again = fused_token_head(x, w, act)
+    want = token_head_reference(x, w, act)
+    torch.cuda.synchronize()
+    if fused_token_head.tf32x3_launches - tf32x3 != (2 if fp32 else 0):
+        fail(f"token_head {label}: fp32 off the split-TF32 path")
+    if not torch.equal(got, again):
+        fail(f"token_head {label}: two runs differ")
+    return close(f"token_head {label}", got, want,
+                 TOL_K1_F32 if fp32 else TOL_BF16)
+
+
 def check_k1_bwd(label, x, dx, dw, dx_p, dw_p):
     """K1-bwd against its plain version: (dx error, dW error)."""
     bf16 = x.element_size() == 2
@@ -491,10 +523,14 @@ KERNELS = {
         "no single PyTorch call returns a product and the sums of its "
         "output; the two calls F.conv2d + torch.batch_norm_stats are timed "
         "as context"),
-    # of every launch of the two above, the fp32 ones: split-TF32 products
-    # on the tensor cores (csrc/tf32x3.cuh); their ms, plain_ms and bound_ms
-    # are fp32's: K1-bwd's five taps at the CLI's B=16, K4's 98 sites at
-    # B=128
+    # of every launch of the token head, both ways, and of conv1x1 +
+    # statistics, the fp32 ones: split-TF32 products on the tensor cores
+    # (csrc/tf32x3.cuh); their ms, plain_ms and bound_ms are fp32's: K1's
+    # five taps at the CLI's B=16, K4's 98 sites at B=128
+    "token_head_tf32x3": (
+        "mmvqa_tpu_torch/csrc/token_head.cu",
+        "mmvqa_tpu/ops/pallas_token_head.py:247",
+        "no single PyTorch call fuses the projection, SERF and the mean"),
     "token_head_bwd_tf32x3": (
         "mmvqa_tpu_torch/csrc/token_head_bwd.cu",
         "mmvqa_tpu/ops/pallas_token_head.py:273",
@@ -529,7 +565,8 @@ def add_fp32(r, count, ms, plain, library, bnd):
 # what a kernel's fp32 sums cover: the CLIs' default dtype at their batch
 # (B=16) where the token head and the attention are concerned, the trunk's
 # kernels at the train path's B=128 as their bf16 sums are; bounds on the
-# tensor cores (split-TF32) for K1-bwd and K4, on the CUDA cores otherwise
+# tensor cores (split-TF32) for K1, both ways, and K4, on the CUDA cores
+# otherwise
 FP32_SUMS = {
     "token_head": "the five taps at B=16",
     "token_head_bwd": "the five taps at B=16",
@@ -625,21 +662,20 @@ def kernel_phase(torch):
         summary = bf16 and B == TRAIN_B
         label = f"{name} B={B} P={P} K={K} {dtype}"
 
-        got = fused_token_head(x, w, act)
-        want = token_head_reference(x, w, act)
-        torch.cuda.synchronize()
-        err = close(f"token_head {label}", got, want,
-                    TOL_BF16 if bf16 else TOL_K1_F32)
+        err = checked_k1_fwd(label, x, w, act)
         ms = time_ms(lambda: fused_token_head(x, w, act), reps, flush=flush)
         plain = time_ms(lambda: token_head_reference(x, w, act), reps,
                         flush=flush)
-        bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "fwd")
-        print(f"token_head {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms"
-              f"  plain {plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})  "
-              f"{k1_fwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
+        bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "fwd",
+                       tensor_cores=not bf16)
+        print(f"token_head {label}: max_abs_err {err:.3e}, two runs identical"
+              f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}{'' if bf16 else ', tensor cores'})"
+              f"  {k1_fwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
         note("token_head", dtype, err, summary, ms, plain, bnd,
              fp32_sum=not bf16 and B == EVAL_B)
-        del got, want
+        if not bf16:
+            note("token_head_tf32x3", dtype, err, B == EVAL_B, ms, plain, bnd)
 
         dx, dw, e_dx, e_dw = checked_k1_bwd(label, x, w, gout, act)
         del dx, dw
@@ -1342,13 +1378,28 @@ def profiled(torch, run, n: int, label: str):
          "not checked")
 
 
+def check_token_head_forward(kernels, label: str, bf16: bool) -> None:
+    """Fails where the token head's forward ran a kernel other than its
+    dtype's: token_head_fwd_mma in bf16, token_head_fwd_tf32x3 in fp32 (no
+    partial or finalize kernel: each sums across its blocks itself)."""
+    want = "token_head_fwd_mma" if bf16 else "token_head_fwd_tf32x3"
+    other = [a.key for a in kernels if "token_head" in a.key
+             and "token_head_bwd" not in a.key and want not in a.key]
+    if other:
+        fail(f"{label}: the token head's forward ran a kernel other than "
+             f"{want}: {other}")
+
+
 def trace_batches(torch, step, batches, label):
     """Device busy share under torch.profiler: summed kernel time over the
-    host-clock span of ``batches``; prints the kernels that take most."""
+    host-clock span of ``batches``; prints the kernels that take most.
+    Fails where the token head's forward runs another kernel than its
+    dtype's (``label`` names the dtype)."""
     n = len(batches)
     outs, wall, kernels = profiled(torch, lambda: [step(b) for b in batches],
                                    n, f"slice {label}")
     check_outputs(torch, outs, label)
+    check_token_head_forward(kernels, f"slice {label}", label == "bf16")
     busy = sum(a.self_device_time_total for a in kernels) / 1e3
     print(f"slice {label}: traced {n} batches, wall {wall / n:.3f} ms/batch, "
           f"device busy {busy / n:.3f} ms/batch ({100 * busy / wall:.1f}%)")
@@ -1403,6 +1454,7 @@ def slice_phase(torch):
           f"bf16): {launches}")
     want = dict.fromkeys(launches, 0)
     want.update(token_head=5 * forwards,
+                token_head_tf32x3=5 * (forwards - bf16_forwards),
                 realformer_attention=cfg.n_layers * forwards,
                 realformer_attention_mma=cfg.n_layers * bf16_forwards,
                 depthwise3x3=42 * forwards)
@@ -1452,6 +1504,7 @@ def _counters():
     from mmvqa_tpu_torch.ops.token_head import fused_token_head
 
     return (("token_head", fused_token_head, "launches"),
+            ("token_head_tf32x3", fused_token_head, "tf32x3_launches"),
             ("token_head_bwd", fused_token_head, "backward_launches"),
             ("token_head_bwd_tf32x3", fused_token_head,
              "backward_tf32x3_launches"),
@@ -1641,26 +1694,29 @@ def train_breakdown(torch, model, cfg, state, batch, n: int) -> None:
                        f"train bf16 B={TRAIN_B}")
 
 
-def fp32_step_trace(torch, n: int = 3) -> float:
-    """(e) the CLIs' default step: the flagship MLM model in fp32 at their
-    batch (CLI_B), one synthetic batch. Five steps on the host clock, each
-    ending in a synchronise, with every counter at its exact count (K4 and
-    K1-bwd on their split-TF32 kernels); then ``n`` steps under
+def fp32_step_trace(torch, n: int = 3, default: bool = False) -> float:
+    """(e) the CLIs' fp32 step: the flagship MLM model (``default``: the
+    default model, ResNet-152 and the pre-norm BERT encoder) in fp32 at
+    their batch (CLI_B), one synthetic batch. Five steps on the host clock,
+    each ending in a synchronise, with every counter at its exact count (K4
+    and K1, both ways, on their split-TF32 kernels); then ``n`` steps under
     torch.profiler, as the bf16 steps are traced: the card's busy time and
     the kernels by name. Returns the busy ms a step."""
+    from mmvqa_tpu_torch.core.config import pretrain_config
     from mmvqa_tpu_torch.data.synthetic import mlm_batches
     from mmvqa_tpu_torch.models import MMBert
     from mmvqa_tpu_torch.models.mmbert import compute_dtype_of
     from mmvqa_tpu_torch.train.state import create_train_state
     from mmvqa_tpu_torch.train.steps import make_mlm_steps
 
-    cfg = flagship_mlm_config(batch_size=CLI_B, lr=TRAIN_LR, seed=SEED)
+    make_cfg = pretrain_config if default else flagship_mlm_config
+    cfg = make_cfg(batch_size=CLI_B, lr=TRAIN_LR, seed=SEED)
     model = MMBert(cfg, compute_dtype=compute_dtype_of(cfg),
                    generator=torch.Generator().manual_seed(SEED))
     state = [create_train_state(model, cfg.lr, clip=cfg.clip)]
     train_step, _ = make_mlm_steps(model, cfg)
     batch = mlm_batches(cfg, 1, SEED)[0]
-    label = f"train fp32 B={CLI_B}"
+    label = f"{'default ' if default else ''}train fp32 B={CLI_B}"
 
     def run_step():
         state[0], m = train_step(state[0], batch)
@@ -1674,13 +1730,14 @@ def fp32_step_trace(torch, n: int = 3) -> float:
         losses.append(run_step()["loss"])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    check_launches(label, read_counts(), expected_launches(5, 0, False))
+    check_launches(label, read_counts(), (default_launches if default else
+                                          expected_launches)(5, 0, False))
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses):
         fail(f"{label}: non-finite loss {losses}")
     print(f"{label}: ms per step {['%.1f' % t for t in times]} (median after "
           f"the first {statistics.median(times[1:]):.2f}); losses "
-          f"{['%.4f' % x for x in losses]}; every K4 and K1-bwd launch on "
+          f"{['%.4f' % x for x in losses]}; every K4 and K1 launch on "
           f"its split-TF32 kernel")
     busy = traced_train_steps(torch, run_step, n, label, bf16=False)
     del model, state
@@ -1695,12 +1752,12 @@ def traced_train_steps(torch, run_step, n: int, label: str,
     library's batch-norm and depthwise kernels. Fails on a library
     batch-norm kernel, a second pass of the token head, the depthwise
     backward, conv1x1 + statistics or the BN-backward sums, an attention
-    kernel other than the tensor-core ones, and a trace without device time
-    (``profiled``). An fp32 step (``bf16`` False) runs the token head's
-    forward and the attention on their fp32 kernels, whose redesign is still
-    to come (the forward's partial and finalize pair, the attention's
+    kernel other than the tensor-core ones, a token-head forward kernel
+    other than its dtype's (``check_token_head_forward``), and a trace
+    without device time (``profiled``). An fp32 step (``bf16`` False) runs
+    the attention on its fp32 kernels, whose redesign is still to come (the
     one-block kernels), and fails where conv1x1 + statistics or the token
-    head's backward runs any kernel other than its split-TF32 one. Returns
+    head, either way, runs any kernel other than its split-TF32 one. Returns
     the busy ms per step."""
     _, wall, kernels = profiled(
         torch, lambda: [run_step() for _ in range(n)], n, label)
@@ -1708,7 +1765,7 @@ def traced_train_steps(torch, run_step, n: int, label: str,
     print(f"{label}: traced {n} steps, wall {wall / n:.2f} "
           f"ms/step, device busy {busy / n:.2f} ms/step "
           f"({100 * busy / wall:.1f}%)")
-    ours = ("token_head_fwd_mma", "token_head_partial", "token_head_finalize",
+    ours = ("token_head_fwd_mma", "token_head_fwd_tf32x3",
             "token_head_bwd", "token_head_bwd_rows", "token_head_bwd_tiles",
             "realformer_attn_fwd", "realformer_attn_fwd_mma",
             "realformer_attn_bwd", "realformer_attn_bwd_mma",
@@ -1748,13 +1805,14 @@ def traced_train_steps(torch, run_step, n: int, label: str,
     second = [a.key for a in mine if "reduce" in a.key and any(
         t in a.key for t in ("depthwise", "token_head", "conv1x1",
                              "bn_backward_sums"))
-              or (bf16 and "token_head_finalize" in a.key)]
+              or "token_head_finalize" in a.key]
     if second:
         fail(f"{label}: a second pass of the depthwise backward, the token "
              f"head, conv1x1 + statistics or the BN-backward sums ran in the "
              f"train step: {second}")
     # bf16: the attention runs on its tensor-core kernels alone, both ways;
     # fp32: on its fp32 kernels
+    check_token_head_forward(mine, label, bf16)
     for way in ("fwd", "bwd"):
         other = [a.key for a in mine if f"realformer_attn_{way}" in a.key
                  and (f"realformer_attn_{way}_mma" in a.key) != bf16]
@@ -1841,7 +1899,8 @@ def train_phase(torch):
                 "realformer_attention_bwd_mma": cfg.n_layers,
                 "depthwise3x3": 42, "depthwise3x3_bwd": 42,
                 "conv1x1_stats": 98, "conv1x1_stats_tma": 98,
-                "token_head_bwd_tf32x3": 0, "conv1x1_stats_tf32x3": 0,
+                "token_head_tf32x3": 0, "token_head_bwd_tf32x3": 0,
+                "conv1x1_stats_tf32x3": 0,
                 "bn_backward_sums": 156}
     want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
     other = launches["conv1x1_stats"] - launches["conv1x1_stats_tma"]
@@ -2048,7 +2107,8 @@ def finetune_phase(torch):
                     "realformer_attention_bwd_mma": cfg.n_layers,
                     "depthwise3x3": 42, "depthwise3x3_bwd": 42,
                     "conv1x1_stats": 98, "conv1x1_stats_tma": 98,
-                    "token_head_bwd_tf32x3": 0, "conv1x1_stats_tf32x3": 0,
+                    "token_head_tf32x3": 0, "token_head_bwd_tf32x3": 0,
+                    "conv1x1_stats_tf32x3": 0,
                     "bn_backward_sums": 156}
         want = {name: n * FT_STEPS for name, n in per_step.items()}
         other = launches["conv1x1_stats"] - launches["conv1x1_stats_tma"]
@@ -2324,10 +2384,11 @@ def expected_launches(train: int, forwards: int, bf16: bool) -> dict:
     trunk on batch statistics) and ``forwards`` eval forwards of the
     flagship model; in bf16 every attention call takes the tensor-core
     kernels and every conv1x1 + statistics call its TMA path, in fp32 every
-    conv1x1 + statistics call and every token-head backward its split-TF32
-    kernel."""
+    conv1x1 + statistics call and every token-head forward and backward its
+    split-TF32 kernel."""
     f = train + forwards
-    return {"token_head": 5 * f, "token_head_bwd": 5 * train,
+    return {"token_head": 5 * f, "token_head_tf32x3": 0 if bf16 else 5 * f,
+            "token_head_bwd": 5 * train,
             "token_head_bwd_tf32x3": 0 if bf16 else 5 * train,
             "realformer_attention": 4 * f,
             "realformer_attention_mma": 4 * f if bf16 else 0,
@@ -2734,7 +2795,9 @@ def default_launches(train: int, forwards: int, bf16: bool) -> dict:
     depthwise kernel."""
     k4, k5 = DEF_SITES
     want = dict.fromkeys(expected_launches(0, 0, bf16), 0)
-    want.update(token_head=5 * (train + forwards), token_head_bwd=5 * train,
+    want.update(token_head=5 * (train + forwards),
+                token_head_tf32x3=0 if bf16 else 5 * (train + forwards),
+                token_head_bwd=5 * train,
                 token_head_bwd_tf32x3=0 if bf16 else 5 * train,
                 conv1x1_stats=k4 * train,
                 conv1x1_stats_tma=k4 * train if bf16 else 0,
@@ -2821,6 +2884,39 @@ def default_kernel_phase(torch, results) -> dict:
         r = results[name]["err"]
         r[dtype] = max(r[dtype], e)
 
+    def k1_forward(label, x, w, act):
+        """checked_k1_fwd, then timed beside the plain version and its
+        bound."""
+        B, P, K = x.shape
+        bf16 = x.dtype == torch.bfloat16
+        e = checked_k1_fwd(label, x, w, act)
+        ms = timed(lambda: fused_token_head(x, w, act))
+        plain = timed(lambda: token_head_reference(x, w, act))
+        bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "fwd",
+                       tensor_cores=not bf16)
+        print(f"token_head {label}: max_abs_err {e:.3e}, two runs "
+              f"identical  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}"
+              f"{'' if bf16 else ', tensor cores'})  library null  "
+              f"{k1_fwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
+        err("token_head", x.dtype, e)
+        if not bf16:
+            err("token_head_tf32x3", x.dtype, e)
+        add("token_head", x.dtype, B, 1, ms, plain, bnd[0])
+        return e
+
+    # ---- K1's fp32 forward at the train batch too (the CLIs' fp32 runs
+    # take it at B=16; the flagship's taps are held at both in kernel_phase)
+    for name, side, K in DEF_TAPS:
+        P = side * side
+        feat = torch.randn(TRAIN_B, side, side, K, device=dev, generator=g)
+        x = tap_positions(feat.permute(0, 3, 1, 2))
+        w = torch.randn(K, HIDDEN, device=dev, generator=g) * K ** -0.5
+        k1_forward(f"default {name} B={TRAIN_B} P={P} K={K} "
+                   f"{torch.float32}", x, w, "serf")
+        del feat, x
+    torch.cuda.empty_cache()
+
     for dtype, B in ((torch.float32, CLI_B), (torch.bfloat16, TRAIN_B)):
         bf16 = dtype == torch.bfloat16
         act = "serf_fast" if bf16 else "serf"
@@ -2833,24 +2929,7 @@ def default_kernel_phase(torch, results) -> dict:
                  * K ** -0.5).to(dtype)
             gout = torch.randn(B, HIDDEN, device=dev, generator=g)
             label = f"default {name} B={B} P={P} K={K} {dtype}"
-            got = fused_token_head(x, w, act)
-            again = fused_token_head(x, w, act)
-            want = token_head_reference(x, w, act)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                fail(f"token_head {label}: two runs differ")
-            e = close(f"token_head {label}", got, want,
-                      TOL_BF16 if bf16 else TOL_K1_F32)
-            del got, again, want
-            ms = timed(lambda: fused_token_head(x, w, act))
-            plain = timed(lambda: token_head_reference(x, w, act))
-            bnd = k1_bound(B, P, K, HIDDEN, x.element_size(), act, "fwd")
-            print(f"token_head {label}: max_abs_err {e:.3e}, two runs "
-                  f"identical  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                  f"bound {bnd[0]:.4f} ms ({bnd[1]})  library null  "
-                  f"{k1_fwd_rate(B, P, K, HIDDEN, ms, bnd[0])}")
-            err("token_head", dtype, e)
-            add("token_head", dtype, B, 1, ms, plain, bnd[0])
+            e = k1_forward(label, x, w, act)
 
             tf32x3 = fused_token_head.backward_tf32x3_launches
             dx, dw = token_head_backward(x, w, gout, act)
@@ -3017,8 +3096,9 @@ def default_eval(torch) -> dict:
         outs[label] = run_batches(torch, make_vqa_eval_step(model, cfg),
                                   batches, f"default {label}")[0]
     launches = read_counts()
-    check_launches("default eval", launches,
-                   default_launches(0, 2 * len(batches), True))
+    want = default_launches(0, 2 * len(batches), True)
+    want["token_head_tf32x3"] = 5 * len(batches)  # the fp32 forwards
+    check_launches("default eval", launches, want)
     e32 = close("default eval fp32 logits vs CPU", outs["fp32"]["logits"].cpu(),
                 refs["fp32"]["logits"], TOL_SLICE)
     ref32 = refs["fp32"]["logits"]
@@ -3282,12 +3362,15 @@ def default_phase(torch, results, work: str) -> dict:
     """(8) The model the CLIs build by default, the reference's MMBERT:
     ResNet-152, the pre-norm BERT encoder, hidden 768, 12 heads, 4 layers,
     seeded random weights, 224 px. Its kernels at its shapes, eval, the fp32
-    train step against the CPU, the bf16 main path and the CLIs. Returns
-    the launches of the main-path runs (eval, the bf16 epoch, the CLIs)."""
+    train step against the CPU, the CLIs' fp32 step at B=CLI_B traced, the
+    bf16 main path and the CLIs. Returns the launches of the main-path runs
+    (eval, the bf16 epoch, the CLIs)."""
     t0 = time.perf_counter()
     default_kernel_phase(torch, results)
     launches = default_eval(torch)
     default_train_check_fp32(torch)
+    torch.cuda.empty_cache()
+    fp32_step_trace(torch, default=True)
     torch.cuda.empty_cache()
     add_counts(launches, default_train(torch))
     add_counts(launches, default_clis(torch, work))
@@ -3346,9 +3429,9 @@ def main() -> None:
     # ms, plain_ms, bound_ms, library_ms: at the train path's shapes in bf16,
     # B=TRAIN_B, summed over the calls of one pass (the trunk's kernels:
     # every site of a step, inputs not in the L2 cache); bound_by: what
-    # binds the largest. The two _tf32x3 rows are fp32's, bounds on the
-    # tensor cores: K1-bwd's five taps at B=CLI_B, K4's 98 sites at
-    # B=TRAIN_B.
+    # binds the largest. The three _tf32x3 rows are fp32's, bounds on the
+    # tensor cores: K1's five taps, forward and backward, at B=CLI_B, K4's
+    # 98 sites at B=TRAIN_B.
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

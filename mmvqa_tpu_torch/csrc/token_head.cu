@@ -4,11 +4,11 @@
 // (_fwd_kernel / _fwd_call, pallas_call at :247). Like it, it never writes
 // the (B, P, C) projection to device memory, and it sums in fp32.
 //
-// What bounds it on an H100: the activation, not the products or the bytes.
-// At the flagship stage-0 tap (B=128, P=112*112, K=24, C=768) it takes 1.2 G
-// activations against 29.6 G multiply-adds and 77 MB of x; the bf16 path's
-// SERF (its polynomial form) is a fast exp and a fast divide an element, two
-// special functions, which at 16 a cycle an SM are the bound.
+// What bounds it on an H100 in bf16: the activation, not the products or
+// the bytes. At the flagship stage-0 tap (B=128, P=112*112, K=24, C=768) it
+// takes 1.2 G activations against 29.6 G multiply-adds and 77 MB of x; the
+// bf16 path's SERF (its polynomial form) is a fast exp and a fast divide an
+// element, two special functions, which at 16 a cycle an SM are the bound.
 //
 // bf16 (token_head_fwd_mma_kernel): the products on the tensor cores, the
 // activation and the sums on their accumulator fragments. Positions are one
@@ -48,192 +48,50 @@
 // partials of the blocks that share the image in block order, divides by P
 // and casts. No float atomics: two runs give identical bits.
 //
-// fp32 (token_head_partial_kernel, the port's first): a register-tiled fp32
-// GEMM on the CUDA cores (it serves the fp32 checks), (64 positions x 128
-// channels) tiles, K staged through shared memory 8 at a time, every thread
-// a 4 x 8 tile of sums that it activates and adds to one running sum per
-// channel; the P axis cut into chunks that write (B, nchunks, C) partials,
-// which a second small kernel adds in a fixed order, divides by P and
-// casts. Registers capped for three blocks an SM, four waves of blocks
-// (ops/token_head.py::launch_plan).
+// fp32 (token_head_fwd_tf32x3_kernel, the CLIs' default dtype): the same
+// rows and tiles that cross images as bf16, with the products as split-TF32
+// products on the tensor cores (csrc/tf32x3.cuh: three TF32 products of
+// each operand's hi and lo parts, each k8 step summed from zero and added
+// to the running sum in fp32, so that K up to 2048 keeps fp32 accuracy)
+// and exact SERF (libm expf, log1pf, erff) in the accumulator fragments. A
+// block is four consumer warps of 32 channels and one producer warp: 128
+// channels of a run of row tiles. The producer stages 32-k chunks of x (and
+// of W, where it streams) by cp.async into a four-stage ring guarded by
+// mbarriers; 16-byte copies where x's rows are 16-byte aligned and K-major,
+// element copies otherwise. W stays in shared memory, staged once, where
+// K <= 96 (the taps with the most rows, whose activation binds): 16-row
+// tiles, up to four blocks an SM, whose 16 consumer warps hide more of
+// SERF's latency than fewer, wider ones did (32 rows at three blocks an SM
+// took 2-14% longer at these taps: tools/probe_token_head.py --fp32). It
+// streams with x beyond: 64-row tiles, two
+// blocks an SM. As in bf16, no block-wide barrier stands between a warp's
+// products and its activation: one warp's SERF runs beside another's
+// products, and every sum across warps and blocks is taken by a warp
+// alone. The deep taps have few rows (ResNet's layer4 at B=16: 784, 13
+// tiles of 64 x 6 channel tiles against 132 SMs): there the plan
+// (ops/token_head.py::fp32_forward_plan) cuts K's chunks into ks slices, a
+// block each; each warp stores its slice's s, and the last of a tile's ks
+// warps (an atomicInc counter a tile and warp) adds them in slice order
+// before SERF, which is not linear and so is never taken of a part of K.
+// Per-image sums: a warp's running sums go to its block's partial of an
+// image where the image ends, and the last warp of an (image, 32 channels)
+// adds the partials of the blocks that share the image in block order. No
+// float atomics: two runs give identical bits. What bounds it on an H100:
+// the products at K >= 176 (165 TFLOP/s of split-TF32 products), SERF's 45
+// FP32 instructions an element at K <= 80 (tools/time_token_head.py reads
+// them from the SASS); both run far from those bounds: mma.sync's TF32
+// products, and SERF's dependent chains behind the branch in erff.
 //
 // x is read by strides, so the trunk's map goes in as its (B, P, K) view
-// with no transposing copy; the bf16 kernel copies 16 bytes at a time where
-// every row is 16-byte aligned and K-major, elements otherwise.
+// with no transposing copy; both kernels copy 16 bytes at a time where every
+// row is 16-byte aligned and K-major, elements otherwise.
 #include <climits>
 #include <type_traits>
 
+#include "tf32x3.cuh"
 #include "token_head_tile.cuh"
 
 namespace mmvqa {
-
-constexpr int kTileP = 64;    // positions per tile
-constexpr int kTileC = 128;   // channels per block
-constexpr int kChunkK = 8;    // contraction depth staged per step
-constexpr int kThreads = 256;
-// blocks per SM: caps registers at 80 a thread (ptxas spills under 200
-// bytes). Uncapped the kernel takes more than 85 and only two blocks fit;
-// three measured about 10% faster at the early taps (PERF.md).
-constexpr int kMinBlocks = 3;
-constexpr int kRegP = 4;      // positions per thread
-constexpr int kRegC = 8;      // channels per thread (contiguous)
-constexpr int kGroupsP = kTileP / kRegP;  // 16 position groups
-constexpr int kGroupsC = kTileC / kRegC;  // 16 channel groups
-static_assert(kGroupsP * kGroupsC == kThreads, "thread tile");
-
-// SERF sigmoid-gate polynomial (ops/activations.py::SERF_P5)
-__constant__ float kSerfP5[6] = {
-    4.743144768698157e-04f, 9.427917061937980e-03f, 7.255023041520858e-02f,
-    2.832661920672991e-01f, 1.605305418315285e+00f, 7.293287033146151e-01f};
-
-enum Act : int { kSerf = 0, kSerfFast = 1, kRelu = 2 };
-
-template <int ACT>
-__device__ __forceinline__ float activate(float s) {
-  if (ACT == kSerf) {
-    const float y = log1pf(expf(fminf(s, 50.0f)));
-    return s * erff(y);
-  } else if (ACT == kSerfFast) {
-    float q = kSerfP5[0];
-#pragma unroll
-    for (int i = 1; i < 6; ++i) q = q * s + kSerfP5[i];
-    return s * (1.0f / (1.0f + expf(-q)));
-  } else {
-    return fmaxf(s, 0.0f);
-  }
-}
-
-// grid (B, ceil(C / kTileC), nchunks), block kThreads. Block (b, ct, z) sums
-// act(x . W) over positions [z * chunk, min(P, (z + 1) * chunk)) for
-// channels [ct * kTileC, ...) and writes partial[b, z, c].
-template <typename T, int ACT>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    token_head_partial_kernel(
-    const T* __restrict__ x, long long sb, long long sp, long long sk,
-    const T* __restrict__ w, float* __restrict__ partial, int P, int K, int C,
-    int chunk, int nchunks) {
-  __shared__ __align__(16) float xs[kChunkK][kTileP];  // [k][position]
-  __shared__ __align__(16) float ws[kChunkK][kTileC];  // [k][channel]
-  __shared__ float red[kGroupsP][kTileC];
-
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * kTileC;
-  const int z = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tc = tid % kGroupsC;  // this thread's channels: tc * kRegC + j
-  const int tp = tid / kGroupsC;  // this thread's positions: tp * kRegP + i
-
-  const int p_begin = z * chunk;
-  const int p_end = min(P, p_begin + chunk);
-  const T* xb = x + (long long)b * sb;
-
-  float csum[kRegC];
-#pragma unroll
-  for (int j = 0; j < kRegC; ++j) csum[j] = 0.0f;
-
-  for (int t0 = p_begin; t0 < p_end; t0 += kTileP) {
-    float acc[kRegP][kRegC];
-#pragma unroll
-    for (int i = 0; i < kRegP; ++i)
-#pragma unroll
-      for (int j = 0; j < kRegC; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < K; k0 += kChunkK) {
-      __syncthreads();  // the previous chunk is consumed
-      // x tile: kChunkK x kTileP values, the unit-stride axis fastest
-      for (int i = tid; i < kChunkK * kTileP; i += kThreads) {
-        int k, p;
-        if (sp == 1) {
-          k = i / kTileP;
-          p = i % kTileP;
-        } else {
-          p = i / kChunkK;
-          k = i % kChunkK;
-        }
-        const int gp = t0 + p;
-        const int gk = k0 + k;
-        xs[k][p] = (gp < p_end && gk < K)
-                       ? to_f32(xb[(long long)gp * sp + (long long)gk * sk])
-                       : 0.0f;
-      }
-      // W tile: kChunkK x kTileC values, channels fastest (W is contiguous)
-      for (int i = tid; i < kChunkK * kTileC; i += kThreads) {
-        const int k = i / kTileC;
-        const int c = i % kTileC;
-        const int gk = k0 + k;
-        const int gc = c0 + c;
-        ws[k][c] = (gk < K && gc < C) ? to_f32(w[(long long)gk * C + gc]) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kChunkK; ++k) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[k][tp * kRegP]);
-        const float4 wa = *reinterpret_cast<const float4*>(&ws[k][tc * kRegC]);
-        const float4 wb =
-            *reinterpret_cast<const float4*>(&ws[k][tc * kRegC + 4]);
-        const float xr[kRegP] = {xv.x, xv.y, xv.z, xv.w};
-        const float wr[kRegC] = {wa.x, wa.y, wa.z, wa.w,
-                                 wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int i = 0; i < kRegP; ++i)
-#pragma unroll
-          for (int j = 0; j < kRegC; ++j)
-            acc[i][j] = fmaf(xr[i], wr[j], acc[i][j]);
-      }
-    }
-    // padded positions are left out of the sum; padded channels never leave
-#pragma unroll
-    for (int i = 0; i < kRegP; ++i) {
-      if (t0 + tp * kRegP + i < p_end) {
-#pragma unroll
-        for (int j = 0; j < kRegC; ++j) csum[j] += activate<ACT>(acc[i][j]);
-      }
-    }
-  }
-
-  // add the kGroupsP position groups of each channel, in a fixed order
-#pragma unroll
-  for (int j = 0; j < kRegC; ++j) red[tp][tc * kRegC + j] = csum[j];
-  __syncthreads();
-  if (tid < kTileC && c0 + tid < C) {
-    float s = 0.0f;
-#pragma unroll
-    for (int g = 0; g < kGroupsP; ++g) s += red[g][tid];
-    partial[((long long)b * nchunks + z) * C + c0 + tid] = s;
-  }
-}
-
-// out[b, c] = (sum over chunks, in order) / P, cast to the input dtype.
-template <typename T>
-__global__ void token_head_finalize_kernel(const float* __restrict__ partial,
-                                           T* __restrict__ out, int B, int C,
-                                           int nchunks, int P) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)B * C) return;
-  const long long b = i / C;
-  const int c = (int)(i % C);
-  float s = 0.0f;
-  for (int z = 0; z < nchunks; ++z) s += partial[(b * nchunks + z) * C + c];
-  out[i] = from_f32<T>(s / (float)P);
-}
-
-template <typename T, int ACT>
-cudaError_t launch(const void* x, long long sb, long long sp, long long sk,
-                   const void* w, float* partial, void* out, int B, int P,
-                   int K, int C, int chunk, int nchunks, cudaStream_t stream) {
-  const dim3 grid(B, (C + kTileC - 1) / kTileC, nchunks);
-  token_head_partial_kernel<T, ACT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), sb, sp, sk, static_cast<const T*>(w), partial,
-      P, K, C, chunk, nchunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int threads = 256;
-  const long long n = (long long)B * C;
-  token_head_finalize_kernel<T><<<(unsigned)((n + threads - 1) / threads),
-                                  threads, 0, stream>>>(
-      partial, static_cast<T*>(out), B, C, nchunks, P);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------- bf16: tensor cores
 
@@ -623,43 +481,354 @@ cudaError_t grant_smem(Kern kern, int act, int mode, int smem) {
 }
 
 }  // namespace fwd
+
+// ------------------------------------------- fp32: split-TF32 tensor cores
+
+namespace fwd32 {
+
+constexpr int kWarpC = 32;                       // channels of a consumer warp
+constexpr int kNT = kWarpC / 8;                  // its n8 fragments
+constexpr int kConsumers = 4;                    // consumer warps
+constexpr int kTileC = kConsumers * kWarpC;      // channels of a block
+constexpr int kThreads = (kConsumers + 1) * 32;  // and the producer warp
+constexpr int kStages = 4;                       // the ring
+constexpr int kChunk = tf32::kChunk;             // k's of a stage
+constexpr int kResidentK = 96;                   // W resident up to this K
+
+// How W reaches the products: streamed with x through the ring, a 32 x 128
+// chunk a stage; or resident in shared memory, all K, staged once.
+enum Mode : int { kStreamed = 0, kResident = 1 };
+
+__host__ __device__ inline int kpad(int K) { return (K + 31) / 32 * 32; }
+
+// fp32 values of a ring stage: a TP x 32 chunk of x, and where W streams a
+// 32 x 128 chunk of W
+__host__ __device__ inline int stage_floats(int tp, bool resident) {
+  return tp * kChunk + (resident ? 0 : kChunk * kTileC);
+}
+
+// Shared memory: W (resident: K in 32s x 128), the ring, its full and empty
+// mbarriers. Rows of 32 and 128 values, unpadded, in tf32x3.cuh's swizzle.
+__host__ __device__ inline int smem_bytes(int tp, int K, bool resident) {
+  const int w = resident ? kpad(K) * kTileC : 0;
+  return 4 * (w + kStages * stage_floats(tp, resident)) + 2 * kStages * 8;
+}
+
+struct Out {
+  float* out;          // (B, C)
+  float* part;         // (gridDim.y, slots, cpad) fp32: per-image sums
+  unsigned* counter;   // (B, gridDim.x, kConsumers): an image's, by warp
+  unsigned* kcounter;  // K split: (gridDim.y, gridDim.x, kConsumers): a
+                       // tile's, by warp; all zero on entry and on exit
+  float* spart;        // K split: (gridDim.y, gridDim.x, gridDim.z,
+                       // kConsumers, TP * 32) fp32: the slices' s
+  int per_block;       // row tiles of a block
+  int slots;           // images a block's partial holds
+  int cpad;            // gridDim.x * kTileC
+};
+
+// grid (ceil(C / kTileC), nblocks, ks), block kThreads. Block (ct, j, z)
+// owns the channels [ct * kTileC, + kTileC) of the row tiles [j *
+// per_block, + per_block) of TP rows, and the z-th of ks slices of K's
+// 32-k chunks (ks > 1 only with one tile a block, at the deep taps: few
+// rows, wide K). Stage i of the ring holds the block's chunk i % nkc of its
+// tile i / nkc. Consumer warp w sums s for the tile's TP rows and its 32
+// channels over its chunks (acc: TP / 16 m16 tiles x 4 n8 fragments);
+// where K is split it stores that partial and the last of the ks warps
+// that hold its tile's slices adds them in slice order. Then the warp takes
+// SERF of each 16-row step, adds it to its per-image running sums, and
+// flushes them to the block's partial of an image where the image ends;
+// the last warp of an (image, 32 channels) to flush adds the partials of
+// the blocks that share the image in block order.
+template <int ACT, int TP, bool RESIDENT>
+__global__ void __launch_bounds__(kThreads, RESIDENT ? 4 : 2)
+    token_head_fwd_tf32x3_kernel(tf32::Positions xsrc, tf32::Dense wsrc,
+                                 Out o, int B, int P, int K, int C) {
+  using namespace tf32;
+  constexpr int MT = TP / 16;  // m16 tiles of a warp
+  constexpr int SB = TP * kChunk + (RESIDENT ? 0 : kChunk * kTileC);
+  extern __shared__ __align__(128) float smem32[];
+  const int kp = kpad(K);
+  float* wres = smem32;  // resident: [kp][kTileC]
+  float* ring = RESIDENT ? wres + kp * kTileC : smem32;
+  auto* full = reinterpret_cast<uint64_t*>(ring + kStages * SB);
+  auto* empty = full + kStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;  // accumulator row, column pair
+  const int ct = blockIdx.x;
+  const int c0 = ct * kTileC;
+  const int N = B * P;
+  const int n_items = (N + TP - 1) / TP;
+  const int first = blockIdx.y * o.per_block;
+  const int last = min(n_items, first + o.per_block);
+  const int first_img = (int)((long long)first * TP / P);
+  const int rows_pb = o.per_block * TP;
+  // the block's chunks of K: all of them, or its slice where K is split
+  const int ks = gridDim.z, z = blockIdx.z;
+  const int n_kc = (K + kChunk - 1) / kChunk;
+  const int kc_lo = z * n_kc / ks;
+  const int nkc = (z + 1) * n_kc / ks - kc_lo;
+  const int stages = (last - first) * nkc;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 64);  // each producer lane: its copies, its stores
+      mbar_init(&empty[s], kConsumers);
+    }
+  }
+  if (RESIDENT) {
+    stage(wres, kp, kTileC, wsrc, 0, c0, threadIdx.x, kThreads);
+    commit();
+    wait_groups<0>();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // ---- the producer: stage i into buffer i % kStages once the consumers
+    // have released its previous use
+    for (int i = 0; i < stages; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[s], (i / kStages - 1) & 1);
+      float* buf = ring + s * SB;
+      const int item = first + i / nkc;
+      const int k0 = (kc_lo + i % nkc) * kChunk;
+      stage(buf, TP, kChunk, xsrc, item * TP, k0, lane, 32);
+      if (!RESIDENT)
+        stage(buf + TP * kChunk, kChunk, kTileC, wsrc, k0, c0, lane, 32);
+      cp_async_arrive(&full[s]);
+      mbar_arrive(&full[s]);
+    }
+    commit();
+    wait_groups<0>();  // its copies land before it leaves
+    return;
+  }
+
+  // ---- a consumer: 32 channels, every row of the block
+  const int cw = warp * kWarpC;  // the warp's channels in the tile
+  float sum[kNT][2];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) sum[n][0] = sum[n][1] = 0.0f;
+  int b_cur = first_img;
+  // the first row of the next image; none after the last image (its rows
+  // past B * P are zeros)
+  int next_b = b_cur == B - 1 ? INT_MAX : (b_cur + 1) * P;
+
+  // the warp's sums over its 8 row lanes (a tree: lanes g ^ 1, then g ^ 2,
+  // then g ^ 4), into the block's partial for image b, then zero; the last
+  // warp of the image's blocks to get here (an atomicInc counter, which
+  // wraps to 0) adds their partials of its 32 channels in block order
+  auto flush = [&](int b) {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int off = 4; off < 32; off *= 2)
+          sum[n][e] += __shfl_xor_sync(0xffffffffu, sum[n][e], off);
+    if (g == 0) {
+      float* dst = o.part +
+                   ((long long)blockIdx.y * o.slots + (b - first_img)) *
+                       o.cpad + c0 + cw + 2 * q;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        *reinterpret_cast<float2*>(dst + n * 8) =
+            make_float2(sum[n][0], sum[n][1]);
+      __threadfence();
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) sum[n][0] = sum[n][1] = 0.0f;
+    __syncwarp();
+    const int j_lo = (int)((long long)b * P / rows_pb);
+    const int j_hi = min((int)gridDim.y - 1,
+                         (int)(((long long)(b + 1) * P - 1) / rows_pb));
+    int adds = 0;
+    if (lane == 0) {
+      const unsigned n = (unsigned)(j_hi - j_lo);
+      adds = atomicInc(&o.counter[((long long)b * gridDim.x + ct) *
+                                      kConsumers + warp], n) == n;
+    }
+    if (__shfl_sync(0xffffffffu, adds, 0)) {
+      __threadfence();
+      const int gc = c0 + cw + lane;
+      if (gc < C) {
+        float sm = 0.0f;
+        for (int j = j_lo; j <= j_hi; ++j) {
+          const int bj = (int)((long long)j * rows_pb / P);  // its first
+          sm += __ldcg(&o.part[((long long)j * o.slots + (b - bj)) * o.cpad +
+                               gc]);
+        }
+        o.out[(long long)b * C + gc] = sm / (float)P;
+      }
+    }
+  };
+
+  // act(s) of 16 rows (first row n0) into the running sums, row g before
+  // row g + 8; where an image ends inside the 16 rows, its rows are split
+  // off and flushed
+  auto take_rows = [&](float (&acc)[kNT][4], int n0) {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = fwd::act<ACT>(acc[n][e]);
+    if (n0 + 16 <= next_b) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        sum[n][0] += acc[n][0];
+        sum[n][1] += acc[n][1];
+        sum[n][0] += acc[n][2];
+        sum[n][1] += acc[n][3];
+      }
+      return;
+    }
+    int lo = 0;
+    for (;;) {
+      const int lim = next_b - n0;  // rows below lim are image b_cur's
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = g + 8 * h;
+        if (r >= lo && r < lim) {
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+            sum[n][0] += acc[n][2 * h];
+            sum[n][1] += acc[n][2 * h + 1];
+          }
+        }
+      }
+      if (lim >= 16) break;
+      flush(b_cur);
+      ++b_cur;
+      next_b = b_cur == B - 1 ? INT_MAX : next_b + P;
+      lo = max(lim, 0);
+    }
+  };
+
+  // K split: this slice's s into the tile's partials; whether this warp is
+  // the last of its tile's ks, and then s summed over the slices in order
+  auto gather = [&](float (&acc)[MT][kNT][4]) {
+    const long long tile = (long long)blockIdx.y * gridDim.x + ct;
+    const long long slice = (long long)kConsumers * TP * 32;
+    float* base = o.spart + tile * ks * slice + warp * TP * 32;
+    float4* mine = reinterpret_cast<float4*>(base + z * slice);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        mine[(m * kNT + n) * 32 + lane] =
+            make_float4(acc[m][n][0], acc[m][n][1], acc[m][n][2],
+                        acc[m][n][3]);
+    __threadfence();
+    __syncwarp();
+    int adds = 0;
+    if (lane == 0)
+      adds = atomicInc(&o.kcounter[tile * kConsumers + warp],
+                       (unsigned)(ks - 1)) == (unsigned)(ks - 1);
+    if (!__shfl_sync(0xffffffffu, adds, 0)) return false;
+    __threadfence();
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+    for (int zz = 0; zz < ks; ++zz) {
+      const float4* p = reinterpret_cast<const float4*>(base + zz * slice);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          const float4 v = __ldcg(p + (m * kNT + n) * 32 + lane);
+          acc[m][n][0] += v.x;
+          acc[m][n][1] += v.y;
+          acc[m][n][2] += v.z;
+          acc[m][n][3] += v.w;
+        }
+    }
+    return true;
+  };
+
+  float acc[MT][kNT][4];
+  bool active = true;  // this warp takes its tiles' activation
+  int i = 0;
+  for (int item = first; item < last; ++item) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+    for (int kc = 0; kc < nkc; ++kc, ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const float* xs = ring + s * SB;
+      const float* ws = RESIDENT ? wres + (kc_lo + kc) * kChunk * kTileC
+                                 : xs + TP * kChunk;
+      const int klen = K - (kc_lo + kc) * kChunk;  // k's of it inside K
+#pragma unroll
+      for (int k8 = 0; k8 < kChunk; k8 += 8) {
+        if (k8 >= klen) break;  // the rest is padding (warp-uniform)
+        FragB fb[kNT];
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+          load_b(fb[n], ws, kTileC, k8, cw + n * 8, g, q);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          FragA fa;
+          ldsm_a(fa, xs, kChunk, m * 16, k8, lane);
+          mma3_row(acc[m], fa, fb);
+        }
+      }
+      // the chunk is read: its buffer may refill
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    if (ks > 1) active = gather(acc);
+    if (active) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) take_rows(acc[m], item * TP + m * 16);
+    }
+  }
+  if (active) flush(b_cur);
+}
+
+// W resident takes 16-row tiles, W streamed 64-row tiles
+template <typename F>
+cudaError_t for_kernel(int act, int tp, int mode, F&& f) {
+  auto by_tile = [&](auto act_c) -> cudaError_t {
+    constexpr int A = decltype(act_c)::value;
+    if (mode == kResident && tp == 16)
+      return f(token_head_fwd_tf32x3_kernel<A, 16, true>);
+    if (mode == kStreamed && tp == 64)
+      return f(token_head_fwd_tf32x3_kernel<A, 64, false>);
+    return cudaErrorInvalidValue;
+  };
+  switch (act) {
+    case kSerf: return by_tile(std::integral_constant<int, kSerf>());
+    case kSerfFast: return by_tile(std::integral_constant<int, kSerfFast>());
+    case kRelu: return by_tile(std::integral_constant<int, kRelu>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The shared memory each (act, mode) variant may use, raised and never
+// lowered, as fwd::grant_smem
+static int granted[3][2];
+
+template <typename Kern>
+cudaError_t grant_smem(Kern kern, int act, int mode, int smem) {
+  int& have = granted[act][mode];
+  if (smem <= have) return cudaSuccess;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err == cudaSuccess) have = smem;
+  return err;
+}
+
+}  // namespace fwd32
 }  // namespace k1
 }  // namespace mmvqa
 
 extern "C" const char* mmvqa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// fp32 only: x (B, P, K) by element strides (sb, sp, sk); w (K, C)
-// contiguous; partial (B, nchunks, C) fp32 scratch; out (B, C). chunk is a
-// multiple of 64 (ops/token_head.py::launch_plan).
-extern "C" int token_head_fwd(const void* x, int dtype, long long sb,
-                              long long sp, long long sk, const void* w,
-                              void* partial, void* out, int B, int P, int K,
-                              int C, int act, int chunk, int nchunks,
-                              void* stream) {
-  using namespace mmvqa;
-  if (dtype != kFloat32) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto part = static_cast<float*>(partial);
-  switch (act) {
-    case kSerf:
-      err = launch<float, kSerf>(x, sb, sp, sk, w, part, out, B, P, K, C,
-                                 chunk, nchunks, s);
-      break;
-    case kSerfFast:
-      err = launch<float, kSerfFast>(x, sb, sp, sk, w, part, out, B, P, K, C,
-                                     chunk, nchunks, s);
-      break;
-    case kRelu:
-      err = launch<float, kRelu>(x, sb, sp, sk, w, part, out, B, P, K, C,
-                                 chunk, nchunks, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
 }
 
 // Blocks of the bf16 forward for (act, mode) an SM holds at once with
@@ -716,6 +885,79 @@ extern "C" int token_head_fwd_mma(const void* x, long long sb, long long sp,
     cudaError_t err = grant_smem(kern, act, mode, smem);
     if (err != cudaSuccess) return err;
     kern<<<dim3(ctiles, nblocks), kThreads, smem, st>>>(a, o, vec_x, vec_w);
+    return cudaGetLastError();
+  }));
+}
+
+// Blocks of the fp32 forward for (act, tp, mode) an SM holds at once with
+// `smem` bytes of shared memory: the plan fills one wave of them.
+extern "C" int token_head_fwd_tf32x3_occupancy(int act, int tp, int mode,
+                                               int smem, int* blocks) {
+  using namespace mmvqa::k1;
+  using namespace mmvqa::k1::fwd32;
+  return static_cast<int>(for_kernel(act, tp, mode, [&](auto kern) {
+    cudaError_t err = grant_smem(kern, act, mode, smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
+                                                         kThreads, smem);
+  }));
+}
+
+// fp32: x (B, P, K) by element strides; w (K, C) contiguous; part
+// (nblocks, slots, ceil(C / 128) * 128) fp32 scratch; out (B, C); counter
+// (B + nblocks) * ceil(C / 128) * 4 unsigned ints, zero on entry and on
+// exit, one buffer a stream; spart, where ks > 1, (nblocks, ceil(C / 128),
+// ks, tp * 128) fp32 scratch. The plan (ops/token_head.py::
+// fp32_forward_plan): tp rows a tile (32 where W is resident, 64 where it
+// streams), per_block tiles a block, nblocks blocks along the rows with
+// none empty, mode (fwd32::Mode), slots the images a block spans at most,
+// smem bytes, ks slices of K (ks > 1: W streamed, one tile a block, each
+// slice at least one 32-k chunk).
+extern "C" int token_head_fwd_tf32x3(const void* x, long long sb,
+                                     long long sp, long long sk,
+                                     const void* w, void* part, void* out,
+                                     void* counter, void* spart, int B,
+                                     int P, int K, int C, int act, int tp,
+                                     int per_block, int nblocks, int mode,
+                                     int slots, int smem, int ks,
+                                     void* stream) {
+  using namespace mmvqa;
+  using namespace mmvqa::k1;
+  using namespace mmvqa::k1::fwd32;
+  const long long N = (long long)B * P;
+  const long long items = tp > 0 ? (N + tp - 1) / tp : 0;
+  const int ctiles = (C + kTileC - 1) / kTileC;
+  const long long rows_pb = (long long)per_block * tp;
+  if (B < 1 || P < 1 || K < 1 || C < 1 || N >= (1ll << 31) || tp < 1 ||
+      per_block < 1 || (mode == kResident && kpad(K) > kResidentK) ||
+      smem != smem_bytes(tp, K, mode == kResident) || nblocks < 1 ||
+      nblocks > 65535 || (long long)nblocks * per_block < items ||
+      (long long)(nblocks - 1) * per_block >= items ||
+      slots < (B < (rows_pb - 1) / P + 2 ? B : (rows_pb - 1) / P + 2) ||
+      ks < 1 || ks > (K + kChunk - 1) / kChunk ||
+      (ks > 1 && (mode != kStreamed || per_block != 1 || spart == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool xvec = sk == 1 && K % 4 == 0 && sp % 4 == 0 && sb % 4 == 0 &&
+                    reinterpret_cast<size_t>(x) % 16 == 0;
+  const bool wvec = C % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0;
+  const tf32::Positions xsrc{static_cast<const float*>(x), sb, sp, sk, P,
+                             (int)N, K, xvec};
+  const tf32::Dense wsrc{static_cast<const float*>(w), C, 1, K, C, wvec};
+  auto* counters = static_cast<unsigned*>(counter);
+  fwd32::Out o{static_cast<float*>(out),
+               static_cast<float*>(part),
+               counters,
+               counters + (long long)B * ctiles * kConsumers,
+               static_cast<float*>(spart),
+               per_block,
+               slots,
+               ctiles * kTileC};
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(for_kernel(act, tp, mode, [&](auto kern) {
+    cudaError_t err = grant_smem(kern, act, mode, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(ctiles, nblocks, ks), kThreads, smem, st>>>(xsrc, wsrc, o, B,
+                                                            P, K, C);
     return cudaGetLastError();
   }));
 }

@@ -158,18 +158,23 @@ BWD_OCCUPANCY_ARGTYPES = [
 def _bind(lib: ctypes.CDLL) -> None:
     lib.mmvqa_error_string.restype = ctypes.c_char_p
     lib.mmvqa_error_string.argtypes = [_i]
-    lib.token_head_fwd.restype = _i
-    lib.token_head_fwd.argtypes = [
-        _p, _i, _ll, _ll, _ll,      # x, dtype, strides (b, p, k)
-        _p, _p, _p,                 # w, partial, out
-        _i, _i, _i, _i, _i,         # B, P, K, C, act
-        _i, _i,                     # chunk, nchunks
-        _p,                         # stream
-    ]
     lib.token_head_fwd_mma.restype = _i
     lib.token_head_fwd_mma.argtypes = FWD_ARGTYPES
     lib.token_head_fwd_occupancy.restype = _i
     lib.token_head_fwd_occupancy.argtypes = FWD_OCCUPANCY_ARGTYPES
+    lib.token_head_fwd_tf32x3.restype = _i
+    lib.token_head_fwd_tf32x3.argtypes = [
+        _p, _ll, _ll, _ll,          # x, strides (b, p, k)
+        _p, _p, _p, _p, _p,         # w, partials, out, counters, K slices' s
+        _i, _i, _i, _i, _i,         # B, P, K, C, act
+        _i, _i, _i, _i, _i, _i, _i,  # ops/token_head.py::Fp32FwdPlan
+        _p,                         # stream
+    ]
+    lib.token_head_fwd_tf32x3_occupancy.restype = _i
+    lib.token_head_fwd_tf32x3_occupancy.argtypes = [
+        _i, _i, _i, _i,             # act, tile rows, mode, smem
+        ctypes.POINTER(_i),         # blocks an SM holds
+    ]
     lib.token_head_bwd.restype = _i
     lib.token_head_bwd.argtypes = BWD_ARGTYPES
     lib.token_head_bwd_occupancy.restype = _i

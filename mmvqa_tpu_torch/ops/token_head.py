@@ -1,13 +1,12 @@
 """K1: the fused visual-token head, ``mean_p act(x @ W)``.
 
 Counterpart of mmvqa_tpu/ops/pallas_token_head.py. The CUDA kernels are
-``csrc/token_head.cu`` (forward: the bf16 kernel on the tensor cores, the
-fp32 one on CUDA cores) and ``csrc/token_head_bwd.cu`` (backward: bf16 on
-the tensor cores, fp32 as split-TF32 products on the tensor cores, with
-fp32 accuracy, ``csrc/tf32x3.cuh``), with the bf16 tile machinery of both
-in ``csrc/token_head_tile.cuh``; this module holds their launch plans, their
-wrappers, the ``torch.autograd.Function`` that joins them, and their plain
-PyTorch versions.
+``csrc/token_head.cu`` (forward) and ``csrc/token_head_bwd.cu`` (backward),
+both in bf16 on the tensor cores and in fp32 as split-TF32 products on the
+tensor cores, with fp32 accuracy (``csrc/tf32x3.cuh``), with the bf16 tile
+machinery of both in ``csrc/token_head_tile.cuh``; this module holds their
+launch plans, their wrappers, the ``torch.autograd.Function`` that joins
+them, and their plain PyTorch versions.
 
 The wrappers route by where the input lies: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. There is no other
@@ -40,11 +39,6 @@ from mmvqa_tpu_torch.ops.activations import (
 
 ACTS = {"serf": 0, "serf_fast": 1, "relu": 2}
 
-TILE_P = 64               # kTileP in csrc/token_head.cu: positions per tile
-TILE_C = 128              # kTileC: output channels per block
-BLOCKS_PER_SM = 3         # kMinBlocks: the register cap fits three per SM
-WAVES = 4                 # blocks in flight per SM slot; one wave measured
-                          # slower (PERF.md)
 # the bf16 forward (k1::fwd in csrc/token_head.cu)
 FWD_TILE_C = 256          # kTileC: channels of a block
 FWD_RESIDENT_K = 96       # kResidentK: W resident in shared memory up to K
@@ -54,6 +48,22 @@ FWD_STREAM_ROWS = 32      # kStreamRows: rows of a tile where W streams
 # k1::fwd::Mode: W streamed with x through the ring; resident in shared
 # memory; resident and its fragments held in registers (K <= 32)
 FWD_STREAMED, FWD_W_SHARED, FWD_W_REGISTERS = 0, 1, 2
+# the fp32 forward (k1::fwd32 in csrc/token_head.cu): W streamed with x
+# through the ring in 32-k chunks, or resident in shared memory (K in 32s
+# up to FP32_FWD_RESIDENT_K); row tiles of FP32_FWD_RESIDENT_TP where W is
+# resident (up to four blocks an SM), else of FP32_FWD_STREAM_TP (two blocks
+# an SM); where the row tiles give the SMs fewer than FP32_FWD_DEEP_BLOCKS
+# blocks each and K is at least FP32_FWD_SPLIT_K (the deep taps: few rows,
+# wide K), K is cut into slices, one block each
+FP32_FWD_TILE_C = 128     # kTileC: channels of a block
+FP32_FWD_RESIDENT_K = 96  # kResidentK
+FP32_FWD_STAGES = 4       # kStages: the ring
+FP32_FWD_RESIDENT_TP = 16
+FP32_FWD_STREAM_TP = 64
+FP32_FWD_DEEP_BLOCKS = 3
+FP32_FWD_SPLIT_K = 512
+FP32_FWD_WARPS = 4        # kConsumers: the per-warp counters
+FP32_FWD_STREAMED, FP32_FWD_RESIDENT = 0, 1  # k1::fwd32::Mode
 SMEM_LIMIT = 232448       # shared memory one block can have on an H100
 SMEM_PER_SM = 233472      # an SM's, of which each block reserves 1 KB
 # (rows of a tile, W resident) of the bf16 backward, the first that fits:
@@ -79,11 +89,6 @@ FP32_STAGES = 4           # kStages: the tiles mode's ring
 FP32_SEGMENT_ROWS = 1024  # the tiles mode cuts dW's rows no finer
 
 
-class Plan(NamedTuple):
-    chunk: int     # positions per block, a multiple of TILE_P
-    nchunks: int   # blocks along P
-
-
 class FwdPlan(NamedTuple):
     """The bf16 forward launch; the fields in the order of the C entry
     point's plan arguments."""
@@ -94,6 +99,19 @@ class FwdPlan(NamedTuple):
                     # FWD_W_SHARED or FWD_W_REGISTERS
     slots: int      # images a block's partial holds: the most it can span
     smem: int       # dynamic shared memory, bytes
+
+
+class Fp32FwdPlan(NamedTuple):
+    """The fp32 forward launch; the fields in the order of the C entry
+    point's plan arguments."""
+    tp: int         # rows (of the B * P positions) a tile
+    per_block: int  # consecutive tiles a block walks
+    nblocks: int    # blocks along the rows (times ceil(C / 128) channel
+                    # tiles, times ks)
+    mode: int       # FP32_FWD_STREAMED or FP32_FWD_RESIDENT
+    slots: int      # images a block's partial holds: the most it can span
+    smem: int       # dynamic shared memory, bytes
+    ks: int         # slices of K's 32-k chunks, a block each (1: none)
 
 
 class BwdPlan(NamedTuple):
@@ -110,26 +128,6 @@ class BwdPlan(NamedTuple):
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def launch_plan(B: int, P: int, K: int, C: int, sms: int) -> Plan:
-    """How the fp32 forward's launch cuts P on a card with ``sms``
-    multiprocessors; raises for shapes the grid cannot take.
-
-    A block owns one batch row, TILE_C channels and one chunk of positions;
-    P is cut into enough chunks to fill every SM's BLOCKS_PER_SM slots
-    WAVES times over, and no more chunks than there are position tiles. K is
-    staged through shared memory in steps, so any K fits."""
-    if min(B, P, K, C) < 1:
-        raise ValueError(f"token head: empty shape B={B} P={P} K={K} C={C}")
-    c_tiles = _cdiv(C, TILE_C)
-    target = WAVES * BLOCKS_PER_SM * sms
-    nchunks = min(max(1, _cdiv(target, B * c_tiles)), _cdiv(P, TILE_P))
-    chunk = _cdiv(_cdiv(P, nchunks), TILE_P) * TILE_P
-    nchunks = _cdiv(P, chunk)
-    if B > 2**31 - 1 or c_tiles > 65535 or nchunks > 65535:
-        raise ValueError(f"token head: grid too large for B={B}, P={P}, C={C}")
-    return Plan(chunk, nchunks)
 
 
 def resident_k(K: int) -> int:
@@ -183,6 +181,87 @@ def forward_plan(B: int, P: int, K: int, C: int, sms: int,
         raise ValueError(f"token head: grid too large for B={B}, P={P}")
     images = min(B, (per_block * tp - 1) // P + 2)
     return FwdPlan(tp, per_block, nblocks, mode, images, smem)
+
+
+def fp32_forward_smem_bytes(tp: int, K: int, resident: bool) -> int:
+    """k1::fwd32::smem_bytes in csrc/token_head.cu: W (resident: K in 32s x
+    128 channels), the ring's four stages (a tp x 32 chunk of x, and where W
+    streams a 32 x 128 chunk of W), the full and empty mbarriers; fp32."""
+    w = resident_k(K) * FP32_FWD_TILE_C if resident else 0
+    stage = tp * 32 + (0 if resident else 32 * FP32_FWD_TILE_C)
+    return 4 * (w + FP32_FWD_STAGES * stage) + 2 * FP32_FWD_STAGES * 8
+
+
+def fp32_forward_tile(K: int) -> Tuple[int, int, int]:
+    """(rows a tile, mode, dynamic shared memory) of the fp32 forward: W
+    resident for K up to 96 (the taps with the most rows) and 16-row
+    tiles, up to four blocks an SM; else W streams and a tile is 64 rows,
+    two blocks an SM."""
+    if resident_k(K) <= FP32_FWD_RESIDENT_K:
+        tp = FP32_FWD_RESIDENT_TP
+        return tp, FP32_FWD_RESIDENT, fp32_forward_smem_bytes(tp, K, True)
+    tp = FP32_FWD_STREAM_TP
+    return tp, FP32_FWD_STREAMED, fp32_forward_smem_bytes(tp, K, False)
+
+
+def fp32_forward_plan(B: int, P: int, K: int, C: int, sms: int,
+                      slots: int) -> Fp32FwdPlan:
+    """How the fp32 forward shares its work on a card of ``sms``
+    multiprocessors that hold ``slots`` such blocks each (the wrapper asks
+    the card); the tile is ``fp32_forward_tile``'s.
+
+    The ``ceil(B * P / tp)`` row tiles go to ``nblocks`` blocks of
+    ``per_block`` consecutive tiles for each of the ``ceil(C / 128)``
+    channel tiles: one wave, unless one wave would leave SMs without a
+    block: then a tile a block. Where K is at least FP32_FWD_SPLIT_K and the
+    row tiles times the channel tiles are fewer than FP32_FWD_DEEP_BLOCKS
+    blocks an SM (the deep taps: ResNet's layer4 at B=16 has 784 rows, 13
+    tiles of 64 x 6 channel tiles against 132 SMs), a tile is a block and
+    K's 32-k chunks are cut into ``ks`` slices, a block each, as many as
+    make up the difference (no slice empty). Read on the card
+    (tools/time_token_head.py --slices, counts of 1 to 16 at the taps of
+    both models at B=8, 16 and 128): within 9% of the best count at the
+    deep taps of the CLIs' B=16, 16% at B=8's layer4 and stage 6; at the
+    flagship's stage 4 (K = 176, six chunks) any cut was slower. A block's
+    rows may span several images; ``slots`` of the plan is the most it can
+    span."""
+    if min(B, P, K, C) < 1:
+        raise ValueError(f"token head: empty shape B={B} P={P} K={K} C={C}")
+    if slots < 1:
+        raise ValueError(f"token head forward: {slots} blocks an SM")
+    tp, mode, smem = fp32_forward_tile(K)
+    items = _cdiv(B * P, tp)
+    ctiles = _cdiv(C, FP32_FWD_TILE_C)
+    ks = 1
+    want = FP32_FWD_DEEP_BLOCKS * sms
+    if K >= FP32_FWD_SPLIT_K and items * ctiles < want:
+        ks = min(_cdiv(want, items * ctiles), _cdiv(K, 32))
+    if ks > 1:
+        per_block = 1
+    else:
+        per_block = _cdiv(items, max(1, slots * sms // ctiles))
+        if _cdiv(items, per_block) * ctiles < sms:
+            per_block = 1
+    nblocks = _cdiv(items, per_block)
+    if B * P >= 2**31 or nblocks > 65535:
+        raise ValueError(f"token head: grid too large for B={B}, P={P}")
+    images = min(B, (per_block * tp - 1) // P + 2)
+    return Fp32FwdPlan(tp, per_block, nblocks, mode, images, smem, ks)
+
+
+def fp32_forward_scratch(plan: Fp32FwdPlan, B: int,
+                         C: int) -> Tuple[Tuple[int, ...], int, int]:
+    """The fp32 forward's scratch: its per-image partials (nblocks, slots,
+    ceil(C / 128) * 128); the floats of the K slices' s (none where K is not
+    cut); the counters, an image's and, where K is cut, a tile's, for each
+    (channel tile, warp)."""
+    ctiles = _cdiv(C, FP32_FWD_TILE_C)
+    part = (plan.nblocks, plan.slots, ctiles * FP32_FWD_TILE_C)
+    spart = (plan.nblocks * ctiles * plan.ks * plan.tp * FP32_FWD_TILE_C
+             if plan.ks > 1 else 0)
+    counters = (B + (plan.nblocks if plan.ks > 1 else 0)) * ctiles * \
+        FP32_FWD_WARPS
+    return part, spart, counters
 
 
 def mma_smem_bytes(tp: int, K: int, C: int, resident: bool) -> int:
@@ -365,7 +444,8 @@ def _sms(x: torch.Tensor) -> int:
 
 
 _FWD_PLANS: Dict[tuple, FwdPlan] = {}
-# the bf16 forward's last-block counters, one an (image, channel tile)
+# the forward's last-block counters, one an (image, channel tile), bf16 and
+# fp32 alike
 _FWD_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -410,29 +490,59 @@ def _launch_mma(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
     return out
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
+_FP32_FWD_SLOTS: Dict[tuple, int] = {}
+
+
+def _fp32_forward_plan(x: torch.Tensor, K: int, C: int,
+                       act: str) -> Fp32FwdPlan:
+    """The fp32 plan with the blocks an SM of this card holds, asked once
+    per kernel variant and shared memory size."""
+    B, P = x.shape[0], x.shape[1]
+    tp, mode, smem = fp32_forward_tile(K)
+    key = (x.device, act, tp, mode, smem)
+    slots = _FP32_FWD_SLOTS.get(key)
+    if slots is None:
+        n = ctypes.c_int(0)
+        loader.check(loader.library().token_head_fwd_tf32x3_occupancy(
+            ACTS[act], tp, mode, smem, ctypes.byref(n)),
+            "token_head_fwd_tf32x3 occupancy")
+        if n.value < 1:
+            raise RuntimeError(f"token head forward: no block with {smem} "
+                               "bytes of shared memory fits an SM")
+        slots = _FP32_FWD_SLOTS[key] = n.value
+    return fp32_forward_plan(B, P, K, C, _sms(x), slots)
+
+
+def _launch_tf32x3(x: torch.Tensor, w: torch.Tensor,
+                   act: str) -> torch.Tensor:
+    """The fp32 forward: one kernel of split-TF32 products, its sums across
+    K's slices and across blocks inside it."""
     B, P, K = x.shape
     C = w.shape[1]
+    plan = _fp32_forward_plan(x, K, C, act)
+    w = w.contiguous()
+    part_shape, spart_n, n_counters = fp32_forward_scratch(plan, B, C)
+    part = torch.empty(part_shape, device=x.device, dtype=torch.float32)
+    spart = (torch.empty(spart_n, device=x.device, dtype=torch.float32)
+             if spart_n else None)
+    out = torch.empty((B, C), device=x.device, dtype=x.dtype)
+    stream = tiling.current_stream(x.device)
+    counter = tiling.stream_counters(_FWD_COUNTERS, x.device, stream,
+                                     n_counters)
+    ptr = loader.ptr
+    code = loader.library().token_head_fwd_tf32x3(
+        ptr(x), *x.stride(), ptr(w), ptr(part), ptr(out), ptr(counter),
+        ctypes.c_void_p(None if spart is None else spart.data_ptr()),
+        B, P, K, C, ACTS[act], *plan, ctypes.c_void_p(stream))
+    loader.check(code, "token_head_fwd_tf32x3")
+    return out
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
     _check_launch("fused_token_head", x, w)
     if x.dtype == torch.bfloat16:
         return _launch_mma(x, w, act)
-    plan = launch_plan(B, P, K, C, _sms(x))
-    w = w.contiguous()
-    partial = torch.empty((B, plan.nchunks, C), device=x.device,
-                          dtype=torch.float32)
-    out = torch.empty((B, C), device=x.device, dtype=x.dtype)
-    lib = loader.library()
-    sb, sp, sk = x.stride()
-    code = lib.token_head_fwd(
-        ctypes.c_void_p(x.data_ptr()), loader.DTYPE_CODES[x.dtype],
-        sb, sp, sk,
-        ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(partial.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
-        B, P, K, C, ACTS[act], plan.chunk, plan.nchunks,
-        loader.stream_ptr(),
-    )
-    loader.check(code, "token_head_fwd")
-    return out
+    return _launch_tf32x3(x, w, act)
 
 
 _BWD_SLOTS: Dict[tuple, int] = {}
@@ -510,6 +620,8 @@ def _forward(x: torch.Tensor, w: torch.Tensor, act: str) -> torch.Tensor:
         return token_head_reference(x, w, act)
     out = _launch(x, w, act)
     fused_token_head.launches += 1
+    if x.dtype == torch.float32:
+        fused_token_head.tf32x3_launches += 1
     return out
 
 
@@ -558,6 +670,7 @@ def fused_token_head(x: torch.Tensor, w: torch.Tensor,
     return _forward(x, _compute_weight(x, w), act)
 
 
-fused_token_head.launches = 0
+fused_token_head.launches = 0                  # every forward launch
+fused_token_head.tf32x3_launches = 0           # those in fp32
 fused_token_head.backward_launches = 0         # every backward launch
 fused_token_head.backward_tf32x3_launches = 0  # those in fp32

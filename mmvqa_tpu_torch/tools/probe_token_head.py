@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the token head's bf16 forward kernel (K1-fwd) spends its time.
 
-    python3 mmvqa_tpu_torch/tools/probe_token_head.py
+    python3 mmvqa_tpu_torch/tools/probe_token_head.py [--fp32]
 
 Builds copies of ``csrc/token_head.cu`` with one part of the bf16 kernel cut
 out or moved (``probe_token_head_backward.build_copies``) and times each
@@ -23,6 +23,17 @@ copies:
     no_act        the sums of s itself: no activation
     no_epilogue   neither activation nor sums (the products stay)
     no_tail       no last-block sums across blocks (nor their counters)
+
+``--fp32`` instead times the fp32 forward (k1::fwd32) where W is resident
+(the stem and the flagship's stages 0-2, at B=16 and 128) with other row
+tiles and blocks an SM than the kernel's 16 rows at four, each copy
+launched with the plan's other fields (one wave of the blocks the card
+says an SM holds):
+
+    base          16-row tiles, up to four blocks an SM
+    r32x3         32-row tiles, up to three blocks an SM
+    r32x4         32-row tiles, up to four
+    r16x5         16-row tiles, up to five
 """
 
 from __future__ import annotations
@@ -245,5 +256,97 @@ def main() -> None:
     print(card)
 
 
+# the fp32 forward's resident tile: (rows, blocks an SM) of each copy
+FP32_LB = "__launch_bounds__(kThreads, RESIDENT ? 4 : 2)"
+FP32_TILE = ("    if (mode == kResident && tp == 16)\n"
+             "      return f(token_head_fwd_tf32x3_kernel<A, 16, true>);")
+FP32_COPIES = {"base": (16, 4), "r32x3": (32, 3), "r32x4": (32, 4),
+               "r16x5": (16, 5)}
+
+
+def fp32_main() -> None:
+    """--fp32: copies of the fp32 forward with other resident tiles."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.abspath(os.path.join(here, "..", "..")))
+    import torch
+
+    from mmvqa_tpu_torch.native import loader
+    from mmvqa_tpu_torch.ops import token_head as th
+    from mmvqa_tpu_torch.tools.probe_token_head_backward import (
+        build_copies,
+        card_line,
+        time_ms,
+    )
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    card = card_line()
+    print(card)
+
+    def bind(lib):
+        lib.token_head_fwd_tf32x3.restype = ctypes.c_int
+        lib.token_head_fwd_tf32x3.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 12,
+            ctypes.c_void_p]
+        lib.token_head_fwd_tf32x3_occupancy.restype = ctypes.c_int
+        lib.token_head_fwd_tf32x3_occupancy.argtypes = [
+            *[ctypes.c_int] * 4, ctypes.POINTER(ctypes.c_int)]
+
+    edits = {name: [(FP32_LB, FP32_LB.replace("? 4", f"? {per_sm}")),
+                    (FP32_TILE, FP32_TILE.replace("16", str(tp)))]
+             for name, (tp, per_sm) in FP32_COPIES.items() if name != "base"}
+    libs, _ = build_copies("token_head.cu", {"base": [], **edits}, bind)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ptr = loader.ptr
+    for B in (16, 128):
+        for P, K in ((112 * 112, 64), (112 * 112, 24), (56 * 56, 48),
+                     (28 * 28, 80)):
+            x = torch.randn(B, P, K, device=dev, generator=gen)
+            w = torch.randn(K, HIDDEN, device=dev, generator=gen) * K ** -0.5
+            want = th.token_head_reference(x, w, "serf")
+            out = torch.empty(B, HIDDEN, device=dev)
+            line = []
+            for name, lib in libs.items():
+                tp = FP32_COPIES[name][0]
+                smem = th.fp32_forward_smem_bytes(tp, K, True)
+                n = ctypes.c_int(0)
+                loader.check(lib.token_head_fwd_tf32x3_occupancy(
+                    th.ACTS["serf"], tp, th.FP32_FWD_RESIDENT, smem,
+                    ctypes.byref(n)), name)
+                plan = th.fp32_forward_plan(B, P, K, HIDDEN, sms, n.value)
+                items = -(-B * P // tp)
+                per = -(-items // max(1, n.value * sms // 6))
+                plan = plan._replace(tp=tp, per_block=per,
+                                     nblocks=-(-items // per), smem=smem,
+                                     slots=min(B, (per * tp - 1) // P + 2))
+                shape, _, n_counters = th.fp32_forward_scratch(plan, B,
+                                                               HIDDEN)
+                part = torch.empty(shape, device=dev)
+                counter = torch.zeros(n_counters, device=dev,
+                                      dtype=torch.int32)
+
+                def call():
+                    loader.check(lib.token_head_fwd_tf32x3(
+                        ptr(x), *x.stride(), ptr(w), ptr(part), ptr(out),
+                        ptr(counter), None, B, P, K, HIDDEN,
+                        th.ACTS["serf"], *plan, loader.stream_ptr()), name)
+
+                call()
+                torch.cuda.synchronize()
+                if ((out - want).abs() > 1e-5 + 1e-4 * want.abs()).any():
+                    sys.exit(f"{name} disagrees at B={B} P={P} K={K}")
+                line.append(f"{name} {time_ms(torch, call):.4f} "
+                            f"({n.value} an SM)")
+            print(f"fp32 serf B={B} P={P} K={K} ms: " + "; ".join(line),
+                  flush=True)
+    print(card)
+
+
 if __name__ == "__main__":
-    main()
+    if "--fp32" in sys.argv[1:]:
+        fp32_main()
+    else:
+        main()

@@ -561,12 +561,14 @@ def test_token_head_autograd_goes_through_the_kernels(dev, master):
     w = torch.randn(24, 96, device=dev, generator=g) * 0.2
     gout = torch.randn(3, 96, device=dev, generator=g)
     x1, w1 = x.clone().requires_grad_(), w.clone().requires_grad_()
-    counts = (fused_token_head.launches, fused_token_head.backward_launches)
+    counts = (fused_token_head.launches, fused_token_head.backward_launches,
+              fused_token_head.tf32x3_launches)
     (fused_token_head(x1, w1, act).float() * gout).sum().backward()
     torch.cuda.synchronize()
-    assert (fused_token_head.launches,
-            fused_token_head.backward_launches) == (counts[0] + 1,
-                                                    counts[1] + 1)
+    # fp32's forward on its split-TF32 kernel
+    assert (fused_token_head.launches, fused_token_head.backward_launches,
+            fused_token_head.tf32x3_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + (0 if master else 1))
     x2, w2 = x.clone().requires_grad_(), w.clone().requires_grad_()
     (token_head_reference(x2, w2.to(dtype), act).float() * gout).sum().backward()
     assert w1.grad.dtype == torch.float32 and x1.grad.dtype == dtype
@@ -1697,6 +1699,150 @@ def test_fp32_train_step_takes_the_split_tf32_kernels(dev):
     assert [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)
             ] == [98, 98, 5, 5]
     assert torch.isfinite(torch.as_tensor(m["loss"]))
+
+
+# ------------------------------------------ K1's fp32 forward ----
+
+# ragged: one position, K of 1, 13, 700 and 2049 (no multiple of a chunk or
+# of four: element copies), C no multiple of a channel tile, B * P no
+# multiple of any tile; x as the trunk gives it (K-major), as an NCHW map's
+# view (P-major) and dense; W resident (K <= 96, 16-row tiles) and streamed
+# (64-row tiles, and 16 where the plan cuts the deep taps' tiles)
+TF32X3_K1_FWD_CASES = [
+    (1, 1, 1, 1, "dense"),
+    (3, 1, 8, 8, "dense"),
+    (3, 37, 13, 257, "nchw"),
+    (2, 4099, 24, 257, "nhwc"),
+    (5, 49, 700, 768, "nchw"),
+    (9, 49, 2049, 257, "dense"),
+    (7, 37, 96, 300, "nhwc"),
+    (4, 49, 97, 768, "nchw"),
+    (16, 49, 512, 768, "nhwc"),
+    (8, 49, 2048, 768, "nhwc"),
+    (6, 196, 176, 520, "nhwc"),
+]
+
+
+@pytest.mark.parametrize("act", ["serf", "serf_fast", "relu"])
+@pytest.mark.parametrize("B,P,K,C,layout", TF32X3_K1_FWD_CASES)
+def test_token_head_fp32_forward_split_tf32_matches_plain(dev, act, B, P, K,
+                                                          C, layout):
+    """One launch of the split-TF32 kernel a call (both counters), against
+    the plain version within TOL; two runs give the same bits (the sums
+    across blocks are added in block order) and every last-block counter
+    ends at 0."""
+    from mmvqa_tpu_torch.ops import token_head
+
+    x, w, _ = _token_head_inputs(dev, torch.float32, B, P, K, C, layout)
+    before = (fused_token_head.launches, fused_token_head.tf32x3_launches)
+    got = fused_token_head(x, w, act)
+    again = fused_token_head(x, w, act)
+    torch.cuda.synchronize()
+    assert (fused_token_head.launches, fused_token_head.tf32x3_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert got.shape == (B, C) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, token_head_reference(x, w, act),
+                               **TOL[torch.float32])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert not token_head._FWD_COUNTERS[(x.device, stream)].any()
+
+
+# the taps of the CLIs' default model (ResNet-152) and of the flagship
+# (EfficientNetV2-M) at 224 px, (P, K)
+BOTH_MODELS_TAPS = [(49, 2048), (196, 1024), (784, 512), (3136, 256),
+                    (12544, 64), (12544, 24), (3136, 48), (784, 80),
+                    (196, 176), (49, 512)]
+
+
+@pytest.mark.parametrize("act", ["serf", "serf_fast", "relu"])
+@pytest.mark.parametrize("P,K", BOTH_MODELS_TAPS)
+def test_token_head_fp32_forward_at_both_models_taps(dev, act, P, K):
+    """At B=8 (the fp32 checks' batch), x as the trunk gives it, C = 768:
+    one split-TF32 launch, within TOL of the plain version."""
+    x, w, _ = _token_head_inputs(dev, torch.float32, 8, P, K, 768, "nhwc")
+    before = fused_token_head.tf32x3_launches
+    got = fused_token_head(x, w, act)
+    torch.cuda.synchronize()
+    assert fused_token_head.tf32x3_launches == before + 1
+    torch.testing.assert_close(got, token_head_reference(x, w, act),
+                               **TOL[torch.float32])
+
+
+def test_token_head_fp32_forward_is_one_kernel(dev):
+    """The sums across blocks and across K's slices are added inside the
+    kernel: a profiled fp32 forward, at a resident tap and at a deep tap
+    whose K the plan cuts, shows one launch of token_head_fwd_tf32x3 and no
+    partial or finalize kernel. The profiler drops kernel records on some
+    machines (PERF.md §7): a trace in which it saw no device event checks
+    nothing and is taken again, up to three times a case
+    (chip_smoke.py::profiled retries too)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from mmvqa_tpu_torch.ops import token_head
+
+    for P, K in ((56 * 56, 48), (7 * 7, 2048)):
+        x, w, _ = _token_head_inputs(dev, torch.float32, 16, P, K, 768,
+                                     "nhwc")
+        plan = token_head._fp32_forward_plan(x, K, 768, "serf")
+        assert (plan.ks > 1) == (K == 2048)
+        fused_token_head(x, w, "serf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fused_token_head(x, w, "serf")
+                torch.cuda.synchronize()
+            events = [(e.key, e.count) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA]
+            if events:
+                break
+        ours = [(key, n) for key, n in events if "token_head" in key]
+        assert (len(ours) == 1 and "token_head_fwd_tf32x3" in ours[0][0]
+                and ours[0][1] == 1), events
+
+
+def test_token_head_fp32_forward_keeps_a_shared_memory_grant(dev):
+    """As test_token_head_forward_keeps_a_shared_memory_grant, for the fp32
+    forward's resident variant: K=96 (the most shared memory it asks for),
+    then a new shape at K=40 (less, the same variant), then K=96 again."""
+    g = _gen(dev)
+
+    def run(B, P, K):
+        x = torch.randn(B, P, K, device=dev, generator=g)
+        w = torch.randn(K, 256, device=dev, generator=g) * K ** -0.5
+        torch.testing.assert_close(fused_token_head(x, w, "serf"),
+                                   token_head_reference(x, w, "serf"),
+                                   **TOL[torch.float32])
+
+    run(2, 1231, 96)
+    run(3, 1237, 40)
+    run(2, 1231, 96)
+
+
+def test_token_head_fp32_forward_on_two_streams_at_once(dev):
+    """fp32 forward calls queued on two streams at once count into their
+    own stream's counters: every output is the one the default stream
+    gives, bit for bit, and every counter ends at 0."""
+    from mmvqa_tpu_torch.ops import token_head
+
+    cases = [_token_head_inputs(dev, torch.float32, 16, P, K, 768, "nhwc")[:2]
+             for P, K in ((112 * 112, 64), (7 * 7, 2048), (14 * 14, 1024))]
+    want = [fused_token_head(x, w, "serf") for x, w in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    got = [[] for _ in cases]
+    for _ in range(3):
+        for i, (stream, (x, w)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(1000)
+                got[i].append(fused_token_head(x, w, "serf"))
+    torch.cuda.synchronize()
+    for out, runs in zip(want, got):
+        for r in runs:
+            assert torch.equal(r, out)
+    device = cases[0][0].device
+    for s in streams:
+        assert not token_head._FWD_COUNTERS[(device, s.cuda_stream)].any()
 
 
 # ------------------------------------------- the CLIs' default model ----

@@ -9,6 +9,8 @@ interpret mode on bf16 inputs.
 """
 
 import math
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -46,18 +48,25 @@ from mmvqa_tpu_torch.ops.attention import (
     realformer_attention_reference,
 )
 from mmvqa_tpu_torch.ops.token_head import (
+    FP32_FWD_RESIDENT,
+    FP32_FWD_STREAMED,
+    FP32_FWD_TILE_C,
     FWD_STREAMED,
     FWD_TILE_C,
     FWD_W_REGISTERS,
     SMEM_LIMIT,
-    TILE_P,
+    SMEM_PER_SM,
     forward_plan,
     forward_tile,
+    fp32_forward_plan,
+    fp32_forward_tile,
     fused_token_head,
-    launch_plan,
     token_head_reference,
 )
 from mmvqa_tpu_torch.train.steps import make_vqa_eval_step
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 # tier-1 runs six test workers on eight cores: one torch thread each
 torch.set_num_threads(1)
@@ -123,36 +132,13 @@ def test_token_head_takes_the_trunk_map_as_a_strided_view(rng):
 def test_token_head_cpu_call_counts_no_launch(rng):
     x = torch.zeros(1, 8, 4)
     w = torch.zeros(4, 8)
-    before = fused_token_head.launches
+    before = fused_token_head.launches, fused_token_head.tf32x3_launches
     fused_token_head(x, w, "relu")
-    assert fused_token_head.launches == before
+    assert (fused_token_head.launches,
+            fused_token_head.tf32x3_launches) == before
 
 
 SM_COUNTS = (1, 114, 132)
-
-
-@pytest.mark.parametrize("B,P,K", [
-    (16, 112 * 112, 24), (16, 56 * 56, 48), (16, 28 * 28, 80),
-    (16, 14 * 14, 176), (16, 7 * 7, 512), (128, 112 * 112, 24),
-    (2, 700, 24), (1, 1, 1),
-])
-def test_token_head_launch_plan_covers_every_position(B, P, K):
-    """The CUDA launch's cut of P, checked where the CPU can reach it: the
-    chunks are whole position tiles and cover P exactly once, with no
-    chunk left empty, whatever the card's multiprocessor count (an H100
-    SXM has 132, the PCIe card 114)."""
-    for sms in SM_COUNTS:
-        plan = launch_plan(B, P, K, 768, sms)
-        assert plan.chunk % TILE_P == 0
-        assert (plan.nchunks - 1) * plan.chunk < P <= plan.nchunks * plan.chunk
-        assert 1 <= plan.nchunks <= 65535
-
-
-def test_token_head_launch_plan_refuses_what_the_grid_cannot_take():
-    with pytest.raises(ValueError, match="empty"):
-        launch_plan(2, 0, 24, 768, 132)
-    with pytest.raises(ValueError, match="grid too large"):
-        launch_plan(2, 64, 24, 128 * 65536, 132)
 
 
 def _walk_forward_block(plan, B, P, j):
@@ -259,6 +245,157 @@ def test_token_head_forward_plan_refuses_what_it_cannot_take():
         forward_plan(2, 64, 24, 768, 132, 0)
     with pytest.raises(ValueError, match="grid too large"):
         forward_plan(2**16, 2**15, 24, 768, 132, 3)
+
+
+# the two models' taps at 224 px, (P, K): the CLIs' default (ResNet-152)
+# and the flagship (EfficientNetV2-M)
+MODEL_TAPS = {
+    "default": [(side * side, K) for _, side, K in chip_smoke.DEF_TAPS],
+    "flagship": [(side * side, K) for _, side, K in chip_smoke.TAPS],
+}
+# (SMs, blocks an SM holds): the plan asks the card for the second
+FP32_CARDS = [(sms, slots) for sms in SM_COUNTS for slots in (1, 2, 3)]
+
+
+def _last_arrival_adds(arrivals):
+    """An atomicInc counter with limit len(arrivals) - 1, taken once by each
+    arrival in either order: only the last one sees the limit (and adds),
+    and the counter ends at 0."""
+    n = len(arrivals) - 1
+    for order in (arrivals, arrivals[::-1]):
+        counter, adds = 0, []
+        for j in order:
+            old = counter
+            counter = 0 if old >= n else old + 1
+            if old == n:
+                adds.append(j)
+        assert adds == [order[-1]] and counter == 0
+
+
+def _check_fp32_forward_plan(B, P, K, C, sms, slots, walk):
+    """The fp32 forward's plan on a card of ``sms`` SMs holding ``slots``
+    blocks each: the tile is fp32_forward_tile's; the row tiles go to the
+    blocks in order, each once, none left empty, in one wave or a tile a
+    block, and at least a block an SM where there are as many tiles; K is
+    cut only where W streams, with a tile a block, into slices of whole
+    32-k chunks, none empty, each taken once; each block's rows span no
+    more images than its partial holds; each (image, 32 channels) sum is
+    taken once, by the last of the blocks that share the image to arrive at
+    its atomicInc counter (which ends at 0), and those blocks are the
+    kernel's j_lo .. j_hi (a tile's K slices likewise, by the last of its
+    ks); a block fits an SM's shared memory beside another (two more where
+    W is resident). With ``walk``, the kernel's walk over every block's
+    rows (_walk_forward_block) flushes each image's rows exactly once.
+    Returns the plan."""
+    plan = fp32_forward_plan(B, P, K, C, sms, slots)
+    tp, mode, smem = fp32_forward_tile(K)
+    assert (plan.tp, plan.mode, plan.smem) == (tp, mode, smem)
+    assert (mode == FP32_FWD_RESIDENT) == (-(-K // 32) * 32 <= 96)
+    assert tp == (16 if mode == FP32_FWD_RESIDENT else 64)
+    # blocks an SM's shared memory holds: three resident (four up to K =
+    # 64), two streamed
+    fits = SMEM_PER_SM // (smem + 1024)
+    assert smem <= SMEM_LIMIT and fits >= (
+        2 if mode == FP32_FWD_STREAMED else 4 if K <= 64 else 3)
+    N, ctiles = B * P, -(-C // FP32_FWD_TILE_C)
+    items = -(-N // tp)
+    rows_pb = plan.per_block * tp
+    assert (plan.nblocks - 1) * plan.per_block < items
+    assert items <= plan.nblocks * plan.per_block
+    assert (plan.nblocks * ctiles <= max(slots * sms, ctiles)
+            or plan.per_block == 1)
+    assert plan.nblocks * ctiles >= min(sms, items * ctiles)
+    n_kc = -(-K // 32)
+    assert 1 <= plan.ks <= n_kc
+    assert (plan.ks > 1) == (K >= 512 and items * ctiles < 3 * sms and (
+        n_kc > 1))
+    if plan.ks > 1:
+        assert mode == FP32_FWD_STREAMED and plan.per_block == 1
+        assert items * ctiles * plan.ks >= 3 * sms or plan.ks == n_kc
+        cuts = [z * n_kc // plan.ks for z in range(plan.ks + 1)]
+        assert all(lo < hi for lo, hi in zip(cuts, cuts[1:]))
+        assert (cuts[0], cuts[-1]) == (0, n_kc)
+        _last_arrival_adds(list(range(plan.ks)))
+    for j in range(plan.nblocks):
+        first_img = j * rows_pb // P
+        last_img = (min(N, (j + 1) * rows_pb) - 1) // P
+        assert last_img - first_img + 1 <= plan.slots
+    for b in range(B):
+        blocks = [j for j in range(plan.nblocks)
+                  if max(b * P, j * rows_pb) < min((b + 1) * P,
+                                                   (j + 1) * rows_pb)]
+        j_lo = b * P // rows_pb
+        j_hi = min(plan.nblocks - 1, ((b + 1) * P - 1) // rows_pb)
+        assert blocks == list(range(j_lo, j_hi + 1))
+        _last_arrival_adds(blocks)
+    if walk:
+        flushed = {}
+        for j in range(plan.nblocks):
+            for b, lo, hi in _walk_forward_block(plan, B, P, j):
+                want_hi = min((b + 1) * P, (j + 1) * rows_pb)
+                if b == B - 1:  # the zero rows past B * P come along
+                    want_hi = min(items * tp, (j + 1) * rows_pb)
+                assert (lo, hi) == (max(b * P, j * rows_pb), want_hi)
+                flushed.setdefault(b, []).append(j)
+        assert sorted(flushed) == list(range(B))
+    return plan
+
+
+@pytest.mark.parametrize("model", sorted(MODEL_TAPS))
+@pytest.mark.parametrize("B", [chip_smoke.CHECK_B, chip_smoke.CLI_B,
+                               chip_smoke.TRAIN_B])
+def test_token_head_fp32_forward_plan_at_the_taps(model, B):
+    """Every tap of both models at the fp32 check's, the CLIs' and the train
+    batch, C = 768, on cards of 1, 114 and 132 SMs: the plan's invariants
+    (_check_fp32_forward_plan; every row walked where B * P is at most the
+    CLIs' stem), and at the deep taps (K >= 176: few rows, wide K) at least
+    a block an SM: their K is cut so that there are as many."""
+    for P, K in MODEL_TAPS[model]:
+        for sms, slots in FP32_CARDS:
+            plan = _check_fp32_forward_plan(B, P, K, 768, sms, slots,
+                                            walk=B * P <= 16 * 12544)
+            if K >= 176:
+                assert plan.nblocks * 6 * plan.ks >= sms, (P, K, sms, plan)
+
+
+@pytest.mark.parametrize("B,P,K,C", [
+    (3, 37, 96, 300), (7, 1, 8, 8), (2, 700, 24, 257), (5, 49, 97, 768),
+    (1, 1, 1, 1), (9, 49, 2049, 257), (2, 4099, 13, 100),
+])
+def test_token_head_fp32_forward_plan_at_ragged_shapes(B, P, K, C):
+    """Images shorter than a 16-row step (P = 1), tiles across images, K
+    and C no multiple of a chunk or a channel tile: every row walked."""
+    for sms, slots in FP32_CARDS:
+        _check_fp32_forward_plan(B, P, K, C, sms, slots, walk=True)
+
+
+def test_token_head_fp32_forward_plan_cuts_k_at_the_deep_taps():
+    """On a 132-SM card: W resident with 16-row tiles where K <= 96, never
+    a cut of K; where it streams, 64-row tiles, and K (from 512) cut where
+    those give the SMs fewer than three blocks each: ResNet's layer4 (784
+    rows at B=16: 13 tiles x 6 channel tiles, 6 slices; 392 at B=8: 10),
+    layer3 at B=16 (49 tiles, 2 slices), the flagship's stage 6 alike; none
+    at its stage 4 (K = 176), at B=128 or at layer2."""
+    sms = 132
+    for B, P, K in ((16, 12544, 64), (8, 12544, 24), (16, 784, 80)):
+        plan = fp32_forward_plan(B, P, K, 768, sms, 3)
+        assert (plan.tp, plan.mode, plan.ks) == (16, FP32_FWD_RESIDENT, 1)
+    for B, P, K, ks in ((16, 49, 2048, 6), (8, 49, 2048, 10),
+                        (16, 196, 1024, 2), (16, 49, 512, 6),
+                        (16, 196, 176, 1), (128, 49, 2048, 1),
+                        (16, 784, 512, 1)):
+        plan = fp32_forward_plan(B, P, K, 768, sms, 2)
+        assert (plan.tp, plan.mode, plan.ks) == (64, FP32_FWD_STREAMED, ks)
+        assert plan.nblocks * 6 * ks >= sms
+
+
+def test_token_head_fp32_forward_plan_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError, match="empty"):
+        fp32_forward_plan(2, 0, 24, 768, 132, 2)
+    with pytest.raises(ValueError, match="blocks an SM"):
+        fp32_forward_plan(2, 64, 24, 768, 132, 0)
+    with pytest.raises(ValueError, match="grid too large"):
+        fp32_forward_plan(2**16, 2**15, 24, 768, 132, 2)
 
 
 def test_token_head_rejects_bad_arguments():

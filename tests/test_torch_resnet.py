@@ -64,16 +64,18 @@ def _run_both(jmod, mod, x, train, rng):
     gs = [rng.normal(size=o.shape).astype(np.float32)
           for o in jax.tree_util.tree_leaves(jouts)]
 
-    def f(params, xin):
-        outs, mut = jmod.apply(
-            {"params": params, "batch_stats": variables["batch_stats"]}, xin,
-            train, mutable=["batch_stats"])
+    def f(params, xin, stats, gs):
+        outs, mut = jmod.apply({"params": params, "batch_stats": stats}, xin,
+                               train, mutable=["batch_stats"])
         outs = jax.tree_util.tree_leaves(outs)
         return sum(jnp.sum(o * g) for o, g in zip(outs, gs)), (
             outs, mut["batch_stats"])
 
-    (_, (want, want_stats)), (want_gp, want_gx) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(variables["params"], jnp.asarray(x))
+    # one compiled program, as the JAX package's steps run (op by op, the
+    # trunk's few hundred primitives each compile on their own)
+    (_, (want, want_stats)), (want_gp, want_gx) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(variables["params"], jnp.asarray(x),
+                                          variables["batch_stats"], gs)
 
     xt = _t(x).permute(0, 3, 1, 2).requires_grad_()
     got = mod(xt)
@@ -133,9 +135,9 @@ def _relu_inputs(jtrunk, variables, trunk, x, train):
     """Every ReLU input of both trunks, JAX first: the stem's BatchNorm, each
     block's bn1 and bn2, and its residual sum (bn3 + the downsample's
     BatchNorm: every block of a one-block-a-stage trunk has one)."""
-    _, st = jtrunk.apply(variables, jnp.asarray(x), train,
-                         mutable=["batch_stats", "intermediates"],
-                         capture_intermediates=True)
+    _, st = jax.jit(lambda v, a: jtrunk.apply(
+        v, a, train, mutable=["batch_stats", "intermediates"],
+        capture_intermediates=True))(variables, jnp.asarray(x))
     jax_out = st["intermediates"]
     got = {}
     hooks = [mod.register_forward_hook(

@@ -1,10 +1,12 @@
 """The fp32 path on Hopper's tensor cores, on the CPU: the TF32 flags the
 CLIs set, a numpy model of the split-TF32 arithmetic of ``csrc/tf32x3.cuh``
-held to the card's fp32 tolerances, and the launch plans of the two fp32
-kernels that use it (K4, ``ops/conv_bn.py::tf32_plan``; K1-bwd,
-``ops/token_head.py::backward_plan``) at the flagship's shapes. The kernels
-themselves run only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+held to the card's fp32 tolerances, a numpy model of the token head's fp32
+forward (``csrc/token_head.cu``, k1::fwd32) held to the JAX package's
+reference, and the launch plans of the fp32 kernels that use it (K4,
+``ops/conv_bn.py::tf32_plan``; K1-bwd, ``ops/token_head.py::backward_plan``)
+at the flagship's shapes (K1-fwd's, ``fp32_forward_plan``, are walked in
+``tests/test_torch_ops.py``). The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 import os
@@ -23,12 +25,14 @@ from mmvqa_tpu_torch.ops.conv_bn import (
     TF32_TILES,
     tf32_plan,
 )
+from mmvqa_tpu_torch.ops.activations import serf_exact
 from mmvqa_tpu_torch.ops.token_head import (
     FP32_ROWS,
     FP32_TILES,
     SMEM_PER_SM,
     backward_plan,
     backward_scratch,
+    fp32_forward_plan,
     fp32_tiles_items,
 )
 
@@ -171,6 +175,77 @@ def test_split_tf32_product_keeps_fp32_accuracy(K):
     assert err["kernel"].max() <= 1.5 * err["fp32"].max()
     assert (err["tf32"] / k4).max() > 10
     assert (err["into_sum"] <= k4).all() == (K < 1824)
+
+
+# --------------------------------------- the token head's fp32 forward ----
+
+def _token_head_forward_model(x: np.ndarray, w: np.ndarray,
+                              plan) -> np.ndarray:
+    """mean_p serf(x @ w) as k1::fwd32 in csrc/token_head.cu takes it: s by
+    the split-TF32 products (_product "kernel": each k8 step's three
+    products summed from zero, its sum added to the running fp32 sum), and
+    where the plan cuts K into slices of 32-k chunks, each slice's sum from
+    zero, the slices added in order; exact SERF in fp32; the rows of the
+    B * P axis cut into blocks of
+    plan.per_block * plan.tp rows; in a block, a warp's row lane g (of 8)
+    adds SERF of the rows n = g mod 8 of an image in order, in fp32; at the
+    image's end the 8 lanes are added by shuffles (g ^ 1, then g ^ 2, then
+    g ^ 4); the blocks' partials of an image are added in block order and
+    the sum divided by P."""
+    B, P, K = x.shape
+    rows = x.reshape(B * P, K)
+    n_kc = -(-K // 32)
+    s = np.zeros((B * P, w.shape[1]), np.float32)
+    for z in range(plan.ks):
+        k = slice(z * n_kc // plan.ks * 32, (z + 1) * n_kc // plan.ks * 32)
+        s = s + _product(rows[:, k], w[k], "kernel")
+    a = serf_exact(torch.from_numpy(s)).numpy()
+    rows_pb = plan.per_block * plan.tp
+    out = np.zeros((B, w.shape[1]), np.float32)
+    for b in range(B):
+        total = np.zeros(w.shape[1], np.float32)
+        for j in range(b * P // rows_pb, ((b + 1) * P - 1) // rows_pb + 1):
+            lo, hi = max(b * P, j * rows_pb), min((b + 1) * P,
+                                                  (j + 1) * rows_pb)
+            lanes = np.zeros((8, w.shape[1]), np.float32)
+            for n0 in range(lo - lo % 8, hi, 8):
+                g = slice(max(lo - n0, 0), min(hi - n0, 8))
+                lanes[g] = lanes[g] + a[n0 + g.start:n0 + g.stop]
+            for off in (1, 2, 4):  # lane g takes lane g ^ off's sum
+                lanes = lanes + lanes[np.arange(8) ^ off]
+            total = total + lanes[0]
+        out[b] = total / np.float32(P)
+    return out
+
+
+@pytest.mark.parametrize("B,P,K", [(3, 49, 24), (3, 49, 2048),
+                                   (2, 12544, 24)])
+def test_token_head_fp32_forward_arithmetic_meets_the_reference(B, P, K):
+    """The fp32 forward's arithmetic (_token_head_forward_model) at the
+    flagship's stage 0 (P = 12544, K = 24: the longest sums over rows) and
+    ResNet's layer4 (P = 49, K = 2048: the longest over K, which the plan
+    cuts into slices; its 64-row tiles cross images), and P = 49 at K = 24
+    (16-row tiles), with the
+    plan the kernel takes for C = 768 on a 132-SM card of two blocks an SM,
+    against the JAX package's token_head_reference in fp32 within the
+    smoke's TOL_K1_F32, inputs as the smoke makes them (x ~ N(0, 1), W ~
+    N(0, 1/K)); 16 channels."""
+    import jax.numpy as jnp
+
+    from mmvqa_tpu.ops.pallas_token_head import token_head_reference
+
+    rng = np.random.default_rng(K + P)
+    x = rng.standard_normal((B, P, K)).astype(np.float32)
+    w = (rng.standard_normal((K, 16)) * K ** -0.5).astype(np.float32)
+    plan = fp32_forward_plan(B, P, K, HIDDEN, SMS, 2)
+    if P == 49:
+        assert plan.tp * plan.per_block % P
+    assert (plan.ks > 1) == (K == 2048)
+    got = _token_head_forward_model(x, w, plan)
+    want = np.asarray(token_head_reference(jnp.asarray(x), jnp.asarray(w),
+                                           "serf"))
+    tol = chip_smoke.TOL_K1_F32
+    np.testing.assert_allclose(got, want, rtol=tol["rtol"], atol=tol["atol"])
 
 
 # -------------------------------------------------------- launch plans ----

@@ -176,12 +176,14 @@ def test_bert_encoder_matches_flax(rng, share, norm_pos):
     jenc, variables, enc, h, mask = _encoder_case(rng, share, norm_pos)
     g = rng.normal(size=(B, T, H)).astype(np.float32)
 
-    def f(params, x):
-        y = jenc.apply({"params": params}, x, jnp.asarray(mask))
-        return jnp.sum(y * g), y
+    def f(params, x, m, gy):
+        y = jenc.apply({"params": params}, x, m)
+        return jnp.sum(y * gy), y
 
-    (_, want), (want_gp, want_gx) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(variables["params"], jnp.asarray(h))
+    # one compiled program, as the JAX package's steps run it
+    (_, want), (want_gp, want_gx) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(variables["params"], jnp.asarray(h),
+                                          jnp.asarray(mask), g)
 
     enc.eval()
     x = _t(h).requires_grad_()

@@ -786,14 +786,15 @@ def test_training_block_matches_flax(rng, kind):
     out_s = -(-S // (2 if kind == "mb_stride2" else 1))
     g = rng.normal(size=(B, out_s, out_s, 8)).astype(np.float32)
 
-    def f(params, xin):
-        y, mut = jblock.apply(
-            {"params": params, "batch_stats": variables["batch_stats"]}, xin,
-            True, mutable=["batch_stats"])
-        return jnp.sum(y * g), (y, mut["batch_stats"])
+    def f(params, xin, stats, gy):
+        y, mut = jblock.apply({"params": params, "batch_stats": stats}, xin,
+                              True, mutable=["batch_stats"])
+        return jnp.sum(y * gy), (y, mut["batch_stats"])
 
-    (_, (want_y, want_stats)), (want_gp, want_gx) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(variables["params"], jnp.asarray(x))
+    # one compiled program, as the JAX package's steps run it
+    (_, (want_y, want_stats)), (want_gp, want_gx) = jax.jit(
+        jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
+            variables["params"], jnp.asarray(x), variables["batch_stats"], g)
 
     block.load_state_dict(bridge.to_state_dict(variables, block), strict=True)
     block.train()
