@@ -143,6 +143,26 @@
    the CLI and drivers slices, each at its exact launch counts. The summary
    line's ``launches_default`` holds the counts of (b), (d) and (e).
 
+9. The remaining model paths, each at full width and 224 px, each held
+   against the CPU plain path at the tolerances above (the default trunk's
+   fp32 train steps with the bn3 scales and the ReLU term of 8 (c),
+   ``held_step_fp32``), every count exact. (a) Distillation on the default
+   model and the flagship: one fp32 ``make_distill_steps`` step at B=8
+   (labels (B, 75, 768), seeded), the bf16 main path at B=16 (the loss
+   falls; traced), then ``roco_train.main --task distillation
+   --watch_histograms`` on the CLI slice's fixture, two epochs in bf16 and
+   two in fp32, a seeded stand-in in place of the dataset's ClinicalBERT
+   teacher. (b) ``ImageOnlyClassifier`` with its keyword pathway on each
+   trunk: an eval step at B=4, a fp32 step at B=8, the bf16 main path at
+   B=16; K1 and K2 never launch. (c) ``MMBert`` with the feedback encoder
+   on the default trunk: eval at B=16, a fp32 MLM step at B=8, T=75, the
+   bf16 VQA main path at B=16, then ``vqa_train.main`` and
+   ``vqa_eval.main`` with ``--transformer_model feedback-transformer`` on
+   the drivers slice's fixture; K2 never launches. (d) ``SupConEncoder``
+   on each trunk: a forward in train mode and one in eval mode at B=4,
+   unit features. The summary line's ``launches_aux`` holds the counts of
+   the main paths, eval, forwards and CLI runs.
+
 Every phase that traces with torch.profiler fails where the profiler saw no
 device time twice (once more after a synchronise): a trace without device
 events would check none of its rules.
@@ -3115,6 +3135,81 @@ def default_eval(torch) -> dict:
     return launches
 
 
+def scale_bn3(torch, model) -> None:
+    """Every residual branch's last BatchNorm named bn3 (each ResNet block's,
+    each EfficientNetV2 MBConv block's) scaled by DEF_CHECK_BN3_SCALE (see
+    there): the conditioning at which a fp32 forward of a trunk in training
+    mode can be held against the CPU where no encoder's LayerNorm follows.
+    The image-only model's logits on EfficientNetV2-M (up to 3.4 at B=8)
+    move 1.9e-4 on the CPU when every K4 output moves by a relative 1e-6,
+    3.6e-5 with the MBConv scales lowered (on the card they lay 1.3e-3
+    from the CPU's without)."""
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if name.endswith(".bn3"):
+                mod.weight.mul_(DEF_CHECK_BN3_SCALE)
+
+
+def held_step_fp32(torch, label, cpu_model, cfg, batch, draws, make_steps,
+                   leaves, stats, want_launches, nudged=None) -> None:
+    """One fp32 train step of ``cpu_model`` (``make_steps``) on the CPU plain
+    path and of a copy on the card, the card's launches at
+    ``want_launches``, the kept values held by ``compare_fp32_step``. With
+    ``nudged`` (the prefix of a trunk's leaves) a second card step runs
+    with every K4 output moved by a relative DEF_CHECK_NUDGE, and a leaf
+    under that prefix may lie DEF_CHECK_FLIPS times that step's distance
+    from the first farther from the CPU's: on ResNet for its ReLUs
+    (``default_train_check_fp32`` says why), on the image-only model's
+    EfficientNetV2-M for its conditioning (its gradient reaches stage 4
+    through stages 5 and 6 alone, and there, at the bn3 scales of
+    ``scale_bn3``, stage4_block13's depthwise gradient lay 2.05e-3 of its
+    largest entry from the CPU's on the H100; the flagship's checks read
+    1.2e-3 at that leaf)."""
+    import copy
+
+    from mmvqa_tpu_torch.models import effnetv2
+
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    twin_model = copy.deepcopy(card_model) if nudged else None
+    t0 = time.perf_counter()
+    want = checked_train_step(torch, cpu_model, cfg, batch, draws,
+                              make_steps, leaves, stats)
+    print(f"{label} check: CPU reference step (plain path, "
+          f"B={len(batch['weights'])}) "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    reset_counts()
+    got = checked_train_step(torch, card_model, cfg, batch, draws,
+                             make_steps, leaves, stats)
+    torch.cuda.synchronize()
+    check_launches(label, read_counts(), want_launches)
+    del card_model
+    allow = {}
+    if nudged:
+        kernel = effnetv2.conv1x1_stats
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+        def nudged_kernel(x, w):
+            y, st = kernel(x, w)
+            noise = torch.randn(y.shape, device=y.device, generator=gen)
+            return y * (1.0 + DEF_CHECK_NUDGE * noise), st
+
+        effnetv2.conv1x1_stats = nudged_kernel
+        try:
+            twin = checked_train_step(torch, twin_model, cfg, batch, draws,
+                                      make_steps, leaves, stats)
+        finally:
+            effnetv2.conv1x1_stats = kernel
+        del twin_model
+        for name in leaves:
+            spread = (twin[name] - got[name]).abs().max().item()
+            print(f"{label} check: {name}: the nudged card step lies "
+                  f"{spread:.3e} from the card step (of max "
+                  f"{got[name].abs().max().item():.3e})")
+            if name.startswith(nudged):
+                allow[name] = DEF_CHECK_FLIPS * spread
+    compare_fp32_step(torch, label, got, want, leaves, stats, allow)
+
+
 def default_train_check_fp32(torch) -> None:
     """(b) One fp32 MLM train step of the default model at B=CHECK_B, T=75,
     card against the CPU plain path, held as the flagship's step is, its
@@ -3128,13 +3223,11 @@ def default_train_check_fp32(torch) -> None:
     leaf may lie DEF_CHECK_FLIPS times that run's distance from the first
     farther from the CPU's than GRAD_NORMWISE allows; every other value is
     held as the flagship's."""
-    import copy
-
     from mmvqa_tpu_torch.core.config import pretrain_config
     from mmvqa_tpu_torch.data.images import PRETRAIN_AUG, sample_draws
     from mmvqa_tpu_torch.data.synthetic import mlm_batches
     from mmvqa_tpu_torch.models import MMBert
-    from mmvqa_tpu_torch.models import effnetv2
+    from mmvqa_tpu_torch.train.steps import make_mlm_steps
 
     cfg = pretrain_config(batch_size=CHECK_B, dropout_override=0.0)
     batch = mlm_batches(cfg, 1, SEED)[0]
@@ -3142,52 +3235,10 @@ def default_train_check_fp32(torch) -> None:
                          torch.Generator().manual_seed(SEED), PRETRAIN_AUG)
     cpu_model = MMBert(cfg, device="cpu",
                        generator=torch.Generator().manual_seed(SEED))
-    with torch.no_grad():
-        for name, mod in cpu_model.named_modules():
-            if name.endswith(".bn3"):
-                mod.weight.mul_(DEF_CHECK_BN3_SCALE)
-    card_model = copy.deepcopy(cpu_model).to("cuda")
-    nudged_model = copy.deepcopy(card_model)
-    t0 = time.perf_counter()
-    want = checked_train_step(torch, cpu_model, cfg, batch, draws,
-                              leaves=DEF_CHECK_LEAVES, stats=DEF_CHECK_STATS)
-    print(f"default train fp32 check: CPU reference step (plain path, "
-          f"B={CHECK_B}) {(time.perf_counter() - t0) * 1e3:.0f} ms")
-    del cpu_model
-    reset_counts()
-    got = checked_train_step(torch, card_model, cfg, batch, draws,
-                             leaves=DEF_CHECK_LEAVES, stats=DEF_CHECK_STATS)
-    torch.cuda.synchronize()
-    check_launches("default train fp32 check", read_counts(),
-                   default_launches(1, 0, False))
-    del card_model
-
-    kernel = effnetv2.conv1x1_stats
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    def nudged(x, w):
-        y, st = kernel(x, w)
-        noise = torch.randn(y.shape, device=y.device, generator=gen)
-        return y * (1.0 + DEF_CHECK_NUDGE * noise), st
-
-    effnetv2.conv1x1_stats = nudged
-    try:
-        twin = checked_train_step(torch, nudged_model, cfg, batch, draws,
-                                  leaves=DEF_CHECK_LEAVES,
-                                  stats=DEF_CHECK_STATS)
-    finally:
-        effnetv2.conv1x1_stats = kernel
-    del nudged_model
-    allow = {}
-    for name in DEF_CHECK_LEAVES:
-        spread = (twin[name] - got[name]).abs().max().item()
-        print(f"default train fp32 check: {name}: the nudged card step "
-              f"lies {spread:.3e} from the card step (of max "
-              f"{got[name].abs().max().item():.3e})")
-        if name.startswith("trans.trunk."):
-            allow[name] = DEF_CHECK_FLIPS * spread
-    compare_fp32_step(torch, "default train fp32", got, want,
-                      DEF_CHECK_LEAVES, DEF_CHECK_STATS, allow)
+    scale_bn3(torch, cpu_model)
+    held_step_fp32(torch, "default train fp32", cpu_model, cfg, batch,
+                   draws, make_mlm_steps, DEF_CHECK_LEAVES, DEF_CHECK_STATS,
+                   default_launches(1, 0, False), nudged="trans.trunk.")
 
 
 def default_train(torch) -> dict:
@@ -3378,6 +3429,525 @@ def default_phase(torch, results, work: str) -> dict:
     return launches
 
 
+# batch of the remaining paths' eval and forward checks against the CPU; their
+# fp32 train steps are held at CHECK_B, the batch at which the default
+# trunk's ReLU term (DEF_CHECK_FLIPS) was set: at B=4 a flipped ReLU moves a
+# trunk gradient by twice the share, and the image-only model's layer3
+# gradient, which reaches it through layer4 alone, lay 5.7 nudged spreads
+# from the CPU's on the H100
+AUX_B = 4
+AUX_STEPS = 4     # bf16 steps of each remaining path's main path, B=CLI_B
+AUX_EPOCHS = 2    # epochs of the distillation CLI runs
+NUM_KEYWORDS = 32  # the image-only model's keyword vocabulary here
+TEACHER_HIDDEN = 768  # ClinicalBERT's hidden states, the distillation labels
+# the default trunk's leaves and statistics under the image-only model and
+# the SupCon encoder (``trunk.``, not ``trans.trunk.``)
+RESNET_LEAVES = ["trunk.conv1.weight", "trunk.layer3_block17.conv1.weight",
+                 "trunk.layer3_block17.conv3.weight",
+                 "trunk.layer3_block17.bn2.weight"]
+RESNET_STATS = ["trunk.bn1.running_var",
+                "trunk.layer3_block17.bn2.running_var",
+                "trunk.layer4_block0.downsample_bn.running_var"]
+EFFNET_LEAVES = ["trunk.stem_conv.weight",
+                 "trunk.stage6_block4.pw_proj.weight",
+                 "trunk.stage4_block13.dw.weight",
+                 "trunk.stage4_block13.pw_exp.weight",
+                 "trunk.stage4_block13.bn1.weight",
+                 "trunk.stage1_block2.bn2.bias"]
+EFFNET_STATS = ["trunk.stem_bn.running_var", "trunk.stem_bn.running_mean",
+                "trunk.stage4_block13.bn2.running_var"]
+FEEDBACK_LEAVES = ([l for l in DEF_CHECK_LEAVES if not l.startswith(
+    "encoder.")] + ["encoder.segment.shared_kv.weight",
+                    "encoder.segment.rel_bias.weight",
+                    "encoder.segment.layer_weight",
+                    "encoder.segment.to_q_0.weight",
+                    "encoder.segment.ff_3.w_out.weight"])
+
+
+def trunk_launches(trunk: str, train: int, forwards: int, bf16: bool,
+                   train_forwards: int = 0) -> dict:
+    """Each counter after ``train`` train steps, ``forwards`` eval forwards
+    and ``train_forwards`` forwards in training mode (no backward) of a
+    trunk alone, the image-only model's and the SupCon encoder's: K4 and K5
+    at ResNet-152's 101 and 155 sites, or K3, K4 and K5 at
+    EfficientNetV2-M's 42, 98 and 156; never K1 or K2."""
+    want = dict.fromkeys(expected_launches(0, 0, bf16), 0)
+    k4_passes = train + train_forwards
+    if "resnet" in trunk:
+        k4, k5 = DEF_SITES
+    else:
+        k4, k5 = 98, 156
+        want.update(depthwise3x3=42 * (train + forwards + train_forwards),
+                    depthwise3x3_bwd=42 * train)
+    want.update(conv1x1_stats=k4 * k4_passes,
+                conv1x1_stats_tma=k4 * k4_passes if bf16 else 0,
+                conv1x1_stats_tf32x3=0 if bf16 else k4 * k4_passes,
+                bn_backward_sums=k5 * train)
+    return want
+
+
+def with_teacher_states(torch, batches, hidden: int = TEACHER_HIDDEN):
+    """MLM batches made distillation batches: ``labels`` the teacher's
+    (B, T, hidden) states, fp32 from a seeded generator, where the input
+    mask is set and zero on the padding."""
+    gen = torch.Generator().manual_seed(SEED)
+    out = []
+    for b in batches:
+        B, T = b["tokens"].shape
+        states = torch.randn(B, T, hidden, generator=gen).numpy()
+        keep = (b["input_mask"] > 0)[..., None]
+        out.append(dict(b, labels=(states * keep).astype("float32")))
+    return out
+
+
+def teacher_stand_in(torch, vocab_size: int, hidden: int = TEACHER_HIDDEN):
+    """The dataset's teacher interface, ids (1, L) -> states (1, L, hidden),
+    as a seeded torch table with a position term: a stand-in for the
+    ClinicalBERT checkpoint, which is not in the repository."""
+    gen = torch.Generator().manual_seed(SEED)
+    table = torch.randn(vocab_size, hidden, generator=gen) * 0.5
+    pos = torch.randn(512, hidden, generator=gen) * 0.1
+
+    def run(ids):
+        t = torch.as_tensor(ids).long()
+        return (table[t] + pos[: t.shape[-1]]).numpy()
+
+    return run
+
+
+def aux_main_path(torch, label, model, train_step, batch, want_step,
+                  aug) -> dict:
+    """The bf16 main path of a remaining model: AUX_STEPS train steps on a
+    repeated batch of CLI_B under the same draws of ``aug`` (one input
+    repeated: with fresh crops each step the image-only model's loss on
+    EfficientNetV2-M rose and fell by more than four steps move it, on the
+    CPU in fp32 too), each ending in a synchronise (ms a step, peak
+    memory), the counters at ``want_step`` times the steps, finite losses
+    that fall; then two steps traced (``traced_train_steps``: the card's
+    busy time and the profiler's rules). Returns the counted launches."""
+    from mmvqa_tpu_torch.data.images import sample_draws
+    from mmvqa_tpu_torch.train.state import create_train_state
+
+    state = [create_train_state(model, TRAIN_LR)]
+    n, size = batch["image"].shape[:2]
+    draws = sample_draws(n, size, torch.Generator(
+        device="cuda").manual_seed(SEED), aug)
+
+    def run_step():
+        state[0], m = train_step(state[0], batch, draws)
+        return m
+
+    times, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for _ in range(AUX_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run_step()["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    check_launches(label, launches,
+                   {k: v * AUX_STEPS for k, v in want_step.items()})
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses) or not (
+            losses[-1] < losses[0]):
+        fail(f"{label}: the loss did not fall on a repeated batch: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"{label}: ms per step {['%.1f' % t for t in times]} (median after "
+          f"the first {statistics.median(times[1:]):.2f}); peak memory "
+          f"{peak:.1f} MiB; losses {['%.4f' % x for x in losses]}; "
+          f"launches {launches}")
+    traced_train_steps(torch, run_step, 2, label)
+    return launches
+
+
+def distill_phase(torch, work: str) -> dict:
+    """(9a) Distillation. One fp32 ``make_distill_steps`` step at B=CHECK_B,
+    T=75, labels (B, 75, 768) from a seeded generator, card against the CPU
+    plain path on the default model (bn3 scales and the ReLU term of
+    ``default_train_check_fp32``) and on the flagship, the encoder's output
+    among the kept values; the bf16 main path of each at B=CLI_B; then
+    ``roco_train.main --task distillation`` without encoder flags on the
+    CLI phase's fixture, AUX_EPOCHS epochs in bf16 and in fp32 with
+    ``--watch_histograms``, a seeded stand-in in place of the dataset's
+    ClinicalBERT teacher. Exact counts everywhere. Returns the launches of
+    the main paths and the CLI runs."""
+    from mmvqa_tpu_torch.cli import roco_train
+    from mmvqa_tpu_torch.core.config import pretrain_config
+    from mmvqa_tpu_torch.data import datasets
+    from mmvqa_tpu_torch.data.images import PRETRAIN_AUG, sample_draws
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches
+    from mmvqa_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.train.steps import make_distill_steps
+
+    launches: dict = {}
+    for name, make_cfg, leaves, stats, counts, relu in (
+            ("default", pretrain_config, DEF_CHECK_LEAVES, DEF_CHECK_STATS,
+             default_launches, "trans.trunk."),
+            ("flagship", flagship_mlm_config, CHECK_LEAVES, CHECK_STATS,
+             expected_launches, None)):
+        leaves = [x for x in leaves if not x.startswith("classifier")]
+        cfg = make_cfg(batch_size=CHECK_B, dropout_override=0.0,
+                       task="distillation")
+        (batch,) = with_teacher_states(torch, mlm_batches(cfg, 1, SEED))
+        draws = sample_draws(CHECK_B, cfg.image_size,
+                             torch.Generator().manual_seed(SEED),
+                             PRETRAIN_AUG)
+        cpu_model = MMBert(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(SEED))
+        if any(hasattr(cpu_model, h) for h in ("fc1", "classifier_2")):
+            fail(f"distill {name}: the distillation model has heads")
+        if relu:
+            scale_bn3(torch, cpu_model)
+        held_step_fp32(torch, f"distill {name} fp32", cpu_model, cfg,
+                       batch, draws, make_distill_steps, leaves, stats,
+                       counts(1, 0, False), nudged=relu)
+        del cpu_model
+        torch.cuda.empty_cache()
+
+        cfg = make_cfg(batch_size=CLI_B, mixed_precision=True, lr=TRAIN_LR,
+                       task="distillation", seed=SEED)
+        (batch,) = with_teacher_states(torch, mlm_batches(cfg, 1, SEED))
+        model = MMBert(cfg, compute_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(SEED))
+        train_step, _ = make_distill_steps(model, cfg)
+        add_counts(launches, aux_main_path(
+            torch, f"distill {name} bf16 B={CLI_B}", model, train_step,
+            batch, counts(1, 0, True), PRETRAIN_AUG))
+        del model, train_step
+        torch.cuda.empty_cache()
+
+    roco = os.path.join(work, "roco")
+    teacher = teacher_stand_in(
+        torch, WordPieceTokenizer.find_and_load(roco, "").vocab_size)
+    steps, evals = -(-CLI_TRAIN // CLI_B), -(-CLI_VAL // CLI_B)
+    real = datasets.ROCODataset._teacher
+    datasets.ROCODataset._teacher = lambda self: teacher
+    try:
+        for label, extra in (("bf16", ["--mixed_precision"]), ("fp32", [])):
+            run = f"distill_{label}"
+            save = os.path.join(work, run)
+            reset_counts()
+            t0 = time.perf_counter()
+            with TF32Off(torch, f"distill cli {label}"):
+                roco_train.main(["-r", run, "--data_dir", roco, "--save_dir",
+                                 save, "--task", "distillation", "--epochs",
+                                 str(AUX_EPOCHS), "--watch_histograms",
+                                 *DEF_CLI_ARGS, *extra])
+            got = read_counts()
+            # each epoch: its train steps, a histogram pass, its validation
+            check_launches(f"distill cli {run}", got, default_launches(
+                (steps + 1) * AUX_EPOCHS, evals * AUX_EPOCHS,
+                label == "bf16"))
+            lines = metric_lines(save, run)
+            epochs = [x for x in lines if "histograms" not in x]
+            hists = [x for x in lines if "histograms" in x]
+            weights = os.path.join(save, "distillation", run)
+            if len(epochs) != AUX_EPOCHS or len(hists) != AUX_EPOCHS or not (
+                    all(math.isfinite(x[k]) for x in epochs for k in (
+                        "epoch_train_loss", "epoch_val_loss"))) or not (
+                    os.path.exists(weights)):
+                fail(f"distill cli {run}: {epochs}, {len(hists)} histogram "
+                     f"records, weights {os.path.exists(weights)}")
+            print(f"distill cli {run}: roco_train.main --task distillation "
+                  f"--watch_histograms, {AUX_EPOCHS} epochs of {steps} train "
+                  f"steps, a histogram pass and {evals} validation batches "
+                  f"at B={CLI_B}, {time.perf_counter() - t0:.1f} s; train "
+                  f"losses {[round(x['epoch_train_loss'], 4) for x in epochs]}"
+                  f", val losses "
+                  f"{[round(x['epoch_val_loss'], 4) for x in epochs]}, "
+                  f"{len(hists[0]['histograms'])} histograms an epoch, "
+                  f"{epochs[-1]['train_items_per_sec']:.1f} train items/s")
+            add_counts(launches, got)
+            torch.cuda.empty_cache()
+    finally:
+        datasets.ROCODataset._teacher = real
+    return launches
+
+
+def img_only_phase(torch) -> dict:
+    """(9b) ``ImageOnlyClassifier`` with the keyword pathway on each trunk
+    at full width, 224 px: one eval step at B=AUX_B against the CPU plain
+    path (logits within TOL_SLICE), one fp32 train step at B=CHECK_B held
+    as the default model's (bn3 scales, ``scale_bn3``, and the nudged
+    step's term on the trunk's leaves), then the bf16 main path at
+    B=CLI_B. K1 and K2 never launch. Returns the main
+    path's launches."""
+    import copy
+
+    from mmvqa_tpu_torch.core.config import vqa_config
+    from mmvqa_tpu_torch.data.images import FINETUNE_AUG, sample_draws
+    from mmvqa_tpu_torch.data.synthetic import vqa_batches
+    from mmvqa_tpu_torch.models import ImageOnlyClassifier
+    from mmvqa_tpu_torch.train.steps import make_img_only_steps
+
+    launches: dict = {}
+    for trunk, leaves, stats in (
+            ("resnet152", RESNET_LEAVES, RESNET_STATS),
+            ("tf_efficientnetv2_m", EFFNET_LEAVES, EFFNET_STATS)):
+        label = f"img_only {trunk}"
+        cfg = vqa_config(cnn_encoder=trunk, batch_size=AUX_B,
+                         num_classes=NUM_CLASSES, lr=TRAIN_LR)
+        (batch,) = vqa_batches(cfg, 1, NUM_CLASSES, SEED, 1)
+        batch["keyword"] = (batch["answer"] % NUM_KEYWORDS).astype("int32")
+        cpu_model = ImageOnlyClassifier(
+            NUM_CLASSES, trunk, NUM_KEYWORDS, device="cpu",
+            generator=torch.Generator().manual_seed(SEED))
+        scale_bn3(torch, cpu_model)
+        card_model = copy.deepcopy(cpu_model).to("cuda")
+        _, cpu_eval = make_img_only_steps(cpu_model, cfg)
+        _, card_eval = make_img_only_steps(card_model, cfg)
+        want = cpu_eval(None, batch)
+        reset_counts()
+        got = card_eval(None, batch)
+        torch.cuda.synchronize()
+        check_launches(f"{label} eval", read_counts(),
+                       trunk_launches(trunk, 0, 1, False))
+        err = close(f"{label} eval logits vs CPU", got["logits"].cpu(),
+                    want["logits"], TOL_SLICE)
+        print(f"{label} eval: B={AUX_B} logits max_abs_err {err:.3e} "
+              f"against the CPU plain path; no K1 or K2 launch")
+        del card_model
+        cfg = cfg.replace(batch_size=CHECK_B)
+        (batch,) = vqa_batches(cfg, 1, NUM_CLASSES, SEED, 1)
+        batch["keyword"] = (batch["answer"] % NUM_KEYWORDS).astype("int32")
+        draws = sample_draws(CHECK_B, cfg.image_size,
+                             torch.Generator().manual_seed(SEED),
+                             FINETUNE_AUG)
+        held_step_fp32(torch, f"{label} fp32", cpu_model, cfg, batch,
+                       draws, make_img_only_steps,
+                       leaves + ["head.weight", "keyword_embed.weight"],
+                       stats, trunk_launches(trunk, 1, 0, False),
+                       nudged="trunk.")
+        del cpu_model
+        torch.cuda.empty_cache()
+
+        cfg = cfg.replace(batch_size=CLI_B)
+        (batch,) = vqa_batches(cfg, 1, NUM_CLASSES, SEED)
+        batch["keyword"] = (batch["answer"] % NUM_KEYWORDS).astype("int32")
+        model = ImageOnlyClassifier(
+            NUM_CLASSES, trunk, NUM_KEYWORDS, compute_dtype=torch.bfloat16,
+            generator=torch.Generator().manual_seed(SEED))
+        train_step, _ = make_img_only_steps(model, cfg)
+        add_counts(launches, aux_main_path(
+            torch, f"{label} bf16 B={CLI_B}", model, train_step, batch,
+            trunk_launches(trunk, 1, 0, True), FINETUNE_AUG))
+        del model, train_step
+        torch.cuda.empty_cache()
+    return launches
+
+
+def feedback_phase(torch, work: str) -> dict:
+    """(9c) ``MMBert`` with the feedback encoder on the default trunk
+    (hidden 768, 4 layers, 8 heads of 64, memory 256): eval of two batches
+    of EVAL_B on VQA in fp32, the first against the CPU plain path; one
+    fp32 MLM step at B=CHECK_B, T=75, card against the CPU (bn3 scales and
+    the ReLU term of ``default_train_check_fp32``), the encoder's shared
+    projection, bias table and layer weights among the leaves; the bf16 VQA
+    main path at B=CLI_B; ``vqa_train.main`` (bf16, one epoch) and
+    ``vqa_eval.main`` with ``--transformer_model feedback-transformer`` on
+    the drivers phase's fixture. K2 never launches. Returns the launches of
+    eval, the main path and the CLIs."""
+    import copy
+
+    from mmvqa_tpu_torch.cli import vqa_eval, vqa_train
+    from mmvqa_tpu_torch.core.config import pretrain_config, vqa_config
+    from mmvqa_tpu_torch.data.images import (
+        FINETUNE_AUG,
+        PRETRAIN_AUG,
+        sample_draws,
+    )
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches, vqa_batches
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.train.steps import (
+        make_mlm_steps,
+        make_vqa_eval_step,
+        make_vqa_steps,
+    )
+
+    fb = "feedback-transformer"
+    cfg = vqa_config(transformer_model=fb, num_classes=NUM_CLASSES)
+    batches = vqa_batches(cfg, 2, NUM_CLASSES, SEED, PAD_LAST)
+    cpu_model = MMBert(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(SEED))
+    print(f"feedback: MMBert VQA {cfg.cnn_encoder} + {fb}, hidden "
+          f"{cfg.hidden_size}, {cfg.n_layers} layers, T="
+          f"{cfg.max_position_embeddings}, B={cfg.batch_size}, "
+          f"{sum(p.numel() for p in cpu_model.parameters()) / 1e6:.2f} M "
+          f"parameters")
+    t0 = time.perf_counter()
+    want = make_vqa_eval_step(cpu_model, cfg)(batches[0])
+    print(f"feedback eval: CPU reference (plain path, fp32) "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    del cpu_model
+    reset_counts()
+    outs = run_batches(torch, make_vqa_eval_step(card_model, cfg), batches,
+                       "feedback fp32")[0]  # the first batch's
+    launches = read_counts()
+    check_launches("feedback eval", launches, dict(
+        default_launches(0, 0, True), token_head=5 * len(batches),
+        token_head_tf32x3=5 * len(batches)))
+    err = close("feedback eval fp32 logits vs CPU", outs["logits"].cpu(),
+                want["logits"], TOL_SLICE)
+    print(f"feedback eval: fp32 card vs CPU logits max_abs_err {err:.3e}; "
+          f"launches {launches}")
+    del card_model
+    torch.cuda.empty_cache()
+
+    cfg = pretrain_config(transformer_model=fb, batch_size=CHECK_B,
+                          dropout_override=0.0)
+    (batch,) = mlm_batches(cfg, 1, SEED)
+    draws = sample_draws(CHECK_B, cfg.image_size,
+                         torch.Generator().manual_seed(SEED), PRETRAIN_AUG)
+    cpu_model = MMBert(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(SEED))
+    scale_bn3(torch, cpu_model)
+    held_step_fp32(torch, "feedback mlm fp32", cpu_model, cfg, batch,
+                   draws, make_mlm_steps, FEEDBACK_LEAVES, DEF_CHECK_STATS,
+                   default_launches(1, 0, False), nudged="trans.trunk.")
+    del cpu_model
+    torch.cuda.empty_cache()
+
+    cfg = vqa_config(transformer_model=fb, num_classes=NUM_CLASSES,
+                     batch_size=CLI_B, mixed_precision=True, lr=TRAIN_LR)
+    (batch,) = vqa_batches(cfg, 1, NUM_CLASSES, SEED)
+    model = MMBert(cfg, compute_dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(SEED))
+    train_step, _ = make_vqa_steps(model, cfg)
+    add_counts(launches, aux_main_path(
+        torch, f"feedback vqa bf16 B={CLI_B}", model, train_step, batch,
+        default_launches(1, 0, True), FINETUNE_AUG))
+    del model, train_step
+    torch.cuda.empty_cache()
+
+    roco, vqa = os.path.join(work, "roco"), os.path.join(work, "vqa")
+    n_train, n_val, n_test = (5 * n for n in DRV_VQA_PER_CAT)
+    tr, va, te = (-(-n // CLI_B) for n in (n_train, n_val, n_test))
+    run = "feedback_vqa"
+    save = os.path.join(work, run)
+    flags = ["--data_dir", vqa, "--num_vis", "5", "--hidden_size", "768",
+             "--batch_size", str(CLI_B), "--num_workers", "4", "--vocab_file",
+             os.path.join(roco, "vocab.txt"), "--mixed_precision",
+             "--transformer_model", fb]
+    reset_counts()
+    t0 = time.perf_counter()
+    with TF32Off(torch, "feedback cli vqa"):
+        vqa_train.main(["--run_name", run, "--save_dir", save, "--epochs",
+                        "1", *flags])
+    got = read_counts()
+    check_launches(f"feedback cli {run}", got,
+                   default_launches(tr, va + te, True))
+    (line,) = metric_lines(save, run)
+    best = os.path.join(save, "MLM", run + "_loss")
+    if not all(math.isfinite(line[k]) for k in (
+            "train_loss", "val_loss", "test_loss")) or not os.path.exists(
+            best):
+        fail(f"feedback cli {run}: {line}, {os.listdir(save)}")
+    print(f"feedback cli {run}: vqa_train.main --transformer_model {fb}, "
+          f"{tr} train steps, {va} val and {te} test batches, "
+          f"{time.perf_counter() - t0:.1f} s; train loss "
+          f"{line['train_loss']:.4f}, val loss {line['val_loss']:.4f}, test "
+          f"loss {line['test_loss']:.4f}, "
+          f"{line['train_items_per_sec']:.1f} train items/s")
+    add_counts(launches, got)
+    save = os.path.join(work, "feedback_eval")
+    reset_counts()
+    with TF32Off(torch, "feedback cli eval"):
+        vqa_eval.main(["--run_name", "eval", "--save_dir", save,
+                       "--model_dir", best, *flags])
+    got = read_counts()
+    check_launches("feedback cli eval", got, default_launches(0, te, True))
+    with open(os.path.join(save, f"{run}_loss_preds.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    if len(rows) != n_test + 1:
+        fail(f"feedback cli eval: {len(rows) - 1} rows for {n_test} "
+             f"questions")
+    print(f"feedback cli eval: vqa_eval.main --transformer_model {fb}, {te} "
+          f"test batches, {len(rows) - 1} prediction rows")
+    add_counts(launches, got)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def supcon_encoder_phase(torch) -> dict:
+    """(9d) ``SupConEncoder`` (the ``mlp`` head, 128 features) on each trunk
+    at full width, 224 px, B=AUX_B: a forward in train mode (the trunk on
+    batch statistics; ResNet's bn3 scales lowered as for the train checks)
+    and one in eval mode, each against the CPU plain path: features within
+    TOL_SLICE and of unit norm to 1e-5, the statistics the train-mode
+    forward folds in within GRAD_NORMWISE of their largest entry. Counts
+    exact; K1 and K2 never launch. Returns the launches."""
+    import copy
+
+    from mmvqa_tpu_torch.data.images import process_batch
+    from mmvqa_tpu_torch.models import SupConEncoder
+
+    launches: dict = {}
+    gen = torch.Generator().manual_seed(SEED)
+    img = torch.randint(0, 256, (AUX_B, 224, 224, 3), generator=gen,
+                        dtype=torch.uint8)
+    for trunk, stats in (("resnet152", RESNET_STATS),
+                         ("tf_efficientnetv2_m", EFFNET_STATS)):
+        label = f"supcon encoder {trunk}"
+        cpu_model = SupConEncoder(
+            trunk, "mlp", device="cpu",
+            generator=torch.Generator().manual_seed(SEED))
+        if "resnet" in trunk:
+            scale_bn3(torch, cpu_model)
+        card_model = copy.deepcopy(cpu_model).to("cuda")
+        for mode in ("train", "eval"):
+            train = mode == "train"
+            cpu_model.train(train)
+            card_model.train(train)
+            with torch.no_grad():
+                want = cpu_model(process_batch(img))
+                reset_counts()
+                got = card_model(process_batch(img.cuda()))
+                torch.cuda.synchronize()
+            counts = read_counts()
+            check_launches(f"{label} {mode}", counts, trunk_launches(
+                trunk, 0, 0 if train else 1, False, 1 if train else 0))
+            add_counts(launches, counts)
+            err = close(f"{label} {mode} features vs CPU", got.cpu(), want,
+                        TOL_SLICE)
+            norm = (torch.linalg.vector_norm(got.float(), dim=-1) - 1).abs()
+            if not norm.max().item() <= 1e-5:
+                fail(f"{label} {mode}: features off the unit sphere by "
+                     f"{norm.max().item():.3e}")
+            print(f"{label} {mode}: features max_abs_err {err:.3e} against "
+                  f"the CPU plain path, unit norm to {norm.max().item():.1e}")
+        sd_cpu, sd_card = cpu_model.state_dict(), card_model.state_dict()
+        for name in stats:
+            g, w = sd_card[name].cpu(), sd_cpu[name]
+            e = (g - w).abs().max().item()
+            if not e <= GRAD_NORMWISE * w.abs().max().item():
+                fail(f"{label} {name}: max abs err {e:.3e} after the "
+                     f"train-mode forward")
+            print(f"{label} train: stat {name}: max_abs_err {e:.3e} of max "
+                  f"{w.abs().max().item():.3e}")
+        del cpu_model, card_model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def aux_phase(torch, work: str) -> dict:
+    """(9) The remaining model paths: distillation, the image-only model,
+    the feedback encoder and the SupCon encoder. Returns their launches."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    for part in (lambda: distill_phase(torch, work),
+                 lambda: img_only_phase(torch),
+                 lambda: feedback_phase(torch, work),
+                 lambda: supcon_encoder_phase(torch)):
+        add_counts(launches, part())
+        torch.cuda.empty_cache()
+    print(f"aux phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3419,13 +3989,16 @@ def main() -> None:
         print(f"drivers phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         default_launches_ = default_phase(torch, kernels, work)
+        torch.cuda.empty_cache()
+        aux_launches = aux_phase(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # launches: the counts read after each main path's run, counters set to
     # 0 just before it (the eval slice's forwards, the train epoch, the
     # fine-tune epoch, the CLI's two runs, the drivers' eight runs, the
-    # default model's eval, bf16 epoch and four CLI runs).
+    # default model's eval, bf16 epoch and four CLI runs, the remaining
+    # paths' main paths, eval and CLI runs).
     # ms, plain_ms, bound_ms, library_ms: at the train path's shapes in bf16,
     # B=TRAIN_B, summed over the calls of one pass (the trunk's kernels:
     # every site of a step, inputs not in the L2 cache); bound_by: what
@@ -3438,13 +4011,14 @@ def main() -> None:
          "launches": (eval_launches.get(name, 0) + train_launches[name]
                       + finetune_launches[name] + cli_launches[name]
                       + driver_launches[name]
-                      + default_launches_[name]),
+                      + default_launches_[name] + aux_launches[name]),
          "launches_eval": eval_launches.get(name, 0),
          "launches_train": train_launches[name],
          "launches_finetune": finetune_launches[name],
          "launches_cli": cli_launches[name],
          "launches_drivers": driver_launches[name],
          "launches_default": default_launches_[name],
+         "launches_aux": aux_launches[name],
          "max_abs_err": max(r["err"].values()),
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": sum(ms for ms, _ in r["bounds"]),

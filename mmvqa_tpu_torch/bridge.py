@@ -1,4 +1,7 @@
-"""Flax -> torch weight bridge for the ported MMBert (and back).
+"""Flax -> torch weight bridge for the ported models (and back): MMBert with
+any of its encoders (the feedback encoder's ``nn.scan`` parameters under
+``encoder/segment``, one set for every window), ``ImageOnlyClassifier``
+and ``SupConEncoder``.
 
 Input: a JAX variables tree ``{"params": ..., "batch_stats": ...}`` as nested
 dicts of numpy arrays (``jax.device_get`` of an ``MMBert.init`` or of a
@@ -14,7 +17,8 @@ and a leaf name and layout fixed by the module type:
 * LayerNorm / BatchNorm ``scale`` -> ``weight``;
 * BatchNorm statistics ``batch_stats/.../mean|var`` -> ``running_mean|var``;
 * ``token_conv_<i>/kernel`` (1, 1, K, C) -> the K1 weight (K, C);
-* ``bias`` and raw params (``position_embeddings``) as they are.
+* ``bias`` and raw params (``position_embeddings``, the feedback
+  encoder's ``layer_weight``) as they are.
 
 ``to_flax`` is the way back, for parameters and running statistics after a
 train step; ``grads_to_flax`` carries the parameters' gradients the same way.

@@ -304,9 +304,10 @@ def make_hist_logger(cfg: Config, model: torch.nn.Module, aug, batch,
     of per-parameter gradient and weight histograms, or None when off.
 
     ``kind`` names the train step whose loss the gradients are of: "mlm"
-    (``make_mlm_steps``), "supcon" (``make_supcon_steps``: NLL + SupCon,
-    no similarity mask) or "vqa" (``make_vqa_steps``' train criterion, the
-    category-smoothing table included). Each call runs that step once, in
+    (``make_mlm_steps``), "distill" (``make_distill_steps``), "supcon"
+    (``make_supcon_steps``: NLL + SupCon, no similarity mask) or "vqa"
+    (``make_vqa_steps``' train criterion, the category-smoothing table
+    included). Each call runs that step once, in
     train mode, on the pinned ``batch`` (augmentation and dropout from
     generators seeded with ``cfg.seed`` + epoch) purely for its gradients:
     the parameters, the optimizer, the BatchNorm statistics and the model's
@@ -320,6 +321,9 @@ def make_hist_logger(cfg: Config, model: torch.nn.Module, aug, batch,
 
     if kind == "mlm":
         train_step, _ = steps.make_mlm_steps(model, cfg, aug, histograms=True)
+    elif kind == "distill":
+        train_step, _ = steps.make_distill_steps(model, cfg, aug,
+                                                 histograms=True)
     elif kind == "supcon":
         train_step, _ = steps.make_supcon_steps(model, cfg, aug,
                                                 histograms=True)

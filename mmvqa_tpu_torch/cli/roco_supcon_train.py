@@ -16,10 +16,11 @@ loss. As in the reference, the similarity mask is computed but not passed to
 the loss (supcon_utils.py:286-287) unless ``--use_sim_mask`` is set. It runs
 on the CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the
 host (tests). Without encoder flags the model is the reference's default,
-ResNet-152 and the pre-norm BERT encoder. What the port lacks raises:
-``--transformer_model feedback-transformer`` (ROADMAP.md Queue 1, item 8),
-the mesh flags and a pipeline-layout checkpoint (item 10); the similarity
-backends other than ``jaccard`` need their packages and local weights.
+ResNet-152 and the pre-norm BERT encoder; ``--transformer_model
+feedback-transformer`` selects the feedback encoder. What the port lacks
+raises: the mesh flags and a pipeline-layout checkpoint (ROADMAP.md Queue 1,
+item 10); the similarity backends other than ``jaccard`` need their packages
+and local weights.
 """
 
 from __future__ import annotations

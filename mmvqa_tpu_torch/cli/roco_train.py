@@ -1,19 +1,23 @@
-"""ROCO MLM pretraining CLI (counterpart of mmvqa_tpu/cli/roco_train.py).
+"""ROCO pretraining CLI, MLM or distillation (counterpart of
+mmvqa_tpu/cli/roco_train.py).
 
     python -m mmvqa_tpu_torch.cli.roco_train -r RUN --data_dir DIR/roco \\
-        --mlm_prob 0.15 [--cnn_encoder tf_efficientnetv2_m \\
-        --transformer_model realformer] [--mixed_precision] ...
+        --mlm_prob 0.15 [--task distillation] [--cnn_encoder \\
+        tf_efficientnetv2_m --transformer_model realformer] \\
+        [--mixed_precision] ...
 
 Without encoder flags it pretrains the reference's default model, ResNet-152
-and the pre-norm BERT encoder; the two flags above select the flagship.
+and the pre-norm BERT encoder; the two flags above select the flagship,
+``--transformer_model feedback-transformer`` the feedback encoder.
+``--task distillation`` trains the encoder's output towards the hidden
+states of the ClinicalBERT teacher (``--clinicalbert``, a local checkpoint
+that the dataset loads at first use) through ``make_distill_steps``.
 
 The reference's flags and epoch protocol: train -> validate -> plateau LR
 on the validation loss -> the recorder every 5 epochs -> the weights at
 each better validation loss, with the same metric names. It runs on the
 CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the host
-(tests). What the port lacks raises: ``--transformer_model
-feedback-transformer`` (ROADMAP.md Queue 1, item 8), ``--task
-distillation`` (item 7), the mesh flags (item 10).
+(tests). The mesh flags raise (ROADMAP.md Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from mmvqa_tpu_torch.models import MMBert
 from mmvqa_tpu_torch.train import checkpoint
 from mmvqa_tpu_torch.train.plateau import ReduceLROnPlateau
 from mmvqa_tpu_torch.train.state import create_train_state
-from mmvqa_tpu_torch.train.steps import make_mlm_steps
+from mmvqa_tpu_torch.train.steps import make_distill_steps, make_mlm_steps
 from mmvqa_tpu_torch.train.trainer import mlm_epoch
 from mmvqa_tpu_torch.utils.logging import MetricSink, seed_everything
 
@@ -54,10 +58,6 @@ def main(argv: Optional[list] = None,
     if cfg.dataset not in cfg.data_dir:  # roco_train.py:64
         raise ValueError(f"--dataset {cfg.dataset} not in --data_dir "
                          f"{cfg.data_dir}")
-    if cfg.task != "MLM":
-        raise NotImplementedError(
-            f"--task {cfg.task} is not ported to mmvqa_tpu_torch yet "
-            "(ROADMAP.md Queue 1, item 7)")
     seed_everything(cfg.seed)
     dev, dtype = setup_runtime(cfg, device)
     sink = MetricSink(cfg.run_name, cfg.save_dir, cfg.wandb, config=vars(args))
@@ -85,7 +85,9 @@ def main(argv: Optional[list] = None,
                                grad_accum=cfg.grad_accum)
     scheduler = ReduceLROnPlateau(lr=cfg.lr, patience=cfg.patience,
                                   factor=cfg.factor)
-    train_step, eval_step = make_mlm_steps(model, cfg, PRETRAIN_AUG)
+    mlm = cfg.task == "MLM"
+    make_steps = make_mlm_steps if mlm else make_distill_steps
+    train_step, eval_step = make_steps(model, cfg, PRETRAIN_AUG)
 
     start_epoch = 0
     best_loss = math.inf
@@ -143,20 +145,27 @@ def main(argv: Optional[list] = None,
         }
         # --watch: per-module grad norms (wandb.watch equivalent)
         log.update({k: v for k, v in tm.items() if k.startswith("gnorm/")})
-        log["epoch_train_acc"] = tm.get("acc")
-        log["epoch_val_acc"] = vm.get("acc")
-        content = (
-            f"Learning rate: {new_lr:.7f}, Train loss: {tm['loss']:.4f}, "
-            f"Train acc: {tm.get('acc', 0):.4f} ,Val loss: "
-            f"{vm['loss']:.4f}, Val acc: {vm.get('acc', 0):.4f}"
-        )
+        if mlm:
+            log["epoch_train_acc"] = tm.get("acc")
+            log["epoch_val_acc"] = vm.get("acc")
+            content = (
+                f"Learning rate: {new_lr:.7f}, Train loss: {tm['loss']:.4f}, "
+                f"Train acc: {tm.get('acc', 0):.4f} ,Val loss: "
+                f"{vm['loss']:.4f}, Val acc: {vm.get('acc', 0):.4f}"
+            )
+        else:
+            content = (
+                f"Learning rate: {new_lr:.7f}, Train loss: {tm['loss']:.4f}, "
+                f"Val loss: {vm['loss']:.4f}"
+            )
         sink.log(log)
         if cfg.watch_histograms and train_loader.batch is not None:
             # per-parameter grad/weight histograms on the run's first train
             # batch; the training state is left as it was
             if hist_logger is None:
-                hist_logger = make_hist_logger(cfg, model, PRETRAIN_AUG,
-                                               train_loader.batch)
+                hist_logger = make_hist_logger(
+                    cfg, model, PRETRAIN_AUG, train_loader.batch,
+                    "mlm" if mlm else "distill")
             sink.log_histograms(hist_logger(epoch), step=epoch)
         print(content)
         print(f"[mmvqa] {tm['items_per_sec']:.1f} train items/s")

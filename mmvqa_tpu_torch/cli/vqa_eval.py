@@ -14,9 +14,9 @@ where ``--model_dirs`` names several, final_test of utils.py:845-872),
 per-category accuracy and BLEU, and ``<model>_preds.csv`` and the
 pipe-separated ImageCLEF ``<model>_res.txt`` in ``--save_dir``. It runs on
 the CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the host
-(tests). What the port lacks raises as in ``cli/vqa_train.py``: the
-feedback transformer (ROADMAP.md Queue 1, item 8), ``--task distillation``
-(item 7), the mesh flags and a pipeline-layout checkpoint (item 10).
+(tests). ``--task`` is taken and not used, as by the JAX CLI. What the port
+lacks raises as in ``cli/vqa_train.py``: the mesh flags and a
+pipeline-layout checkpoint (ROADMAP.md Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from mmvqa_tpu_torch.cli.common import (
     setup_runtime,
     vqa_parser,
 )
-from mmvqa_tpu_torch.cli.vqa_train import check_task
 from mmvqa_tpu_torch.data.datasets import (
     VQADataset,
     build_answer_vocab,
@@ -65,7 +64,6 @@ def main(argv: Optional[list] = None,
     )
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    check_task(cfg)
     seed_everything(cfg.seed)
     dev, dtype = setup_runtime(cfg, device)
     model_name = os.path.basename(cfg.model_dir)

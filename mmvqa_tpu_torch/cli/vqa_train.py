@@ -16,10 +16,10 @@ checkpoints (``<run>_loss`` by val loss, ``<run>`` by val accuracy) and
 early stopping after ``--counter`` epochs without a better accuracy. It runs
 on the CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the
 host (tests). Without encoder flags the model is the reference's default,
-ResNet-152 and the pre-norm BERT encoder. What the port lacks raises:
-``--transformer_model feedback-transformer`` (ROADMAP.md Queue 1, item 8),
-``--task distillation`` (item 7), the mesh flags and a pipeline-layout
-checkpoint (item 10).
+ResNet-152 and the pre-norm BERT encoder; ``--transformer_model
+feedback-transformer`` selects the feedback encoder. ``--task`` only names
+the save subdirectory, as in the JAX CLI. What the port lacks raises: the
+mesh flags and a pipeline-layout checkpoint (ROADMAP.md Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -63,18 +63,10 @@ from mmvqa_tpu_torch.train.trainer import vqa_epoch
 from mmvqa_tpu_torch.utils.logging import MetricSink, seed_everything
 
 
-def check_task(cfg) -> None:
-    if cfg.task != "MLM":
-        raise NotImplementedError(
-            f"--task {cfg.task} is not ported to mmvqa_tpu_torch yet "
-            "(ROADMAP.md Queue 1, item 7)")
-
-
 def main(argv: Optional[list] = None,
          device: Union[str, torch.device, None] = None) -> None:
     args = vqa_parser(eval_only=False).parse_args(argv)
     cfg = config_from_args(args)
-    check_task(cfg)
     seed_everything(cfg.seed)
     dev, dtype = setup_runtime(cfg, device)
     sink = MetricSink(cfg.run_name, cfg.save_dir, cfg.wandb, config=vars(args))

@@ -3,16 +3,23 @@ visual tokens from the ResNet-152 or the EfficientNetV2 trunk, BERT
 embeddings, and the encoder the config names, as ``MMBert.setup`` of the JAX
 package selects it: ``transformer`` (the default, the reference's MMBERT) is
 the pre-norm ``BertEncoder`` with ``cfg.heads`` heads and dropout
-``hidden_dropout_prob``; ``realformer`` the RealFormer with 8 heads. The
-feedback transformer (ROADMAP.md Queue 1, item 8) and the pipeline-parallel
-encoders (item 10) raise.
+``hidden_dropout_prob``; ``realformer`` the RealFormer with 8 heads;
+``feedback-transformer`` the ``FeedbackEncoder`` (8 heads of 64 whatever
+``cfg.heads`` says, a memory of 256, dropout 0.1 on its attention and in its
+feed-forward). The pipeline-parallel encoders (ROADMAP.md Queue 1, item 10)
+raise.
 
 Text tokens are embedded BERT-style; the visual tokens then OVERWRITE
 embedded positions 0..num_vis-1, [CLS] included (the reference's fusion
 quirk). The fused sequence runs through the encoder, then either the
 per-token MLM head (ROCO) or the mean-pooled VQA head:
 ``classifier(serf(fc1(.)))`` with classifier = Dense, LayerNorm(1e-12),
-Dense. With ``cfg.supcon`` the model also has the SupCon projection head
+Dense. ROCO's ``task="distillation"`` returns the encoder's output ``h``
+(B, T, H), which ``make_distill_steps`` holds to the teacher's hidden
+states; as Flax makes parameters only for the modules a call reaches, that
+model has no ``fc1``, ``classifier_*`` or SupCon head. VQA-Med ignores
+``task``, as the JAX package does. With ``cfg.supcon`` the MLM model also
+has the SupCon projection head
 (``head_0`` Dense(H), ``head_2`` Dense(feat_dim), mmbert.py:138-140), and
 the ROCO MLM forward returns ``(logits, feat)``: ``feat`` is
 ``head_2(serf(head_0(mean_pooling(h))))`` L2-normalised in the compute
@@ -49,6 +56,7 @@ from torch import nn
 from mmvqa_tpu_torch.core.config import Config
 from mmvqa_tpu_torch.models.effnetv2 import BatchNorm2d
 from mmvqa_tpu_torch.models.embeddings import BertEmbeddings
+from mmvqa_tpu_torch.models.feedback import FeedbackEncoder, FeedbackSegment
 from mmvqa_tpu_torch.models.layers import DropoutRng, LayerNorm, Linear
 from mmvqa_tpu_torch.models.realformer import RealFormerEncoder
 from mmvqa_tpu_torch.models.transformer import BertEncoder
@@ -84,6 +92,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, (nn.LayerNorm, BatchNorm2d)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+    for mod in model.modules():
+        if isinstance(mod, FeedbackSegment):  # Flax's N(0, 1) and ones
+            normal(mod.rel_bias.weight, 1.0)
+            mod.layer_weight.fill_(1.0)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -117,13 +129,11 @@ class MMBert(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if "feedback-transformer" in cfg.transformer_model:
-            raise _not_ported(f"transformer_model {cfg.transformer_model!r}", "8")
         if not any(k in cfg.transformer_model
                    for k in ("realformer", "transformer")):
             raise NotImplementedError(cfg.transformer_model)
-        if cfg.dataset == "roco" and cfg.task != "MLM":
-            raise _not_ported(f"task {cfg.task!r}", "7")
+        if cfg.dataset == "roco" and cfg.task not in ("MLM", "distillation"):
+            raise NotImplementedError(cfg.task)
         if cfg.dataset not in ("roco", "VQA-Med"):
             raise NotImplementedError(cfg.dataset)
         if cfg.pp_size > 1:
@@ -147,7 +157,11 @@ class MMBert(nn.Module):
             cnn_encoder=cfg.cnn_encoder, num_vis=cfg.num_vis, hidden_size=H,
             use_relu=cfg.use_relu, tiny=cfg.tiny_cnn,
         )
-        if "realformer" in cfg.transformer_model:
+        if "feedback-transformer" in cfg.transformer_model:
+            self.encoder = FeedbackEncoder(
+                H, cfg.n_layers, attn_dropout=dp(0.1), ff_dropout=dp(0.1),
+                rng=self.dropout_rng)
+        elif "realformer" in cfg.transformer_model:
             self.encoder = RealFormerEncoder(
                 H, cfg.n_layers, head_cnt=cfg.head_count, dp1=dp(0.1),
                 dp2=dp(0.1), rng=self.dropout_rng)
@@ -155,14 +169,18 @@ class MMBert(nn.Module):
             self.encoder = BertEncoder(
                 H, cfg.n_layers, cfg.heads, dp(cfg.hidden_dropout_prob),
                 share="none", norm_pos="pre", rng=self.dropout_rng)
-        self.fc1 = Linear(H, H)
-        self.classifier_0 = Linear(H, H)
-        self.classifier_ln = LayerNorm(H, eps=1e-12)
-        out_dim = (cfg.num_classes
-                   if cfg.dataset == "VQA-Med" and cfg.num_classes > 0
-                   else cfg.vocab_size)
-        self.classifier_2 = Linear(H, out_dim)
-        if cfg.supcon and cfg.dataset == "roco":  # Flax makes it where called
+        # Flax makes a module's parameters where a call reaches it: the
+        # distillation model returns h and has no heads
+        self.distill = cfg.dataset == "roco" and cfg.task == "distillation"
+        if not self.distill:
+            self.fc1 = Linear(H, H)
+            self.classifier_0 = Linear(H, H)
+            self.classifier_ln = LayerNorm(H, eps=1e-12)
+            out_dim = (cfg.num_classes
+                       if cfg.dataset == "VQA-Med" and cfg.num_classes > 0
+                       else cfg.vocab_size)
+            self.classifier_2 = Linear(H, out_dim)
+        if cfg.supcon and cfg.dataset == "roco" and not self.distill:
             self.head_0 = Linear(H, H)
             self.head_2 = Linear(H, cfg.feat_dim)
         if generator is None:
@@ -174,7 +192,8 @@ class MMBert(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         """The dtype activations are computed in."""
-        return self.compute_dtype or self.fc1.weight.dtype
+        return (self.compute_dtype
+                or self.bert_embedding.word_embeddings.weight.dtype)
 
     def set_mode(self, deterministic: bool,
                  train_cnn: Optional[bool] = None) -> "MMBert":
@@ -185,7 +204,7 @@ class MMBert(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.fc1.weight.device
+        return self.bert_embedding.word_embeddings.weight.device
 
     def _classifier(self, x: torch.Tensor) -> torch.Tensor:
         return self.classifier_2(self.classifier_ln(self.classifier_0(x)))
@@ -203,10 +222,13 @@ class MMBert(nn.Module):
                 segment_ids: torch.Tensor,
                 input_mask: torch.Tensor) -> torch.Tensor:
         """img (B, S, S, 3) normalized NHWC; ids, segments, mask (B, T).
-        Returns VQA logits (B, num_classes) or MLM logits (B, T, vocab), the
+        Returns VQA logits (B, num_classes), MLM logits (B, T, vocab), the
         latter with the SupCon feature (B, feat_dim) as ``(logits, feat)``
-        under ``cfg.supcon``."""
+        under ``cfg.supcon``, or for distillation the encoder's output
+        (B, T, H)."""
         h = self.encode(img, input_ids, segment_ids, input_mask)
+        if self.distill:
+            return h
         if self.cfg.dataset == "roco":
             logits = self._classifier(serf(self.fc1(h)))
             if self.cfg.supcon:

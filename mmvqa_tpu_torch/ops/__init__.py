@@ -19,7 +19,11 @@ from mmvqa_tpu_torch.ops.depthwise import (
     depthwise3x3_backward_reference,
     depthwise3x3_reference,
 )
-from mmvqa_tpu_torch.ops.losses import masked_mlm_nll, streaming_lse
+from mmvqa_tpu_torch.ops.losses import (
+    masked_mlm_nll,
+    mse_distillation,
+    streaming_lse,
+)
 from mmvqa_tpu_torch.ops.token_head import (
     fused_token_head,
     token_head_backward_reference,
@@ -42,6 +46,7 @@ __all__ = [
     "depthwise3x3_backward_reference",
     "depthwise3x3_reference",
     "masked_mlm_nll",
+    "mse_distillation",
     "streaming_lse",
     "fused_token_head",
     "token_head_backward_reference",

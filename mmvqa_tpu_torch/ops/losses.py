@@ -4,12 +4,15 @@ the VQA-Med criteria (cross entropy, asymmetric single-label loss, label
 smoothing, soft targets, the category-smoothed targets) in their mean forms
 (``ops/losses.py:77-162``) and in the per-sample forms that
 ``make_vqa_steps`` reduces with the batch's weights (``steps.py:396-428``,
-``_weighted_mean``, :48-49). Every loss is taken in fp32. Plain PyTorch: the
+``_weighted_mean``, :48-49); the distillation objectives: the mean squared
+distance to the teacher's hidden states (``mse_distillation``, :137-150)
+and the per-sample form of ``make_distill_steps`` (``steps.py:245-252``).
+Every loss is taken in fp32. Plain PyTorch: the
 JAX package computes these outside any Pallas kernel."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +70,28 @@ def weighted_mean(per_sample: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Mean over the real samples of a batch (weight 1 real, 0 padding)."""
     w = w.to(per_sample.dtype)
     return torch.sum(per_sample * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def mse_distillation(pred: torch.Tensor, target: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean squared distance to the teacher's hidden states
+    (roco_train.py:94-95): over every (B, T, H) element where ``mask`` is
+    None, padded positions included (they regress to zero vectors, the
+    reference's choice); else over the positions where ``mask`` (B, T) is
+    set, divided by ``max(sum(mask) * H, 1)``."""
+    se = torch.square(pred.float() - target.float())
+    if mask is None:
+        return se.mean()
+    m = mask[..., None].to(se.dtype)
+    return torch.sum(se * m) / torch.clamp(torch.sum(m) * se.shape[-1],
+                                           min=1.0)
+
+
+def distill_per_sample(h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(B,) mean over (T, H) of ``(h - labels)^2`` in fp32, padded positions
+    included: the loss ``make_distill_steps`` weights by the batch's
+    ``weights``."""
+    return torch.square(h.float() - labels.float()).mean(dim=(1, 2))
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Train and eval steps (counterpart of mmvqa_tpu/train/steps.py): the ROCO
-MLM pretraining steps (``make_mlm_steps``, :167-220), the joint MLM +
+MLM pretraining steps (``make_mlm_steps``, :167-220), the distillation
+pretraining steps (``make_distill_steps``, :227-288), the joint MLM +
 SupCon/SimCLR steps (``make_supcon_steps``, :291-368), the VQA-Med
-fine-tuning steps (``make_vqa_steps``, :371-478) and the per-parameter
-histograms (``grad_weight_histograms``, :87-115).
+fine-tuning steps (``make_vqa_steps``, :371-478), the image-only
+classifier's steps (``make_img_only_steps``, :487-536) and the
+per-parameter histograms (``grad_weight_histograms``, :87-115).
 
 The steps run eagerly and update the train state in place. Metrics come
 back as tensors on the model's device, so that a loop can pull them once at
@@ -29,6 +31,7 @@ from mmvqa_tpu_torch.ops.losses import (
     asl_per_sample,
     category_smoothing_per_sample,
     cross_entropy_per_sample,
+    distill_per_sample,
     mlm_metrics,
     weighted_mean,
     weighted_token_nll,
@@ -40,6 +43,7 @@ BATCH_KEYS = ("image", "tokens", "segment_ids", "input_mask", "answer", "weights
 MLM_BATCH_KEYS = ("image", "tokens", "segment_ids", "input_mask", "labels",
                   "weights")
 SUPCON_BATCH_KEYS = MLM_BATCH_KEYS + ("aug_tokens", "aug_labels")
+IMG_ONLY_BATCH_KEYS = ("image", "answer", "weights")
 
 
 def _to_device(batch: Mapping, keys, dev: torch.device) -> Dict[str, torch.Tensor]:
@@ -179,6 +183,61 @@ def make_mlm_steps(
         return state, metrics
 
     return train_step, _mlm_eval_step(model)
+
+
+def make_distill_steps(
+    model: torch.nn.Module, cfg: Config, aug: AugmentSpec = PRETRAIN_AUG,
+    histograms: bool = False,
+) -> Tuple[Callable, Callable]:
+    """Returns ``(train_step, eval_step)`` for distillation pretraining
+    (roco_train.py:94-95) on a model built with ``task="distillation"``,
+    whose forward returns the encoder's output ``h`` (B, T, H).
+
+    The loss is each sample's mean over (T, H) of ``(h - labels)^2`` in
+    fp32, padded positions included, averaged over the real samples by
+    ``weights`` (not ``mse_distillation``, whose mean runs over the whole
+    batch). ``train_step(state, batch, draws=None)`` runs augmentation, the
+    forward in train mode, that loss, backward and ``apply_gradients``;
+    it returns ``(state, metrics)`` with ``loss`` and, with ``histograms``,
+    ``grad_weight_histograms`` at the pre-update parameters. Draws and
+    dropout as in ``make_mlm_steps``. ``eval_step(state, batch)`` returns
+    ``loss`` without augmentation, dropout or any update.
+
+    ``batch`` has the MLM keys, ``labels`` being the teacher's hidden
+    states (B, T, H) in fp32 (zero vectors off the caption)."""
+    own_generator = _own_generators(cfg)
+
+    def train_step(state: TrainState, batch: Mapping,
+                   draws: Optional[AugmentDraws] = None):
+        if state.model is not model:
+            raise ValueError("train_step: the state holds another model")
+        dev = model.device
+        b = _to_device(batch, MLM_BATCH_KEYS, dev)
+        generator = own_generator(dev) if draws is None else None
+        with torch.no_grad():
+            img = process_batch(b["image"], generator, aug, True, draws)
+        model.set_mode(deterministic=False)
+        h = model(img, b["tokens"], b["segment_ids"], b["input_mask"])
+        loss = weighted_mean(distill_per_sample(h, b["labels"]),
+                             b["weights"])
+        loss.backward()
+        metrics = {"loss": loss.detach()}
+        if histograms:
+            with torch.no_grad():
+                metrics.update(grad_weight_histograms(model))
+        state.apply_gradients()
+        return state, metrics
+
+    @torch.inference_mode()
+    def eval_step(state: Optional[TrainState], batch: Mapping):
+        b = _to_device(batch, MLM_BATCH_KEYS, model.device)
+        model.set_mode(deterministic=True)
+        h = model(process_batch(b["image"]), b["tokens"], b["segment_ids"],
+                  b["input_mask"])
+        return {"loss": weighted_mean(distill_per_sample(h, b["labels"]),
+                                      b["weights"])}
+
+    return train_step, eval_step
 
 
 def make_supcon_steps(
@@ -349,3 +408,60 @@ def make_vqa_eval_step(
     they are moved to the model's device."""
     _, eval_step = make_vqa_steps(model, cfg)
     return lambda batch: eval_step(None, batch)
+
+
+def make_img_only_steps(
+    model: torch.nn.Module, cfg: Config, aug: AugmentSpec = FINETUNE_AUG,
+) -> Tuple[Callable, Callable]:
+    """Returns ``(train_step, eval_step)`` for ``ImageOnlyClassifier``
+    (vqamed2019/utils.py:960-1232): plain fp32 cross entropy over the real
+    samples, the keyword pathway fed from ``batch["keyword"]`` where the
+    batch has it.
+
+    ``train_step(state, batch, draws=None)`` runs augmentation, the forward
+    with the trunk's BatchNorms on batch statistics, the loss, backward and
+    ``apply_gradients``; it returns ``(state, metrics)`` with ``loss`` and
+    ``preds``. Draws as in ``make_vqa_steps``. ``eval_step(state, batch)``
+    returns ``loss``, ``preds`` and ``logits`` without augmentation or any
+    update.
+
+    ``batch``: ``image`` uint8 (B, S, S, 3), ``answer`` (B,), ``weights``
+    (B,) and optionally ``keyword`` (B,)."""
+    own_generator = _own_generators(cfg)
+
+    def keyword_of(batch: Mapping, dev: torch.device):
+        if "keyword" not in batch:
+            return None
+        return torch.as_tensor(batch["keyword"]).to(dev, non_blocking=True)
+
+    def train_step(state: TrainState, batch: Mapping,
+                   draws: Optional[AugmentDraws] = None):
+        if state.model is not model:
+            raise ValueError("train_step: the state holds another model")
+        dev = model.device
+        b = _to_device(batch, IMG_ONLY_BATCH_KEYS, dev)
+        generator = own_generator(dev) if draws is None else None
+        with torch.no_grad():
+            img = process_batch(b["image"], generator, aug, True, draws)
+        model.train()
+        logits = model(img, keyword_of(batch, dev))
+        loss = weighted_mean(cross_entropy_per_sample(logits, b["answer"]),
+                             b["weights"])
+        loss.backward()
+        metrics = {"loss": loss.detach(),
+                   "preds": torch.argmax(logits.detach(), dim=-1)}
+        state.apply_gradients()
+        return state, metrics
+
+    @torch.inference_mode()
+    def eval_step(state: Optional[TrainState], batch: Mapping):
+        dev = model.device
+        b = _to_device(batch, IMG_ONLY_BATCH_KEYS, dev)
+        model.eval()
+        logits = model(process_batch(b["image"]), keyword_of(batch, dev))
+        loss = weighted_mean(cross_entropy_per_sample(logits, b["answer"]),
+                             b["weights"])
+        return {"loss": loss, "preds": torch.argmax(logits, dim=-1),
+                "logits": logits}
+
+    return train_step, eval_step

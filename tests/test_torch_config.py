@@ -71,6 +71,8 @@ def test_port_never_imports_jax():
 import sys
 import numpy as np
 import mmvqa_tpu_torch.bridge, mmvqa_tpu_torch.native.loader
+import mmvqa_tpu_torch.models.feedback, mmvqa_tpu_torch.models.img_only
+import mmvqa_tpu_torch.models.supcon_encoder
 from mmvqa_tpu_torch.core.config import vqa_config
 from mmvqa_tpu_torch.models import MMBert
 from mmvqa_tpu_torch.train.steps import make_vqa_eval_step

@@ -3,9 +3,10 @@
 reference's MMBERT) on the CPU, with ``--tiny_cnn`` (one block a stage at
 full widths), hidden 48 (the default 12 heads of 4) and one layer:
 ``roco_train`` against the JAX CLI on one port-written ROCO fixture, then
-the port's ``vqa_train`` from its pretrained weights. What still waits keeps
-raising with its ROADMAP.md item. The fine-tuning and evaluation CLIs
-against the JAX ones are in tests/test_torch_default_vqa_cli.py."""
+the port's ``vqa_train`` from its pretrained weights; every CLI with
+``--transformer_model feedback-transformer``. The fine-tuning and
+evaluation CLIs against the JAX ones are in
+tests/test_torch_default_vqa_cli.py."""
 
 import math
 import os
@@ -125,16 +126,34 @@ def test_parsers_default_to_the_reference_mmbert():
     (vqa_train.main, ["--run_name", "x", "--epochs", "1", "--num_vis", "5"]),
     (vqa_eval.main, ["--run_name", "x", "--num_vis", "5"]),
 ], ids=["roco_train", "roco_supcon_train", "vqa_train", "vqa_eval"])
-def test_the_feedback_encoder_still_raises_with_item_8(tmp_path, main, argv):
-    """Every CLI builds its model from its flags; the feedback transformer
-    (ROADMAP.md Queue 1, item 8) is the one encoder that still raises."""
+def test_every_cli_runs_the_feedback_encoder(tmp_path, main, argv):
+    """Every CLI builds its model from its flags: with
+    ``--transformer_model feedback-transformer`` each runs one tiny epoch
+    of the default trunk and the feedback encoder (``vqa_eval`` on the
+    weights of a ``vqa_train`` run of it), its losses finite and its files
+    written."""
     data = make_roco_fixture(str(tmp_path / "roco"), 1, 1, seed=0,
                              image_size=16) if "roco" in argv else \
         make_vqa_fixture(str(tmp_path / "vqa"), 1, image_size=16)
     argv = [a if a != "roco" else data for a in argv]
     if "--data_dir" not in argv:
         argv += ["--data_dir", data]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        _quiet(main, [*argv, "--save_dir", str(tmp_path / "s"), *TINY,
-                      "--transformer_model", "feedback-transformer"],
+    flags = [*TINY, "--transformer_model", "feedback-transformer"]
+    save = str(tmp_path / "s")
+    if main is vqa_eval.main:
+        _quiet(vqa_train.main, ["--run_name", "ft", "--epochs", "1",
+                                "--num_vis", "5", "--data_dir", data,
+                                "--save_dir", str(tmp_path / "ft"), *flags],
                device="cpu")
+        argv += ["--model_dir", str(tmp_path / "ft" / "MLM" / "ft_loss")]
+    _quiet(main, [*argv, "--save_dir", save, *flags], device="cpu")
+    if main is vqa_eval.main:
+        assert os.path.exists(os.path.join(save, "ft_loss_preds.csv"))
+        return
+    (line,) = _lines(save, "x")
+    losses = [v for k, v in line.items() if k.endswith("loss")]
+    assert losses and all(math.isfinite(v) for v in losses), line
+    w = checkpoint.load_weights(os.path.join(
+        save, "MLM", "x_loss" if main is vqa_train.main else "x"))
+    assert "encoder.segment.shared_kv.weight" in w
+    assert "encoder.segment.layer_weight" in w

@@ -4,7 +4,7 @@ reference's MMBERT), in the port against the JAX package on the CPU: the
 one-block-a-stage ResNet at full widths, hidden 48 (12 heads of 4), two
 layers, weights carried across by ``mmvqa_tpu_torch.bridge``. The MLM, VQA
 and SupCon forwards in fp32, the VQA forward in bf16, the MLM -> VQA
-transfer, and the parts that still wait. The train steps are in
+transfer, and the five-tap rule. The train steps are in
 tests/test_torch_default_train.py."""
 
 import numpy as np
@@ -147,12 +147,6 @@ def test_mlm_weights_transfer_to_vqa_as_the_jax_filter_does(tmp_path):
                                       err_msg="/".join(path))
     assert any("layer1_block0" in "/".join(p) and p[0] == "batch_stats"
                for p in back)
-
-
-def test_the_feedback_encoder_still_waits_for_item_8():
-    cfg, _ = default_configs("vqa5", transformer_model="feedback-transformer")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        MMBert(cfg, device="cpu")
 
 
 def test_resnet_takes_five_taps_only():

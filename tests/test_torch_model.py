@@ -165,9 +165,10 @@ def test_weights_come_from_the_generator():
 
 
 @pytest.mark.parametrize("over,what", [
-    # the id the transformer case had before the default encoder was ported
-    pytest.param({"transformer_model": "feedback-transformer", "heads": 8},
-                 "transformer_model", id="over1-transformer_model"),
+    # the id the transformer case had before the default encoder was ported,
+    # kept when the feedback encoder (which it checked last) was ported too
+    pytest.param({"pp_size": 2}, "pipeline parallelism",
+                 id="over1-transformer_model"),
 ])
 def test_unported_parts_name_the_roadmap(over, what):
     cfg, _ = configs("vqa5", **over)
@@ -176,13 +177,8 @@ def test_unported_parts_name_the_roadmap(over, what):
 
 
 @pytest.mark.parametrize("case,over,words", [
-    # ids as they were before the SupCon case and the two default-encoder
-    # cases (ported) left the list
-    pytest.param("vqa5", {"transformer_model": "feedback-transformer",
-                          "heads": 8}, "encoders and trunks",
-                 id="vqa5-over1-encoders and trunks"),
-    pytest.param("mlm", {"task": "distillation"}, "Distillation",
-                 id="mlm-over3-Distillation"),
+    # the id as it was before the SupCon, default-encoder, feedback and
+    # distillation cases (ported) left the list
     pytest.param("vqa5", {"pp_size": 2}, "Multi-GPU",
                  id="vqa5-over4-Multi-GPU"),
 ])
@@ -205,8 +201,3 @@ def test_unported_parts_cite_the_queue_item_that_ports_them(case, over,
     entry = re.search(rf"^{item}\. (.*)$", queue, re.M).group(1)
     assert words in entry, (item, entry)
 
-
-def test_distillation_task_is_not_ported():
-    cfg, _ = configs("mlm", task="distillation")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MMBert(cfg, device="cpu")

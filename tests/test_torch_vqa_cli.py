@@ -105,25 +105,6 @@ def test_parsers_match_the_reference_surface(name):
     assert got["task"][1] == TASK_CHOICES[name]
 
 
-VQA_BASE = ["--run_name", "t", "--num_vis", "5"]
-
-
-def test_reference_defaults_name_what_waits_and_task_distillation_raises(
-        tmp_path):
-    """The reference's default encoders are ported
-    (tests/test_torch_default_vqa_cli.py runs them); --transformer_model
-    feedback-transformer still waits for item 8 and --task distillation
-    for item 7."""
-    data = make_vqa_fixture(str(tmp_path / "vqa"), 1, image_size=16)
-    argv = [*VQA_BASE, "--data_dir", data, "--save_dir", str(tmp_path / "s"),
-            "--epochs", "1"]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        vqa_train.main(argv + ["--transformer_model", "feedback-transformer"],
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        vqa_eval.main(argv + ["--task", "distillation"], device="cpu")
-
-
 BLOCKER = """
 import sys
 class Block:
