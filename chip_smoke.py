@@ -163,6 +163,23 @@
    unit features. The summary line's ``launches_aux`` holds the counts of
    the main paths, eval, forwards and CLI runs.
 
+10. Explain: Grad-CAM and the CAM zoo. ``tests/data/progressive.jpg`` decodes
+   to its pinned digest (the port's progressive decoder, held to PIL on the
+   CPU). (a) ``grad_cam_activations`` and ``grad_cam_heatmap`` at full width
+   in fp32, B=1, on the card against the same seeded model on the CPU plain
+   path, for the flagship and the default model: activations, gradients,
+   logits and heatmap to stated normwise tolerances. (b) The kernels at the
+   CLI's shapes against their plain versions: K1's forward at B=1 at every
+   tap of both trunks and at B=32, its backward at B=1 at both deepest taps,
+   K2 forward and backward at B=1, T=28 (forward at B=32 too), K3's forward
+   at B=1 and B=32 at every site shape. (c) ``cli.grad_cam.main`` on the
+   drivers slice's VQA-Med fixture with seeded weights: the six methods on
+   each model, with and without ``--cnn_only``; each
+   run's counters at the counts ``explain_runs`` derives, its printed lines,
+   its file decoding to 224 x 224, its wall time. The summary line's
+   ``launches_explain`` holds the counts of (c), and
+   ``explain_max_abs_err`` the errors of (a).
+
 Every phase that traces with torch.profiler fails where the profiler saw no
 device time twice (once more after a synchronise): a trace without device
 events would check none of its rules.
@@ -207,6 +224,10 @@ CLI_ARGS = ["--mlm_prob", "0.15", "--cnn_encoder", "tf_efficientnetv2_m",
 # decode_digest of the CLI phase's fixture (tests/test_torch_jpeg.py computes
 # it on the CPU, where PIL decodes the same files to the same pixels)
 DECODE_DIGEST = "535f354c8ffae59bfd55cb9497b753107a903dbb70e2bf981bb2a61bd3774678"
+# progressive_digest of tests/data/progressive.jpg (a PIL-written progressive
+# file; tests/test_torch_jpeg.py holds the same decode to PIL on the CPU)
+PROGRESSIVE_JPEG = os.path.join("tests", "data", "progressive.jpg")
+PROGRESSIVE_DIGEST = "957e5fd8814647fe812f87551eddaee8bade975df93235506265ad2c5dbdec18"
 
 # Tolerances, kernel vs plain version on the same card and inputs.
 # fp32: both accumulate in fp32 in another order; the token head's sums run
@@ -324,6 +345,20 @@ def decode_digest(roco_dir: str) -> str:
                             f"ROCO_train_{i:04d}.jpg")
         h.update(read_rgb(path).tobytes())
         h.update(load_image(path, 224).tobytes())
+    return h.hexdigest()
+
+
+def progressive_digest(path: str) -> str:
+    """sha256 over the pixels of a progressive JPEG decoded at full size and
+    through ``load_image`` at 224 px."""
+    import hashlib
+
+    from mmvqa_tpu_torch.data.images import load_image
+    from mmvqa_tpu_torch.data.jpeg import read_rgb
+
+    h = hashlib.sha256()
+    h.update(read_rgb(path).tobytes())
+    h.update(load_image(path, 224).tobytes())
     return h.hexdigest()
 
 
@@ -3948,6 +3983,363 @@ def aux_phase(torch, work: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ (10) explain --
+
+EXPLAIN_CHUNK = 32  # ScoreCAM's masked images and AblationCAM's reruns a call
+# (a) Grad-CAM on the card against the CPU plain path, fp32, B=1: the deepest
+# map after the whole trunk within 1e-3 of its largest entry (convolutions in
+# another order over 57 or 50 blocks; the eval logits are held to TOL_SLICE
+# after the same trunk and the encoder); the gradients, through the encoder
+# and one token head backward, as the train step's leaves (GRAD_NORMWISE);
+# the channel mean of their products before the ReLU likewise; the heatmap,
+# in [0, 1], to the same 2e-3
+EXPLAIN_ACTS_NORMWISE = 1e-3
+EXPLAIN_HEAT = 2e-3
+
+
+def b1_kernel_checks(torch, results) -> None:
+    """(b) The kernels at the Grad-CAM CLI's shapes, fp32, untimed, each
+    against its plain version with the kernel phase's tolerances and its
+    error into the summary's fp32 max_abs_err: K1's forward at B=1 at every
+    tap of both trunks (one split-TF32 launch a call, two runs bit for bit)
+    and at B=32 (ScoreCAM's chunk; AblationCAM's at the deepest tap); K1's
+    backward at B=1 at both deepest taps (K=512 and 2048); K2 forward and
+    backward at B=1, T=28, 8 heads, with and without prev (a first layer and
+    the others), the forward at B=32 too; K3's forward at B=1 and B=32 at
+    every site shape of EfficientNetV2-M."""
+    from mmvqa_tpu_torch.models.visual_tokens import tap_positions
+    from mmvqa_tpu_torch.ops.attention import (
+        realformer_attention,
+        realformer_attention_backward,
+        realformer_attention_backward_reference,
+        realformer_attention_reference,
+    )
+    from mmvqa_tpu_torch.ops.depthwise import (
+        depthwise3x3,
+        depthwise3x3_reference,
+    )
+    from mmvqa_tpu_torch.ops.token_head import (
+        fused_token_head,
+        token_head_backward,
+        token_head_backward_reference,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    f32 = torch.float32
+
+    def note(name, err):
+        results[name]["err"][f32] = max(results[name]["err"][f32], err)
+
+    worst = dict.fromkeys(("token_head", "token_head_bwd",
+                           "realformer_attention", "realformer_attention_bwd",
+                           "depthwise3x3"), 0.0)
+    deepest = {("flagship", 7, 512), ("default", 7, 2048)}
+    for model, taps in (("flagship", TAPS), ("default", DEF_TAPS)):
+        for B in (1, EXPLAIN_CHUNK):
+            for name, side, K in taps:
+                if B > 1 and model == "default" and side != 7:
+                    continue
+                feat = torch.randn(B, side, side, K, device=dev, generator=g)
+                x = tap_positions(feat.permute(0, 3, 1, 2))
+                w = torch.randn(K, HIDDEN, device=dev, generator=g) * K ** -0.5
+                label = f"B={B} {model} {name} P={side * side} K={K} fp32"
+                worst["token_head"] = max(worst["token_head"], checked_k1_fwd(
+                    label, x, w, "serf"))
+                if B > 1 or (model, side, K) not in deepest:
+                    continue
+                gout = torch.randn(B, HIDDEN, device=dev, generator=g)
+                tf32x3 = fused_token_head.backward_tf32x3_launches
+                dx, dw = token_head_backward(x, w, gout, "serf")
+                dx2, dw2 = token_head_backward(x, w, gout, "serf")
+                dx_p, dw_p = token_head_backward_reference(x, w, gout, "serf")
+                torch.cuda.synchronize()
+                if fused_token_head.backward_tf32x3_launches - tf32x3 != 2:
+                    fail(f"token_head_bwd {label}: off the split-TF32 path")
+                if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+                    fail(f"token_head_bwd {label}: two runs differ")
+                e = max(check_k1_bwd(label, x, dx, dw, dx_p, dw_p))
+                worst["token_head_bwd"] = max(worst["token_head_bwd"], e)
+
+    H, E, T = HEADS, HEAD_DIM, 28
+    for B in (1, EXPLAIN_CHUNK):
+        for with_prev in (False, True):
+            kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g)
+            k, q, v = kqv.split(E, dim=-1)
+            prev = (torch.randn(B, H, T, T, device=dev, generator=g)
+                    if with_prev else None)
+            valid = torch.arange(T, device=dev)[None] < 19 + torch.arange(
+                B, device=dev)[:, None] % 10
+            mask = valid.float()
+            label = f"B={B} T={T} prev={with_prev} fp32"
+            ctx, carry = realformer_attention(q, k, v, prev, mask)
+            ctx2, carry2 = realformer_attention(q, k, v, prev, mask)
+            ctx_p, carry_p = realformer_attention_reference(q, k, v, prev,
+                                                            mask)
+            torch.cuda.synchronize()
+            if not (torch.equal(ctx, ctx2) and torch.equal(carry, carry2)):
+                fail(f"realformer_attention {label}: two runs differ")
+            name = f"realformer_attention {label}"
+            e = max(close(name + " ctx valid", ctx[valid], ctx_p[valid],
+                          TOL_K2_VALID),
+                    close(name + " ctx", ctx, ctx_p, TOL_K2_PADDED),
+                    close(name + " carry", carry, carry_p, TOL_K2_CARRY))
+            worst["realformer_attention"] = max(
+                worst["realformer_attention"], e)
+            if B > 1:
+                continue
+            dctx = torch.randn(B, T, H, E, device=dev, generator=g)
+            dcarry = (0.1 * torch.randn(B, H, T, T, device=dev, generator=g)
+                      if with_prev else None)
+            dkqv, dprev = realformer_attention_backward(kqv, carry, dctx,
+                                                        dcarry, with_prev)
+            dkqv2, dprev2 = realformer_attention_backward(kqv, carry, dctx,
+                                                          dcarry, with_prev)
+            dq_p, dk_p, dv_p, ds_p = realformer_attention_backward_reference(
+                q, k, v, carry, dctx, dcarry)
+            torch.cuda.synchronize()
+            if not (torch.equal(dkqv, dkqv2)
+                    and (dprev is None or torch.equal(dprev, dprev2))):
+                fail(f"realformer_attention_bwd {label}: two runs differ")
+            name = f"realformer_attention_bwd {label}"
+            e = close(name + " dkqv", dkqv, torch.cat([dk_p, dq_p, dv_p], -1),
+                      TOL_K2_BWD)
+            if with_prev:
+                e = max(e, close(name + " dprev", dprev, ds_p, TOL_K2_BWD))
+            worst["realformer_attention_bwd"] = max(
+                worst["realformer_attention_bwd"], e)
+
+    for B in (1, EXPLAIN_CHUNK):
+        for (h, w_, c) in sorted(trunk_sites(B)[0]):
+            x = torch.randn(B, h, w_, c, device=dev, generator=g)
+            w = (torch.randn(c, 1, 3, 3, device=dev, generator=g) / 3)[
+                :, 0].permute(1, 2, 0)
+            y = depthwise3x3(x, w)
+            y_p = depthwise3x3_reference(x, w)
+            worst["depthwise3x3"] = max(worst["depthwise3x3"], close(
+                f"depthwise3x3 B={B} {h}x{w_}x{c} fp32", y, y_p, TOL_K3_F32))
+    for name, e in worst.items():
+        note(name, e)
+    print("explain kernels at B=1 (and B=32): max_abs_err " + ", ".join(
+        f"{name} {e:.3e}" for name, e in worst.items()))
+
+
+def explain_inputs(torch, cfg, seed: int):
+    """One seeded request: a normalized (1, S, S, 3) image and a question of
+    T tokens with padding."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    T, S = cfg.max_position_embeddings, cfg.image_size
+    n = 19
+    ids = np.zeros((1, T), np.int64)
+    ids[0, :n] = rng.integers(1000, cfg.vocab_size, n)
+    mask = (np.arange(T) < n).astype(np.float32)[None]
+    seg = (np.arange(T) >= 7).astype(np.int64)[None] * mask.astype(np.int64)
+    img = rng.normal(size=(1, S, S, 3)).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (img, ids, seg, mask))
+
+
+def explain_card_vs_cpu(torch) -> dict:
+    """(a) ``grad_cam_activations`` and ``grad_cam_heatmap`` on the card
+    against the same seeded model on the CPU plain path, fp32, B=1: the
+    flagship and the default model (ResNet-152 + the pre-norm encoder). The
+    answer explained is the first class, counting from 0, whose CPU heatmap
+    is not all zero (the ReLU of a channel mean that is negative everywhere
+    zeroes it, and then compares nothing); the map before the ReLU is held
+    too. Returns the errors."""
+    from mmvqa_tpu_torch.core.config import vqa_config
+    from mmvqa_tpu_torch.explain.gradcam import (
+        grad_cam_activations,
+        grad_cam_heatmap,
+    )
+    from mmvqa_tpu_torch.models import MMBert
+
+    errors = {}
+    for label, cfg in (("flagship", flagship_vqa_config()),
+                       ("default", vqa_config(num_classes=NUM_CLASSES))):
+        args = explain_inputs(torch, cfg, SEED + 2)
+        model = MMBert(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(SEED))
+        t0 = time.perf_counter()
+        for answer in range(16):
+            want_heat, _ = grad_cam_heatmap(model, *args, answer)
+            if want_heat.max() > 0:
+                break
+        else:
+            fail(f"explain {label}: the CPU heatmaps of classes 0-15 are "
+                 "all zero")
+        want = grad_cam_activations(model, *args, answer)
+        cpu_s = time.perf_counter() - t0
+        model.to("cuda")
+        dargs = [a.cuda() for a in args]
+        grad_cam_activations(model, *dargs, answer)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = grad_cam_activations(model, *dargs, answer)
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        heat, _ = grad_cam_heatmap(model, *dargs, answer)
+        name = f"explain {label} (class {answer})"
+
+        def cam(acts, grads):  # the heatmap before its ReLU and scaling
+            return (acts * grads.mean(dim=(0, 1, 2))).mean(dim=-1)
+
+        e = {"acts": close_normwise(name + " acts", got[0].cpu(), want[0],
+                                    EXPLAIN_ACTS_NORMWISE),
+             "grads": close_normwise(name + " grads", got[1].cpu(), want[1],
+                                     GRAD_NORMWISE),
+             "logits": close(name + " logits", got[2].cpu(), want[2],
+                             TOL_SLICE),
+             "cam": close_normwise(name + " cam", cam(*got[:2]).cpu(),
+                                   cam(*want[:2]), GRAD_NORMWISE),
+             "heatmap": close_normwise(name + " heatmap",
+                                       torch.from_numpy(heat),
+                                       torch.from_numpy(want_heat),
+                                       EXPLAIN_HEAT)}
+        print(f"{name}: grad_cam_activations card vs CPU, deepest map "
+              f"{tuple(got[0].shape)}, max_abs_err " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in e.items())
+              + f"; card {card_ms:.1f} ms a call, CPU {cpu_s:.1f} s")
+        errors[label] = e
+        del model
+        torch.cuda.empty_cache()
+    return errors
+
+
+def explain_launches(trunks: int, k1: int, k1_bwd: int, k2: int, k2_bwd: int,
+                     effnet: bool) -> dict:
+    """Each counter after a Grad-CAM CLI run in fp32: ``trunks`` eval passes
+    of the trunk (K3 at EfficientNetV2-M's 42 sites; ResNet-152 has none in
+    eval mode), ``k1`` token-head forwards, ``k1_bwd`` backwards, ``k2`` and
+    ``k2_bwd`` attention calls; every token-head call on its split-TF32
+    kernel, no tensor-core attention (fp32), no K3 backward, K4 or K5."""
+    want = dict.fromkeys(expected_launches(0, 0, False), 0)
+    want.update(token_head=k1, token_head_tf32x3=k1, token_head_bwd=k1_bwd,
+                token_head_bwd_tf32x3=k1_bwd, realformer_attention=k2,
+                realformer_attention_bwd=k2_bwd,
+                depthwise3x3=42 * trunks if effnet else 0)
+    return want
+
+
+def explain_runs() -> list:
+    """(model, method, --cnn_only, expected launches) of the CLI runs: each
+    of the six methods on each model, with and without --cnn_only. Derived
+    from the code, with n the deepest map's channels over the chunk of 32
+    (flagship 512 -> 16, default 2048 -> 64). A gradient method (gradcam,
+    gradcam++, xgradcam) or eigencam: the trunk once (42 K3 on the
+    flagship; ResNet-152 has no hand-written kernel in eval mode), the five
+    token heads (K1), the encoder (K2 x 4 on the flagship's RealFormer; the
+    default's BertEncoder has none), backward through the encoder (K2-bwd x
+    4) and the deepest head (K1-bwd x 1): flagship K3 42, K1 5, K2 4, K2-bwd
+    4, K1-bwd 1; default K1 5, K1-bwd 1. scorecam adds n full-model
+    forwards at B=32 (42 K3, 5 K1, 4 K2 each); ablationcam adds n reruns
+    from the tap at B=32 (1 K1, 4 K2 each). --cnn_only runs the trunk alone,
+    once (flagship K3 42, default nothing), and its scorecam adds n trunk
+    passes at B=32; its gradients and its ablation rerun are tensor code."""
+    runs = []
+    for model, effnet, n, k2 in (("flagship", True, 512 // EXPLAIN_CHUNK, 4),
+                                 ("default", False, 2048 // EXPLAIN_CHUNK, 0)):
+        for method in ("gradcam", "gradcam++", "xgradcam", "eigencam",
+                       "scorecam", "ablationcam"):
+            score = n if method == "scorecam" else 0
+            ablate = n if method == "ablationcam" else 0
+            runs.append((model, method, False, explain_launches(
+                1 + score, 5 + 5 * score + ablate, 1,
+                k2 * (1 + score + ablate), k2, effnet)))
+            runs.append((model, method, True, explain_launches(
+                1 + score, 0, 0, 0, 0, effnet)))
+    return runs
+
+
+def explain_clis(torch, work: str) -> dict:
+    """(c) ``cli.grad_cam.main`` end to end on the drivers phase's VQA-Med
+    fixture, fp32 at B=1 (ScoreCAM and AblationCAM in chunks of 32), with
+    seeded weights (a state dict, as ``save_weights`` writes): every run of
+    ``explain_runs`` with its counters set to 0 before and held to their
+    derived counts after, its printed lines, and its file
+    (``<category>_<vqa_img>``) decoded by the port to the 224 px image's
+    size; each run's wall time. Returns the launches of all runs."""
+    from mmvqa_tpu_torch.cli import common, grad_cam
+    from mmvqa_tpu_torch.data.datasets import (
+        build_answer_vocab,
+        load_vqa_data,
+    )
+    from mmvqa_tpu_torch.data.jpeg import read_rgb
+    from mmvqa_tpu_torch.models import MMBert
+
+    vqa = os.path.join(work, "vqa")
+    out = os.path.join(work, "explain")
+    img, category = "synpic_train_organ_0.jpg", "organ"
+    base = ["--data_dir", vqa, "--vocab_file",
+            os.path.join(work, "roco", "vocab.txt"), "--vqa_img", img,
+            "--category", category, "--mode", "Train"]
+    models = {"flagship": [], "default": ["--cnn_encoder", "resnet152",
+                                          "--transformer_model",
+                                          "transformer"]}
+    weights = {}
+    for label, flags in models.items():
+        # the CLI's own config: its parser, the vocabulary, the answers
+        args = grad_cam.build_parser().parse_args(base + flags
+                                                  + ["--model_dir", "m"])
+        cfg = common.config_from_args(args).replace(category=None)
+        cfg = common.load_tokenizer(cfg)[1]
+        n = build_answer_vocab(*load_vqa_data(cfg))[4]
+        model = MMBert(cfg.replace(num_classes=n), device="cpu",
+                       generator=torch.Generator().manual_seed(SEED + 3))
+        weights[label] = os.path.join(out, f"{label}.pt")
+        os.makedirs(out, exist_ok=True)
+        torch.save(model.state_dict(), weights[label])
+        del model
+    launches: dict = {}
+    for label, method, cnn_only, want in explain_runs():
+        save = os.path.join(out, f"{label}_{method}{'_cnn' * cnn_only}")
+        argv = base + models[label] + [
+            "--model_dir", weights[label], "--save_dir", save, "--method",
+            method] + (["--cnn_only"] if cnn_only else [])
+        run = f"{label} {method}{' --cnn_only' if cnn_only else ''}"
+        reset_counts()
+        t0 = time.perf_counter()
+        with TF32Off(torch, f"explain cli {run}"), Tee() as tee:
+            grad_cam.main(argv)
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        check_launches(f"explain cli {run}", got, want)
+        lines = tee.text.splitlines()[-4:]
+        heads = ["question", "answer",
+                 "target feature channel" if cnn_only else "preds", "saved"]
+        path = os.path.join(save, f"{category}_{img}")
+        if [x.split(":")[0] for x in lines] != heads or not lines[
+                -1].endswith(path):
+            fail(f"explain cli {run}: printed {lines}")
+        shape = read_rgb(path).shape
+        if shape != (224, 224, 3):
+            fail(f"explain cli {run}: {path} decodes to {shape}")
+        print(f"explain cli {run}: {wall:.2f} s wall, {path} "
+              f"{os.path.getsize(path)} bytes; launches " + ", ".join(
+                  f"{k} {v}" for k, v in got.items() if v))
+        add_counts(launches, got)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def explain_phase(torch, results, work: str):
+    """(10) Grad-CAM and the CAM zoo: the committed progressive JPEG's
+    decode digest, the kernels at B=1, Grad-CAM card vs CPU on both models,
+    then the CLI runs. Returns (launches, errors of (a))."""
+    t0 = time.perf_counter()
+    digest = progressive_digest(os.path.join(ROOT, PROGRESSIVE_JPEG))
+    if digest != PROGRESSIVE_DIGEST:
+        fail(f"explain: progressive JPEG's digest {digest}, pinned "
+             f"{PROGRESSIVE_DIGEST}")
+    print(f"explain: {PROGRESSIVE_JPEG} decodes to the pinned digest")
+    b1_kernel_checks(torch, results)
+    errors = explain_card_vs_cpu(torch)
+    launches = explain_clis(torch, work)
+    print(f"explain phase: {time.perf_counter() - t0:.1f} s")
+    return launches, errors
+
+
 def main() -> None:
     import torch
 
@@ -3991,6 +4383,9 @@ def main() -> None:
         default_launches_ = default_phase(torch, kernels, work)
         torch.cuda.empty_cache()
         aux_launches = aux_phase(torch, work)
+        torch.cuda.empty_cache()
+        explain_launches_, explain_errors = explain_phase(torch, kernels,
+                                                          work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3998,7 +4393,7 @@ def main() -> None:
     # 0 just before it (the eval slice's forwards, the train epoch, the
     # fine-tune epoch, the CLI's two runs, the drivers' eight runs, the
     # default model's eval, bf16 epoch and four CLI runs, the remaining
-    # paths' main paths, eval and CLI runs).
+    # paths' main paths, eval and CLI runs, the Grad-CAM CLI's runs).
     # ms, plain_ms, bound_ms, library_ms: at the train path's shapes in bf16,
     # B=TRAIN_B, summed over the calls of one pass (the trunk's kernels:
     # every site of a step, inputs not in the L2 cache); bound_by: what
@@ -4011,7 +4406,8 @@ def main() -> None:
          "launches": (eval_launches.get(name, 0) + train_launches[name]
                       + finetune_launches[name] + cli_launches[name]
                       + driver_launches[name]
-                      + default_launches_[name] + aux_launches[name]),
+                      + default_launches_[name] + aux_launches[name]
+                      + explain_launches_[name]),
          "launches_eval": eval_launches.get(name, 0),
          "launches_train": train_launches[name],
          "launches_finetune": finetune_launches[name],
@@ -4019,13 +4415,14 @@ def main() -> None:
          "launches_drivers": driver_launches[name],
          "launches_default": default_launches_[name],
          "launches_aux": aux_launches[name],
+         "launches_explain": explain_launches_[name],
          "max_abs_err": max(r["err"].values()),
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": sum(ms for ms, _ in r["bounds"]),
          "bound_by": max(r["bounds"])[1],
          "library_ms": r["library_ms"] if name in WITH_LIBRARY else None}
         for name, r in kernels.items()
-    ]}
+    ], "explain_max_abs_err": explain_errors}
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {

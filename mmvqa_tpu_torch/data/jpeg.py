@@ -1,12 +1,14 @@
 """JPEG on the host without PIL: the decoder of ``native/jpeg_decode.cpp``
-(baseline sequential files, libjpeg's integer arithmetic, so that a decode
-equals PIL's ``Image.open(path).convert("RGB")`` bit for bit) and a small
-baseline encoder in numpy for the fixtures.
+(baseline sequential and progressive Huffman-coded files, libjpeg's integer
+arithmetic, so that a decode equals PIL's
+``Image.open(path).convert("RGB")`` bit for bit) and a small baseline
+encoder in numpy for the fixtures.
 
 The decoder is called through ctypes, which releases the interpreter lock
 for the call: the loader's threads decode in parallel. It raises
-``ValueError`` naming the file for what it does not read (progressive,
-arithmetic-coded, 12-bit, CMYK).
+``ValueError`` naming the file for what it does not read (arithmetic-coded,
+lossless, hierarchical, 12-bit, CMYK, and a progressive file whose low AC
+coefficients stop short of their last bit, which libjpeg would smooth).
 
 The encoder writes what PIL writes by default: JFIF, the standard tables of
 the JPEG specification (Annex K) scaled to quality 75, YCbCr with 4:2:0

@@ -210,13 +210,42 @@ class MMBert(nn.Module):
         return self.classifier_2(self.classifier_ln(self.classifier_0(x)))
 
     def encode(self, img: torch.Tensor, input_ids: torch.Tensor,
-               segment_ids: torch.Tensor,
-               input_mask: torch.Tensor) -> torch.Tensor:
-        tokens = self.trans(img.to(self.dtype))
+               segment_ids: torch.Tensor, input_mask: torch.Tensor,
+               perturb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The encoder's output (B, T, H); ``perturb`` (B, h, w, C) is added
+        to the deepest tapped map (``VisualTokenizer.features``)."""
+        tokens, _ = self.trans.features(img.to(self.dtype), perturb)
+        return self.encode_tokens(tokens, input_ids, segment_ids, input_mask)
+
+    def encode_tokens(self, tokens, input_ids: torch.Tensor,
+                      segment_ids: torch.Tensor,
+                      input_mask: torch.Tensor) -> torch.Tensor:
+        """The encoder over the visual ``tokens`` (one (B, H) tensor a tap)
+        written over the embedded text's first positions."""
         h = self.bert_embedding(input_ids, segment_ids).to(self.dtype)
         vis = torch.stack([t.to(h.dtype) for t in tokens], dim=1)
         h = torch.cat([vis, h[:, vis.shape[1]:]], dim=1)
         return self.encoder(h, input_mask)
+
+    def vqa_head(self, h: torch.Tensor, input_mask: torch.Tensor
+                 ) -> torch.Tensor:
+        """VQA logits ``classifier(serf(fc1(mean_pooling(h))))``."""
+        return self._classifier(serf(self.fc1(mean_pooling(h, input_mask))))
+
+    def features_and_logits(self, img: torch.Tensor, input_ids: torch.Tensor,
+                            segment_ids: torch.Tensor,
+                            input_mask: torch.Tensor,
+                            perturb: Optional[torch.Tensor] = None):
+        """(VQA logits, the tapped maps as NHWC views in token order), with
+        ``perturb`` added to the deepest map: the gradient of a logit with
+        respect to it is the gradient with respect to that map, the
+        reference's backward hooks (grad_cam2.py:139-152) without hooks.
+        Puts the model in its deterministic mode (dropout off, BatchNorm on
+        running statistics), where the JAX method always runs."""
+        self.set_mode(True)
+        tokens, feats = self.trans.features(img.to(self.dtype), perturb)
+        h = self.encode_tokens(tokens, input_ids, segment_ids, input_mask)
+        return self.vqa_head(h, input_mask), feats
 
     def forward(self, img: torch.Tensor, input_ids: torch.Tensor,
                 segment_ids: torch.Tensor,
@@ -238,5 +267,4 @@ class MMBert(nn.Module):
                                                        keepdim=True)
                 return logits, feat
             return logits
-        pooled = serf(self.fc1(mean_pooling(h, input_mask)))
-        return self._classifier(pooled)
+        return self.vqa_head(h, input_mask)

@@ -14,13 +14,18 @@ Token order follows the reference's encoders:
 * tf_efficientnetv2_m: shallow-first, five taps at stages (0, 1, 2, 4, 6), or
   all seven stages (always SERF) for ``num_vis=7``.
 
-The Grad-CAM perturbation of the deepest map (``perturb`` of the JAX module)
-is not ported (ROADMAP.md Queue 1, item 9).
+Grad-CAM's tap (``perturb`` of the JAX module): ``features`` adds an NHWC
+perturbation to the deepest tapped map (ResNet's 2048-channel map, token 0;
+EfficientNetV2's last tap) before that map's token head, and returns the
+tapped maps as NHWC views in token order, as the JAX module's
+``stage_features``. ``tapped_maps`` and ``tokens_of`` split the trunk from
+the heads, so that Grad-CAM runs the trunk once without a graph and
+AblationCAM reruns from the tap.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -93,10 +98,37 @@ class VisualTokenizer(nn.Module):
             self.add_module(f"token_conv_{i}",
                             TokenHead(channels[stage], hidden_size, act))
 
+    @property
+    def deepest(self) -> int:
+        """Index of the deepest tapped map in token order: ResNet's first,
+        EfficientNetV2's last."""
+        return 0 if self.taps[0] > self.taps[-1] else len(self.taps) - 1
+
+    def tapped_maps(self, img_nhwc: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The trunk's tapped maps in token order, (B, K, H, W) views that
+        are channels-last in memory."""
+        stages = self.trunk(img_nhwc.permute(0, 3, 1, 2))
+        return tuple(stages[stage] for stage in self.taps)
+
+    def tokens_of(self, maps: Tuple[torch.Tensor, ...],
+                  perturb: Optional[torch.Tensor] = None):
+        """(tokens, maps): the token heads over ``maps``, with ``perturb``
+        (B, h, w, C) added to the deepest map first."""
+        if perturb is not None:
+            d = self.deepest
+            maps = (maps[:d] + (maps[d] + perturb.permute(0, 3, 1, 2),)
+                    + maps[d + 1:])
+        return tuple(getattr(self, f"token_conv_{i}")(m)
+                     for i, m in enumerate(maps)), maps
+
+    def features(self, img_nhwc: torch.Tensor,
+                 perturb: Optional[torch.Tensor] = None):
+        """(tokens, stage features): the features are the tapped maps as
+        NHWC views (B, h, w, C) in token order, the deepest one with
+        ``perturb`` added (the JAX module's ``__call__``)."""
+        tokens, maps = self.tokens_of(self.tapped_maps(img_nhwc), perturb)
+        return tokens, tuple(m.permute(0, 2, 3, 1) for m in maps)
+
     def forward(self, img_nhwc: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """img: (B, H, W, 3). Returns one (B, hidden) token per tap."""
-        stages = self.trunk(img_nhwc.permute(0, 3, 1, 2))
-        return tuple(
-            getattr(self, f"token_conv_{i}")(stages[stage])
-            for i, stage in enumerate(self.taps)
-        )
+        return self.tokens_of(self.tapped_maps(img_nhwc))[0]

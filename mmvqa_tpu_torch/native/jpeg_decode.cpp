@@ -1,4 +1,4 @@
-// Baseline JPEG decoder for the host data path (C++, exposed via ctypes).
+// JPEG decoder for the host data path (C++, exposed via ctypes).
 //
 // Decodes to interleaved 8-bit RGB the way libjpeg(-turbo) does with its
 // default settings, so that the result equals PIL's
@@ -6,6 +6,15 @@
 //   - sequential Huffman coding (SOF0, SOF1), 8-bit samples, 1 or 3
 //     components, any integral sampling factors, restart intervals, one
 //     interleaved scan or one scan per component;
+//   - progressive Huffman coding (SOF2) as jdphuff.c decodes it: every
+//     scan's coefficients buffered for the whole image, DC first and
+//     refinement scans (interleaved or not), AC first and refinement scans
+//     (one component each, over the component's own block grid) with their
+//     end-of-band runs; a restart resets the runs and the DC predictions.
+//     libjpeg smooths the blocks of a progressive image whose low AC
+//     coefficients did not all arrive to their last bit (jdcoefct.c,
+//     smoothing_ok); such a file is refused rather than decoded otherwise;
+//   - quantization tables latched at a component's first scan (jdinput.c);
 //   - the ISLOW inverse DCT of jidctint.c (13-bit constants, 2 extra bits
 //     after the first pass, the post-IDCT range-limit table);
 //   - fancy upsampling of jdsample.c: the triangle filters h2v1, h1v2 and
@@ -16,9 +25,8 @@
 //     grayscale replicated to R, G and B, as PIL's convert("RGB") does;
 //     an Adobe marker with transform 0, or component ids 'R' 'G' 'B', means
 //     RGB stored as is (jdapimin.c's default_decompress_parms).
-// Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-// samples and 2- or 4-component (CMYK, YCCK) files are refused with a
-// message.
+// Lossless, hierarchical and arithmetic-coded files, 12-bit samples and 2-
+// or 4-component (CMYK, YCCK) files are refused with a message.
 //
 // Built with the host's C++ compiler by mmvqa_tpu_torch/native/loader.py.
 // The entry points take the file's bytes; they touch no Python object, so
@@ -90,6 +98,11 @@ struct Component {
     int dw = 0, dh = 0;           // downsampled width and height
     int dc_pred = 0;
     std::vector<int16_t> coef;    // bw * bh blocks of 64, natural order
+    bool latched = false;         // q holds the table of the first scan
+    uint16_t q[64];
+    // progressive: the point transform Al of the last scan that coded each
+    // coefficient (zigzag order), -1 before any (jdinput.c's coef_bits)
+    int coef_bits[64];
 };
 
 class Decoder {
@@ -112,6 +125,9 @@ class Decoder {
     bool jfif_ = false, adobe_ = false;
     int adobe_transform_ = -1;
     bool frame_seen_ = false;
+    bool progressive_ = false;
+    int ss_ = 0, se_ = 63, ah_ = 0, al_ = 0;  // the scan's band and bits
+    int eobrun_ = 0;                         // blocks left in an end-of-band run
     // entropy-coded segment reader
     uint32_t bits_ = 0;
     int nbits_ = 0;
@@ -133,10 +149,17 @@ class Decoder {
     void read_sos(int len, std::vector<int>& scan);
     void read_app(int marker, int len);
     void decode_scan(const std::vector<int>& scan);
+    void decode_unit(Component& c, int16_t* block);
     void decode_block(Component& c, int16_t* block);
+    void dc_first(Component& c, int16_t* block);
+    void dc_refine(int16_t* block);
+    void ac_first(Component& c, int16_t* block);
+    void ac_refine(Component& c, int16_t* block);
+    void check_complete() const;
     void restart(int n);
     void fill();
     int bit();
+    int bits(int n);
     int receive_extend(int s);
     int decode_symbol(const Huffman& h);
     void idct_plane(const Component& c, std::vector<uint8_t>& plane) const;
@@ -193,14 +216,14 @@ void Decoder::read_app(int marker, int len) {
 }
 
 void Decoder::read_sof(int marker, int len) {
-    if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA || marker == 0xCE)
-        fail("progressive JPEG is not supported");
     if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB || marker == 0xCF)
         fail("lossless JPEG is not supported");
-    if (marker == 0xC5) fail("hierarchical JPEG is not supported");
+    if (marker == 0xC5 || marker == 0xC6)
+        fail("hierarchical JPEG is not supported");
     if (marker >= 0xC9) fail("arithmetic-coded JPEG is not supported");
     if (frame_seen_) fail("more than one frame header");
     frame_seen_ = true;
+    progressive_ = marker == 0xC2;
     const uint8_t* stop = p_ + len;
     int precision = byte();
     if (precision != 8)
@@ -240,6 +263,7 @@ void Decoder::read_sof(int marker, int len) {
         c.bw = mcux_ * c.h;
         c.bh = mcuy_ * c.v;
         c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
 }
 
@@ -259,7 +283,21 @@ void Decoder::read_sos(int len, std::vector<int>& scan) {
         scan.push_back(k);
     }
     int ss = byte(), se = byte(), ahal = byte();
-    if (ss != 0 || se != 63 || ahal != 0) fail("bad spectral selection");
+    int ah = ahal >> 4, al = ahal & 15;
+    if (!progressive_) {
+        if (ss != 0 || se != 63 || ahal != 0) fail("bad spectral selection");
+        return;
+    }
+    // jdphuff.c's start_pass_phuff_decoder
+    bool bad = ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1);
+    if (bad || (ah != 0 && al != ah - 1) || al > 13)
+        fail("bad progression parameters");
+    ss_ = ss;
+    se_ = se;
+    ah_ = ah;
+    al_ = al;
+    for (int k : scan)
+        for (int i = ss; i <= se; ++i) comp_[k].coef_bits[i] = al;
 }
 
 // Bits come from the entropy-coded segment with 0xFF00 unstuffed; at a
@@ -291,6 +329,14 @@ int Decoder::bit() {
     bits_ <<= 1;
     --nbits_;
     return b;
+}
+
+int Decoder::bits(int n) {
+    if (nbits_ < n) fill();
+    int v = (int)(bits_ >> (32 - n));
+    bits_ <<= n;
+    nbits_ -= n;
+    return v;
 }
 
 int Decoder::receive_extend(int s) {
@@ -342,6 +388,92 @@ void Decoder::decode_block(Component& c, int16_t* block) {
     }
 }
 
+void Decoder::decode_unit(Component& c, int16_t* block) {
+    if (!progressive_)
+        decode_block(c, block);
+    else if (ss_ == 0)
+        ah_ == 0 ? dc_first(c, block) : dc_refine(block);
+    else
+        ah_ == 0 ? ac_first(c, block) : ac_refine(c, block);
+}
+
+// jdphuff.c: decode_mcu_DC_first, decode_mcu_DC_refine, decode_mcu_AC_first
+// and decode_mcu_AC_refine, one block at a time
+void Decoder::dc_first(Component& c, int16_t* block) {
+    int t = decode_symbol(dc_[c.td]);
+    c.dc_pred += receive_extend(t);
+    block[0] = (int16_t)(c.dc_pred * (1 << al_));
+}
+
+void Decoder::dc_refine(int16_t* block) {
+    if (bit()) block[0] = (int16_t)(block[0] | (1 << al_));
+}
+
+void Decoder::ac_first(Component& c, int16_t* block) {
+    if (eobrun_ > 0) {
+        --eobrun_;
+        return;
+    }
+    const Huffman& ac = ac_[c.ta];
+    for (int k = ss_; k <= se_; ++k) {
+        int rs = decode_symbol(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+            k += r;
+            if (k > 63) fail("corrupt block");
+            block[kNatural[k]] = (int16_t)(receive_extend(s) * (1 << al_));
+        } else if (r == 15) {
+            k += 15;
+        } else {
+            eobrun_ = (1 << r) + (r ? bits(r) : 0) - 1;
+            break;
+        }
+    }
+}
+
+void Decoder::ac_refine(Component& c, int16_t* block) {
+    const int p1 = 1 << al_, m1 = -p1;
+    // a coefficient already nonzero takes one correction bit
+    auto correct = [&](int16_t& coef) {
+        if (bit() && (coef & p1) == 0)
+            coef = (int16_t)(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = ss_;
+    if (eobrun_ == 0) {
+        const Huffman& ac = ac_[c.ta];
+        for (; k <= se_; ++k) {
+            int rs = decode_symbol(ac);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                s = bit() ? p1 : m1;  // a newly nonzero coefficient
+            } else if (r != 15) {
+                eobrun_ = (1 << r) + (r ? bits(r) : 0);
+                break;  // the rest of the block takes the run's rule
+            }
+            // skip r zero coefficients, correcting the nonzero ones passed
+            do {
+                int16_t& coef = block[kNatural[k]];
+                if (coef != 0)
+                    correct(coef);
+                else if (--r < 0)
+                    break;
+                ++k;
+            } while (k <= se_);
+            if (s) {
+                if (k > 63) fail("corrupt block");
+                block[kNatural[k]] = (int16_t)s;
+            }
+        }
+    }
+    if (eobrun_ > 0) {
+        for (; k <= se_; ++k) {
+            int16_t& coef = block[kNatural[k]];
+            if (coef != 0) correct(coef);
+        }
+        --eobrun_;
+    }
+}
+
 void Decoder::restart(int n) {
     bits_ = 0;
     nbits_ = 0;
@@ -349,6 +481,7 @@ void Decoder::restart(int n) {
     int m = next_marker();
     if (m != 0xD0 + (n & 7)) fail("missing restart marker");
     for (int i = 0; i < ncomp; ++i) comp_[i].dc_pred = 0;
+    eobrun_ = 0;
 }
 
 void Decoder::decode_scan(const std::vector<int>& scan) {
@@ -356,6 +489,15 @@ void Decoder::decode_scan(const std::vector<int>& scan) {
     nbits_ = 0;
     at_marker_ = false;
     for (int i = 0; i < ncomp; ++i) comp_[i].dc_pred = 0;
+    eobrun_ = 0;
+    for (int k : scan) {
+        Component& c = comp_[k];
+        if (c.latched) continue;
+        if (!qt_present_[c.tq])
+            fail("component uses an undefined quantization table");
+        std::memcpy(c.q, qt_[c.tq], sizeof(c.q));
+        c.latched = true;
+    }
     long units;  // MCUs of the scan
     bool single = scan.size() == 1;
     if (single) {
@@ -371,7 +513,7 @@ void Decoder::decode_scan(const std::vector<int>& scan) {
         if (single) {
             Component& c = comp_[scan[0]];
             long bx = u % c.width_in_blocks, by = u / c.width_in_blocks;
-            decode_block(c, &c.coef[((size_t)by * c.bw + bx) * 64]);
+            decode_unit(c, &c.coef[((size_t)by * c.bw + bx) * 64]);
             continue;
         }
         long mx = u % mcux_, my = u / mcux_;
@@ -380,7 +522,7 @@ void Decoder::decode_scan(const std::vector<int>& scan) {
             for (int y = 0; y < c.v; ++y)
                 for (int x = 0; x < c.h; ++x) {
                     size_t bx = mx * c.h + x, by = my * c.v + y;
-                    decode_block(c, &c.coef[(by * c.bw + bx) * 64]);
+                    decode_unit(c, &c.coef[(by * c.bw + bx) * 64]);
                 }
         }
     }
@@ -530,13 +672,26 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
 
 void Decoder::idct_plane(const Component& c,
                          std::vector<uint8_t>& plane) const {
-    if (!qt_present_[c.tq]) fail("component uses an undefined quantization table");
     int stride = c.bw * 8;
     plane.assign((size_t)stride * c.bh * 8, 0);
     for (int by = 0; by < c.bh; ++by)
         for (int bx = 0; bx < c.bw; ++bx)
-            idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], qt_[c.tq],
+            idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.q,
                        &plane[(size_t)by * 8 * stride + bx * 8], stride);
+}
+
+// jdcoefct.c's smoothing_ok: with every component's DC begun, libjpeg
+// smooths the output where a component's AC coefficients 1..9 (zigzag; 1..5
+// before libjpeg-turbo 2.1) did not all arrive to their last bit
+void Decoder::check_complete() const {
+    for (int i = 0; i < ncomp; ++i)
+        if (comp_[i].coef_bits[0] < 0) return;
+    for (int i = 0; i < ncomp; ++i)
+        for (int k = 1; k < 10; ++k)
+            if (comp_[i].coef_bits[k] != 0)
+                fail("progressive JPEG whose low AC coefficients are "
+                     "incomplete (libjpeg's block smoothing) is not "
+                     "supported");
 }
 
 // The component at full size (width x height), as jdsample.c upsamples it.
@@ -633,7 +788,9 @@ void Decoder::decode(uint8_t* out) {
             for (int k : scan) coded[k] = true;
             bool all = true;
             for (int i = 0; i < ncomp; ++i) all = all && coded[i];
-            if (all) break;  // what follows cannot change the samples
+            // a sequential file's samples are complete; a progressive one
+            // reads scans up to the end of the image
+            if (all && !progressive_) break;
         } else if (m == 0xDB) {
             read_dqt(len);
         } else if (m == 0xC4) {
@@ -650,6 +807,7 @@ void Decoder::decode(uint8_t* out) {
     }
     for (int i = 0; i < ncomp; ++i)
         if (!coded[i]) fail("a component has no scan");
+    if (progressive_) check_complete();
 
     std::vector<uint8_t> plane, full[3];
     for (int i = 0; i < ncomp; ++i) {

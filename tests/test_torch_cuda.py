@@ -1961,3 +1961,86 @@ def test_default_model_eval_on_the_card_matches_the_cpu(dev):
     assert [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)
             ] == [5, 0, 0, 0, 0]
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+# ---- the Grad-CAM CLI's shapes: fp32 at B=1 (one image), the deepest taps
+# of both trunks (flagship 7x7x512, default 7x7x2048), the RealFormer at T=28
+
+@pytest.mark.parametrize("P,K", [(49, 512), (49, 2048), (12544, 24),
+                                 (12544, 64), (196, 176), (3136, 256)])
+def test_token_head_fp32_at_one_image_matches_plain(dev, P, K):
+    """K1's fp32 forward at B=1, its row tiles crossing no image boundary,
+    on the trunk's channels-last map: one split-TF32 launch, two runs bit
+    for bit."""
+    g = _gen(dev)
+    x = torch.randn(1, K, P, device=dev, generator=g).transpose(1, 2)
+    w = torch.randn(K, 768, device=dev, generator=g) * K ** -0.5
+    before = fused_token_head.tf32x3_launches
+    got = fused_token_head(x, w, "serf")
+    again = fused_token_head(x, w, "serf")
+    torch.cuda.synchronize()
+    assert fused_token_head.tf32x3_launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, token_head_reference(x, w, "serf"),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("K", [512, 2048])
+def test_token_head_fp32_backward_at_one_image_matches_plain(dev, K):
+    """K1's fp32 backward at B=1, P=49 (the grid barrier over few blocks):
+    dx in x's layout and dW to 1e-4 of their largest entries, two runs bit
+    for bit."""
+    g = _gen(dev)
+    x = torch.randn(1, K, 49, device=dev, generator=g).transpose(1, 2)
+    w = torch.randn(K, 768, device=dev, generator=g) * K ** -0.5
+    gout = torch.randn(1, 768, device=dev, generator=g)
+    before = fused_token_head.backward_tf32x3_launches
+    dx, dw = token_head_backward(x, w, gout, "serf")
+    dx2, dw2 = token_head_backward(x, w, gout, "serf")
+    torch.cuda.synchronize()
+    assert fused_token_head.backward_tf32x3_launches == before + 2
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dx.stride() == x.stride()
+    dx_p, dw_p = token_head_backward_reference(x, w, gout, "serf")
+    assert (dw - dw_p).abs().max() <= 1e-4 * dw_p.abs().max()
+    assert (dx - dx_p).abs().max() <= 1e-4 * dx_p.abs().max()
+
+
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_attention_fp32_at_one_image_matches_plain(dev, with_prev):
+    """K2 in fp32 at B=1, T=28, 8 heads of 96 (the flagship's encoder in the
+    Grad-CAM CLI), a padded question: forward and backward, dprev where the
+    layer has a prev, at the smoke's fp32 tolerances."""
+    g = _gen(dev)
+    B, T, H, E = 1, 28, 8, 96
+    kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g)
+    k, q, v = kqv.split(E, dim=-1)
+    prev = (torch.randn(B, H, T, T, device=dev, generator=g)
+            if with_prev else None)
+    mask = (torch.arange(T, device=dev) < 19).float()[None]
+    valid = mask.bool()
+    before = realformer_attention.launches
+    ctx, carry = realformer_attention(q, k, v, prev, mask)
+    torch.cuda.synchronize()
+    assert realformer_attention.launches == before + 1
+    ctx_p, carry_p = realformer_attention_reference(q, k, v, prev, mask)
+    torch.testing.assert_close(carry, carry_p, rtol=2e-5, atol=2e-4)
+    torch.testing.assert_close(ctx[valid], ctx_p[valid], rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(ctx, ctx_p, rtol=5e-3, atol=2e-3)
+    dctx = torch.randn(B, T, H, E, device=dev, generator=g)
+    dcarry = (0.1 * torch.randn(B, H, T, T, device=dev, generator=g)
+              if with_prev else None)
+    before = realformer_attention.backward_launches
+    dkqv, dprev = realformer_attention_backward(kqv, carry, dctx, dcarry,
+                                                with_prev)
+    torch.cuda.synchronize()
+    assert realformer_attention.backward_launches == before + 1
+    dq_p, dk_p, dv_p, ds_p = realformer_attention_backward_reference(
+        q, k, v, carry, dctx, dcarry)
+    torch.testing.assert_close(dkqv, torch.cat([dk_p, dq_p, dv_p], -1),
+                               rtol=5e-4, atol=5e-5)
+    if with_prev:
+        torch.testing.assert_close(dprev, ds_p, rtol=5e-4, atol=5e-5)
+    else:
+        assert dprev is None

@@ -1,6 +1,7 @@
 """The port's image half of the host data layer against PIL and the JAX
 package: the JPEG decoder (``native/jpeg_decode.cpp`` through
-``data/jpeg.py``) bit for bit against ``Image.open(p).convert("RGB")``, the
+``data/jpeg.py``), baseline and progressive, bit for bit against
+``Image.open(p).convert("RGB")``, the
 numpy JPEG encoder read back by PIL, ``load_image`` and
 ``random_rotate_host`` bit for bit against the JAX functions (which call
 PIL), and the decoded-image caches under threads.
@@ -101,13 +102,31 @@ def test_decoder_equals_pil_at_other_tables(rng, kw):
 def test_decoder_refuses_what_it_does_not_read_naming_the_file(rng, tmp_path):
     arr = _image(rng, 20, 30)
     cases = {
-        "progressive": (dict(progressive=True), arr, "progressive"),
         "cmyk": (dict(), np.concatenate([arr, arr[..., :1]], -1), "CMYK"),
     }
     for name, (kw, a, what) in cases.items():
         p = str(tmp_path / f"{name}.jpg")
         mode = "CMYK" if a.shape[-1] == 4 else "RGB"
         Image.fromarray(a, mode).save(p, format="JPEG", **kw)
+        with pytest.raises(ValueError, match=f"{name}.jpg: .*{what}"):
+            jpeg.read_rgb(p)
+    # PIL writes none of these: its files with the frame header's marker
+    # or sample precision changed
+    for name, kw, old, new, what in (
+            ("arithmetic", dict(progressive=True), b"\xff\xc2", b"\xff\xca",
+             "arithmetic-coded"),
+            ("arithmetic-seq", dict(), b"\xff\xc0", b"\xff\xc9",
+             "arithmetic-coded"),
+            ("lossless", dict(), b"\xff\xc0", b"\xff\xc3", "lossless"),
+            ("hierarchical", dict(progressive=True), b"\xff\xc2",
+             b"\xff\xc6", "hierarchical"),
+            ("12-bit", dict(), b"\xff\xc0\x00\x11\x08",
+             b"\xff\xc0\x00\x11\x0c", "12-bit")):
+        data = _pil_bytes(arr, **kw)
+        assert data.count(old) == 1
+        p = str(tmp_path / f"{name}.jpg")
+        with open(p, "wb") as f:
+            f.write(data.replace(old, new))
         with pytest.raises(ValueError, match=f"{name}.jpg: .*{what}"):
             jpeg.read_rgb(p)
     png = str(tmp_path / "x.png")
@@ -120,6 +139,79 @@ def test_decoder_refuses_what_it_does_not_read_naming_the_file(rng, tmp_path):
             jpeg.decode(data[:cut])
     with pytest.raises(ValueError, match="end of data in a scan"):
         jpeg.decode(data[:len(data) // 2])
+
+
+@pytest.mark.parametrize("restart", [{}, {"restart_marker_blocks": 3},
+                                     {"restart_marker_rows": 1}],
+                         ids=["no-restart", "restart-3-blocks", "restart-1-row"])
+@pytest.mark.parametrize("sampling", sorted(SUBSAMPLING) + ["gray"])
+def test_progressive_decoder_equals_pil(rng, sampling, restart):
+    """Progressive files (PIL's scan script: DC first and refinement, AC
+    bands first and refinement with end-of-band runs, optimised tables
+    before the scans) bit for bit at every shape, with and without restart
+    intervals."""
+    for h, w in SHAPES:
+        if sampling == "gray":
+            data = _pil_bytes(_image(rng, h, w, 1)[..., 0], progressive=True,
+                              **restart)
+        else:
+            data = _pil_bytes(_image(rng, h, w), progressive=True,
+                              subsampling=SUBSAMPLING[sampling], **restart)
+        assert b"\xff\xc2" in data and data.count(b"\xff\xda") > 1
+        if restart:
+            assert b"\xff\xdd" in data
+        np.testing.assert_array_equal(jpeg.decode(data), _pil_decode(data),
+                                      err_msg=f"{sampling} {h}x{w}")
+
+
+# (PIL's progressive writer runs out of buffer at quality 100 on noise)
+@pytest.mark.parametrize("kw", [dict(quality=30), dict(quality=95),
+                                dict(quality=92, subsampling=0)],
+                         ids=["q30", "q95", "q92-444"])
+def test_progressive_decoder_equals_pil_at_other_tables(rng, kw):
+    for h, w in SHAPES[2:6]:
+        data = _pil_bytes(_image(rng, h, w), progressive=True, **kw)
+        np.testing.assert_array_equal(jpeg.decode(data), _pil_decode(data))
+
+
+def test_progressive_file_without_its_last_scan_is_refused(rng, tmp_path):
+    """Cut before one of its last two scans (refinements of AC bands to
+    their last bit), a progressive file's low AC coefficients are
+    incomplete: libjpeg would smooth its blocks (jdcoefct.c), and the
+    decoder refuses it, naming the file."""
+    data = _pil_bytes(_image(rng, 40, 56), progressive=True)
+    starts = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    for k, name in ((-1, "cut1"), (-2, "cut2")):
+        p = str(tmp_path / f"{name}.jpg")
+        with open(p, "wb") as f:
+            f.write(data[:starts[k]] + b"\xff\xd9")
+        with pytest.raises(ValueError, match=f"{name}.jpg: .*block smoothing"):
+            jpeg.read_rgb(p)
+
+
+def test_committed_progressive_file_gives_the_smokes_digest():
+    """``tests/data/progressive.jpg`` (PIL, 4:2:0, restart every 5 MCUs,
+    61x45): the digest chip_smoke.py checks on the card's machine, which
+    has no PIL; here the same pixels are PIL's, and ``load_image`` of it is
+    the JAX ``load_image``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "progressive.jpg")
+    with open(path, "rb") as f:
+        data = f.read()
+    assert b"\xff\xc2" in data and b"\xff\xdd" in data
+    assert chip_smoke.progressive_digest(path) == chip_smoke.PROGRESSIVE_DIGEST
+    np.testing.assert_array_equal(jpeg.read_rgb(path), _pil_decode(data))
+    for size in (224, 32):
+        np.testing.assert_array_equal(images.load_image(path, size),
+                                      jax_images.load_image(path, size))
+
+
+def test_load_image_of_progressive_files_equals_jax(rng, tmp_path):
+    for h, w in ((300, 200), (416, 512), (100, 60)):
+        p = str(tmp_path / f"{h}x{w}.jpg")
+        Image.fromarray(_image(rng, h, w)).save(p, progressive=True)
+        np.testing.assert_array_equal(images.load_image(p, 224),
+                                      jax_images.load_image(p, 224))
 
 
 def test_port_written_jpegs_open_in_pil_and_decode_as_pil(rng):
