@@ -18,8 +18,9 @@
    every kernel that sums across blocks give identical bits. Beyond the
    main path's shapes: the token head's backward at K=2048 (the ResNet-152
    trunk's last tap) and the attention, forward and backward, at T=128 and
-   T=512 (its tiled kernels). Each bf16 attention case must take the
-   tensor-core kernels where forward_path and backward_path say so, and two
+   T=512 (its tiled kernels). Each attention case must take the
+   tensor-core kernels of its dtype (bf16, or fp32 as split TF32) where
+   forward_path and backward_path say so, each on its own counter, and two
    runs of it must give identical bits. The token head's forward prints its
    rate (TFLOP/s of its products) and its share of the bound per tap at B=128
    and B=16; in fp32 every call must take its split-TF32 kernel, one launch,
@@ -57,7 +58,9 @@
    the run, and so does a second pass (a reduce or finalize kernel) of the
    token head, forward or backward, of the depthwise backward, of conv1x1 +
    statistics or of the BN-backward sums, and an attention kernel, forward
-   or backward, other than the tensor-core ones. Every traced step and eval
+   or backward, other than the tensor-core ones of the step's dtype
+   (``realformer_attn_{fwd,bwd}_mma`` in bf16, ``_tf32x3`` in fp32). Every
+   traced step and eval
    batch fails where the token head's forward runs a kernel other than its
    dtype's: ``token_head_fwd_mma`` in bf16, ``token_head_fwd_tf32x3`` in
    fp32.
@@ -237,7 +240,10 @@ TOL_K1_F32 = dict(rtol=1e-4, atol=1e-5)
 TOL_BF16 = dict(rtol=8e-3, atol=2e-3)
 # attention fp32, the JAX package's own tests/test_pallas_attention.py:
 # valid query rows tight; padded rows carry -10000, whose fp32 ulp (1e-3)
-# moves a softmax weight by up to 1e-3 relative; the carry itself.
+# moves a softmax weight by up to 1e-3 relative; the carry itself. The
+# split-TF32 kernels' arithmetic meets these (and TOL_K2_BWD) on the CPU
+# within 7% of each, where one TF32 product a product misses them
+# (tests/test_torch_attention_fp32.py).
 TOL_K2_VALID = dict(rtol=2e-5, atol=2e-5)
 TOL_K2_PADDED = dict(rtol=5e-3, atol=2e-3)
 TOL_K2_CARRY = dict(rtol=2e-5, atol=2e-4)
@@ -512,10 +518,14 @@ def check_k1_bwd(label, x, dx, dw, dx_p, dw_p):
     return close(f"token_head_bwd {label} dx", dx, dx_p, dx_tol), e_dw
 
 
-def k2_bound(B, H, T, E, itemsize, with_prev, with_mask, direction):
+def k2_bound(B, H, T, E, itemsize, with_prev, with_mask, direction,
+             tensor_cores=False):
     """Attention core: q, k, v and ctx (their gradients and dctx backward),
-    the fp32 carries; two products forward, four backward; one exp a score."""
-    name = "bf16" if itemsize == 2 else "fp32"
+    the fp32 carries; two products forward, four backward; one exp a score.
+    fp32 products at the CUDA cores' rate, or with ``tensor_cores`` as
+    split-TF32 products."""
+    name = ("bf16" if itemsize == 2 else
+            "tf32x3" if tensor_cores else "fp32")
     qkv, tile = B * T * H * E * itemsize, B * H * T * T * 4
     product = 2.0 * B * H * T * T * E
     sfu = B * H * T * T
@@ -539,7 +549,7 @@ KERNELS = {
         "mmvqa_tpu/ops/pallas_token_head.py:273",
         "no single PyTorch call gives dx and dW of the fused head"),
     # every launch of the forward, whichever of its kernels took it (the
-    # one-block kernel, the tiled one, the bf16 tensor-core kernel)
+    # one-block kernel, the tiled one, the bf16 and fp32 tensor-core ones)
     "realformer_attention": (
         "mmvqa_tpu_torch/csrc/realformer_attention.cu",
         "mmvqa_tpu/ops/pallas_attention.py:146",
@@ -552,8 +562,15 @@ KERNELS = {
         "mmvqa_tpu/ops/pallas_attention.py:146",
         "scaled_dot_product_attention takes no residual scores and returns "
         "no score carry"),
+    # and realformer_attn_fwd_tf32x3_kernel: fp32 as split-TF32 products on
+    # mma.sync, every fp32 attention forward of the flagship's paths
+    "realformer_attention_tf32x3": (
+        "mmvqa_tpu_torch/csrc/realformer_attention.cu",
+        "mmvqa_tpu/ops/pallas_attention.py:146",
+        "scaled_dot_product_attention takes no residual scores and returns "
+        "no score carry"),
     # every launch of the backward, whichever of its kernels took it (the
-    # fp32 one-block kernel, the tiled pair, the bf16 tensor-core kernel)
+    # one-block kernel, the tiled pair, the bf16 and fp32 tensor-core ones)
     "realformer_attention_bwd": (
         "mmvqa_tpu_torch/csrc/realformer_attention_bwd.cu",
         "mmvqa_tpu/ops/pallas_attention.py:164",
@@ -561,6 +578,12 @@ KERNELS = {
     # of those, realformer_attn_bwd_mma_kernel: bf16 on mma.sync, the train
     # path's only attention backward
     "realformer_attention_bwd_mma": (
+        "mmvqa_tpu_torch/csrc/realformer_attention_bwd.cu",
+        "mmvqa_tpu/ops/pallas_attention.py:164",
+        "no PyTorch call takes a score carry and its gradient"),
+    # and realformer_attn_bwd_tf32x3_kernel: fp32 as split-TF32 products,
+    # every fp32 attention backward of the flagship's paths
+    "realformer_attention_bwd_tf32x3": (
         "mmvqa_tpu_torch/csrc/realformer_attention_bwd.cu",
         "mmvqa_tpu/ops/pallas_attention.py:164",
         "no PyTorch call takes a score carry and its gradient"),
@@ -620,8 +643,8 @@ def add_fp32(r, count, ms, plain, library, bnd):
 # what a kernel's fp32 sums cover: the CLIs' default dtype at their batch
 # (B=16) where the token head and the attention are concerned, the trunk's
 # kernels at the train path's B=128 as their bf16 sums are; bounds on the
-# tensor cores (split-TF32) for K1, both ways, and K4, on the CUDA cores
-# otherwise
+# tensor cores (split-TF32) for K1 and K2, both ways, and K4, on the CUDA
+# cores otherwise
 FP32_SUMS = {
     "token_head": "the five taps at B=16",
     "token_head_bwd": "the five taps at B=16",
@@ -832,19 +855,42 @@ def kernel_phase(torch):
     print("realformer_attention_bwd_mma: blocks an SM holds at E=96: " + ", "
           .join(f"T={T} {mma_occupancy(T, E, backward=True)}"
                 for T in (28, 75, 125)))
+    f32 = torch.float32
+    print("realformer_attention_tf32x3: blocks an SM holds at E=96: " + ", "
+          .join(f"T={T} {mma_occupancy(T, E, False, f32)}"
+                for T in (28, 75, 128)))
+    print("realformer_attention_bwd_tf32x3: blocks an SM holds at E=96: "
+          + ", ".join(f"T={T} {mma_occupancy(T, E, True, f32)}"
+                      for T in (28, 75, 96)))
     k2_cases = [(dtype, EVAL_B, T, wp, wm)
                 for dtype in (torch.float32, torch.bfloat16)
                 for T in (28, 75) for wp in (False, True)
                 for wm in (False, True)]
     k2_cases += [(torch.bfloat16, TRAIN_B, T, wp, True)
                  for T in (28, 75) for wp in (False, True)]
-    # sequences longer than one block's tiles hold (the tiled kernels): T=128
-    # (forward in one block, backward tiled) and T=512 (both tiled)
+    # past the tensor-core kernels' limits: the one-block kernels (the fp32
+    # backward at T=97, the forward of either dtype at T=130) and the tiled
+    # ones (the backward at T=128 and 130, both directions at T=512)
     k2_cases += [(dtype, EVAL_B, T, True, True)
                  for dtype in (torch.float32, torch.bfloat16)
-                 for T in (128, 512)]
+                 for T in (128, 130, 512)]
+    k2_cases += [(torch.float32, EVAL_B, 97, True, True)]
+    # each case's (forward, backward) path at E=96, so that no case drifts
+    # to another kernel unseen
+    k2_paths = {(torch.float32, 97): ("mma", "one_block"),
+                (torch.float32, 128): ("mma", "tiled"),
+                (torch.bfloat16, 128): ("mma", "tiled"),
+                (torch.float32, 130): ("one_block", "tiled"),
+                (torch.bfloat16, 130): ("one_block", "tiled"),
+                (torch.float32, 512): ("tiled", "tiled"),
+                (torch.bfloat16, 512): ("tiled", "tiled")}
     for dtype, B, T, with_prev, with_mask in k2_cases:
         bf16 = dtype == torch.bfloat16
+        want = k2_paths.get((dtype, T), ("mma", "mma"))
+        if (forward_path(dtype, T, E), backward_path(dtype, T, E)) != want:
+            fail(f"realformer_attention T={T} {dtype}: paths "
+                 f"{forward_path(dtype, T, E)}, {backward_path(dtype, T, E)}"
+                 f", the smoke expects {want[0]}, {want[1]}")
         kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g).to(dtype)
         k, q, v = kqv.split(E, dim=-1)
         prev = (torch.randn(B, H, T, T, device=dev, generator=g)
@@ -860,13 +906,20 @@ def kernel_phase(torch):
         label = (f"B={B} T={T} prev={with_prev} mask={with_mask} {dtype}")
 
         path = forward_path(dtype, T, E)
-        mma = realformer_attention.mma_launches
+        # the dtype's tensor-core counter moves, the other one does not
+        tc, other = (("mma_launches", "tf32x3_launches") if bf16
+                     else ("tf32x3_launches", "mma_launches"))
+        n0 = (realformer_attention.launches,
+              getattr(realformer_attention, tc),
+              getattr(realformer_attention, other))
         ctx, carry = realformer_attention(q, k, v, prev, mask)
         ctx2, carry2 = realformer_attention(q, k, v, prev, mask)
         ctx_p, carry_p = realformer_attention_reference(q, k, v, prev, mask)
         torch.cuda.synchronize()
-        if (realformer_attention.mma_launches - mma
-                != (2 if path == "mma" else 0)):
+        if (realformer_attention.launches - n0[0],
+                getattr(realformer_attention, tc) - n0[1],
+                getattr(realformer_attention, other) - n0[2]) != (
+                    2, 2 if path == "mma" else 0, 0):
             fail(f"realformer_attention {label}: the {path} path did not "
                  f"take its kernel")
         if not (torch.equal(ctx, ctx2) and torch.equal(carry, carry2)):
@@ -886,7 +939,7 @@ def kernel_phase(torch):
             lambda: realformer_attention_reference(q, k, v, prev, mask),
             flush=flush)
         bnd = k2_bound(B, H, T, E, kqv.element_size(), with_prev, with_mask,
-                       "fwd")
+                       "fwd", tensor_cores=path == "mma")
         print(f"{name}: max_abs_err ctx {max(e1, e2):.3e} carry {e3:.3e}, "
               f"two runs identical  kernel {ms:.4f} ms  plain {plain:.4f} ms"
               f"  bound {bnd[0]:.4f} ms ({bnd[1]}); "
@@ -895,15 +948,18 @@ def kernel_phase(torch):
         note("realformer_attention", dtype, max(e1, e2, e3), summary, ms,
              plain, bnd, fp32_sum=k2_fp32)
         if path == "mma":
-            note("realformer_attention_mma", dtype, max(e1, e2, e3), summary,
-                 ms, plain, bnd)
+            note("realformer_attention_mma" if bf16
+                 else "realformer_attention_tf32x3", dtype, max(e1, e2, e3),
+                 summary or k2_fp32, ms, plain, bnd)
 
         # the backward from the kernel's own carry; a layer with a prev also
         # gets a gradient for its carry, a last layer (here: no prev) none
         dctx = torch.randn(B, T, H, E, device=dev, generator=g).to(dtype)
         dcarry = (0.1 * torch.randn(B, H, T, T, device=dev, generator=g)
                   if with_prev else None)
-        mma = realformer_attention.backward_mma_launches
+        n0 = (realformer_attention.backward_launches,
+              getattr(realformer_attention, "backward_" + tc),
+              getattr(realformer_attention, "backward_" + other))
         dkqv, dprev = realformer_attention_backward(kqv, carry, dctx, dcarry,
                                                     with_prev)
         dkqv2, dprev2 = realformer_attention_backward(kqv, carry, dctx,
@@ -912,8 +968,10 @@ def kernel_phase(torch):
             q, k, v, carry, dctx, dcarry)
         torch.cuda.synchronize()
         path = backward_path(dtype, T, E)
-        if (realformer_attention.backward_mma_launches - mma
-                != (2 if path == "mma" else 0)):
+        if (realformer_attention.backward_launches - n0[0],
+                getattr(realformer_attention, "backward_" + tc) - n0[1],
+                getattr(realformer_attention, "backward_" + other) - n0[2]
+                ) != (2, 2 if path == "mma" else 0, 0):
             fail(f"realformer_attention_bwd {label}: the {path} path did not "
                  f"take its kernel")
         if not (torch.equal(dkqv, dkqv2)
@@ -931,7 +989,7 @@ def kernel_phase(torch):
         plain = time_ms(lambda: realformer_attention_backward_reference(
             q, k, v, carry, dctx, dcarry), flush=flush)
         bnd = k2_bound(B, H, T, E, kqv.element_size(), with_prev, with_mask,
-                       "bwd")
+                       "bwd", tensor_cores=path == "mma")
         print(f"{name}: max_abs_err dkqv {e1:.3e} dprev {e2:.3e}, two runs "
               f"identical  kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
               f"{bnd[0]:.4f} ms ({bnd[1]}); {100 * bnd[0] / ms:.1f}% of the "
@@ -939,8 +997,9 @@ def kernel_phase(torch):
         note("realformer_attention_bwd", dtype, max(e1, e2), summary, ms,
              plain, bnd, fp32_sum=k2_fp32)
         if path == "mma":
-            note("realformer_attention_bwd_mma", dtype, max(e1, e2), summary,
-                 ms, plain, bnd)
+            note("realformer_attention_bwd_mma" if bf16
+                 else "realformer_attention_bwd_tf32x3", dtype, max(e1, e2),
+                 summary or k2_fp32, ms, plain, bnd)
 
     trunk_kernel_phase(torch, results)
     for name, r in results.items():
@@ -1406,15 +1465,14 @@ def device_work(prof, n: int, label: str):
     return [a for a in device if a.key not in host]
 
 
-def profiled(torch, run, n: int, label: str):
-    """``run()`` (``n`` passes) under torch.profiler, host and device
-    activity, the card synchronised before and after. Returns the result,
-    the wall time in ms and the device's kernels (``device_work``). Where
-    the profiler saw no device time it runs once more after a synchronise,
-    and fails if it again sees none: a trace without device events checks
-    no rule (tools/probe_profiler.py: on some machines most traces of one
-    short kernel come back empty; the smoke's traces hold thousands)."""
-    from torch.profiler import ProfilerActivity, profile
+def traced(torch, run, label: str):
+    """``run()`` under torch.profiler, host and device activity, the card
+    synchronised before and after: (its result, the wall time in ms, the
+    profile). Where the profiler saw no device time it runs once more after
+    a synchronise (F6, tools/probe_profiler.py: on some machines most
+    traces of one short kernel come back empty; the smoke's traces hold
+    thousands), and returns None if it again sees none."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
 
     for attempt in (1, 2):
         torch.cuda.synchronize()
@@ -1424,13 +1482,30 @@ def profiled(torch, run, n: int, label: str):
             out = run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        kernels = device_work(prof, n, label)
-        if sum(a.self_device_time_total for a in kernels) > 0:
-            return out, wall, kernels
+        if any(a.device_type == DeviceType.CUDA
+               and a.self_device_time_total > 0
+               for a in prof.key_averages()):
+            return out, wall, prof
         print(f"{label}: the profiler saw no device time (attempt {attempt} "
               "of 2)")
-    fail(f"{label}: the profiler saw no device time twice: its rules were "
-         "not checked")
+    return None
+
+
+def profiled(torch, run, n: int, label: str):
+    """``run()`` (``n`` passes) as ``traced`` traces it: the result, the
+    wall time in ms and the device's kernels (``device_work``). Fails where
+    the profiler saw no device time twice: a trace without device events
+    checks no rule."""
+    got = traced(torch, run, label)
+    if got is None:
+        fail(f"{label}: the profiler saw no device time twice: its rules "
+             "were not checked")
+    out, wall, prof = got
+    kernels = device_work(prof, n, label)
+    if sum(a.self_device_time_total for a in kernels) <= 0:
+        fail(f"{label}: the profiler saw device time only in host "
+             "annotations: its rules were not checked")
+    return out, wall, kernels
 
 
 def check_token_head_forward(kernels, label: str, bf16: bool) -> None:
@@ -1512,6 +1587,8 @@ def slice_phase(torch):
                 token_head_tf32x3=5 * (forwards - bf16_forwards),
                 realformer_attention=cfg.n_layers * forwards,
                 realformer_attention_mma=cfg.n_layers * bf16_forwards,
+                realformer_attention_tf32x3=cfg.n_layers
+                * (forwards - bf16_forwards),
                 depthwise3x3=42 * forwards)
     if launches != want:
         fail(f"eval launches {launches}, want {want}")
@@ -1566,10 +1643,14 @@ def _counters():
             ("realformer_attention", realformer_attention, "launches"),
             ("realformer_attention_mma", realformer_attention,
              "mma_launches"),
+            ("realformer_attention_tf32x3", realformer_attention,
+             "tf32x3_launches"),
             ("realformer_attention_bwd", realformer_attention,
              "backward_launches"),
             ("realformer_attention_bwd_mma", realformer_attention,
              "backward_mma_launches"),
+            ("realformer_attention_bwd_tf32x3", realformer_attention,
+             "backward_tf32x3_launches"),
             ("depthwise3x3", depthwise3x3, "launches"),
             ("depthwise3x3_bwd", depthwise3x3, "backward_launches"),
             ("conv1x1_stats", conv1x1_stats, "launches"),
@@ -1753,8 +1834,9 @@ def fp32_step_trace(torch, n: int = 3, default: bool = False) -> float:
     """(e) the CLIs' fp32 step: the flagship MLM model (``default``: the
     default model, ResNet-152 and the pre-norm BERT encoder) in fp32 at
     their batch (CLI_B), one synthetic batch. Five steps on the host clock,
-    each ending in a synchronise, with every counter at its exact count (K4
-    and K1, both ways, on their split-TF32 kernels); then ``n`` steps under
+    each ending in a synchronise, with every counter at its exact count (K4,
+    K1 and, in the flagship, K2, both ways, on their split-TF32 kernels);
+    then ``n`` steps under
     torch.profiler, as the bf16 steps are traced: the card's busy time and
     the kernels by name. Returns the busy ms a step."""
     from mmvqa_tpu_torch.core.config import pretrain_config
@@ -1792,7 +1874,7 @@ def fp32_step_trace(torch, n: int = 3, default: bool = False) -> float:
         fail(f"{label}: non-finite loss {losses}")
     print(f"{label}: ms per step {['%.1f' % t for t in times]} (median after "
           f"the first {statistics.median(times[1:]):.2f}); losses "
-          f"{['%.4f' % x for x in losses]}; every K4 and K1 launch on "
+          f"{['%.4f' % x for x in losses]}; every K4, K1 and K2 launch on "
           f"its split-TF32 kernel")
     busy = traced_train_steps(torch, run_step, n, label, bf16=False)
     del model, state
@@ -1809,11 +1891,10 @@ def traced_train_steps(torch, run_step, n: int, label: str,
     backward, conv1x1 + statistics or the BN-backward sums, an attention
     kernel other than the tensor-core ones, a token-head forward kernel
     other than its dtype's (``check_token_head_forward``), and a trace
-    without device time (``profiled``). An fp32 step (``bf16`` False) runs
-    the attention on its fp32 kernels, whose redesign is still to come (the
-    one-block kernels), and fails where conv1x1 + statistics or the token
-    head, either way, runs any kernel other than its split-TF32 one. Returns
-    the busy ms per step."""
+    without device time (``profiled``). An fp32 step (``bf16`` False) fails
+    where conv1x1 + statistics, the token head or the attention, either way,
+    runs any kernel other than its split-TF32 one. Returns the busy ms per
+    step."""
     _, wall, kernels = profiled(
         torch, lambda: [run_step() for _ in range(n)], n, label)
     busy = sum(a.self_device_time_total for a in kernels) / 1e3
@@ -1823,7 +1904,9 @@ def traced_train_steps(torch, run_step, n: int, label: str,
     ours = ("token_head_fwd_mma", "token_head_fwd_tf32x3",
             "token_head_bwd", "token_head_bwd_rows", "token_head_bwd_tiles",
             "realformer_attn_fwd", "realformer_attn_fwd_mma",
+            "realformer_attn_fwd_tf32x3",
             "realformer_attn_bwd", "realformer_attn_bwd_mma",
+            "realformer_attn_bwd_tf32x3",
             "depthwise3x3_fwd", "depthwise3x3_bwd",
             "conv1x1_stats_tma", "conv1x1_stats_bf16",
             "conv1x1_stats_tf32x3", "conv1x1_stats_reduce",
@@ -1865,16 +1948,16 @@ def traced_train_steps(torch, run_step, n: int, label: str,
         fail(f"{label}: a second pass of the depthwise backward, the token "
              f"head, conv1x1 + statistics or the BN-backward sums ran in the "
              f"train step: {second}")
-    # bf16: the attention runs on its tensor-core kernels alone, both ways;
-    # fp32: on its fp32 kernels
+    # the attention runs on its tensor-core kernels alone, both ways: bf16
+    # products, or fp32 as split TF32
     check_token_head_forward(mine, label, bf16)
     for way in ("fwd", "bwd"):
+        want = f"realformer_attn_{way}_{'mma' if bf16 else 'tf32x3'}"
         other = [a.key for a in mine if f"realformer_attn_{way}" in a.key
-                 and (f"realformer_attn_{way}_mma" in a.key) != bf16]
+                 and want not in a.key]
         if other:
-            fail(f"{label}: an attention {way} kernel other than the "
-                 f"{'tensor-core' if bf16 else 'fp32'} one ran in the train "
-                 f"step: {other}")
+            fail(f"{label}: an attention {way} kernel other than {want} ran "
+                 f"in the train step: {other}")
     if not bf16:
         other = [a.key for a in mine if ("conv1x1" in a.key
                                          and "tf32x3" not in a.key)
@@ -1950,8 +2033,10 @@ def train_phase(torch):
     per_step = {"token_head": 5, "token_head_bwd": 5,
                 "realformer_attention": cfg.n_layers,
                 "realformer_attention_mma": cfg.n_layers,
+                "realformer_attention_tf32x3": 0,
                 "realformer_attention_bwd": cfg.n_layers,
                 "realformer_attention_bwd_mma": cfg.n_layers,
+                "realformer_attention_bwd_tf32x3": 0,
                 "depthwise3x3": 42, "depthwise3x3_bwd": 42,
                 "conv1x1_stats": 98, "conv1x1_stats_tma": 98,
                 "token_head_tf32x3": 0, "token_head_bwd_tf32x3": 0,
@@ -2158,8 +2243,10 @@ def finetune_phase(torch):
         per_step = {"token_head": 5, "token_head_bwd": 5,
                     "realformer_attention": cfg.n_layers,
                     "realformer_attention_mma": cfg.n_layers,
+                    "realformer_attention_tf32x3": 0,
                     "realformer_attention_bwd": cfg.n_layers,
                     "realformer_attention_bwd_mma": cfg.n_layers,
+                    "realformer_attention_bwd_tf32x3": 0,
                     "depthwise3x3": 42, "depthwise3x3_bwd": 42,
                     "conv1x1_stats": 98, "conv1x1_stats_tma": 98,
                     "token_head_tf32x3": 0, "token_head_bwd_tf32x3": 0,
@@ -2439,16 +2526,18 @@ def expected_launches(train: int, forwards: int, bf16: bool) -> dict:
     trunk on batch statistics) and ``forwards`` eval forwards of the
     flagship model; in bf16 every attention call takes the tensor-core
     kernels and every conv1x1 + statistics call its TMA path, in fp32 every
-    conv1x1 + statistics call and every token-head forward and backward its
-    split-TF32 kernel."""
+    conv1x1 + statistics call, every token-head forward and backward and
+    every attention call its split-TF32 kernel."""
     f = train + forwards
     return {"token_head": 5 * f, "token_head_tf32x3": 0 if bf16 else 5 * f,
             "token_head_bwd": 5 * train,
             "token_head_bwd_tf32x3": 0 if bf16 else 5 * train,
             "realformer_attention": 4 * f,
             "realformer_attention_mma": 4 * f if bf16 else 0,
+            "realformer_attention_tf32x3": 0 if bf16 else 4 * f,
             "realformer_attention_bwd": 4 * train,
             "realformer_attention_bwd_mma": 4 * train if bf16 else 0,
+            "realformer_attention_bwd_tf32x3": 0 if bf16 else 4 * train,
             "depthwise3x3": 42 * f, "depthwise3x3_bwd": 42 * train,
             "conv1x1_stats": 98 * train,
             "conv1x1_stats_tma": 98 * train if bf16 else 0,
@@ -4005,8 +4094,9 @@ def b1_kernel_checks(torch, results) -> None:
     and at B=32 (ScoreCAM's chunk; AblationCAM's at the deepest tap); K1's
     backward at B=1 at both deepest taps (K=512 and 2048); K2 forward and
     backward at B=1, T=28, 8 heads, with and without prev (a first layer and
-    the others), the forward at B=32 too; K3's forward at B=1 and B=32 at
-    every site shape of EfficientNetV2-M."""
+    the others), the forward at B=32 too, one split-TF32 launch a call each
+    way, two runs bit for bit; K3's forward at B=1 and B=32 at every site
+    shape of EfficientNetV2-M."""
     from mmvqa_tpu_torch.models.visual_tokens import tap_positions
     from mmvqa_tpu_torch.ops.attention import (
         realformer_attention,
@@ -4072,11 +4162,15 @@ def b1_kernel_checks(torch, results) -> None:
                 B, device=dev)[:, None] % 10
             mask = valid.float()
             label = f"B={B} T={T} prev={with_prev} fp32"
+            tf32x3 = realformer_attention.tf32x3_launches
             ctx, carry = realformer_attention(q, k, v, prev, mask)
             ctx2, carry2 = realformer_attention(q, k, v, prev, mask)
             ctx_p, carry_p = realformer_attention_reference(q, k, v, prev,
                                                             mask)
             torch.cuda.synchronize()
+            if realformer_attention.tf32x3_launches - tf32x3 != 2:
+                fail(f"realformer_attention {label}: off the split-TF32 "
+                     "path")
             if not (torch.equal(ctx, ctx2) and torch.equal(carry, carry2)):
                 fail(f"realformer_attention {label}: two runs differ")
             name = f"realformer_attention {label}"
@@ -4091,6 +4185,7 @@ def b1_kernel_checks(torch, results) -> None:
             dctx = torch.randn(B, T, H, E, device=dev, generator=g)
             dcarry = (0.1 * torch.randn(B, H, T, T, device=dev, generator=g)
                       if with_prev else None)
+            tf32x3 = realformer_attention.backward_tf32x3_launches
             dkqv, dprev = realformer_attention_backward(kqv, carry, dctx,
                                                         dcarry, with_prev)
             dkqv2, dprev2 = realformer_attention_backward(kqv, carry, dctx,
@@ -4098,6 +4193,9 @@ def b1_kernel_checks(torch, results) -> None:
             dq_p, dk_p, dv_p, ds_p = realformer_attention_backward_reference(
                 q, k, v, carry, dctx, dcarry)
             torch.cuda.synchronize()
+            if realformer_attention.backward_tf32x3_launches - tf32x3 != 2:
+                fail(f"realformer_attention_bwd {label}: off the split-TF32 "
+                     "path")
             if not (torch.equal(dkqv, dkqv2)
                     and (dprev is None or torch.equal(dprev, dprev2))):
                 fail(f"realformer_attention_bwd {label}: two runs differ")
@@ -4212,12 +4310,14 @@ def explain_launches(trunks: int, k1: int, k1_bwd: int, k2: int, k2_bwd: int,
     """Each counter after a Grad-CAM CLI run in fp32: ``trunks`` eval passes
     of the trunk (K3 at EfficientNetV2-M's 42 sites; ResNet-152 has none in
     eval mode), ``k1`` token-head forwards, ``k1_bwd`` backwards, ``k2`` and
-    ``k2_bwd`` attention calls; every token-head call on its split-TF32
-    kernel, no tensor-core attention (fp32), no K3 backward, K4 or K5."""
+    ``k2_bwd`` attention calls; every token-head and attention call on its
+    split-TF32 kernel, no K3 backward, K4 or K5."""
     want = dict.fromkeys(expected_launches(0, 0, False), 0)
     want.update(token_head=k1, token_head_tf32x3=k1, token_head_bwd=k1_bwd,
                 token_head_bwd_tf32x3=k1_bwd, realformer_attention=k2,
+                realformer_attention_tf32x3=k2,
                 realformer_attention_bwd=k2_bwd,
+                realformer_attention_bwd_tf32x3=k2_bwd,
                 depthwise3x3=42 * trunks if effnet else 0)
     return want
 
@@ -4397,9 +4497,10 @@ def main() -> None:
     # ms, plain_ms, bound_ms, library_ms: at the train path's shapes in bf16,
     # B=TRAIN_B, summed over the calls of one pass (the trunk's kernels:
     # every site of a step, inputs not in the L2 cache); bound_by: what
-    # binds the largest. The three _tf32x3 rows are fp32's, bounds on the
-    # tensor cores: K1's five taps, forward and backward, at B=CLI_B, K4's
-    # 98 sites at B=TRAIN_B.
+    # binds the largest. The five _tf32x3 rows are fp32's, bounds on the
+    # tensor cores: K1's five taps, forward and backward, at B=CLI_B, K2's
+    # layer at T=75, B=CLI_B, prev and mask, both ways, K4's 98 sites at
+    # B=TRAIN_B.
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

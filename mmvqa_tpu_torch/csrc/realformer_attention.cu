@@ -15,7 +15,9 @@
 // What bounds it on an H100: bytes. At the training shape (B=128, H=8,
 // T=75, E=96, bf16, prev and mask) a layer reads q, k, v and prev and
 // writes ctx and the carry: 105 MB, 0.031 ms at 3.35 TB/s, against two
-// products of 1.1 GFLOP each. Three paths, chosen by dtype, T and E alone
+// products of 1.1 GFLOP each. In fp32 at the CLIs' B=16 it moves 20.5 MB
+// (0.0061 ms) against 0.28 GFLOP of split-TF32 products (0.0017 ms at 165
+// TFLOP/s). Paths chosen by dtype, T and E alone
 // (ops/attention.py::forward_path):
 //
 // * bf16 where a head fits one block (E a multiple of 16 up to 128, T up to
@@ -39,6 +41,23 @@
 //   operand by ldmatrix.trans. ctx is staged in bf16 in the warp's own q
 //   rows and leaves by 16-byte stores. 73 KB a head at T=75, three blocks
 //   an SM.
+// * fp32 where a head's fp32 rows fit one block (E a multiple of 16 up to
+//   128, T up to 128 at E=96: 213 KB): the split-TF32 kernel
+//   (tc32::realformer_attn_fwd_tf32x3_kernel), the bf16 kernel's shape on
+//   mma.sync.m16n8k8.tf32. q, k and v come in as fp32 rows of ld32(E)
+//   values in tf32x3.cuh's swizzle (no padding) by 16-byte cp.async, prev
+//   as in bf16. Every product is three TF32 products, a_lo b_hi + a_hi b_lo
+//   + a_hi b_hi, each operand split as its fragment is loaded (hi = v
+//   rounded to TF32, lo = the rest), summed into the fp32 accumulators: the
+//   error is fp32's own (tests/test_torch_attention_fp32.py models it
+//   against the JAX package), where one TF32 product would miss the fp32
+//   tolerance. The m16n8k8 A fragment takes columns t4 and t4 + 4 of a
+//   thread's row where the accumulator holds 2 t4 and 2 t4 + 1, so the
+//   kernel gives ldmatrix the k rows of s's B fragments in the order kperm
+//   (attention_tile.cuh): each accumulator pair is then keys t4 and t4 + 4,
+//   and p goes into p v from the registers with v read in natural order.
+//   The softmax takes expf, as the plain version does. ctx leaves by 8-byte
+//   stores. 115 KB a head at T=75: two blocks an SM (B=16 gives 128).
 // * Other dtypes and widths where a head's fp32 tiles fit one block's
 //   shared memory: the one-block kernel below (realformer_attn_fwd_kernel),
 //   q, k, v and the score tile in fp32 shared memory, products on the CUDA
@@ -57,7 +76,6 @@
 
 namespace mmvqa {
 
-constexpr float kNegBig = 10000.0f;
 constexpr int kAttnThreads = 256;
 
 struct Strides4 {
@@ -446,34 +464,10 @@ __device__ __forceinline__ void compute(const Args& a, int bh, const Stage& s,
   }
   wait_groups<1>();
   __syncthreads();  // prev has landed
-  if (warp < NT) {
-    // s / sqrt(E) (+ prev) - 10000 (1 - mask_q), the plain version's order,
-    // into the flat block in place of prev; -inf past T, so p is 0 there
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + g + 8 * half;
-      const float neg = (a.mask && r < T)
-                            ? kNegBig * (1.0f - a.mask[(long long)b * T + r])
-                            : 0.0f;
-#pragma unroll
-      for (int j = 0; j < 2 * NT; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = 8 * j + 2 * t4 + c;
-          float x = p[j][2 * half + c] * a.scale;
-          if (r < T && col < T) {
-            float* cell = s.flat + off + r * T + col;
-            if (a.prev) x = x + *cell;
-            if (a.mask) x = x - neg;
-            *cell = x;
-          } else {
-            x = neg_inf();
-          }
-          p[j][2 * half + c] = x;
-        }
-      }
-    }
-  }
+  if (warp < NT)
+    scores_to_flat<NT, false>(p, s.flat + off, a.prev != nullptr,
+                              a.mask ? a.mask + (long long)b * T : nullptr,
+                              T, r0, g, t4, a.scale);
   wait_groups<0>();
   __syncthreads();  // every row of s is in the flat block; v has landed
   store_flat(s.flat, T * T, a.carry + head, tid, NTH);
@@ -542,43 +536,161 @@ __global__ void __launch_bounds__(32 * warps_for(NT))
 }
 
 template <int NT>
-cudaError_t prepare(int T, int E, int* smem) {
-  *smem = (int)stage_bytes(T, 16 * NT, E);
-  cudaError_t err = cudaFuncSetAttribute(
-      realformer_attn_fwd_mma_kernel<NT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-  if (err != cudaSuccess) cudaGetLastError();  // must not fail the next launch
-  return err;
-}
-
-template <int NT>
 cudaError_t occupancy_nt(int T, int E, int* blocks) {
-  int smem;
-  cudaError_t err = prepare<NT>(T, E, &smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, realformer_attn_fwd_mma_kernel<NT>, 32 * warps_for(NT), smem);
+  return occupancy_of(realformer_attn_fwd_mma_kernel<NT>, 32 * warps_for(NT),
+                      (int)stage_bytes(T, 16 * NT, E), blocks);
 }
 
 template <int NT>
 cudaError_t launch_nt(const Args& a, cudaStream_t stream) {
-  int smem;
-  cudaError_t err = prepare<NT>(a.T, a.E, &smem);
-  if (err != cudaSuccess) return err;
-  realformer_attn_fwd_mma_kernel<NT>
-      <<<a.heads, 32 * warps_for(NT), smem, stream>>>(a);
-  return cudaGetLastError();
+  return launch_with_smem(realformer_attn_fwd_mma_kernel<NT>, a.heads,
+                          32 * warps_for(NT),
+                          (int)stage_bytes(a.T, 16 * NT, a.E), a, stream);
 }
 
 }  // namespace tc
+
+// ------------------------------------------------ fp32, tensor cores
+
+namespace tc32 {
+
+using namespace k2tc;
+
+struct Args {
+  const float *q, *k, *v;
+  const float* prev;  // may be null
+  const float* mask;  // may be null
+  float* carry;
+  float* ctx;
+  AttnStrides st;
+  int H, T, E;
+  float scale;  // 1 / sqrt(E)
+  int vec;      // 16-byte copies of q, k and v
+};
+
+// shared memory of one head: q, k, v as fp32 rows of ld32(E), then the flat
+// (T, T) fp32 block of prev, then of s
+inline size_t stage_bytes(int T, int Tp, int E) {
+  return 3 * 4 * (size_t)Tp * ld32(E) + 4 * (size_t)flat_floats(T);
+}
+
+// grid: one block a head; block 32 * warps_for(NT) threads; stage_bytes(T,
+// 16 NT, E) of shared memory. Tp = 16 NT >= T; E a multiple of 16. Warp
+// w < NT owns query rows [16 w, 16 w + 16): thread (g = lane / 4, t4 =
+// lane % 4) holds rows 16 w + g and + 8 of key tile j, columns 2 t4 and
+// 2 t4 + 1 of its m16n8 accumulators, which are keys 8 j + t4 and + 4
+// (kperm).
+template <int NT>
+__global__ void __launch_bounds__(32 * warps_for(NT))
+    realformer_attn_fwd_tf32x3_kernel(const Args a) {
+  constexpr int Tp = 16 * NT, NTH = 32 * warps_for(NT);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int T = a.T, E = a.E, LD = ld32(E);
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + Tp * LD;
+  float* vs = ks + Tp * LD;
+  float* flat = vs + Tp * LD;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long head = (long long)bh * T * T;
+  const int off = flat_offset(a.carry + head);
+
+  // three groups of copies, in the order the work needs them: q and k;
+  // prev (at the carry's offset within 16 bytes, as the bf16 kernel keeps
+  // it); v
+  stage32(a.q, a.st.q, b, h, T, Tp, E, qs, a.vec, a.q, tid, NTH);
+  stage32(a.k, a.st.k, b, h, T, Tp, E, ks, a.vec, a.q, tid, NTH);
+  commit();
+  if (a.prev) {
+    if (flat_offset(a.prev + head) == off) {
+      stage_flat(a.prev + head, T * T, flat, tid, NTH);
+    } else {
+      for (int i = tid; i < T * T; i += NTH) flat[off + i] = a.prev[head + i];
+    }
+  }
+  commit();
+  stage32(a.v, a.st.v, b, h, T, Tp, E, vs, a.vec, a.q, tid, NTH);
+  commit();
+
+  const int r0 = 16 * warp;
+  float p[2 * NT][4];  // s, then p
+  wait_groups<2>();
+  __syncthreads();  // q and k have landed
+  if (warp < NT) {
+    // s = q k^T over this warp's rows and every key, three TF32 products a
+    // product, summed into the accumulators (a contraction of E <= 128)
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[j][i] = 0.0f;
+    for (int e0 = 0; e0 < E; e0 += 8) {
+      tf32::FragA fa;
+      tf32::ldsm_a(fa, qs, LD, r0, e0, lane);
+#pragma unroll
+      for (int j2 = 0; j2 < NT; ++j2) {
+        tf32::FragB f0, f1;
+        ldsm_b2_keys(f0, f1, ks, LD, e0, 16 * j2, lane);
+        tf32::mma3_into(p[2 * j2], fa, f0);
+        tf32::mma3_into(p[2 * j2 + 1], fa, f1);
+      }
+    }
+  }
+  wait_groups<1>();
+  __syncthreads();  // prev has landed
+  if (warp < NT)
+    scores_to_flat<NT, true>(p, flat + off, a.prev != nullptr,
+                             a.mask ? a.mask + (long long)b * T : nullptr, T,
+                             r0, g, t4, a.scale);
+  wait_groups<0>();
+  __syncthreads();  // every row of s is in the flat block; v has landed
+  store_flat(flat, T * T, a.carry + head, tid, NTH);
+  if (warp < NT) {
+    softmax_rows<NT, true>(p);
+    // ctx = p v: key tile j is the k step j, p's A fragments straight from
+    // the accumulators, v's B fragments in natural key order
+    tf32::FragA pa[2 * NT];
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) acc_to_a(pa[j], p[j]);
+    for (int e0 = 0; e0 < E; e0 += 16) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        tf32::FragB f0, f1;
+        tf32::load_b(f0, vs, LD, 8 * j, e0, g, t4);
+        tf32::load_b(f1, vs, LD, 8 * j, e0 + 8, g, t4);
+        tf32::mma3_into(acc[0], pa[j], f0);
+        tf32::mma3_into(acc[1], pa[j], f1);
+      }
+      store_rows32(a.ctx, a.st.ctx, b, h, T, r0, e0, acc, 1.0f, lane);
+    }
+  }
+}
+
+template <int NT>
+cudaError_t occupancy_nt(int T, int E, int* blocks) {
+  return occupancy_of(realformer_attn_fwd_tf32x3_kernel<NT>,
+                      32 * warps_for(NT), (int)stage_bytes(T, 16 * NT, E),
+                      blocks);
+}
+
+template <int NT>
+cudaError_t launch_nt(const Args& a, int heads, cudaStream_t stream) {
+  return launch_with_smem(realformer_attn_fwd_tf32x3_kernel<NT>, heads,
+                          32 * warps_for(NT),
+                          (int)stage_bytes(a.T, 16 * NT, a.E), a, stream);
+}
+
+}  // namespace tc32
 
 }  // namespace mmvqa
 
 // q, k, v, ctx: (B, T, H, E) by element strides, given in `strides` as 16
 // int64 (q, k, v, ctx; each b, t, h, e). prev: (B, H, T, T) fp32 or null;
 // mask: (B, T) fp32 or null; scores: (B, H, T, T) fp32 out. path: 0 the
-// one-block kernel, 1 the tiled one, 2 the bf16 tensor-core kernel
-// (ops/attention.py::forward_path), which writes ctx by 16-byte stores.
+// one-block kernel, 1 the tiled one, 2 the tensor-core kernel of the dtype
+// (ops/attention.py::forward_path): bf16, which writes ctx by 16-byte
+// stores, or fp32 (split TF32), which writes it by 8-byte stores.
 extern "C" int realformer_attn_fwd(const void* q, const void* k, const void* v,
                                    const void* prev, const void* mask,
                                    void* scores, void* ctx,
@@ -601,19 +713,37 @@ extern "C" int realformer_attn_fwd(const void* q, const void* k, const void* v,
   const bool tiled = path == 1;
   cudaError_t err;
   if (path == 2) {
-    if (dtype != kBFloat16 || E % 16 != 0 || E < 16 || E > 128 ||
-        !tc::rows16(ctx, st.ctx))
+    if (E % 16 != 0 || E < 16 || E > 128)
       return static_cast<int>(cudaErrorInvalidValue);
-    using bf = __nv_bfloat16;
-    const tc::Args a{static_cast<const bf*>(q), static_cast<const bf*>(k),
-                     static_cast<const bf*>(v), pv, mk, sc,
-                     static_cast<bf*>(ctx), st, B * H, H, Tn, E,
-                     1.0f / sqrtf((float)E),
-                     tc::rows16(q, st.q) && tc::rows16(k, st.k) &&
-                         tc::rows16(v, st.v)};
-    err = tc::dispatch(Tn, [&](auto nt) {
-      return tc::launch_nt<decltype(nt)::value>(a, s);
-    });
+    if (dtype == kBFloat16) {
+      if (!tc::rows16(ctx, st.ctx))
+        return static_cast<int>(cudaErrorInvalidValue);
+      using bf = __nv_bfloat16;
+      const tc::Args a{static_cast<const bf*>(q), static_cast<const bf*>(k),
+                       static_cast<const bf*>(v), pv, mk, sc,
+                       static_cast<bf*>(ctx), st, B * H, H, Tn, E,
+                       1.0f / sqrtf((float)E),
+                       tc::rows16(q, st.q) && tc::rows16(k, st.k) &&
+                           tc::rows16(v, st.v)};
+      err = tc::dispatch(Tn, [&](auto nt) {
+        return tc::launch_nt<decltype(nt)::value>(a, s);
+      });
+    } else if (dtype == kFloat32) {
+      if (!tc32::pairs8(ctx, st.ctx))
+        return static_cast<int>(cudaErrorInvalidValue);
+      const tc32::Args a{static_cast<const float*>(q),
+                         static_cast<const float*>(k),
+                         static_cast<const float*>(v), pv, mk, sc,
+                         static_cast<float*>(ctx), st, H, Tn, E,
+                         1.0f / sqrtf((float)E),
+                         tc32::rows16(q, st.q, 4) && tc32::rows16(k, st.k, 4) &&
+                             tc32::rows16(v, st.v, 4)};
+      err = tc32::dispatch(Tn, [&](auto nt) {
+        return tc32::launch_nt<decltype(nt)::value>(a, B * H, s);
+      });
+    } else {
+      err = cudaErrorInvalidValue;
+    }
   } else if (dtype == kFloat32) {
     err = tiled ? launch_attn_tiled<float>(q, k, v, pv, mk, sc, ctx, st, B, H,
                                            Tn, E, s)
@@ -630,9 +760,15 @@ extern "C" int realformer_attn_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
-// Blocks of the tensor-core forward for (T, E) that an SM holds at once.
-extern "C" int realformer_attn_fwd_mma_occupancy(int Tn, int E, int* blocks) {
+// Blocks of the tensor-core forward of `dtype` (bf16 or fp32) for (T, E)
+// that an SM holds at once.
+extern "C" int realformer_attn_fwd_mma_occupancy(int dtype, int Tn, int E,
+                                                 int* blocks) {
   using namespace mmvqa;
+  if (dtype == kFloat32)
+    return static_cast<int>(tc32::dispatch(Tn, [&](auto nt) {
+      return tc32::occupancy_nt<decltype(nt)::value>(Tn, E, blocks);
+    }));
   return static_cast<int>(tc::dispatch(Tn, [&](auto nt) {
     return tc::occupancy_nt<decltype(nt)::value>(Tn, E, blocks);
   }));

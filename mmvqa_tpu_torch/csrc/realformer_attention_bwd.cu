@@ -593,21 +593,8 @@ __global__ void __launch_bounds__(32 * (NT < 4 ? 4 : NT))
   float p[2 * NT][4];   // p, then its terms go to shared memory
   float ds[2 * NT][4];  // dp, then ds
   if (warp < NT) {
-    // the carry rows into the accumulator layout (rows and keys past T:
-    // -inf, so p is 0 there)
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + g + 8 * half;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = 8 * j + 2 * t4 + c;
-          p[j][2 * half + c] =
-              (r < T && col < T) ? cflat[coff + r * T + col] : neg_inf();
-        }
-      }
-    }
+    // the carry rows into the accumulator layout
+    flat_to_acc<NT, false>(p, cflat + coff, T, r0, g, t4);
     softmax_rows<NT>(p);
 
     // dp = dctx v^T over this warp's rows and every key
@@ -738,30 +725,15 @@ __global__ void __launch_bounds__(32 * (NT < 4 ? 4 : NT))
 
 template <int NT>
 cudaError_t launch_nt(const Args& a, int B, cudaStream_t stream) {
-  auto kern = realformer_attn_bwd_mma_kernel<NT>;
-  const int smem = (int)smem_bytes(a.T, 16 * NT, a.E);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // the refusal must not fail the next launch
-    return err;
-  }
-  kern<<<B * a.H, 32 * warps_for(NT), smem, stream>>>(a);
-  return cudaGetLastError();
+  return launch_with_smem(realformer_attn_bwd_mma_kernel<NT>, B * a.H,
+                          32 * warps_for(NT),
+                          (int)smem_bytes(a.T, 16 * NT, a.E), a, stream);
 }
 
 template <int NT>
 cudaError_t occupancy_nt(int T, int E, int* blocks) {
-  auto kern = realformer_attn_bwd_mma_kernel<NT>;
-  const int smem = (int)smem_bytes(T, 16 * NT, E);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return err;
-  }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kern, 32 * warps_for(NT), smem);
+  return occupancy_of(realformer_attn_bwd_mma_kernel<NT>, 32 * warps_for(NT),
+                      (int)smem_bytes(T, 16 * NT, E), blocks);
 }
 
 // dq, dk, dv written two elements a store
@@ -772,6 +744,215 @@ inline bool pairs_ok(const void* p, const Strides4& s) {
 
 }  // namespace tc
 
+// ------------------------------------------------ fp32, tensor cores
+
+namespace tc32 {
+
+using namespace k2tc;
+
+// shared memory of a head: q, k, dctx as fp32 rows of ld32(E), then v and
+// the flat carry and dcarry blocks, whose place the p and ds tiles (Tp
+// query rows of ld32(Tp) keys each) take once ds is taken
+__host__ __device__ inline size_t smem_bytes(int T, int Tp, int E) {
+  const size_t rows = 4 * (size_t)Tp * ld32(E);
+  const size_t first = rows + 2 * 4 * (size_t)flat_floats(T);
+  const size_t tiles = 2 * 4 * (size_t)Tp * ld32(Tp);
+  return 3 * rows + (first > tiles ? first : tiles);
+}
+
+struct Args {
+  const float *q, *k, *v, *dctx;  // dctx may be null (zero)
+  const float* carry;
+  const float* dcarry;  // may be null (zero)
+  float *dq, *dk, *dv;
+  float* dprev;         // may be null (not wanted)
+  BwdStrides st;
+  int H, T, E;
+  float scale;
+  int vec;              // 16-byte copies of q, k, v and dctx
+};
+
+// grid (B * H), block 32 * warps_for(NT) threads, smem_bytes(T, 16 NT, E).
+// Tp = 16 NT >= T; E a multiple of 16. Warp w < NT owns query rows
+// [16 w, 16 w + 16): thread (g = lane / 4, t4 = lane % 4) holds rows 16 w + g
+// and + 8 of key tile j, columns 2 t4 and 2 t4 + 1 of its m16n8
+// accumulators, which are keys 8 j + t4 and + 4 (kperm).
+template <int NT>
+__global__ void __launch_bounds__(32 * warps_for(NT))
+    realformer_attn_bwd_tf32x3_kernel(const Args a) {
+  constexpr int Tp = 16 * NT, PT = ld32(Tp), NW = warps_for(NT);
+  constexpr int NTH = 32 * NW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int E = a.E, LD = ld32(E), T = a.T;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + Tp * LD;
+  float* dcs = ks + Tp * LD;
+  float* vs = dcs + Tp * LD;  // until ds is taken; then the p and ds tiles
+  float* cflat = vs + Tp * LD;
+  float* dflat = cflat + flat_floats(T);
+  float* pt = vs;
+  float* dst = pt + Tp * PT;
+
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long head = ((long long)b * a.H + h) * T * T;
+
+  // three groups of copies, in the order the work needs them: p and dp
+  // start while dcarry, q and k are still on their way
+  stage32(a.dctx, a.st.dctx, b, h, T, Tp, E, dcs, a.vec, a.q, tid, NTH);
+  stage32(a.v, a.st.v, b, h, T, Tp, E, vs, a.vec, a.q, tid, NTH);
+  const int coff = stage_flat(a.carry + head, T * T, cflat, tid, NTH);
+  commit();
+  const int doff =
+      a.dcarry ? stage_flat(a.dcarry + head, T * T, dflat, tid, NTH) : 0;
+  commit();
+  stage32(a.q, a.st.q, b, h, T, Tp, E, qs, a.vec, a.q, tid, NTH);
+  stage32(a.k, a.st.k, b, h, T, Tp, E, ks, a.vec, a.q, tid, NTH);
+  commit();
+  wait_groups<2>();
+  __syncthreads();
+
+  const int r0 = 16 * warp;
+  float p[2 * NT][4];   // p
+  float ds[2 * NT][4];  // dp, then ds
+  if (warp < NT) {
+    // the carry rows into the accumulator layout, keys in kperm order
+    flat_to_acc<NT, true>(p, cflat + coff, T, r0, g, t4);
+    softmax_rows<NT, true>(p);
+
+    // dp = dctx v^T over this warp's rows and every key, split TF32
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[j][i] = 0.0f;
+    for (int e0 = 0; e0 < E; e0 += 8) {
+      tf32::FragA fa;
+      tf32::ldsm_a(fa, dcs, LD, r0, e0, lane);
+#pragma unroll
+      for (int j2 = 0; j2 < NT; ++j2) {
+        tf32::FragB f0, f1;
+        ldsm_b2_keys(f0, f1, vs, LD, e0, 16 * j2, lane);
+        tf32::mma3_into(ds[2 * j2], fa, f0);
+        tf32::mma3_into(ds[2 * j2 + 1], fa, f1);
+      }
+    }
+  }
+  wait_groups<1>();
+  __syncthreads();  // dcarry has landed
+
+  if (warp < NT) {
+    // ds = p (dp - sum_keys(dp p)) + dcarry; dprev = ds. Written out here
+    // and in the bf16 kernel rather than shared: as one function in
+    // attention_tile.cuh it made this kernel 7% slower on the H100 at T=75,
+    // B=16
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float d = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
+        d = fmaf(ds[j][2 * half], p[j][2 * half],
+                 fmaf(ds[j][2 * half + 1], p[j][2 * half + 1], d));
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      const int r = r0 + g + 8 * half;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + t4 + 4 * c;
+          const bool in = r < T && col < T;
+          float x = p[j][2 * half + c] * (ds[j][2 * half + c] - d);
+          if (a.dcarry && in) x += dflat[doff + r * T + col];
+          if (a.dprev && in) a.dprev[head + r * T + col] = x;
+          ds[j][2 * half + c] = x;
+        }
+      }
+    }
+  }
+  wait_groups<0>();
+  __syncthreads();  // every warp is done with v, the carry and dcarry; q and
+                    // k have landed
+
+  if (warp < NT) {
+    // p and ds into their tiles (query rows, keys in natural order), for
+    // the transposed products
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = r0 + g + 8 * half, col = 8 * j + t4 + 4 * c;
+          *tf32::at(pt, PT, r, col) = p[j][2 * half + c];
+          *tf32::at(dst, PT, r, col) = ds[j][2 * half + c];
+        }
+      }
+    }
+    // dq = ds k / sqrt(E): key tile j is the k step j, ds's A fragments
+    // straight from the accumulators, k's B fragments in natural key order
+    tf32::FragA da[2 * NT];
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) acc_to_a(da[j], ds[j]);
+    for (int e0 = 0; e0 < E; e0 += 16) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        tf32::FragB f0, f1;
+        tf32::load_b(f0, ks, LD, 8 * j, e0, g, t4);
+        tf32::load_b(f1, ks, LD, 8 * j, e0 + 8, g, t4);
+        tf32::mma3_into(acc[0], da[j], f0);
+        tf32::mma3_into(acc[1], da[j], f1);
+      }
+      store_rows32(a.dq, a.st.dq, b, h, T, r0, e0, acc, a.scale, lane);
+    }
+  }
+  __syncthreads();  // p and ds staged
+
+  // dk = ds^T q / sqrt(E) and dv = p^T dctx: an item is one gradient's 16
+  // keys, their A fragments (every query step, from the tile read
+  // transposed) held in registers across the 16-column steps of E
+  for (int it = warp; it < 2 * NT; it += NW) {
+    const bool is_dv = it >= NT;
+    const int kt = is_dv ? it - NT : it;
+    const float* tile = is_dv ? pt : dst;
+    const float* bsrc = is_dv ? dcs : qs;
+    tf32::FragA fa[2 * NT];
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i)
+      tf32::load_a_t(fa[i], tile, PT, 16 * kt, 8 * i, g, t4);
+    for (int e0 = 0; e0 < E; e0 += 16) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int i = 0; i < 2 * NT; ++i) {
+        tf32::FragB f0, f1;
+        tf32::load_b(f0, bsrc, LD, 8 * i, e0, g, t4);
+        tf32::load_b(f1, bsrc, LD, 8 * i, e0 + 8, g, t4);
+        tf32::mma3_into(acc[0], fa[i], f0);
+        tf32::mma3_into(acc[1], fa[i], f1);
+      }
+      store_rows32(is_dv ? a.dv : a.dk, is_dv ? a.st.dv : a.st.dk, b, h, T,
+                   16 * kt, e0, acc, is_dv ? 1.0f : a.scale, lane);
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch_nt(const Args& a, int B, cudaStream_t stream) {
+  return launch_with_smem(realformer_attn_bwd_tf32x3_kernel<NT>, B * a.H,
+                          32 * warps_for(NT),
+                          (int)smem_bytes(a.T, 16 * NT, a.E), a, stream);
+}
+
+template <int NT>
+cudaError_t occupancy_nt(int T, int E, int* blocks) {
+  return occupancy_of(realformer_attn_bwd_tf32x3_kernel<NT>,
+                      32 * warps_for(NT), (int)smem_bytes(T, 16 * NT, E),
+                      blocks);
+}
+
+}  // namespace tc32
+
 }  // namespace k2bwd
 }  // namespace mmvqa
 
@@ -780,10 +961,10 @@ inline bool pairs_ok(const void* p, const Strides4& s) {
 // carry: (B, H, T, T) fp32, the forward's stored scores. dctx, dcarry: the
 // gradients of the forward's two outputs, either may be null (zero). dprev:
 // (B, H, T, T) fp32 out, or null where the layer had no prev. path: 0 the
-// fp32 one-block kernel, 1 the tiled kernels, 2 the bf16 tensor-core kernel
-// (ops/attention.py::backward_path). scratch, for the tiled kernels only:
-// (B, H, T, T) fp32 for ds where dprev is null, and (B, H, T, 2) fp32 for
-// the row statistics; null otherwise.
+// fp32 one-block kernel, 1 the tiled kernels, 2 the tensor-core kernel of
+// the dtype, bf16 or fp32 (split TF32) (ops/attention.py::backward_path).
+// scratch, for the tiled kernels only: (B, H, T, T) fp32 for ds where dprev
+// is null, and (B, H, T, 2) fp32 for the row statistics; null otherwise.
 extern "C" int realformer_attn_bwd(const void* q, const void* k, const void* v,
                                    const void* carry, const void* dctx,
                                    const void* dcarry, void* dq, void* dk,
@@ -808,7 +989,24 @@ extern "C" int realformer_attn_bwd(const void* q, const void* k, const void* v,
   auto ds = dp ? dp : static_cast<float*>(ds_scratch);
   auto sts = static_cast<float*>(stats);
   cudaError_t err;
-  if (path == 2) {
+  if (path == 2 && dtype == kFloat32) {
+    namespace tc32 = k2bwd::tc32;
+    if (E % 16 != 0 || E < 16 || E > 128 || !tc32::pairs8(dq, st.dq) ||
+        !tc32::pairs8(dk, st.dk) || !tc32::pairs8(dv, st.dv))
+      return static_cast<int>(cudaErrorInvalidValue);
+    using f = float;
+    const tc32::Args a{static_cast<const f*>(q), static_cast<const f*>(k),
+                       static_cast<const f*>(v), static_cast<const f*>(dctx),
+                       cr, dc, static_cast<f*>(dq), static_cast<f*>(dk),
+                       static_cast<f*>(dv), dp, st, H, Tn, E,
+                       1.0f / sqrtf((float)E),
+                       tc32::rows16(q, st.q, 4) && tc32::rows16(k, st.k, 4) &&
+                           tc32::rows16(v, st.v, 4) &&
+                           tc32::rows16(dctx, st.dctx, 4)};
+    err = tc32::dispatch(Tn, [&](auto nt) {
+      return tc32::launch_nt<decltype(nt)::value>(a, B, s);
+    });
+  } else if (path == 2) {
     namespace tc = k2bwd::tc;
     if (dtype != kBFloat16 || E % 16 != 0 || E < 16 ||
         !tc::pairs_ok(dq, st.dq) || !tc::pairs_ok(dk, st.dk) ||
@@ -842,9 +1040,15 @@ extern "C" int realformer_attn_bwd(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
-// Blocks of the tensor-core kernel for (T, E) that an SM holds at once.
-extern "C" int realformer_attn_bwd_mma_occupancy(int Tn, int E, int* blocks) {
+// Blocks of the tensor-core backward of `dtype` (bf16 or fp32) for (T, E)
+// that an SM holds at once.
+extern "C" int realformer_attn_bwd_mma_occupancy(int dtype, int Tn, int E,
+                                                 int* blocks) {
   using namespace mmvqa::k2bwd;
+  if (dtype == mmvqa::kFloat32)
+    return static_cast<int>(tc32::dispatch(Tn, [&](auto nt) {
+      return tc32::occupancy_nt<decltype(nt)::value>(Tn, E, blocks);
+    }));
   return static_cast<int>(tc::dispatch(Tn, [&](auto nt) {
     return tc::occupancy_nt<decltype(nt)::value>(Tn, E, blocks);
   }));

@@ -189,7 +189,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.realformer_attn_fwd_mma_occupancy.restype = _i
     lib.realformer_attn_fwd_mma_occupancy.argtypes = [
-        _i, _i, ctypes.POINTER(_i)]  # T, E, blocks an SM holds
+        _i, _i, _i, ctypes.POINTER(_i)]  # dtype, T, E, blocks an SM holds
     lib.realformer_attn_bwd.restype = _i
     lib.realformer_attn_bwd.argtypes = [
         _p, _p, _p, _p, _p, _p,     # q, k, v, carry, dctx, dcarry
@@ -201,7 +201,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.realformer_attn_bwd_mma_occupancy.restype = _i
     lib.realformer_attn_bwd_mma_occupancy.argtypes = [
-        _i, _i, ctypes.POINTER(_i)]  # T, E, blocks an SM holds
+        _i, _i, _i, ctypes.POINTER(_i)]  # dtype, T, E, blocks an SM holds
     # ops/tiling.py::DepthwisePlan: copy, vec, ct, tw, s, p, steps, ncol,
     # nstrip, groups, threads, smem
     dw_plan = [_i] * 12

@@ -17,10 +17,12 @@ semantics is exactly the forward's softmax input. The mask gets no gradient.
 
 Each direction has a kernel that holds a head's tiles in one block's shared
 memory (the flagship T=75 and T=28), and tiled kernels for any longer T,
-chosen by T and E alone (``fits_one_block``). In bf16 each direction takes a
-tensor-core kernel wherever a head fits it (``forward_path``,
-``backward_path``), the train path's T=75 and the eval path's T=28 among
-them.
+chosen by T and E alone (``fits_one_block``). In bf16 and in fp32 each
+direction takes a tensor-core kernel wherever a head fits it
+(``forward_path``, ``backward_path``), the train path's T=75 and the eval
+path's T=28 among them: bf16 products on ``mma.sync``, or in fp32 three TF32
+products a product (split TF32), which keep fp32's accuracy. At E=96 the
+fp32 forward takes T up to 128, the fp32 backward T up to 96.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.
@@ -46,6 +48,21 @@ SMEM_LIMIT = 232448  # shared memory one block can have on an H100 (227 KB)
 TILE = 32            # query rows or keys a block of the tiled kernels owns
 MMA_MAX_T = 128      # k2tc::kMaxTiles x 16: the tensor-core kernels' rows
 MMA_PAD = 8          # k2tc::kPad: bf16 elements past each of their staged rows
+
+
+def _tiles16(T: int) -> int:
+    """T padded to Tp, a multiple of 16: the tensor-core kernels' rows."""
+    return -(-T // 16) * 16
+
+
+def _ld32(n: int) -> int:
+    """k2tc::ld32: fp32 values a staged row holds, n rounded up to 32."""
+    return -(-n // 32) * 32
+
+
+def _flat_bytes(T: int) -> int:
+    """k2tc::flat_floats in bytes: a staged flat (T, T) fp32 block."""
+    return 4 * ((T * T + 6) // 4 * 4)
 
 
 def _one_block_bytes(T: int, E: int, backward: bool) -> int:
@@ -87,10 +104,9 @@ def mma_smem_bytes(T: int, E: int) -> int:
     v's rows and the flat fp32 carry and dcarry blocks, or, in their place
     once ds is taken, the four bf16 (Tp, Tp + 8) tiles of p and ds (hi and
     lo terms), whichever is larger; T padded to Tp, a multiple of 16."""
-    Tp = -(-T // 16) * 16
+    Tp = _tiles16(T)
     rows = 2 * Tp * (E + MMA_PAD)
-    flat = 4 * ((T * T + 6) // 4 * 4)
-    return 3 * rows + max(rows + 2 * flat, 8 * Tp * (Tp + MMA_PAD))
+    return 3 * rows + max(rows + 2 * _flat_bytes(T), 8 * Tp * (Tp + MMA_PAD))
 
 
 def forward_mma_smem_bytes(T: int, E: int) -> int:
@@ -98,32 +114,55 @@ def forward_mma_smem_bytes(T: int, E: int) -> int:
     csrc/realformer_attention.cu: q, k, v in bf16 rows of E + 8, then the
     flat fp32 (T, T) block of prev and s; T padded to Tp, a multiple of
     16."""
-    Tp = -(-T // 16) * 16
-    return 3 * 2 * Tp * (E + MMA_PAD) + 4 * ((T * T + 6) // 4 * 4)
+    return 3 * 2 * _tiles16(T) * (E + MMA_PAD) + _flat_bytes(T)
+
+
+def tf32x3_smem_bytes(T: int, E: int) -> int:
+    """Shared memory of the fp32 tensor-core backward, tc32::smem_bytes in
+    csrc/realformer_attention_bwd.cu: q, k, dctx as fp32 rows of E rounded
+    up to 32 (unpadded, swizzled); then v's rows and the flat carry and
+    dcarry blocks, or, in their place once ds is taken, the fp32 p and ds
+    tiles (Tp query rows of Tp rounded up to 32 keys), whichever is
+    larger."""
+    Tp = _tiles16(T)
+    rows = 4 * Tp * _ld32(E)
+    return 3 * rows + max(rows + 2 * _flat_bytes(T), 2 * 4 * Tp * _ld32(Tp))
+
+
+def forward_tf32x3_smem_bytes(T: int, E: int) -> int:
+    """Shared memory of the fp32 tensor-core forward, tc32::stage_bytes in
+    csrc/realformer_attention.cu: q, k, v as fp32 rows of E rounded up to
+    32, then the flat fp32 (T, T) block of prev and s."""
+    return 3 * 4 * _tiles16(T) * _ld32(E) + _flat_bytes(T)
 
 
 def _mma_shape(dtype: torch.dtype, T: int, E: int) -> bool:
-    return (dtype == torch.bfloat16 and E % 16 == 0 and 16 <= E <= 128
-            and T <= MMA_MAX_T)
+    return (dtype in (torch.bfloat16, torch.float32) and E % 16 == 0
+            and 16 <= E <= 128 and T <= MMA_MAX_T)
 
 
 def forward_path(dtype: torch.dtype, T: int, E: int) -> str:
     """The forward kernel for a head of (T, E) in ``dtype``: ``"mma"``, the
-    bf16 tensor-core kernel, where E is a multiple of 16 up to 128 and T at
-    most 128 (the largest such head, 166 KB, fits one block); else
-    ``"one_block"`` or ``"tiled"`` as ``fits_one_block`` says."""
-    if _mma_shape(dtype, T, E):
+    dtype's tensor-core kernel (bf16, or fp32 as split TF32), where E is a
+    multiple of 16 up to 128, T at most 128 and the head fits one block's
+    shared memory (bf16: every such head, the largest 166 KB; fp32: T up to
+    128 at E=96, up to 112 at E=128); else ``"one_block"`` or ``"tiled"``
+    as ``fits_one_block`` says."""
+    smem = (forward_tf32x3_smem_bytes if dtype == torch.float32
+            else forward_mma_smem_bytes)
+    if _mma_shape(dtype, T, E) and smem(T, E) <= SMEM_LIMIT:
         return "mma"
     return "one_block" if fits_one_block(T, E, backward=False) else "tiled"
 
 
 def backward_path(dtype: torch.dtype, T: int, E: int) -> str:
     """The backward kernel for a head of (T, E) in ``dtype``: ``"mma"``, the
-    bf16 tensor-core kernel, where E is a multiple of 16 up to 128, T at
-    most 128 and a head fits one block's shared memory (T up to 125 at
-    E=96); else ``"one_block"`` or ``"tiled"`` as ``fits_one_block``
-    says."""
-    if _mma_shape(dtype, T, E) and mma_smem_bytes(T, E) <= SMEM_LIMIT:
+    dtype's tensor-core kernel, where E is a multiple of 16 up to 128, T at
+    most 128 and a head fits one block's shared memory (at E=96: T up to
+    125 in bf16, up to 96 in fp32); else ``"one_block"`` or ``"tiled"`` as
+    ``fits_one_block`` says."""
+    smem = (tf32x3_smem_bytes if dtype == torch.float32 else mma_smem_bytes)
+    if _mma_shape(dtype, T, E) and smem(T, E) <= SMEM_LIMIT:
         return "mma"
     return "one_block" if fits_one_block(T, E, backward=True) else "tiled"
 
@@ -132,13 +171,15 @@ def backward_path(dtype: torch.dtype, T: int, E: int) -> str:
 PATH_CODES = {"one_block": 0, "tiled": 1, "mma": 2}
 
 
-def mma_occupancy(T: int, E: int, backward: bool) -> int:
-    """Blocks of the tensor-core backward (or forward) for (T, E) that an SM
-    of the current card holds at once."""
+def mma_occupancy(T: int, E: int, backward: bool,
+                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks of the tensor-core backward (or forward) of ``dtype`` for
+    (T, E) that an SM of the current card holds at once."""
     name = f"realformer_attn_{'bwd' if backward else 'fwd'}_mma"
     blocks = ctypes.c_int(0)
     loader.check(getattr(loader.library(), name + "_occupancy")(
-        T, E, ctypes.byref(blocks)), name + " occupancy")
+        loader.DTYPE_CODES[dtype], T, E, ctypes.byref(blocks)),
+        name + " occupancy")
     return blocks.value
 
 
@@ -209,7 +250,9 @@ def _launch(q, k, v, prev, query_mask):
         loader.stream_ptr(),
     )
     loader.check(code, "realformer_attn_fwd")
-    if path == "mma":
+    if path == "mma" and q.dtype == torch.float32:
+        realformer_attention.tf32x3_launches += 1
+    elif path == "mma":
         realformer_attention.mma_launches += 1
     return ctx, scores
 
@@ -281,7 +324,9 @@ def _launch_backward(kqv, carry, dctx, dcarry, want_dprev):
         PATH_CODES[path], loader.stream_ptr(),
     )
     loader.check(code, "realformer_attn_bwd")
-    if path == "mma":
+    if path == "mma" and kqv.dtype == torch.float32:
+        realformer_attention.backward_tf32x3_launches += 1
+    elif path == "mma":
         realformer_attention.backward_mma_launches += 1
     return dkqv, dprev
 
@@ -377,9 +422,13 @@ def realformer_attention(
 
 
 realformer_attention.launches = 0
-realformer_attention.mma_launches = 0  # of those, the tensor cores'
+# of each direction's launches, those on the tensor cores: bf16 (mma) and
+# fp32 (tf32x3, split TF32)
+realformer_attention.mma_launches = 0
+realformer_attention.tf32x3_launches = 0
 realformer_attention.backward_launches = 0
-realformer_attention.backward_mma_launches = 0  # of those, the tensor cores'
+realformer_attention.backward_mma_launches = 0
+realformer_attention.backward_tf32x3_launches = 0
 
 
 def vanilla_attention(

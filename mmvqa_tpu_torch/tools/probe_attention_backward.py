@@ -44,8 +44,9 @@ CUTS = {
         ("stage_flat(a.carry + head, T * T, cflat, tid, 32 * NW)", "0"),
         ("a.dcarry ? stage_flat(a.dcarry + head, T * T, dflat, tid, 32 * NW)"
          " : 0", "0"),
-        ("(r < T && col < T) ? cflat[coff + r * T + col] : neg_inf()",
-         "0.0f"),
+        ("    flat_to_acc<NT, false>(p, cflat + coff, T, r0, g, t4);\n",
+         "    for (int j = 0; j < 2 * NT; ++j)\n"
+         "      for (int i = 0; i < 4; ++i) p[j][i] = 0.0f;\n"),
         ("          if (a.dcarry && in) x += dflat[doff + r * T + col];\n",
          ""),
     ],
@@ -74,6 +75,7 @@ def main() -> None:
     from mmvqa_tpu_torch.ops import attention
     from mmvqa_tpu_torch.tools.probe_token_head_backward import (
         build_copies,
+        in_namespace,
         card_line,
     )
     from mmvqa_tpu_torch.tools.time_conv_bn import time_ms
@@ -88,7 +90,9 @@ def main() -> None:
         lib.realformer_attn_bwd.argtypes = (
             loader.library().realformer_attn_bwd.argtypes)
 
-    libs, _ = build_copies("realformer_attention_bwd.cu", CUTS, bind)
+    libs, _ = build_copies("realformer_attention_bwd.cu",
+                           in_namespace("realformer_attention_bwd.cu", "tc", CUTS),
+                           bind)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)

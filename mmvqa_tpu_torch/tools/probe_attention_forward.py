@@ -62,19 +62,23 @@ TWO_STAGES = """\
   }
 """
 GRID = """\
-  realformer_attn_fwd_mma_kernel<NT>
-      <<<a.heads, 32 * warps_for(NT), smem, stream>>>(a);
+  return launch_with_smem(realformer_attn_fwd_mma_kernel<NT>, a.heads,
+                          32 * warps_for(NT),
+                          (int)stage_bytes(a.T, 16 * NT, a.E), a, stream);
 """
 PERSISTENT_GRID = """\
+  const int smem = (int)(2 * stage_bytes(a.T, 16 * NT, a.E));
   int dev, sms, blocks;
+  cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
-      (err = occupancy_nt<NT>(a.T, a.E, &blocks)) != cudaSuccess)
+      (err = occupancy_of(realformer_attn_fwd_mma_kernel<NT>,
+                          32 * warps_for(NT), smem, &blocks)) != cudaSuccess)
     return err;
-  realformer_attn_fwd_mma_kernel<NT>
-      <<<sms * blocks < a.heads ? sms * blocks : a.heads,
-         32 * warps_for(NT), smem, stream>>>(a);
+  return launch_with_smem(realformer_attn_fwd_mma_kernel<NT>,
+                          sms * blocks < a.heads ? sms * blocks : a.heads,
+                          32 * warps_for(NT), smem, a, stream);
 """
 CUTS = {
     "base": [],
@@ -86,8 +90,6 @@ CUTS = {
         ("wait_groups<1>();", "wait_groups<4>();"),
         ("wait_groups<0>();", "wait_groups<3>();"),
         (ONE_HEAD, TWO_STAGES),
-        ("  *smem = (int)stage_bytes(T, 16 * NT, E);",
-         "  *smem = (int)(2 * stage_bytes(T, 16 * NT, E));"),
         (GRID, PERSISTENT_GRID),
     ],
     "single_term": [("        mma(acc[0][1], lo[j2], bf[j2][0], bf[j2][1]);\n"
@@ -119,6 +121,7 @@ def main() -> None:
     from mmvqa_tpu_torch.ops import attention
     from mmvqa_tpu_torch.tools.probe_token_head_backward import (
         build_copies,
+        in_namespace,
         card_line,
     )
     from mmvqa_tpu_torch.tools.time_conv_bn import time_ms
@@ -133,7 +136,9 @@ def main() -> None:
         lib.realformer_attn_fwd.argtypes = (
             loader.library().realformer_attn_fwd.argtypes)
 
-    libs, _ = build_copies("realformer_attention.cu", CUTS, bind)
+    libs, _ = build_copies("realformer_attention.cu",
+                           in_namespace("realformer_attention.cu", "tc", CUTS),
+                           bind)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)

@@ -115,6 +115,23 @@ def cut(src: str, name: str, edits) -> str:
     return src
 
 
+def in_namespace(source: str, namespace: str, variants):
+    """``variants`` ({name: edits}) with each variant's edits applied to the
+    block of ``namespace`` in ``csrc/<source>`` alone, as one edit of the
+    file: lines that the source also holds in another namespace (the
+    attention's bf16 kernels, tc, beside their fp32 ones, tc32) stay
+    unambiguous."""
+    from mmvqa_tpu_torch.native import loader
+
+    with open(os.path.join(loader.CSRC_DIR, source)) as f:
+        src = f.read()
+    start = src.index(f"namespace {namespace} {{")
+    end = src.index(f"}}  // namespace {namespace}\n", start)
+    block = src[start:end]
+    return {name: [(block, cut(block, name, edits))] if edits else []
+            for name, edits in variants.items()}
+
+
 def build_copies(source: str, variants, bind):
     """Copies of ``csrc/<source>`` edited by each variant's (old, new) pairs
     ({name: edits}), built into libraries of their own beside a copy of the

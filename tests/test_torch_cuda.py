@@ -61,6 +61,39 @@ def _gen(dev):
     return torch.Generator(device=dev).manual_seed(0)
 
 
+def _device_kernels(run, reps=10, counter=None):
+    """[(kernel name, launches a run)] of ``reps`` runs of ``run``, traced
+    by chip_smoke.py::traced (host and device activity; where the profiler
+    saw no device time, one trace more). On some machines the profiler
+    drops device records (F6, PERF.md §7: traces of one call came back
+    empty), which can only lower a count: a count read here is at most the
+    launches, so ``counter`` (a wrapper and the name of its launch counter)
+    must move by exactly ``reps`` in the trace that is read, one launch a
+    run as the wrapper counts them."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    def runs():
+        before = getattr(*counter) if counter else 0
+        for _ in range(reps):
+            run()
+        return (getattr(*counter) if counter else 0) - before
+
+    got = chip_smoke.traced(torch, runs, "card test")
+    assert got is not None, "the profiler saw no device time in two traces"
+    moved, _, prof = got
+    if counter:
+        assert moved == reps, (counter[1], moved, reps)
+    from torch.profiler import DeviceType
+
+    return [(e.key, e.count / reps) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
 # fp32: sums in another order (1e-4 relative over up to 4096 positions);
 # bf16: both round one fp32 value to bf16, up to two ulps apart
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
@@ -159,17 +192,12 @@ def test_token_head_bf16_forward_straddles_images(dev, act, B, P, K, C,
 def test_token_head_bf16_forward_is_one_kernel(dev):
     """The sums across blocks are added inside the kernel: a profiled
     forward shows one kernel and no token_head_finalize."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
     x, w, _ = _token_head_inputs(dev, torch.bfloat16, 8, 56 * 56, 48, 768,
                                  "nhwc")
     fused_token_head(x, w, "serf_fast")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fused_token_head(x, w, "serf_fast")
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
+    names = [key for key, _ in _device_kernels(
+        lambda: fused_token_head(x, w, "serf_fast"),
+        counter=(fused_token_head, "launches"))]
     ours = [n for n in names if "token_head" in n]
     assert len(ours) == 1 and "token_head_fwd_mma" in ours[0], names
 
@@ -313,23 +341,21 @@ def test_attention_bf16_forward_tensor_core_kernel_matches_plain(
 
 def test_attention_bf16_forward_is_one_tensor_core_kernel(dev):
     """At the train shape the forward launches realformer_attn_fwd_mma
-    alone; fp32 keeps its one-block kernel."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
+    alone, once a call; fp32 its split-TF32 kernel,
+    realformer_attn_fwd_tf32x3."""
     q, k, v, prev, mask = _k2_fwd_case(dev, 8, 75, 8, 96, "packed", True,
                                        True)
     for dtype, want in ((torch.bfloat16, "realformer_attn_fwd_mma"),
-                        (torch.float32, "realformer_attn_fwd_kernel")):
+                        (torch.float32, "realformer_attn_fwd_tf32x3")):
         args = [t.to(dtype) for t in (q, k, v)]
         realformer_attention(*args, prev, mask)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            realformer_attention(*args, prev, mask)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and "realformer_attn_fwd" in e.key]
-        assert len(names) == 1 and want in names[0], names
+        ours = [(key, n) for key, n in _device_kernels(
+            lambda: realformer_attention(*args, prev, mask),
+            counter=(realformer_attention, "mma_launches"
+                     if dtype == torch.bfloat16 else "tf32x3_launches"))
+            if "realformer_attn_fwd" in key]
+        assert (len(ours) == 1 and want in ours[0][0]
+                and 0 < ours[0][1] <= 1), ours
 
 
 # ------------------------------------------------------- backward ----
@@ -505,17 +531,12 @@ def test_token_head_backward_kernel_is_deterministic(dev, dtype):
 def test_token_head_backward_is_one_kernel(dev):
     """dW's partials are summed inside the backward kernel: a profiled
     backward shows the one kernel and no token_head_dw_reduce."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
     x, w, gout = _token_head_inputs(dev, torch.bfloat16, 8, 56 * 56, 48, 768,
                                     "nhwc")
     token_head_backward(x, w, gout, "serf_fast")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        token_head_backward(x, w, gout, "serf_fast")
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
+    names = [key for key, _ in _device_kernels(
+        lambda: token_head_backward(x, w, gout, "serf_fast"),
+        counter=(fused_token_head, "backward_launches"))]
     ours = [n for n in names if "token_head" in n]
     assert len(ours) == 1 and "token_head_bwd" in ours[0], names
     assert not any("dw_reduce" in n for n in names), names
@@ -625,14 +646,15 @@ def test_attention_autograd_goes_through_the_kernels(dev, dtype, T, H, E,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [99, 100, 128, 200, 512])
+@pytest.mark.parametrize("T", [97, 99, 100, 128, 130, 200, 512])
 @pytest.mark.parametrize("with_prev,with_mask", [(False, False), (True, True)])
 def test_attention_long_sequences_match_plain(dev, dtype, T, with_prev,
                                               with_mask):
-    """Around and beyond what one block's shared memory holds (the backward
-    at T=99 in one block, T=100 tiled; the forward at T=128 in one block,
-    T=200 tiled): forward and backward against the plain versions, at the
-    flagship's 8 heads of 96."""
+    """Around and beyond what one block's shared memory holds (the fp32
+    backward at T=97 and 99 in one block, T=100 tiled; the forward at T=128
+    on the tensor cores, at T=130 in one block, T=200 tiled): forward and
+    backward against the plain versions, at the flagship's 8 heads of
+    96."""
     g = _gen(dev)
     B, H, E = 2, 8, 96
     kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g).to(dtype)
@@ -748,23 +770,202 @@ def test_attention_bf16_backward_tensor_core_kernel_matches_plain(
 
 def test_attention_bf16_backward_is_one_tensor_core_kernel(dev):
     """At the train shape the backward launches realformer_attn_bwd_mma
-    alone; fp32 keeps its one-block kernel."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
+    alone, once a call; fp32 its split-TF32 kernel,
+    realformer_attn_bwd_tf32x3."""
     kqv, q, k, v, carry, g = _k2_bwd_case(dev, 8, 75, "packed", True, True)
     dctx = torch.randn(8, 75, 8, 96, device=dev, generator=g).bfloat16()
-    realformer_attention_backward(kqv, carry, dctx, carry, True)
-    torch.cuda.synchronize()
     for dtype, want in ((torch.bfloat16, "realformer_attn_bwd_mma"),
-                        (torch.float32, "realformer_attn_bwd_kernel")):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            realformer_attention_backward(kqv.to(dtype), carry,
-                                          dctx.to(dtype), carry, True)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and "realformer_attn_bwd" in e.key]
-        assert len(names) == 1 and want in names[0], names
+                        (torch.float32, "realformer_attn_bwd_tf32x3")):
+        args = (kqv.to(dtype), carry, dctx.to(dtype), carry, True)
+        realformer_attention_backward(*args)
+        ours = [(key, n) for key, n in _device_kernels(
+            lambda: realformer_attention_backward(*args),
+            counter=(realformer_attention, "backward_mma_launches"
+                     if dtype == torch.bfloat16
+                     else "backward_tf32x3_launches"))
+            if "realformer_attn_bwd" in key]
+        assert (len(ours) == 1 and want in ours[0][0]
+                and 0 < ours[0][1] <= 1), ours
+
+
+# ------------------------------------ fp32 on the tensor cores ----
+
+# chip_smoke.py's fp32 tolerances: TOL_K2_CARRY, TOL_K2_VALID (ctx on the
+# valid query rows), TOL_K2_PADDED (every row: the -10000 term's fp32 ulp)
+# and TOL_K2_BWD (dq, dk, dv, dprev)
+K2_CARRY = dict(rtol=2e-5, atol=2e-4)
+K2_VALID = dict(rtol=2e-5, atol=2e-5)
+K2_PADDED = dict(rtol=5e-3, atol=2e-3)
+K2_BWD = dict(rtol=5e-4, atol=5e-5)
+
+
+def _k2_fp32_case(dev, B, T, layout, with_prev, with_mask, E=96):
+    """fp32 kqv (B, T, 8, 3E) laid out as the train step gives it
+    ("packed"), as a (B, H, T, 3E) buffer's permuted view ("strided"), or
+    one element past a 16-byte boundary ("unaligned": the kernels' element
+    copies; prev then one float off the carry's offset within 16 bytes, so
+    it comes in by plain loads too); prev or None; a ragged mask or None,
+    and the valid query rows."""
+    g = _gen(dev)
+    H = 8
+    if layout == "strided":
+        kqv = torch.randn(B, H, T, 3 * E, device=dev, generator=g)
+        kqv = kqv.permute(0, 2, 1, 3)
+    elif layout == "unaligned":
+        flat = torch.randn(B * T * H * 3 * E + 1, device=dev, generator=g)
+        kqv = flat[1:].view(B, T, H, 3 * E)
+    else:
+        kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g)
+    prev = None
+    if with_prev:
+        prev = torch.randn(B * H * T * T + 1, device=dev, generator=g)
+        prev = (prev[1:] if layout == "unaligned" else prev[:-1]).view(
+            B, H, T, T)
+    mask = None
+    valid = torch.ones(B, T, dtype=torch.bool, device=dev)
+    if with_mask:
+        lengths = torch.randint(1, T + 1, (B,), device=dev, generator=g)
+        valid = torch.arange(T, device=dev)[None] < lengths[:, None]
+        mask = valid.float()
+    return kqv, prev, mask, valid, g
+
+
+def _counts(*attrs):
+    return tuple(getattr(realformer_attention, a) for a in attrs)
+
+
+@pytest.mark.parametrize("T", [1, 17, 28, 33, 75, 96, 128])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("layout", ["packed", "strided", "unaligned"])
+@pytest.mark.parametrize("with_prev,with_mask", [
+    (False, False), (False, True), (True, True)])
+def test_attention_fp32_forward_tensor_core_kernel_matches_plain(
+        dev, T, B, layout, with_prev, with_mask):
+    """The split-TF32 forward against the plain version at ragged T up to
+    the longest it takes at E=96 (128), at one image too: the carry within
+    K2_CARRY, ctx within K2_VALID on the valid rows and K2_PADDED on all;
+    two runs give the same bits; one launch a call, on its own counter."""
+    assert forward_path(torch.float32, T, 96) == "mma"
+    kqv, prev, mask, valid, _ = _k2_fp32_case(dev, B, T, layout, with_prev,
+                                              with_mask)
+    k, q, v = kqv.split(96, dim=-1)
+    attrs = ("launches", "mma_launches", "tf32x3_launches")
+    before = _counts(*attrs)
+    ctx, carry = realformer_attention(q, k, v, prev, mask)
+    again = realformer_attention(q, k, v, prev, mask)
+    torch.cuda.synchronize()
+    assert _counts(*attrs) == (before[0] + 2, before[1], before[2] + 2)
+    assert torch.equal(again[0], ctx) and torch.equal(again[1], carry)
+    ctx_p, carry_p = realformer_attention_reference(q, k, v, prev, mask)
+    torch.testing.assert_close(carry, carry_p, **K2_CARRY)
+    torch.testing.assert_close(ctx[valid], ctx_p[valid], **K2_VALID)
+    torch.testing.assert_close(ctx, ctx_p, **K2_PADDED)
+
+
+@pytest.mark.parametrize("T", [1, 17, 28, 33, 75, 96])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("layout", ["packed", "strided", "unaligned"])
+@pytest.mark.parametrize("with_prev,with_mask,with_dctx,with_dcarry", [
+    (False, False, True, False), (False, True, True, True),
+    (True, True, True, True), (True, True, True, False),
+    (True, False, False, True)])
+def test_attention_fp32_backward_tensor_core_kernel_matches_plain(
+        dev, T, B, layout, with_prev, with_mask, with_dctx, with_dcarry):
+    """The split-TF32 backward against the plain version at ragged T up to
+    the longest it takes at E=96 (96), at one image too, from the kernel's
+    own carry: dq, dk, dv and dprev within K2_BWD; dctx a strided view or
+    None; two runs give the same bits; one launch a call, on its own
+    counter."""
+    assert backward_path(torch.float32, T, 96) == "mma"
+    E = 96
+    kqv, prev, mask, _, g = _k2_fp32_case(dev, B, T, layout, with_prev,
+                                          with_mask)
+    k, q, v = kqv.split(E, dim=-1)
+    _, carry = realformer_attention(q, k, v, prev, mask)
+    dctx = None
+    if with_dctx:  # the output projection's gradient as a strided view
+        dctx = torch.randn(B, T, 8, 2 * E, device=dev, generator=g)
+        dctx = dctx[..., E // 2:E // 2 + E]
+    dcarry = (0.1 * torch.randn(B, 8, T, T, device=dev, generator=g)
+              if with_dcarry else None)
+    attrs = ("backward_launches", "backward_mma_launches",
+             "backward_tf32x3_launches")
+    before = _counts(*attrs)
+    dkqv, dprev = realformer_attention_backward(kqv, carry, dctx, dcarry,
+                                                with_prev)
+    again = realformer_attention_backward(kqv, carry, dctx, dcarry,
+                                          with_prev)
+    torch.cuda.synchronize()
+    assert _counts(*attrs) == (before[0] + 2, before[1], before[2] + 2)
+    assert torch.equal(again[0], dkqv)
+    dq, dk, dv, ds = realformer_attention_backward_reference(
+        q, k, v, carry, dctx, dcarry)
+    torch.testing.assert_close(dkqv, torch.cat([dk, dq, dv], dim=-1),
+                               **K2_BWD)
+    if with_prev:
+        assert torch.equal(again[1], dprev)
+        torch.testing.assert_close(dprev, ds, **K2_BWD)
+    else:
+        assert dprev is None
+
+
+@pytest.mark.parametrize("E,T", [(16, 17), (16, 128), (48, 75), (64, 96),
+                                 (128, 33), (128, 80), (128, 112)])
+def test_attention_fp32_tensor_core_kernels_at_other_widths(dev, E, T):
+    """Head widths other than the flagship's, rows of E rounded up to 32
+    (E=16 and 48 read padded columns), the backward at T=128 where E=16,
+    up to the longest head each direction takes at E=128 (forward T=112,
+    backward T=80), with prev and a ragged mask: one launch each way on the
+    split-TF32 kernels where backward_path sends it there, within the fp32
+    tolerances."""
+    assert forward_path(torch.float32, T, E) == "mma"
+    kqv, prev, mask, valid, g = _k2_fp32_case(dev, 3, T, "packed", True,
+                                              True, E)
+    k, q, v = kqv.split(E, dim=-1)
+    before = _counts("tf32x3_launches", "backward_tf32x3_launches")
+    ctx, carry = realformer_attention(q, k, v, prev, mask)
+    ctx_p, carry_p = realformer_attention_reference(q, k, v, prev, mask)
+    torch.testing.assert_close(carry, carry_p, **K2_CARRY)
+    torch.testing.assert_close(ctx[valid], ctx_p[valid], **K2_VALID)
+    torch.testing.assert_close(ctx, ctx_p, **K2_PADDED)
+    backward = backward_path(torch.float32, T, E) == "mma"
+    if backward:
+        dctx = torch.randn(3, T, 8, E, device=dev, generator=g)
+        dcarry = 0.1 * torch.randn(3, 8, T, T, device=dev, generator=g)
+        dkqv, dprev = realformer_attention_backward(kqv, carry, dctx, dcarry,
+                                                    True)
+        dq, dk, dv, ds = realformer_attention_backward_reference(
+            q, k, v, carry, dctx, dcarry)
+        torch.testing.assert_close(dkqv, torch.cat([dk, dq, dv], dim=-1),
+                                   **K2_BWD)
+        torch.testing.assert_close(dprev, ds, **K2_BWD)
+    torch.cuda.synchronize()
+    assert _counts("tf32x3_launches", "backward_tf32x3_launches") == (
+        before[0] + 1, before[1] + int(backward))
+
+
+def test_attention_fp32_occupancy_follows_the_shared_memory_formulas(dev):
+    """The card's answer for the split-TF32 kernels at E=96 against
+    ops/attention.py's shared-memory formulas: at the train shape (T=75)
+    the forward holds what its shared memory allows of an SM's 228 KB, a
+    block's 1 KB reserve included (two), the backward one; the longest
+    heads each direction takes (T=128 and T=96) get a block; the backward
+    at T=97 is refused."""
+    from mmvqa_tpu_torch.ops.attention import (
+        forward_tf32x3_smem_bytes,
+        mma_occupancy,
+        tf32x3_smem_bytes,
+    )
+
+    f32 = torch.float32
+    assert mma_occupancy(75, 96, False, f32) == 233472 // (
+        forward_tf32x3_smem_bytes(75, 96) + 1024) == 2
+    assert mma_occupancy(75, 96, True, f32) == 233472 // (
+        tf32x3_smem_bytes(75, 96) + 1024) == 1
+    assert mma_occupancy(128, 96, False, f32) >= 1
+    assert mma_occupancy(96, 96, True, f32) >= 1
+    with pytest.raises(RuntimeError):
+        mma_occupancy(97, 96, True, f32)
 
 
 # ------------------------------------------- the trunk's kernels ----
@@ -890,19 +1091,14 @@ def test_depthwise_copy_paths_give_the_same_bits(dev, dtype, B, H, W, C):
 def test_depthwise_backward_is_one_kernel(dev):
     """dW's partials are added inside the backward kernel: no second kernel
     runs, and the tile counters are back at zero after the call."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
     from mmvqa_tpu_torch.ops import depthwise
 
     x, w, dy = _depthwise_inputs(dev, torch.bfloat16, "master", 16, 14, 14,
                                  1056)
     depthwise3x3_backward(x, w, dy)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        depthwise3x3_backward(x, w, dy)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
+    names = [key for key, _ in _device_kernels(
+        lambda: depthwise3x3_backward(x, w, dy),
+        counter=(depthwise3x3, "backward_launches"))]
     assert any("depthwise3x3_bwd" in n for n in names), names
     assert not any("dw_reduce" in n for n in names), names
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -1049,7 +1245,6 @@ def test_conv1x1_stats_tma_path_is_one_kernel_on_two_streams(dev):
     """No reduce kernel on the TMA path; calls queued on two streams at once
     count into their own stream's counters and give the default stream's
     bits."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
     from mmvqa_tpu_torch.ops import conv_bn
 
     g = _gen(dev)
@@ -1060,12 +1255,9 @@ def test_conv1x1_stats_tma_path_is_one_kernel_on_two_streams(dev):
              * K ** -0.5).bfloat16().t()
         cases.append((x, w))
     want = [conv1x1_stats(x, w) for x, w in cases]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        conv1x1_stats(*cases[0])
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
+    names = [key for key, _ in _device_kernels(
+        lambda: conv1x1_stats(*cases[0]),
+        counter=(conv1x1_stats, "tma_launches"))]
     assert [n for n in names if "conv1x1" in n] == [
         n for n in names if "conv1x1_stats_tma" in n] != [], names
     streams = [torch.cuda.Stream(dev) for _ in cases]
@@ -1116,7 +1308,6 @@ def test_bn_backward_sums_is_one_launch(dev, dtype, C, aligned):
     thread), on a map one element past a 16-byte boundary too: one kernel
     and no reduce kernel, the plain version's sums, two runs bit for bit,
     the counters back at 0."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
     from mmvqa_tpu_torch.ops import bn_sums
 
     g = _gen(dev)
@@ -1127,14 +1318,15 @@ def test_bn_backward_sums_is_one_launch(dev, dtype, C, aligned):
     mean = torch.randn(C, device=dev, generator=g)
     inv_std = 1 + torch.rand(C, device=dev, generator=g)
     s1, s2 = bn_backward_sums(x, dy, mean, inv_std)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again = bn_backward_sums(x, dy, mean, inv_std)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "bn_backward" in e.key]
-    assert len(names) == 1 and "bn_backward_sums_kernel" in names[0], names
-    assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+    runs = []
+    ours = [(key, n) for key, n in _device_kernels(
+        lambda: runs.append(bn_backward_sums(x, dy, mean, inv_std)),
+        counter=(bn_backward_sums, "launches"))
+        if "bn_backward" in key]
+    assert (len(ours) == 1 and "bn_backward_sums_kernel" in ours[0][0]
+            and 0 < ours[0][1] <= 1), ours
+    for again in runs:
+        assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
     p1, p2 = bn_backward_sums_reference(x, dy, mean, inv_std)
     _normwise(s1, p1, 1e-4)
     _normwise(s2, p2, 1e-4)
@@ -1552,27 +1744,14 @@ def test_conv1x1_stats_fp32_is_one_kernel_on_two_streams(dev):
     """No reduce kernel in fp32 either: the last block of a column tile adds
     the partials. Calls queued on two streams at once count into their own
     stream's counters and give the default stream's bits."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
     from mmvqa_tpu_torch.ops import conv_bn
 
     cases = [_k4_fp32_inputs(dev, *shape, "t")
              for shape in ((25088, 176, 1056), (784, 1824, 304),
                            (100352, 320, 80))]
     want = [conv1x1_stats(x, w) for x, w in cases]
-    torch.cuda.synchronize()
-    # the profiler drops the records of short traces on some machines
-    # (chip_smoke.py::profiled): twenty calls a trace, one more trace where
-    # the first kept none
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for x, w in cases:
-                for _ in range(10):
-                    conv1x1_stats(x, w)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA]
-        if any("conv1x1" in n for n in names):
-            break
+    names = [key for key, _ in _device_kernels(
+        lambda: [conv1x1_stats(x, w) for x, w in cases])]
     assert [n for n in names if "conv1x1" in n] == [
         n for n in names if "conv1x1_stats_tf32x3" in n] != [], names
     streams = [torch.cuda.Stream(dev) for _ in cases]
@@ -1674,9 +1853,9 @@ def test_token_head_fp32_backward_on_three_streams_at_once(dev):
 
 def test_fp32_train_step_takes_the_split_tf32_kernels(dev):
     """The CLIs' default step, fp32 at B=16, the flagship MLM model: through
-    autograd every one of its 98 conv1x1 + statistics launches and 5
-    token-head backward launches takes its split-TF32 kernel, and the loss
-    is finite."""
+    autograd every one of its 98 conv1x1 + statistics launches, 5
+    token-head backward launches and 4 attention launches each way takes
+    its split-TF32 kernel, and the loss is finite."""
     from mmvqa_tpu_torch.core.config import pretrain_config
     from mmvqa_tpu_torch.data.synthetic import mlm_batches
     from mmvqa_tpu_torch.models import MMBert
@@ -1692,12 +1871,16 @@ def test_fp32_train_step_takes_the_split_tf32_kernels(dev):
     batch = mlm_batches(cfg, 1, 0)[0]
     counters = ((conv1x1_stats, "launches"), (conv1x1_stats, "tf32x3_launches"),
                 (fused_token_head, "backward_launches"),
-                (fused_token_head, "backward_tf32x3_launches"))
+                (fused_token_head, "backward_tf32x3_launches"),
+                (realformer_attention, "launches"),
+                (realformer_attention, "tf32x3_launches"),
+                (realformer_attention, "backward_launches"),
+                (realformer_attention, "backward_tf32x3_launches"))
     before = [getattr(fn, attr) for fn, attr in counters]
     state, m = step(state, batch)
     torch.cuda.synchronize()
     assert [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)
-            ] == [98, 98, 5, 5]
+            ] == [98, 98, 5, 5, 4, 4, 4, 4]
     assert torch.isfinite(torch.as_tensor(m["loss"]))
 
 
@@ -1773,12 +1956,7 @@ def test_token_head_fp32_forward_is_one_kernel(dev):
     """The sums across blocks and across K's slices are added inside the
     kernel: a profiled fp32 forward, at a resident tap and at a deep tap
     whose K the plan cuts, shows one launch of token_head_fwd_tf32x3 and no
-    partial or finalize kernel. The profiler drops kernel records on some
-    machines (PERF.md §7): a trace in which it saw no device event checks
-    nothing and is taken again, up to three times a case
-    (chip_smoke.py::profiled retries too)."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
+    partial or finalize kernel (traced as _device_kernels traces)."""
     from mmvqa_tpu_torch.ops import token_head
 
     for P, K in ((56 * 56, 48), (7 * 7, 2048)):
@@ -1787,18 +1965,12 @@ def test_token_head_fp32_forward_is_one_kernel(dev):
         plan = token_head._fp32_forward_plan(x, K, 768, "serf")
         assert (plan.ks > 1) == (K == 2048)
         fused_token_head(x, w, "serf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fused_token_head(x, w, "serf")
-                torch.cuda.synchronize()
-            events = [(e.key, e.count) for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA]
-            if events:
-                break
+        events = _device_kernels(lambda: fused_token_head(x, w, "serf"),
+                                 counter=(fused_token_head,
+                                          "tf32x3_launches"))
         ours = [(key, n) for key, n in events if "token_head" in key]
         assert (len(ours) == 1 and "token_head_fwd_tf32x3" in ours[0][0]
-                and ours[0][1] == 1), events
+                and 0 < ours[0][1] <= 1), events
 
 
 def test_token_head_fp32_forward_keeps_a_shared_memory_grant(dev):
@@ -2009,8 +2181,9 @@ def test_token_head_fp32_backward_at_one_image_matches_plain(dev, K):
 @pytest.mark.parametrize("with_prev", [False, True])
 def test_attention_fp32_at_one_image_matches_plain(dev, with_prev):
     """K2 in fp32 at B=1, T=28, 8 heads of 96 (the flagship's encoder in the
-    Grad-CAM CLI), a padded question: forward and backward, dprev where the
-    layer has a prev, at the smoke's fp32 tolerances."""
+    Grad-CAM CLI), a padded question: forward and backward, each one launch
+    of its split-TF32 kernel, dprev where the layer has a prev, at the
+    smoke's fp32 tolerances."""
     g = _gen(dev)
     B, T, H, E = 1, 28, 8, 96
     kqv = torch.randn(B, T, H, 3 * E, device=dev, generator=g)
@@ -2019,10 +2192,11 @@ def test_attention_fp32_at_one_image_matches_plain(dev, with_prev):
             if with_prev else None)
     mask = (torch.arange(T, device=dev) < 19).float()[None]
     valid = mask.bool()
-    before = realformer_attention.launches
+    before = _counts("launches", "tf32x3_launches")
     ctx, carry = realformer_attention(q, k, v, prev, mask)
     torch.cuda.synchronize()
-    assert realformer_attention.launches == before + 1
+    assert _counts("launches", "tf32x3_launches") == (before[0] + 1,
+                                                      before[1] + 1)
     ctx_p, carry_p = realformer_attention_reference(q, k, v, prev, mask)
     torch.testing.assert_close(carry, carry_p, rtol=2e-5, atol=2e-4)
     torch.testing.assert_close(ctx[valid], ctx_p[valid], rtol=2e-5,
@@ -2031,11 +2205,12 @@ def test_attention_fp32_at_one_image_matches_plain(dev, with_prev):
     dctx = torch.randn(B, T, H, E, device=dev, generator=g)
     dcarry = (0.1 * torch.randn(B, H, T, T, device=dev, generator=g)
               if with_prev else None)
-    before = realformer_attention.backward_launches
+    attrs = ("backward_launches", "backward_tf32x3_launches")
+    before = _counts(*attrs)
     dkqv, dprev = realformer_attention_backward(kqv, carry, dctx, dcarry,
                                                 with_prev)
     torch.cuda.synchronize()
-    assert realformer_attention.backward_launches == before + 1
+    assert _counts(*attrs) == (before[0] + 1, before[1] + 1)
     dq_p, dk_p, dv_p, ds_p = realformer_attention_backward_reference(
         q, k, v, carry, dctx, dcarry)
     torch.testing.assert_close(dkqv, torch.cat([dk_p, dq_p, dv_p], -1),

@@ -42,10 +42,12 @@ from mmvqa_tpu_torch.ops.attention import (
     fits_one_block,
     forward_mma_smem_bytes,
     forward_path,
+    forward_tf32x3_smem_bytes,
     mma_smem_bytes,
     realformer_attention,
     realformer_attention_backward_reference,
     realformer_attention_reference,
+    tf32x3_smem_bytes,
 )
 from mmvqa_tpu_torch.ops.token_head import (
     FP32_FWD_RESIDENT,
@@ -675,8 +677,12 @@ def test_attention_bf16_backward_needs_both_terms(rng, T):
     (torch.bfloat16, 512, 96, "tiled"),
     (torch.bfloat16, 33, 40, "one_block"),  # E no multiple of 16
     (torch.bfloat16, 75, 144, "one_block"),  # E beyond 128
-    (torch.float32, 75, 96, "one_block"),  # the fp32 check's kernel
-    (torch.float32, 28, 96, "one_block"),
+    (torch.float32, 75, 96, "mma"),        # the CLIs' fp32 train path
+    (torch.float32, 28, 96, "mma"),        # and its eval length
+    (torch.float32, 96, 96, "mma"),        # the longest it takes at E=96
+    (torch.float32, 97, 96, "one_block"),  # 242 KB: beyond one block
+    (torch.float32, 80, 128, "mma"),       # the longest it takes at E=128
+    (torch.float32, 81, 128, "one_block"),
     (torch.float32, 200, 96, "tiled"),
 ])
 def test_attention_backward_path_follows_dtype_t_and_e(dtype, T, E, path):
@@ -869,8 +875,12 @@ def test_attention_bf16_kernels_hold_with_the_approximate_exponent(
     (torch.bfloat16, 33, 40, "one_block"),   # E no multiple of 16
     (torch.bfloat16, 75, 8, "one_block"),
     (torch.bfloat16, 75, 144, "one_block"),  # E beyond 128
-    (torch.float32, 75, 96, "one_block"),    # the fp32 checks' kernel
-    (torch.float32, 28, 96, "one_block"),
+    (torch.float32, 75, 96, "mma"),          # the CLIs' fp32 train path
+    (torch.float32, 28, 96, "mma"),          # and its eval path
+    (torch.float32, 128, 96, "mma"),         # the longest it takes at E=96
+    (torch.float32, 112, 128, "mma"),        # ... and at E=128
+    (torch.float32, 113, 128, "one_block"),  # 242 KB: beyond one block
+    (torch.float32, 33, 40, "one_block"),    # E no multiple of 16
     (torch.float32, 512, 96, "tiled"),
 ])
 def test_attention_forward_path_follows_dtype_t_and_e(dtype, T, E, path):
@@ -886,6 +896,27 @@ def test_attention_bf16_forward_shares_an_sm_three_ways_at_the_train_shape():
     assert 3 * need <= 233472 < 4 * need
     assert forward_path(torch.bfloat16, 128, 128) == "mma"
     assert forward_mma_smem_bytes(128, 128) <= SMEM_LIMIT
+
+
+# K2's fp32 tensor-core kernels (tc32::, split TF32): q, k, v (and dctx) as
+# fp32 rows of E rounded up to 32, no padding
+
+
+def test_attention_fp32_forward_shares_an_sm_two_ways_at_the_train_shape():
+    """Two blocks of the fp32 forward at (T=75, E=96), 112 KB each, share
+    an SM and a third does not fit; the longest head it takes at E=96
+    (T=128, 208 KB) fits one block."""
+    need = forward_tf32x3_smem_bytes(75, 96) + 1024
+    assert 2 * need <= 233472 < 3 * need
+    assert forward_tf32x3_smem_bytes(128, 96) <= SMEM_LIMIT
+
+
+def test_attention_fp32_backward_takes_an_sm_at_the_train_shape():
+    """The fp32 backward at (T=75, E=96), 164 KB, takes an SM alone; its
+    longest head at E=96 is T=96 (216 KB), and T=97 (the next 16 rows,
+    242 KB) does not fit one block."""
+    assert 233472 // 2 - 1024 < tf32x3_smem_bytes(75, 96) <= SMEM_LIMIT
+    assert tf32x3_smem_bytes(96, 96) <= SMEM_LIMIT < tf32x3_smem_bytes(97, 96)
 
 
 # ------------------------------------------------------ eval criterion ----
