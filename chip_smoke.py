@@ -1629,34 +1629,9 @@ def flagship_mlm_config(**over):
 
 def _counters():
     """(kernel name, wrapper, attribute) of every launch counter."""
-    from mmvqa_tpu_torch.ops.attention import realformer_attention
-    from mmvqa_tpu_torch.ops.bn_sums import bn_backward_sums
-    from mmvqa_tpu_torch.ops.conv_bn import conv1x1_stats
-    from mmvqa_tpu_torch.ops.depthwise import depthwise3x3
-    from mmvqa_tpu_torch.ops.token_head import fused_token_head
+    from mmvqa_tpu_torch.parallel.world import counters
 
-    return (("token_head", fused_token_head, "launches"),
-            ("token_head_tf32x3", fused_token_head, "tf32x3_launches"),
-            ("token_head_bwd", fused_token_head, "backward_launches"),
-            ("token_head_bwd_tf32x3", fused_token_head,
-             "backward_tf32x3_launches"),
-            ("realformer_attention", realformer_attention, "launches"),
-            ("realformer_attention_mma", realformer_attention,
-             "mma_launches"),
-            ("realformer_attention_tf32x3", realformer_attention,
-             "tf32x3_launches"),
-            ("realformer_attention_bwd", realformer_attention,
-             "backward_launches"),
-            ("realformer_attention_bwd_mma", realformer_attention,
-             "backward_mma_launches"),
-            ("realformer_attention_bwd_tf32x3", realformer_attention,
-             "backward_tf32x3_launches"),
-            ("depthwise3x3", depthwise3x3, "launches"),
-            ("depthwise3x3_bwd", depthwise3x3, "backward_launches"),
-            ("conv1x1_stats", conv1x1_stats, "launches"),
-            ("conv1x1_stats_tma", conv1x1_stats, "tma_launches"),
-            ("conv1x1_stats_tf32x3", conv1x1_stats, "tf32x3_launches"),
-            ("bn_backward_sums", bn_backward_sums, "launches"))
+    return counters()
 
 
 def reset_counts() -> None:
@@ -4440,6 +4415,317 @@ def explain_phase(torch, results, work: str):
     return launches, errors
 
 
+# the layouts phase (11): the CLIs' global batch over every layout, one
+# step each at full width in fp32; a spawned world's time limit
+LAYOUT_B = CLI_B
+LAYOUT_TIMEOUT = 420
+# the gradient's global norm (and the clip's) on the card, relative: the
+# leaves' own entries differ by up to 3e-4 of their largest on the H100; a
+# norm of partial gradients or one counted twice is off by tens of percent
+LAYOUT_NORM_TOL = 1e-3
+LAYOUT_PAD = 3  # the global batch's padded samples: the data ranks hold
+# different sums of weights
+VQA_LEAVES = CHECK_LEAVES[:-1] + ["fc1.weight", "classifier_0.weight",
+                                  "classifier_2.weight"]
+
+
+def layout_jobs(torch):
+    """(world of 2, world of 4): name -> ``parallel.world.layout_step`` job,
+    the flagship's and the default model's full-width fp32 steps at the
+    CLIs' B=LAYOUT_B, T=75 (VQA: 28), 224 px."""
+    import numpy as np
+
+    from mmvqa_tpu_torch.core.config import pretrain_config, supcon_config
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches, vqa_batches
+
+    over = dict(batch_size=LAYOUT_B, dropout_override=0.0)
+    mlm_cfg = flagship_mlm_config(**over)
+    mlm = mlm_batches(mlm_cfg, 1, SEED, pad_last=LAYOUT_PAD)[0]
+    sup_cfg = supcon_config(cnn_encoder="tf_efficientnetv2_m",
+                            transformer_model="realformer", **over)
+    b0, b1 = mlm_batches(sup_cfg, 2, SEED + 1, pad_last=LAYOUT_PAD)[::-1]
+    sup = dict(b0, aug_tokens=(b1["tokens"] * b0["input_mask"]).astype(
+        np.int32), aug_labels=(b1["labels"] * b0["input_mask"]).astype(
+        np.int32))
+    vqa_cfg = flagship_vqa_config(**over)
+    vqa = vqa_batches(vqa_cfg, 1, NUM_CLASSES, SEED, pad_last=LAYOUT_PAD)[0]
+    def_cfg = pretrain_config(**over)
+    keep = CHECK_LEAVES + CHECK_STATS
+    flag = dict(cfg=mlm_cfg, kind="mlm", batch=mlm, keep=keep)
+    two = {
+        "dp2": dict(flag, dp=2, tp=1, fsdp=False),
+        "dp2 fsdp": dict(flag, dp=2, tp=1, fsdp=True),
+        "tp2": dict(flag, dp=1, tp=2, fsdp=False),
+        "default dp2": dict(cfg=def_cfg, kind="mlm", batch=mlm, dp=2, tp=1,
+                            fsdp=False, keep=DEF_CHECK_LEAVES + DEF_CHECK_STATS,
+                            bn3_scale=DEF_CHECK_BN3_SCALE),
+        "supcon dp2": dict(cfg=sup_cfg, kind="supcon", batch=sup, dp=2, tp=1,
+                           fsdp=False, keep=SUPCON_LEAVES + CHECK_STATS),
+        "vqa tp2 clip": dict(cfg=vqa_cfg, kind="vqa", batch=vqa, dp=1, tp=2,
+                             fsdp=False, clip=True,
+                             keep=VQA_LEAVES + CHECK_STATS),
+    }
+    four = {"dp2 x tp2 fsdp": dict(flag, dp=2, tp=2, fsdp=True)}
+    return two, four
+
+
+def layout_reference(torch, job, nudge=False, device="cuda"):
+    """The job's step in this process on the card, no mesh: the reference
+    (``parallel.world.single_step``); with ``nudge`` every K4 output moved
+    by a relative DEF_CHECK_NUDGE (``held_step_fp32``'s twin)."""
+    from mmvqa_tpu_torch.models import effnetv2
+    from mmvqa_tpu_torch.parallel.world import single_step
+
+    kernel = effnetv2.conv1x1_stats
+    if nudge:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+
+        def nudged(x, w):
+            y, st = kernel(x, w)
+            noise = torch.randn(y.shape, device=y.device, generator=gen)
+            return y * (1.0 + DEF_CHECK_NUDGE * noise), st
+
+        effnetv2.conv1x1_stats = nudged
+    try:
+        return single_step(job, device)
+    finally:
+        effnetv2.conv1x1_stats = kernel
+        torch.cuda.empty_cache()
+
+
+def check_layout(torch, name, job, ranks, ref, allow) -> None:
+    """A layout's ranks against the single process on the card: the loss
+    to 1e-4 relative, each kept gradient leaf and running statistic to
+    GRAD_NORMWISE of its largest entry (plus ``allow``), the gradient's
+    global norm (and under ``clip`` the clip's) to LAYOUT_NORM_TOL
+    relative, each kept parameter's change in the update to
+    ``world.update_problems``' 2% of lr at the entries whose gradient lies
+    beyond twice its own tolerance (Adam's first step moves an entry by
+    about lr whatever its gradient's size, so a closer entry may step
+    either way: those are counted and printed), the same state on every
+    rank, the kernel sites' local shapes and the exact launch counts."""
+    import numpy as np
+
+    from mmvqa_tpu_torch.parallel.world import site_problems, update_problems
+    from mmvqa_tpu_torch.train.state import CLIP_NORM
+
+    r0 = ranks[0]
+    err = abs(r0["loss"] - ref["loss"])
+    if not err <= 1e-4 * abs(ref["loss"]):
+        fail(f"layouts {name}: loss {r0['loss']:.6f}, single process "
+             f"{ref['loss']:.6f}")
+    norms = ("grad_norm", "clip_norm") if job.get("clip") else ("grad_norm",)
+    for what in norms:
+        for r in ranks:
+            e = abs(r[what] - ref[what])
+            if not e <= LAYOUT_NORM_TOL * ref[what]:
+                fail(f"layouts {name} rank {r['rank']}: {what} {r[what]:.6e}"
+                     f", single process {ref[what]:.6e}")
+    worst, grad_tol = [], {}
+    for kind in ("grads", "state"):
+        for k, want in ref[kind].items():
+            w = np.asarray(want, np.float64)
+            g = np.asarray(r0[kind][k], np.float64)
+            if not np.isfinite(g).all():
+                fail(f"layouts {name}: {kind} {k} not finite")
+            lim = GRAD_NORMWISE * float(np.abs(w).max()) + allow.get(k, 0.0)
+            if kind == "grads":
+                grad_tol[k] = lim
+            elif k in ref["grads"]:
+                continue  # a parameter: its change is held below
+            e = float(np.abs(g - w).max())
+            if e > lim:
+                fail(f"layouts {name}: {kind} {k}: max abs err {e:.3e} "
+                     f"beyond {lim:.3e}")
+            worst.append((e / max(lim, 1e-30), kind, k, e))
+    ratio, kind, k, e = max(worst)
+    lr = job.get("lr", job["cfg"].lr)
+    scale = (min(1.0, CLIP_NORM / ref["clip_norm"]) if job.get("clip")
+             else 1.0)
+    problems, held, dropped = update_problems(
+        ref["before"], r0["state"], ref["state"], ref["grads"], lr, scale,
+        grad_tol)
+    if problems:
+        fail(f"layouts {name}: the update: {problems[0]}")
+    if not held:
+        fail(f"layouts {name}: the update held at no entry, {dropped} "
+             "dropped")
+    for r in ranks[1:]:
+        if r["digest"] != r0["digest"] or r["loss"] != r0["loss"]:
+            fail(f"layouts {name}: rank {r['rank']} holds another state "
+                 "than rank 0 after the step")
+    dp, tp = job["dp"], job["tp"]
+    k4_sites = len([1 for x, w in ref["sites"]["K4"]
+                    if tp == 1 or w[1] > w[0]])
+    want = dict(ref["launches"])
+    if tp > 1 and want["conv1x1_stats"]:  # (the CPU launches none)
+        want.update(conv1x1_stats=k4_sites, conv1x1_stats_tf32x3=k4_sites,
+                    conv1x1_stats_tma=0)
+    for r in ranks:
+        problems = site_problems(ref["sites"], r["sites"], dp, tp)
+        if problems:
+            fail(f"layouts {name} rank {r['rank']}: {problems[0]}")
+        check_launches(f"layouts {name} rank {r['rank']}", r["launches"],
+                       want)
+    print(f"layouts {name}: loss {r0['loss']:.6f} (single process "
+          f"{ref['loss']:.6f}, err {err:.2e}); {len(worst)} leaves held, the "
+          f"closest to its limit {kind} {k} at {e:.2e} ({ratio:.2f} of it); "
+          f"{', '.join(f'{w} {r0[w]:.6e} ({ref[w]:.6e})' for w in norms)}; "
+          f"the update held at {held} entries, {dropped} dropped; "
+          f"every rank's state equal; K1 C={r0['sites']['K1'][0][1][1]}, "
+          f"K2 H={r0['sites']['K2'][0][2] if r0['sites']['K2'] else '-'}, "
+          f"K4 sites {k4_sites}; launches a rank {r0['launches']}")
+
+
+def layout_costs(name, ranks, ref, card) -> None:
+    """A layout's peak memory a rank beside the single process's and the
+    bytes its checked step staged through host memory (the step times are
+    ``mmvqa_tpu_torch/tools/time_layouts.py``'s: here the worlds share the
+    card with each other and with the CLI run)."""
+    mib = 2.0 ** 20
+    peaks = ", ".join(f"{r['peak_bytes'] / mib:.0f}" for r in ranks)
+    held = ", ".join(f"{r['held_bytes'] / mib:.0f}" for r in ranks)
+    print(f"layouts {name} [{card}]: the step's peak above what a rank held "
+          f"before it, MiB {peaks} (single process "
+          f"{ref['peak_bytes'] / mib:.0f}), held before it {held}; staged "
+          f"through host memory "
+          f"{sum(r['staged_bytes'] for r in ranks) / 1e6:.1f} MB in "
+          f"{sum(r['staged_calls'] for r in ranks)} calls (all ranks, the "
+          "checked step)")
+
+
+def layouts_cli_start(work: str):
+    """Start ``cli/roco_train.py --dp_size 2 --fsdp`` under torchrun on the
+    CLI phase's fixture, two ranks sharing the card, one epoch; returns
+    (process, save dir, log paths, start time)."""
+    save = os.path.join(work, "layouts_cli")
+    os.makedirs(save, exist_ok=True)
+    logs = (os.path.join(save, "stdout.txt"), os.path.join(save, "stderr.txt"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "mmvqa_tpu_torch.cli.roco_train",
+           "-r", "layouts", "--data_dir", os.path.join(work, "roco"),
+           "--save_dir", save, "--epochs", "1", *CLI_ARGS, "--dp_size", "2",
+           "--fsdp"]
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err)
+    return proc, save, logs, time.perf_counter()
+
+
+def layouts_cli_finish(started) -> None:
+    """Wait for the CLI run: rank 0 alone logged one epoch and saved the
+    weights, which load into one process's model."""
+    from mmvqa_tpu_torch.models import MMBert
+    from mmvqa_tpu_torch.train import checkpoint
+
+    proc, save, logs, t0 = started
+    try:
+        code = proc.wait(timeout=LAYOUT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"layouts cli: torchrun still running after {LAYOUT_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    stdout, stderr = (open(path).read() for path in logs)
+    if code != 0:
+        fail(f"layouts cli: torchrun exited {code}:\n{stdout[-2000:]}\n"
+             f"{stderr[-3000:]}")
+    lines = metric_lines(save, "layouts")
+    weights = os.path.join(save, "MLM", "layouts")
+    if len(lines) != 1 or not os.path.exists(weights):
+        fail(f"layouts cli: {len(lines)} metric lines, weights "
+             f"{os.path.exists(weights)}")
+    line = lines[0]
+    if not all(math.isfinite(line[k]) for k in ("epoch_train_loss",
+                                                "epoch_val_loss")):
+        fail(f"layouts cli: non-finite metric in {line}")
+    loaded = checkpoint.load_weights(weights)
+    cfg = flagship_mlm_config(vocab_size=len(
+        loaded["bert_embedding.word_embeddings.weight"]))
+    checkpoint.check_compatible(MMBert(cfg, device="cpu").state_dict(),
+                                loaded, what="layouts cli")
+    shown = [ln for ln in stdout.splitlines() if "[mmvqa]" in ln]
+    print(f"layouts cli: torchrun roco_train --dp_size 2 --fsdp, 1 epoch at "
+          f"global B={CLI_B}, {wall:.1f} s beside the worlds; train loss "
+          f"{line['epoch_train_loss']:.4f}, val loss "
+          f"{line['epoch_val_loss']:.4f}; rank 0's lines {shown[:3]}")
+
+
+def layouts_phase(torch, work: str, device: str = "cuda:0") -> dict:
+    """(11) The multi-GPU layouts on ranks that share the card (gloo; NCCL
+    refuses two ranks on one device): the NCCL path's collectives once with
+    one rank; then the world of two, the world of four and the pretraining
+    CLI under torchrun run side by side while this process takes the single
+    process's steps on the card; each layout's step is held to those
+    (``check_layout``) and its memory and staged bytes printed. Nothing
+    here is timed (``mmvqa_tpu_torch/tools/time_layouts.py`` times the
+    layouts one at a time). Returns the ranks' launches of the checked
+    steps, summed."""
+    import numpy as np
+
+    from mmvqa_tpu_torch.parallel.world import (
+        collectives_probe,
+        run_jobs,
+        run_world,
+        start_world,
+    )
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    folder = os.path.join(work, "layouts")
+    os.makedirs(folder, exist_ok=True)
+    if device != "cpu":
+        nccl = run_world(collectives_probe, 1, (),
+                         os.path.join(folder, "nccl"), device, 120,
+                         backend="nccl")[0]
+        if not nccl["ok"] or nccl["backend"] != "nccl" \
+                or nccl["staged_calls"]:
+            fail(f"layouts: the NCCL collectives with one rank: {nccl}")
+        print(f"layouts: NCCL's three collectives with one rank on the card "
+              f"are right and staged nothing ({nccl})")
+    two, four = layout_jobs(torch)
+    worlds = [(jobs, start_world(run_jobs, size, (list(jobs.values()),),
+                                 os.path.join(folder, f"world{size}"),
+                                 device))
+              for size, jobs in ((2, two), (4, four))]
+    cli = layouts_cli_start(work) if device != "cpu" else None
+    t0 = time.perf_counter()
+    refs, by_step = {}, {}
+    for name, job in {**two, **four}.items():
+        # the flagship's MLM layouts share one single-process step
+        key = (job["kind"], id(job["cfg"]), id(job["batch"]))
+        if key not in by_step:
+            by_step[key] = layout_reference(torch, job, device=device)
+        refs[name] = by_step[key]
+    twin = layout_reference(torch, two["default dp2"], nudge=True,
+                            device=device)
+    allow = {k: DEF_CHECK_FLIPS * float(np.abs(
+                 twin["grads"][k].numpy() - g.numpy()).max())
+             for k, g in refs["default dp2"]["grads"].items()
+             if k.startswith("trans.trunk.")}
+    print(f"layouts: {len(by_step) + 1} single-process references on the "
+          f"card, {time.perf_counter() - t0:.1f} s beside the worlds")
+    launches: dict = {}
+    for jobs, world in worlds:
+        outs = world.results(LAYOUT_TIMEOUT)
+        print(f"layouts: world of {world.size} ranks on {device} (gloo), "
+              f"{len(jobs)} layouts, done {time.perf_counter() - t_phase:.1f}"
+              " s into the phase")
+        for i, (name, job) in enumerate(jobs.items()):
+            ranks = [o[i] for o in outs]
+            if any(r["jax_modules"] for r in ranks):
+                fail(f"layouts {name}: a rank imported "
+                     f"{ranks[0]['jax_modules']}")
+            check_layout(torch, name, job, ranks, refs[name],
+                         allow if name == "default dp2" else {})
+            layout_costs(name, ranks, refs[name], card)
+            for r in ranks:
+                add_counts(launches, r["launches"])
+    if cli is not None:
+        layouts_cli_finish(cli)
+    print(f"layouts phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4486,6 +4772,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         explain_launches_, explain_errors = explain_phase(torch, kernels,
                                                           work)
+        torch.cuda.empty_cache()
+        layout_launches = layouts_phase(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4508,7 +4796,8 @@ def main() -> None:
                       + finetune_launches[name] + cli_launches[name]
                       + driver_launches[name]
                       + default_launches_[name] + aux_launches[name]
-                      + explain_launches_[name]),
+                      + explain_launches_[name]
+                      + layout_launches.get(name, 0)),
          "launches_eval": eval_launches.get(name, 0),
          "launches_train": train_launches[name],
          "launches_finetune": finetune_launches[name],
@@ -4517,6 +4806,7 @@ def main() -> None:
          "launches_default": default_launches_[name],
          "launches_aux": aux_launches[name],
          "launches_explain": explain_launches_[name],
+         "launches_layouts": layout_launches.get(name, 0),
          "max_abs_err": max(r["err"].values()),
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": sum(ms for ms, _ in r["bounds"]),

@@ -36,13 +36,15 @@ from mmvqa_tpu_torch.cli.common import (
     config_from_args,
     load_tokenizer,
     make_hist_logger,
+    load_full_weights,
     make_image_cache,
+    place_model,
     pretrain_parser,
+    rank_loader,
     setup_runtime,
 )
 from mmvqa_tpu_torch.data.datasets import ROCODataset, get_keywords, load_mlm_data
 from mmvqa_tpu_torch.data.images import PRETRAIN_AUG
-from mmvqa_tpu_torch.data.loader import BatchLoader
 from mmvqa_tpu_torch.models import MMBert
 from mmvqa_tpu_torch.similarity import SimilarityCalculator, build_mask
 from mmvqa_tpu_torch.train import checkpoint
@@ -88,16 +90,17 @@ def main(argv: Optional[list] = None,
     val_ds = ROCODataset(cfg, val_df, tok, keywords, "validation",
                          image_cache=img_cache)
     # batch_size // 2: the two views restore the full batch
-    train_loader = KeepFirst(BatchLoader(
+    train_loader = KeepFirst(rank_loader(
         train_ds, cfg.batch_size // 2, shuffle=True, seed=cfg.seed,
         num_workers=cfg.num_workers, cache_images=args.cache_images))
-    val_loader = BatchLoader(val_ds, cfg.batch_size,
+    val_loader = rank_loader(val_ds, cfg.batch_size,
                              num_workers=cfg.num_workers,
                              cache_images=args.cache_images)
 
     model = MMBert(cfg, device=dev, compute_dtype=dtype)
+    layout = place_model(model, cfg)
     state = create_train_state(model, cfg.lr, clip=cfg.clip,
-                               grad_accum=cfg.grad_accum)
+                               grad_accum=cfg.grad_accum, layout=layout)
     scheduler = ReduceLROnPlateau(lr=cfg.lr, patience=cfg.patience,
                                   factor=cfg.factor)
     train_step, eval_step = make_supcon_steps(model, cfg, PRETRAIN_AUG)
@@ -116,9 +119,7 @@ def main(argv: Optional[list] = None,
         if cfg.no_recorder:
             loaded = checkpoint.adapt_encoder_layout(
             checkpoint.load_weights(cfg.resume_dir))
-            checkpoint.check_compatible(model.state_dict(), loaded,
-                                        what=cfg.resume_dir)
-            model.load_state_dict(loaded, strict=True)
+            load_full_weights(model, layout, loaded, what=cfg.resume_dir)
         else:
             state, sstate, epoch = checkpoint.restore_recorder(cfg.save_dir,
                                                                state)

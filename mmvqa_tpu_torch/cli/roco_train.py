@@ -17,7 +17,10 @@ The reference's flags and epoch protocol: train -> validate -> plateau LR
 on the validation loss -> the recorder every 5 epochs -> the weights at
 each better validation loss, with the same metric names. It runs on the
 CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the host
-(tests). The mesh flags raise (ROADMAP.md Queue 1, item 10).
+(tests). Under ``torchrun`` with ``--dp_size``, ``--tp_size`` and ``--fsdp``
+each rank trains its layout of the model on its shard of the data
+(``cli/common.py``); ``--cp_size`` and ``--pp_size`` raise (ROADMAP.md
+Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -34,12 +37,13 @@ from mmvqa_tpu_torch.cli.common import (
     load_tokenizer,
     make_hist_logger,
     make_image_cache,
+    place_model,
     pretrain_parser,
+    rank_loader,
     setup_runtime,
 )
 from mmvqa_tpu_torch.data.datasets import ROCODataset, get_keywords, load_mlm_data
 from mmvqa_tpu_torch.data.images import PRETRAIN_AUG
-from mmvqa_tpu_torch.data.loader import BatchLoader
 from mmvqa_tpu_torch.models import MMBert
 from mmvqa_tpu_torch.train import checkpoint
 from mmvqa_tpu_torch.train.plateau import ReduceLROnPlateau
@@ -73,16 +77,17 @@ def main(argv: Optional[list] = None,
                            image_cache=img_cache)
     val_ds = ROCODataset(cfg, val_df, tok, keywords, "validation",
                          image_cache=img_cache)
-    train_loader = KeepFirst(BatchLoader(
+    train_loader = KeepFirst(rank_loader(
         train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
         num_workers=cfg.num_workers, cache_images=args.cache_images))
-    val_loader = BatchLoader(
+    val_loader = rank_loader(
         val_ds, cfg.batch_size, num_workers=cfg.num_workers,
         cache_images=args.cache_images)
 
     model = MMBert(cfg, device=dev, compute_dtype=dtype)
     state = create_train_state(model, cfg.lr, clip=cfg.clip,
-                               grad_accum=cfg.grad_accum)
+                               grad_accum=cfg.grad_accum,
+                               layout=place_model(model, cfg))
     scheduler = ReduceLROnPlateau(lr=cfg.lr, patience=cfg.patience,
                                   factor=cfg.factor)
     mlm = cfg.task == "MLM"

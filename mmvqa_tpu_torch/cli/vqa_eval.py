@@ -30,7 +30,10 @@ import torch
 from mmvqa_tpu_torch.cli.common import (
     config_from_args,
     load_tokenizer,
+    load_full_weights,
     make_image_cache,
+    place_model,
+    rank_loader,
     setup_runtime,
     vqa_parser,
 )
@@ -39,7 +42,6 @@ from mmvqa_tpu_torch.data.datasets import (
     build_answer_vocab,
     load_vqa_data,
 )
-from mmvqa_tpu_torch.data.loader import BatchLoader
 from mmvqa_tpu_torch.evaluation import (
     ensemble_logits,
     per_category_accuracy,
@@ -80,10 +82,11 @@ def main(argv: Optional[list] = None,
 
     test_ds = VQADataset(cfg, test_df, tok, "test",
                          image_cache=make_image_cache(cfg))
-    test_loader = BatchLoader(test_ds, cfg.batch_size,
+    test_loader = rank_loader(test_ds, cfg.batch_size,
                               num_workers=cfg.num_workers)
 
     model = MMBert(cfg, device=dev, compute_dtype=dtype)
+    layout = place_model(model, cfg)
     _, eval_step = make_vqa_steps(model, cfg)
 
     model_paths = args.model_dirs or [cfg.model_dir]
@@ -93,8 +96,7 @@ def main(argv: Optional[list] = None,
         print("Loading model at ", path)
         loaded = checkpoint.adapt_encoder_layout(
             checkpoint.load_weights(path))
-        checkpoint.check_compatible(model.state_dict(), loaded, what=path)
-        model.load_state_dict(loaded, strict=True)
+        load_full_weights(model, layout, loaded, what=path)
         _, sm = vqa_epoch(eval_step, None, test_loader, False,
                           collect_logits=True)
         all_logits.append(sm["logits"])

@@ -36,6 +36,8 @@ from mmvqa_tpu_torch.cli.common import (
     load_tokenizer,
     make_hist_logger,
     make_image_cache,
+    place_model,
+    rank_loader,
     setup_runtime,
     vqa_parser,
 )
@@ -45,7 +47,6 @@ from mmvqa_tpu_torch.data.datasets import (
     load_vqa_data,
 )
 from mmvqa_tpu_torch.data.images import FINETUNE_AUG
-from mmvqa_tpu_torch.data.loader import BatchLoader
 from mmvqa_tpu_torch.evaluation import (
     bleu_score,
     per_category_accuracy,
@@ -87,7 +88,7 @@ def main(argv: Optional[list] = None,
     test_ds = VQADataset(cfg, test_df, tok, "test", image_cache=img_cache)
 
     def loader(ds, shuffle):
-        return BatchLoader(ds, cfg.batch_size, shuffle=shuffle, seed=cfg.seed,
+        return rank_loader(ds, cfg.batch_size, shuffle=shuffle, seed=cfg.seed,
                            num_workers=cfg.num_workers,
                            cache_images=args.cache_images)
 
@@ -95,8 +96,6 @@ def main(argv: Optional[list] = None,
     val_loader, test_loader = loader(val_ds, False), loader(test_ds, False)
 
     model = MMBert(cfg, device=dev, compute_dtype=dtype)
-    state = create_train_state(model, cfg.lr, clip=cfg.clip,
-                               grad_accum=cfg.grad_accum)
 
     if cfg.use_pretrained:
         print("loading model from roco")
@@ -117,6 +116,10 @@ def main(argv: Optional[list] = None,
         model.load_state_dict(loaded, strict=True)
     else:
         print("from scratch")
+    # the full weights are in: each rank keeps its layout's blocks
+    state = create_train_state(model, cfg.lr, clip=cfg.clip,
+                               grad_accum=cfg.grad_accum,
+                               layout=place_model(model, cfg))
 
     smoothing_table = None
     if cfg.smoothing:

@@ -10,8 +10,10 @@ Replaces torch DataLoader(num_workers) (roco_train.py:126-127). Design:
   repeating samples and carries a ``weights`` vector (1 real / 0 pad) so
   that metrics and losses mask padding exactly;
 * optional in-RAM decoded-image cache for small datasets (VQA-Med fits);
-* per-host sharding hook (``shard_index/shard_count``) for multi-host pods
-  (SURVEY.md §2.9 cross-host input pipeline).
+* per-rank sharding (``shard_index/shard_count``, the strided split of the
+  JAX loader): every shard yields the same number of batches, the largest
+  shard's, a shorter one padding with batches of weight 0, so that the data
+  ranks of a layout step together.
 """
 
 from __future__ import annotations
@@ -70,10 +72,10 @@ class BatchLoader:
                 self._cache = {}
 
     def __len__(self) -> int:
-        n = len(self._indices())
-        if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:  # the smallest shard's full batches
+            return (n // self.shard_count) // self.batch_size
+        return -(-(-(-n // self.shard_count)) // self.batch_size)
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
@@ -111,6 +113,10 @@ class BatchLoader:
             else:
                 weights = np.ones(self.batch_size, np.float32)
             batches.append((chunk, weights))
+        batches = batches[:len(self)]
+        while len(batches) < len(self):  # a short shard steps with the rest
+            batches.append((np.zeros(self.batch_size, np.int64),
+                            np.zeros(self.batch_size, np.float32)))
 
         q: Queue = Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -131,6 +137,10 @@ class BatchLoader:
                         if isinstance(samples[0][k], str):
                             batch[k] = [s[k] for s in samples]
                     batch["weights"] = weights
+                    if self.shard_count > 1:
+                        # rows gathered across the shards find their place
+                        # in the dataset by it (trainer.vqa_epoch)
+                        batch["index"] = np.asarray(chunk, np.int64)
                     q.put(batch)
             q.put(None)
 

@@ -31,6 +31,16 @@ What the port has to get right:
   below): the running variance is updated with the BIASED batch variance.
 * Squeeze-excite reduces relative to the block INPUT channels.
 * The residual is added only when stride is 1 and in == out channels.
+
+Layouts (``parallel/``). Under data parallelism every BatchNorm is the
+global batch's: K4's sums or the library's reductions are summed over
+'data' before the mean and variance, and K5's before dx, so the running
+statistics are the single process's on every rank. Under tensor
+parallelism an MBConv block's ``pw_exp`` is column-parallel and its
+``pw_proj`` row-parallel (the JAX rule): K4, the BatchNorms, K3 and the
+squeeze-excite gate run on this rank's channels in between
+(``MBConv.prepare_tp``), and ``pointwise_bn`` says what the row-parallel
+product does to K4.
 """
 
 from __future__ import annotations
@@ -41,11 +51,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmvqa_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 from mmvqa_tpu_torch.models.layers import Conv2d
 from mmvqa_tpu_torch.ops import tiling
 from mmvqa_tpu_torch.ops.bn_sums import bn_backward_sums
 from mmvqa_tpu_torch.ops.conv_bn import conv1x1_stats
 from mmvqa_tpu_torch.ops.depthwise import depthwise3x3
+from mmvqa_tpu_torch.parallel.comm import (
+    axis_info,
+    axis_size,
+    block,
+    copy_to,
+    gather_from,
+    gather_over,
+    reduce_from,
+    scatter_to,
+    sum_over,
+)
 
 # (block_type, repeats, kernel, stride, expand, out_ch, se_ratio)
 V2_M_ARCH = (
@@ -82,16 +104,19 @@ class SameConv2d(Conv2d):
                          groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._same_conv(x, self.weight, self.groups)
+
+    def _same_conv(self, x: torch.Tensor, weight: torch.Tensor,
+                   groups: int) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
         top, bottom = same_pads(x.shape[2], k, s)
         left, right = same_pads(x.shape[3], k, s)
-        weight = self.weight.to(x.dtype)
+        weight = weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         if top == bottom and left == right:
-            return F.conv2d(x, weight, bias, s, (top, left),
-                            groups=self.groups)
+            return F.conv2d(x, weight, bias, s, (top, left), groups=groups)
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, weight, bias, s, 0, groups=self.groups)
+        return F.conv2d(x, weight, bias, s, 0, groups=groups)
 
 
 def channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -108,13 +133,17 @@ class DepthwiseConv2d(SameConv2d):
     reads the (C, 1, 3, 3) weight, the fp32 master included, as its
     (3, 3, C) view."""
 
+    tp_local = False  # the map holds this rank's channels (MBConv)
+
     def __init__(self, ch: int, kernel: int, stride: int):
         super().__init__(ch, ch, kernel, stride, groups=ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight = (scatter_to(self.weight, MODEL_AXIS, 0) if self.tp_local
+                  else self.weight)
         if self.kernel_size != (3, 3) or self.stride != (1, 1):
-            return super().forward(x)
-        w = self.weight[:, 0].permute(1, 2, 0)
+            return self._same_conv(x, weight, weight.shape[0])
+        w = weight[:, 0].permute(1, 2, 0)
         return depthwise3x3(channels_last(x), w).permute(0, 3, 1, 2)
 
 
@@ -146,6 +175,11 @@ class _BatchNormTrain(torch.autograd.Function):
                 x, dim=(0, 2, 3), dtype=torch.float32).square()
         else:
             s1, s2 = stats[0], stats[1]
+        dp = axis_size(DATA_AXIS)
+        if dp > 1:  # the global batch's statistics
+            s1, s2 = sum_over(torch.stack([s1, s2]), DATA_AXIS)
+            n *= dp
+        ctx.n = n
         mean = s1 / n
         var = torch.addcmul(s2 / n, mean, mean, value=-1.0).clamp_min_(0.0)
         inv_std = (var + eps).rsqrt_()
@@ -161,7 +195,7 @@ class _BatchNormTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, inv_std = ctx.saved_tensors
         C = x.shape[1]
-        n = x.numel() // C
+        n = ctx.n
         dy = dy.to(x.dtype)
         if x.device.type != "cpu" and not tiling.laid_out_as(dy, x):
             # autograd promises no layout for a gradient; K5 reads dy as x
@@ -170,10 +204,14 @@ class _BatchNormTrain(torch.autograd.Function):
             BatchNorm2d.gradient_copies += 1
         s1, s2 = bn_backward_sums(channels_last(x), channels_last(dy), mean,
                                   inv_std)
+        # this rank's sums are its parameters' gradients (summed with the
+        # other gradients over 'data' later); dx takes the global batch's
+        g1, g2 = ((s1, s2) if axis_size(DATA_AXIS) == 1
+                  else sum_over(torch.stack([s1, s2]), DATA_AXIS))
         a = weight.float() * inv_std
         c = a * (-1.0 / n)
-        p = torch.mul(c, inv_std).mul_(s2)
-        q = torch.addcmul(c * s1, p, mean, value=-1.0)
+        p = torch.mul(c, inv_std).mul_(g2)
+        q = torch.addcmul(c * g1, p, mean, value=-1.0)
         shape = (1, C, 1, 1)
         dx = torch.addcmul(q.view(shape), x, p.view(shape))  # fp32
         if dx.dtype == x.dtype:
@@ -197,6 +235,7 @@ class BatchNorm2d(nn.Module):
     statistics stay fp32."""
 
     gradient_copies = 0  # gradients that arrived in another layout than x
+    tp_local = False  # the map holds this rank's channels (MBConv)
 
     def __init__(self, ch: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -210,12 +249,22 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        weight, bias = self.weight, self.bias
+        if self.tp_local:
+            weight = scatter_to(weight, MODEL_AXIS, 0)
+            bias = scatter_to(bias, MODEL_AXIS, 0)
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, stats,
-                                             self.eps)
+            mean, var = self.running_mean, self.running_var
+            if self.tp_local:
+                _, tp, m = axis_info(MODEL_AXIS)
+                mean, var = block(mean, 0, tp, m), block(var, 0, tp, m)
+            return F.batch_norm(x, mean, var, weight, bias, False, 0.0,
+                                self.eps)
+        y, mean, var = _BatchNormTrain.apply(x, weight, bias, stats, self.eps)
         with torch.no_grad():
+            if self.tp_local:  # every rank keeps every channel's statistics
+                mean = gather_over(mean, MODEL_AXIS, 0)
+                var = gather_over(var, MODEL_AXIS, 0)
             self.running_mean.lerp_(mean.to(self.running_mean.dtype),
                                     self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype),
@@ -226,17 +275,34 @@ class BatchNorm2d(nn.Module):
 def pointwise_bn(conv: Conv2d, bn: BatchNorm2d,
                  x: torch.Tensor) -> torch.Tensor:
     """``bn(conv(x))`` for a 1x1 convolution without bias. In training K4
-    makes the product and the sums the BatchNorm needs in one pass."""
+    makes the product and the sums the BatchNorm needs in one pass.
+
+    Under tensor parallelism a column-parallel ``conv`` (``pw_exp``) makes
+    this rank's output channels from the replicated x, and K4's sums are
+    exact for them. A row-parallel one (``pw_proj``) makes a partial sum
+    from this rank's input channels: K4's sums of it would not be the
+    BatchNorm's, so the product is the library's, summed over 'model', and
+    the BatchNorm takes its own statistics of the sum."""
+    if conv.tp_mode == "row":
+        return bn(reduce_from(conv(x), MODEL_AXIS))
+    if conv.tp_mode == "col":
+        x = copy_to(x, MODEL_AXIS)
     if not bn.training:
         return bn(conv(x))
     B, K, H, W = x.shape
-    C = conv.out_channels
+    C = conv.weight.shape[0]  # this rank's channels under 'col'
     w = conv.weight.to(x.dtype).view(C, K).t()
     y, stats = conv1x1_stats(channels_last(x).reshape(B * H * W, K), w)
     return bn(y.view(B, H, W, C).permute(0, 3, 1, 2), stats)
 
 
 class SqueezeExcite(nn.Module):
+    """Under tensor parallelism ``reduce`` and ``expand`` are replicated (the
+    JAX rule): the pooled channels are gathered and the gate's are split
+    again."""
+
+    tp_local = False
+
     def __init__(self, ch: int, reduced_ch: int):
         super().__init__()
         self.reduce = Conv2d(ch, reduced_ch, 1)
@@ -244,7 +310,11 @@ class SqueezeExcite(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3), keepdim=True)
+        if self.tp_local:
+            s = gather_from(s, MODEL_AXIS, 1)
         s = self.expand(F.silu(self.reduce(s)))
+        if self.tp_local:
+            s = scatter_to(s, MODEL_AXIS, 1)
         return x * torch.sigmoid(s)
 
 
@@ -262,6 +332,18 @@ class MBConv(nn.Module):
         self.pw_proj = Conv2d(mid, out_ch, 1, bias=False)
         self.bn3 = BatchNorm2d(out_ch)
         self.residual = stride == 1 and in_ch == out_ch
+        self.pw_exp.tp_capable = self.pw_proj.tp_capable = True
+
+    def prepare_tp(self, tp: int) -> None:
+        """With ``pw_exp`` column-parallel, everything up to ``pw_proj``
+        holds this rank's channels: K3 and K5 run on them."""
+        local = self.pw_exp.tp_mode == "col"
+        if local != (self.pw_proj.tp_mode == "row"):
+            raise ValueError("tensor parallelism: pw_exp and pw_proj of an "
+                             "MBConv block must split together")
+        for mod in (self.bn1, self.dw, self.bn2, self.se):
+            if mod is not None:
+                mod.tp_local = local
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(pointwise_bn(self.pw_exp, self.bn1, x))
@@ -286,6 +368,7 @@ class FusedMBConv(nn.Module):
             self.conv_exp = SameConv2d(in_ch, mid, kernel, stride)
             self.bn1 = BatchNorm2d(mid)
             self.pw_proj = Conv2d(mid, out_ch, 1, bias=False)
+            self.pw_proj.tp_capable = True
             self.bn2 = BatchNorm2d(out_ch)
         self.residual = stride == 1 and in_ch == out_ch
 
@@ -294,6 +377,8 @@ class FusedMBConv(nn.Module):
             h = F.silu(self.bn1(self.conv(x)))
         else:
             h = F.silu(self.bn1(self.conv_exp(x)))
+            if self.pw_proj.tp_mode == "row":  # this rank's input channels
+                h = scatter_to(h, MODEL_AXIS, 1)
             h = pointwise_bn(self.pw_proj, self.bn2, h)
         return h + x if self.residual else h
 

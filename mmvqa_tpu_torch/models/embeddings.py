@@ -5,7 +5,8 @@ Word + position + token-type embeddings, then LayerNorm with eps 1e-12.
 the position table keeps BERT's 512 rows whatever the config says. Dropout
 (BERT's 0.1 unless the config overrides it) follows the LayerNorm. The sum
 and the LayerNorm run in the tables' dtype; the model casts the result to
-its compute dtype.
+its compute dtype. Under tensor parallelism the word table's rows are split
+over 'model' (``parallel.comm.vocab_parallel_embedding``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from mmvqa_tpu_torch.models.layers import Dropout, DropoutRng, LayerNorm
+from mmvqa_tpu_torch.parallel.comm import vocab_parallel_embedding
 
 BERT_MAX_POSITIONS = 512
 
@@ -27,6 +29,7 @@ class BertEmbeddings(nn.Module):
                  rng: Optional[DropoutRng] = None):
         super().__init__()
         self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
+        self.word_embeddings.tp_capable = True  # rows over 'model'
         self.position_embeddings = nn.Parameter(
             torch.empty(max_position_embeddings, hidden_size))
         self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden_size)
@@ -36,7 +39,10 @@ class BertEmbeddings(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: torch.Tensor) -> torch.Tensor:
         T = input_ids.shape[-1]
-        x = (self.word_embeddings(input_ids.long())
+        words = self.word_embeddings
+        x = ((vocab_parallel_embedding(input_ids.long(), words.weight)
+              if getattr(words, "tp_mode", None) == "vocab"
+              else words(input_ids.long()))
              + self.position_embeddings[:T][None]
              + self.token_type_embeddings(token_type_ids.long()))
         return self.dropout(self.layer_norm(x))

@@ -28,8 +28,43 @@ def _as(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
 
 
 class Linear(nn.Linear):
+    """Under tensor parallelism (``parallel.sharding.Layout`` sets
+    ``tp_mode`` on the instances whose parent allows it, ``tp_capable``):
+
+    * 'col': the weight holds this rank's block of output features; the
+      replicated input enters through ``comm.copy_to``, the replicated bias
+      gives its block, and the output stays sharded unless
+      ``gather_output``. With ``gather_weight`` the weight is gathered for
+      use instead and the input is taken as it comes (the RealFormer's
+      shared k/q/v projection over this rank's heads).
+    * 'row': the weight holds this rank's block of input features; the input
+      is this rank's block (a sharded activation), the ranks' partial
+      products are summed (``comm.reduce_from``), then the bias is added.
+    """
+
+    tp_capable = False
+    tp_mode: Optional[str] = None
+    gather_output = False
+    gather_weight = False
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, _as(self.weight, x), _as(self.bias, x))
+        if self.tp_mode is None:
+            return F.linear(x, _as(self.weight, x), _as(self.bias, x))
+        from mmvqa_tpu_torch.core.mesh import MODEL_AXIS
+        from mmvqa_tpu_torch.parallel import comm
+
+        if self.tp_mode == "row":
+            y = comm.reduce_from(F.linear(x, _as(self.weight, x)), MODEL_AXIS)
+            return y if self.bias is None else y + _as(self.bias, x)
+        if self.gather_weight:
+            w = comm.gather_weight(self.weight, MODEL_AXIS, 0)
+            return F.linear(x, _as(w, x),
+                            _as(self.bias, x))
+        bias = (None if self.bias is None
+                else comm.scatter_to(self.bias, MODEL_AXIS, 0))
+        y = F.linear(comm.copy_to(x, MODEL_AXIS), _as(self.weight, x),
+                     _as(bias, x))
+        return comm.gather_from(y, MODEL_AXIS, -1) if self.gather_output else y
 
 
 class LayerNorm(nn.LayerNorm):
@@ -41,6 +76,9 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Conv2d(nn.Conv2d):
+    tp_capable = False  # the trunk's blocks split pw_exp and pw_proj
+    tp_mode: Optional[str] = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, _as(self.weight, x), _as(self.bias, x))
 
@@ -52,6 +90,14 @@ class DropoutRng:
 
     def __init__(self, seed: int):
         self.manual_seed(seed)
+
+    def fold_rank(self, *coords: int) -> None:
+        """Reseed for a rank (``core.distributed.fold_seed``): one stream a
+        data rank, shared by the model ranks, whose replicated activations
+        must draw the same masks."""
+        from mmvqa_tpu_torch.core.distributed import fold_seed
+
+        self.manual_seed(fold_seed(self.seed, *coords))
 
     def manual_seed(self, seed: int) -> None:
         self.seed = seed

@@ -183,6 +183,11 @@ class MMBert(nn.Module):
         if cfg.supcon and cfg.dataset == "roco" and not self.distill:
             self.head_0 = Linear(H, H)
             self.head_2 = Linear(H, cfg.feat_dim)
+        # tensor parallelism: the column-parallel heads gather their output
+        for name in ("fc1", "classifier_2", "head_2"):
+            if hasattr(self, name):
+                getattr(self, name).tp_capable = True
+                getattr(self, name).gather_output = True
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         init_weights(self, generator)

@@ -11,6 +11,10 @@ Quirks kept from the reference:
 * post-norm with LayerNorm eps 1e-5: ``x = ln1(x + mha); x = ln2(x + ff)``;
 * the FFN is ``ff1 -> serf -> ff2``;
 * the padding mask hits the QUERY axis of the scores (ops/attention.py).
+
+Under tensor parallelism a block runs K2 on its rank's H/tp heads and
+carries their (B, H/tp, T, T) scores; the output projection and the FFN are
+Megatron's row and column splits (``models/layers.py::Linear``).
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from mmvqa_tpu_torch.models.layers import (
     LayerNorm,
     Linear,
 )
+from mmvqa_tpu_torch.core.mesh import MODEL_AXIS
 from mmvqa_tpu_torch.ops.activations import serf
+from mmvqa_tpu_torch.parallel.comm import scatter_to
 from mmvqa_tpu_torch.ops.attention import realformer_attention_packed
 
 
@@ -45,15 +51,33 @@ class ResEncoderBlock(nn.Module):
         self.ff2 = Linear(4 * hidden_size, hidden_size)
         self.drop2 = Dropout(dp2, rng)
         self.ln2 = LayerNorm(hidden_size, eps=1e-5)
+        # tensor parallelism: this rank's heads (the shared k/q/v weight,
+        # column-split by the rule, is gathered for use), proj row-parallel,
+        # ff1 -> ff2 a column/row pair
+        for lin in (self.kqv, self.proj, self.ff1, self.ff2):
+            lin.tp_capable = True
+        self.kqv.gather_weight = True
+        self.heads_split = 1
+
+    def prepare_tp(self, tp: int) -> None:
+        if self.proj.tp_mode is None:
+            return
+        if self.head_cnt % tp:
+            raise ValueError(f"tensor parallelism: {self.head_cnt} heads do "
+                             f"not split over tp_size {tp}")
+        self.heads_split = tp
 
     def forward(self, x: torch.Tensor, prev: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         B, T, emb = x.shape
+        heads = x.reshape(B, T, self.head_cnt, self.emb_s)
+        if self.heads_split > 1:  # K2 runs on this rank's heads
+            heads = scatter_to(heads, MODEL_AXIS, 2)
         # (k, q, v) side by side; the kernels read the slices by strides
-        kqv = self.kqv(x.reshape(B, T, self.head_cnt, self.emb_s))
+        kqv = self.kqv(heads)
         ctx, new_prev = realformer_attention_packed(kqv, prev, mask)
-        x = self.ln1(x + self.drop1(self.proj(ctx.reshape(B, T, emb))))
+        x = self.ln1(x + self.drop1(self.proj(ctx.reshape(B, T, -1))))
         x = self.ln2(x + self.drop2(self.ff2(serf(self.ff1(x)))))
         return x, new_prev
 

@@ -19,7 +19,9 @@ per layer:
 Module names follow the Flax tree (``attention_<i>/proj_{q,k,v}``,
 ``proj_<i>``, ``feedforward_<i>/fc{1,2}``, or ``attention``, ``proj``,
 ``feedforward`` where ``share`` shares them), so ``bridge.py`` maps one onto
-the other. Dropout draws from the model's ``DropoutRng``.
+the other. Dropout draws from the model's ``DropoutRng``. Under tensor
+parallelism the q, k, v projections and ``fc1`` are column-parallel (a rank
+attends over its heads), ``proj_<i>`` and ``fc2`` row-parallel.
 """
 
 from __future__ import annotations
@@ -45,22 +47,30 @@ class MultiHeadedSelfAttention(nn.Module):
                  rng: DropoutRng):
         super().__init__()
         self.n_heads = n_heads
+        self.head_dim = hidden_size // n_heads
         self.proj_q = Linear(hidden_size, hidden_size)
         self.proj_k = Linear(hidden_size, hidden_size)
         self.proj_v = Linear(hidden_size, hidden_size)
+        for lin in (self.proj_q, self.proj_k, self.proj_v):
+            lin.tp_capable = True  # column-parallel: this rank's heads
         self.drop = Dropout(dropout_rate, rng)
+
+    def prepare_tp(self, tp: int) -> None:
+        if self.proj_q.tp_mode is not None and self.n_heads % tp:
+            raise ValueError(f"tensor parallelism: {self.n_heads} heads do "
+                             f"not split over tp_size {tp}")
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
-        B, T, H = x.shape
+        B, T, _ = x.shape
 
-        def split(t):  # (B, T, H) -> (B, heads, T, H / heads)
-            return t.view(B, T, self.n_heads, -1).transpose(1, 2)
+        def split(t):  # (B, T, h * D) -> (B, h, T, D), h this rank's heads
+            return t.view(B, T, -1, self.head_dim).transpose(1, 2)
 
         ctx = vanilla_attention(split(self.proj_q(x)), split(self.proj_k(x)),
                                 split(self.proj_v(x)), mask,
                                 dropout=self.drop)
-        return ctx.transpose(1, 2).reshape(B, T, H)
+        return ctx.transpose(1, 2).reshape(B, T, -1)
 
 
 class PositionWiseFeedForward(nn.Module):
@@ -68,6 +78,7 @@ class PositionWiseFeedForward(nn.Module):
         super().__init__()
         self.fc1 = Linear(hidden_size, 4 * hidden_size)
         self.fc2 = Linear(4 * hidden_size, hidden_size)
+        self.fc1.tp_capable = self.fc2.tp_capable = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu_erf(self.fc1(x)))
@@ -104,6 +115,7 @@ class BertEncoder(nn.Module):
                 hidden_size, n_heads, dropout_rate, rng))
         for name in dict.fromkeys(self._proj):
             self.add_module(name, Linear(hidden_size, hidden_size))
+            getattr(self, name).tp_capable = True  # row-parallel
         for name in dict.fromkeys(self._ffn):
             self.add_module(name, PositionWiseFeedForward(hidden_size))
         self.drop = Dropout(dropout_rate, rng)

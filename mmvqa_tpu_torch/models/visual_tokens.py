@@ -41,7 +41,9 @@ from mmvqa_tpu_torch.models.resnet import (
     TAP_CHANNELS,
     ResNetFeatures,
 )
+from mmvqa_tpu_torch.core.mesh import MODEL_AXIS
 from mmvqa_tpu_torch.ops.token_head import fused_token_head
+from mmvqa_tpu_torch.parallel.comm import copy_to, gather_from, scatter_to
 
 
 def tap_positions(feat_nchw: torch.Tensor) -> torch.Tensor:
@@ -61,6 +63,13 @@ class TokenHead(nn.Module):
         super().__init__()
         self.act = act
         self.weight = nn.Parameter(torch.empty(in_ch, hidden_size))
+        self.tp_split = 1
+
+    def prepare_tp(self, tp: int) -> None:
+        """Under tensor parallelism K1 runs on this rank's C / tp channels
+        of the replicated weight (``fused_token_head_sharded`` of the JAX
+        package, where C divides)."""
+        self.tp_split = tp if self.weight.shape[1] % tp == 0 else 1
 
     def forward(self, feat_nchw: torch.Tensor) -> torch.Tensor:
         x = tap_positions(feat_nchw)
@@ -69,7 +78,11 @@ class TokenHead(nn.Module):
             act = "serf_fast"  # the bf16 numerics of ops.activations.serf
         # an fp32 master weight goes in as it is: K1 casts it, and its fp32
         # dW comes back unrounded
-        return fused_token_head(x, self.weight, act)
+        if self.tp_split == 1:
+            return fused_token_head(x, self.weight, act)
+        w = scatter_to(self.weight, MODEL_AXIS, 1)
+        tokens = fused_token_head(copy_to(x, MODEL_AXIS), w, act)
+        return gather_from(tokens, MODEL_AXIS, 1)
 
 
 class VisualTokenizer(nn.Module):

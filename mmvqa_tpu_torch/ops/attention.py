@@ -42,6 +42,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from mmvqa_tpu_torch.native import loader
+from mmvqa_tpu_torch.ops import tiling
 
 NEG_BIG = 10000.0
 SMEM_LIMIT = 232448  # shared memory one block can have on an H100 (227 KB)
@@ -378,6 +379,7 @@ class _PackedAttention(torch.autograd.Function):
 
 
 def _check_packed(kqv: torch.Tensor) -> None:
+    tiling.refuse_dtensor("realformer_attention", kqv)
     if kqv.dim() != 4 or kqv.shape[-1] % 3:
         raise ValueError(
             f"realformer_attention: kqv {tuple(kqv.shape)} is not "
@@ -408,6 +410,7 @@ def realformer_attention(
     (B, H, T, T) fp32) with the semantics in the module docstring. Where a
     gradient is wanted, q, k and v are packed (one copy) and go through
     ``realformer_attention_packed``."""
+    tiling.refuse_dtensor("realformer_attention", q, k, v, prev)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"realformer_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "

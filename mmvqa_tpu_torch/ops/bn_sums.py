@@ -111,6 +111,7 @@ def bn_backward_sums(
     dtype on the card); mean, inv_std: (C) fp32. Returns the fp32 (C) sums
     over every leading axis of dy and of dy * (x - mean) * inv_std: the
     gradients of a BatchNorm's bias and scale."""
+    tiling.refuse_dtensor("bn_backward_sums", x, dy, mean, inv_std)
     if x.shape != dy.shape or mean.shape != x.shape[-1:] \
             or inv_std.shape != mean.shape:
         raise ValueError(

@@ -363,6 +363,7 @@ def conv1x1_stats(x: torch.Tensor,
     in x's dtype, any strides. Returns (y, stats): y = x @ w in x's dtype
     and the fp32 (2, C) sums [sum_n y, sum_n y^2] of the fp32 product.
     Differentiable in x and w, through y and through stats."""
+    tiling.refuse_dtensor("conv1x1_stats", x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(
             f"conv1x1_stats: x {tuple(x.shape)} and w {tuple(w.shape)} are "

@@ -208,6 +208,7 @@ def depthwise3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     channels last (dense on the card); w: (3, 3, C), any strides, in x's
     dtype or the fp32 master of a bf16 x. fp32 accumulation, output in x's
     dtype. Differentiable in x and w through the backward kernel."""
+    tiling.refuse_dtensor("depthwise3x3", x, w)
     _check_shapes(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Depthwise3x3.apply(x, w)

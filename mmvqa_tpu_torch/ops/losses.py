@@ -8,7 +8,9 @@ smoothing, soft targets, the category-smoothed targets) in their mean forms
 distance to the teacher's hidden states (``mse_distillation``, :137-150)
 and the per-sample form of ``make_distill_steps`` (``steps.py:245-252``).
 Every loss is taken in fp32. Plain PyTorch: the
-JAX package computes these outside any Pallas kernel."""
+JAX package computes these outside any Pallas kernel. Batch means and
+counts are the global batch's under data parallelism (``weighted_mean``,
+``mlm_metrics``), as in the JAX package's one program over the mesh."""
 
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mmvqa_tpu_torch.core.mesh import DATA_AXIS
+from mmvqa_tpu_torch.parallel.comm import reduce_from, sum_over
 
 
 def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -67,9 +72,15 @@ def category_smoothing_per_sample(logits: torch.Tensor, answers: torch.Tensor,
 
 
 def weighted_mean(per_sample: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Mean over the real samples of a batch (weight 1 real, 0 padding)."""
+    """Mean over the real samples of a batch (weight 1 real, 0 padding).
+    Under data parallelism the batch is the global one: the denominator is
+    the global sum of weights, and each rank's share of the numerator is
+    summed over 'data' (``comm.reduce_from``: every rank gets the global
+    mean and the gradient of it with respect to its own rows)."""
     w = w.to(per_sample.dtype)
-    return torch.sum(per_sample * w) / torch.clamp(torch.sum(w), min=1.0)
+    den = sum_over(torch.sum(w), DATA_AXIS)
+    return reduce_from(torch.sum(per_sample * w) / torch.clamp(den, min=1.0),
+                       DATA_AXIS)
 
 
 def mse_distillation(pred: torch.Tensor, target: torch.Tensor,
@@ -176,7 +187,10 @@ def mlm_metrics(logits: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):
     """(correct, total) over the masked tokens (label > 0) of real samples."""
     pred = torch.argmax(logits, dim=-1)
     masked = (labels > 0) & (w[:, None] > 0)
-    return torch.sum(masked & (pred == labels)), torch.sum(masked)
+    counts = torch.stack([torch.sum(masked & (pred == labels)),
+                          torch.sum(masked)])
+    correct, total = sum_over(counts, DATA_AXIS)  # the global batch's
+    return correct, total
 
 
 def mlm_accuracy(logits: torch.Tensor,

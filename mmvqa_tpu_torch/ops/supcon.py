@@ -17,9 +17,11 @@ and the CLIs turn it off (``cli/common.py::setup_runtime``). It is a plain
 product outside any Pallas kernel of the JAX package, so it stays a library
 matmul here.
 
-The JAX package's ``axis_name`` gathers the features of a data-parallel mesh
-so that the denominator sees the global batch; that waits for the port's
-multi-GPU layouts.
+``axis_name`` ('data') gathers the features of a data-parallel mesh, with
+their gradient (``parallel.comm.gather_from``), and the labels, so that the
+denominator sees the global batch; a float mask of local pairs is embedded
+block-diagonally into the global one, as the JAX function does
+(mmvqa_tpu/ops/supcon.py:44-58). Every rank then holds the global loss.
 """
 
 from __future__ import annotations
@@ -27,6 +29,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from mmvqa_tpu_torch.parallel.comm import (
+    axis_info,
+    gather_from,
+    gather_over,
+    sum_over,
+)
 
 
 def supcon_loss(
@@ -43,16 +52,22 @@ def supcon_loss(
     labels: optional (bsz,) int class ids -> equality mask.
     mask: optional (bsz, bsz) float positives mask (diagonal should be 1).
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "supcon_loss over a device mesh (axis_name) is not ported to "
-            "mmvqa_tpu_torch yet (ROADMAP.md Queue 1, item 10)")
     if features.dim() < 3:
         raise ValueError("features must be [bsz, n_views, ...]")
     if features.dim() > 3:
         features = features.reshape(features.shape[0], features.shape[1], -1)
     if labels is not None and mask is not None:
         raise ValueError("cannot define both labels and mask")
+    if axis_name is not None:
+        n = features.shape[0]
+        features = gather_from(features, axis_name, 0)
+        if labels is not None:
+            labels = gather_over(labels.reshape(-1), axis_name, 0)
+        if mask is not None:
+            _, _, idx = axis_info(axis_name)
+            big = mask.new_zeros((features.shape[0], features.shape[0]))
+            big[idx * n:(idx + 1) * n, idx * n:(idx + 1) * n] = mask
+            mask = sum_over(big, axis_name)
 
     bsz, n_views = features.shape[:2]
     dev, f32 = features.device, torch.float32

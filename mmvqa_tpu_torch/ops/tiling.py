@@ -190,6 +190,18 @@ def depthwise_plan(B: int, H: int, W: int, C: int, itemsize: int, sms: int,
                          threads, smem)
 
 
+def refuse_dtensor(name: str, *tensors) -> None:
+    """The kernels take plain local tensors: a DTensor (which no kernel is
+    registered to dispatch) raises instead of reaching the plain version or
+    a launch with its global shape."""
+    for t in tensors:
+        if t is not None and any(c.__name__ == "DTensor"
+                                 for c in type(t).__mro__):
+            raise TypeError(
+                f"{name}: got a DTensor; the layouts hand the kernels plain "
+                "local tensors (mmvqa_tpu_torch/parallel/)")
+
+
 def require_dense(name: str, t: torch.Tensor) -> None:
     """The kernels read a map as it lies; a strided one is refused, not
     copied."""

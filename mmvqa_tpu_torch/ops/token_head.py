@@ -658,6 +658,7 @@ def fused_token_head(x: torch.Tensor, w: torch.Tensor,
     accumulated in fp32. ``act`` is 'serf', 'serf_fast' (the bf16
     polynomial) or 'relu'. Differentiable in x and w through the backward
     kernel."""
+    tiling.refuse_dtensor("fused_token_head", x, w)
     if act not in ACTS:
         raise ValueError(f"fused_token_head: unknown act {act!r}")
     if x.dim() != 3 or w.dim() != 2 or x.shape[2] != w.shape[0]:

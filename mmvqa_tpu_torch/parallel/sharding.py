@@ -1,0 +1,428 @@
+"""Parameter and batch placement over the ('data', 'model') mesh
+(counterpart of mmvqa_tpu/parallel/sharding.py).
+
+The rule is the JAX package's, copied, and read on the Flax tree: each of
+the port's parameters names its Flax leaf through the bridge
+(``bridge.mapping``), so ``flax_spec`` sees the path and the shape that
+``infer_param_shardings`` sees, and ``param_placements`` turns the Flax
+dimension it picks into the dimension of the port's tensor.
+
+Tensor parallelism (Megatron's column and row split, where the dimension
+divides by the 'model' size):
+* ``COLUMN_PARALLEL`` kernels shard their output features, ``ROW_PARALLEL``
+  ones their input features, ``VOCAB_PARALLEL`` tables their rows;
+* everything else, 1-D leaves included, is replicated.
+
+FSDP (``--fsdp``): a leaf of at least ``FSDP_MIN_SIZE`` elements and two or
+more dimensions also shards its largest still-free dimension over 'data';
+embedding tables on their row dimension only, the token heads' kernels on
+their output channels only (``_with_fsdp`` and the cases of
+``infer_param_shardings``, :89-175).
+
+``Layout`` applies the rule to a model on a rank: the model keeps the
+'model' blocks of its tensor-parallel leaves as its parameters (its modules
+learn how they are split: ``tp_mode`` 'col', 'row' or 'vocab'), and under
+FSDP the optimizer steps this rank's 'data' block of each FSDP leaf (a
+master shard), whose whole parameter is gathered again after each update.
+Adam's moments are made for what the optimizer steps, so they follow their
+parameter's placement (``place_state`` of the JAX package). Running
+statistics are replicated.
+
+``shard_state`` and ``gather_state`` turn a full state dict into a rank's
+shards and back without a process group; ``Layout.full_state_dict`` and
+``Layout.load_full_state_dict`` do the same on a live world.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from mmvqa_tpu_torch import bridge
+from mmvqa_tpu_torch.core import distributed
+from mmvqa_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, MeshSpec
+from mmvqa_tpu_torch.parallel.comm import block
+
+FSDP_MIN_SIZE = 2 ** 15
+
+COLUMN_PARALLEL = (
+    "fc1", "ff1", "w_in", "pw_exp", "proj_q", "proj_k", "proj_v", "kqv",
+    "to_q", "shared_kv", "classifier_2", "head_2",
+)
+ROW_PARALLEL = ("fc2", "ff2", "w_out", "proj", "pw_proj", "to_out")
+VOCAB_PARALLEL = ("word_embeddings",)
+
+
+def _spec_for(names: Sequence[str], shape: Tuple[int, ...], tp: int) -> tuple:
+    """The 'model' part of a Flax leaf's spec (sharding.py:57-87)."""
+    if len(shape) < 2 or tp <= 1:
+        return ()
+    if names[-1] not in ("kernel", "embedding"):
+        return ()
+    module = names[-2] if len(names) >= 2 else ""
+    head, _, tail = module.rpartition("_")
+    base = head if head and tail.isdigit() else module
+
+    def col():
+        if shape[-1] % tp == 0:
+            return (None,) * (len(shape) - 1) + (MODEL_AXIS,)
+        return ()
+
+    def row():
+        if shape[-2] % tp == 0:
+            return (None,) * (len(shape) - 2) + (MODEL_AXIS, None)
+        return ()
+
+    if names[-1] == "embedding" and any(v in names for v in VOCAB_PARALLEL):
+        return (MODEL_AXIS,) if shape[0] % tp == 0 else ()
+    if base in COLUMN_PARALLEL or module in COLUMN_PARALLEL:
+        return col()
+    if base in ROW_PARALLEL or module in ROW_PARALLEL:
+        return row()
+    return ()
+
+
+def _with_fsdp(spec: tuple, shape: Tuple[int, ...], dp: int,
+               dims: Optional[Sequence[int]] = None) -> tuple:
+    """'data' on the largest still-free dimension divisible by ``dp``
+    (sharding.py:89-110); ``spec`` unchanged where none is."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    candidates = range(len(shape)) if dims is None else dims
+    free = [d for d in candidates
+            if entries[d] is None and shape[d] % dp == 0]
+    if not free:
+        return tuple(spec)
+    d = max(free, key=lambda i: shape[i])
+    entries[d] = DATA_AXIS
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def flax_spec(names: Sequence[str], shape: Tuple[int, ...], dp: int, tp: int,
+              fsdp: bool) -> tuple:
+    """The spec ``infer_param_shardings`` gives the Flax leaf ``names`` of
+    ``shape`` on a (dp, tp) mesh, as a tuple of axis names or None."""
+    spec = _spec_for(names, shape, tp)
+    if fsdp and dp > 1 and int(np.prod(shape)) >= FSDP_MIN_SIZE \
+            and len(shape) >= 2:
+        if names[-1] == "embedding":
+            if spec == () and shape[0] % dp == 0:
+                spec = (DATA_AXIS,)
+        elif names[-1] == "kernel" and len(shape) >= 3 and len(names) >= 2 \
+                and str(names[-2]).startswith("token_conv"):
+            spec = _with_fsdp(spec, shape, dp, dims=(len(shape) - 1,))
+        else:
+            spec = _with_fsdp(spec, shape, dp)
+    return spec
+
+
+# the Flax dimension -> the port's dimension, for each of the bridge's
+# transforms
+_TORCH_DIM = {
+    bridge._same: lambda d, n: d,
+    bridge._t: lambda d, n: n - 1 - d,
+    bridge._hwio_to_oihw: lambda d, n: (2, 3, 1, 0)[d],
+    bridge._token_kernel: lambda d, n: d - 2,
+}
+
+
+class Placement(NamedTuple):
+    """Where a parameter of the port lies: its Flax path and spec, and the
+    port's dimensions split over 'model' and over 'data' (None: whole)."""
+
+    flax_path: str
+    spec: tuple
+    tp_dim: Optional[int]
+    fsdp_dim: Optional[int]
+
+
+def param_placements(model: nn.Module, dp: int, tp: int,
+                     fsdp: bool = False) -> Dict[str, Placement]:
+    """One ``Placement`` a parameter of ``model`` (full shapes), by the JAX
+    rule on the Flax tree."""
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    out = {}
+    for e in bridge.mapping(model):
+        if e.path[0] != "params" or e.key not in shapes:
+            continue
+        flax_shape = np.shape(e.to_flax(np.broadcast_to(
+            np.float32(0), shapes[e.key])))
+        spec = flax_spec(e.path[1:], flax_shape, dp, tp, fsdp)
+        to_torch = _TORCH_DIM[e.to_torch]
+        dims = {axis: to_torch(d, len(flax_shape))
+                for d, axis in enumerate(spec) if axis is not None}
+        out[e.key] = Placement("/".join(e.path[1:]), spec,
+                               dims.get(MODEL_AXIS), dims.get(DATA_AXIS))
+    return out
+
+
+def local_block(t: torch.Tensor, pl: Placement, dp: int, tp: int,
+                data_rank: int, model_rank: int,
+                fsdp: bool = True) -> torch.Tensor:
+    """A rank's block of the full tensor ``t``: its 'model' block, then
+    (with ``fsdp``) its 'data' block of that."""
+    if pl.tp_dim is not None and tp > 1:
+        t = block(t, pl.tp_dim, tp, model_rank)
+    if fsdp and pl.fsdp_dim is not None and dp > 1:
+        t = block(t, pl.fsdp_dim, dp, data_rank)
+    return t
+
+
+def shard_state(state: Mapping[str, torch.Tensor],
+                placements: Mapping[str, Placement], dp: int, tp: int,
+                rank: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shards of a full state dict (rank ``d * tp + m``);
+    entries without a placement (running statistics) stay whole."""
+    d, m = divmod(rank, tp)
+    return {k: (local_block(v, placements[k], dp, tp, d, m)
+                if k in placements else v.clone())
+            for k, v in state.items()}
+
+
+def gather_state(shards: Sequence[Mapping[str, torch.Tensor]],
+                 placements: Mapping[str, Placement], dp: int,
+                 tp: int) -> Dict[str, torch.Tensor]:
+    """The full state dict from every rank's shards, in rank order."""
+    out = {}
+    for k, v0 in shards[0].items():
+        pl = placements.get(k)
+        if pl is None:
+            out[k] = v0.clone()
+            continue
+        per_model = []
+        for m in range(tp):
+            parts = [shards[d * tp + m][k] for d in range(dp)]
+            per_model.append(torch.cat(parts, pl.fsdp_dim)
+                             if pl.fsdp_dim is not None and dp > 1
+                             else parts[0])
+        out[k] = (torch.cat(per_model, pl.tp_dim)
+                  if pl.tp_dim is not None and tp > 1 else per_model[0])
+    return out
+
+
+def place_batch(batch: Mapping, spec: MeshSpec) -> Dict:
+    """This rank's contiguous rows of a global batch (``place_batch`` of the
+    JAX package: the batch dimension over 'data'); every model rank of a
+    data group gets the same rows."""
+    dp, d = spec.data_size, spec.data_rank
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, str):
+            out[k] = v
+            continue
+        n = len(v)
+        if n % dp:
+            raise ValueError(f"batch field {k!r} has {n} rows, not "
+                             f"divisible by dp_size {dp}")
+        b = n // dp
+        out[k] = v[d * b:(d + 1) * b]
+    return out
+
+
+def _tp_mode(pl: Placement, module: nn.Module) -> str:
+    """'vocab' for a table, else 'col' or 'row': a Linear's weight is (out,
+    in), a Conv2d's (out, in, kh, kw)."""
+    if isinstance(module, nn.Embedding):
+        return "vocab"
+    return "col" if pl.tp_dim == 0 else "row"
+
+
+class Layout:
+    """A model placed on this rank of ``spec``: tensor-parallel blocks as the
+    model's parameters, FSDP master shards for the optimizer. Build it on
+    every rank from the same full model; see the module docstring."""
+
+    def __init__(self, model: nn.Module, spec: MeshSpec, fsdp: bool = False):
+        self.spec = spec
+        self.fsdp = fsdp and spec.data_size > 1
+        dp, tp = spec.data_size, spec.model_size
+        self.placements = param_placements(model, dp, tp, self.fsdp)
+        self.model = model
+        # the full shapes, for checking a checkpoint against
+        self.full_shapes = {k: torch.empty(v.shape, device="meta")
+                            for k, v in model.state_dict().items()}
+        if tp > 1:
+            # The model ranks hold the same rows, and the collectives give
+            # every rank the same sums, so a replicated parameter's gradient
+            # is computed from the same values on each of them; cuDNN's
+            # deterministic algorithms make it the same bits too (its
+            # default weight gradients may add in another order each call),
+            # so the replicas stay equal with no collective of their own.
+            torch.backends.cudnn.deterministic = True
+        self._mark(model)
+        rng = getattr(model, "dropout_rng", None)
+        if rng is not None:  # one dropout stream a data rank
+            rng.fold_rank(spec.data_rank)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                pl = self.placements[name]
+                if pl.tp_dim is not None:
+                    p.data = block(p.data, pl.tp_dim, tp, spec.model_rank)
+        self.shards: Dict[str, torch.Tensor] = {}
+        for name, p in model.named_parameters():
+            if self.fsdp_dim(name) is not None:
+                self.shards[name] = block(p.detach(), self.fsdp_dim(name), dp,
+                                          spec.data_rank).requires_grad_()
+
+    def fsdp_dim(self, name: str) -> Optional[int]:
+        return self.placements[name].fsdp_dim if self.fsdp else None
+
+    def _mark(self, model: nn.Module) -> None:
+        """Tell each split module how it is split, and refuse a model whose
+        forward does not know a split the rule asks for."""
+        if self.spec.model_size == 1:
+            return
+        modules = dict(model.named_modules())
+        for name, pl in self.placements.items():
+            if pl.tp_dim is None:
+                continue
+            mod_name = name.rpartition(".")[0]
+            mod = modules[mod_name]
+            # a parent that splits this module's computation says so
+            if not getattr(mod, "tp_capable", False):
+                raise NotImplementedError(
+                    f"tensor parallelism over {mod_name} "
+                    f"({type(mod).__name__}) is not written in "
+                    "mmvqa_tpu_torch: its model must run with --tp_size 1")
+            mod.tp_mode = _tp_mode(pl, mod)
+        for mod in model.modules():
+            prepare = getattr(mod, "prepare_tp", None)
+            if prepare is not None:
+                prepare(self.spec.model_size)
+
+    # the optimizer's view ------------------------------------------------
+
+    def opt_params(self) -> Dict[str, torch.Tensor]:
+        """What the optimizer steps, by parameter name, in the model's
+        order: the master shard of an FSDP leaf, else the parameter."""
+        return {name: self.shards.get(name, p)
+                for name, p in self.model.named_parameters()}
+
+    def replication(self, name: str) -> int:
+        """How many ranks hold the same values of ``name``'s optimizer
+        tensor (a global norm counts each value once)."""
+        pl = self.placements[name]
+        r = 1
+        if pl.tp_dim is None:
+            r *= self.spec.model_size
+        if self.fsdp_dim(name) is None:
+            r *= self.spec.data_size
+        return r
+
+    @torch.no_grad()
+    def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of the whole gradient from every rank's
+        ``grads`` (of ``opt_params``), each value counted once."""
+        import torch.distributed as dist
+
+        total = torch.stack([g.float().square().sum() / self.replication(n)
+                             for n, g in grads.items()]).sum()
+        if self.spec.world_size > 1:
+            distributed.all_reduce(total, dist.group.WORLD)
+        return total.sqrt()
+
+    @torch.no_grad()
+    def reduce_gradients(self) -> None:
+        """Sum the ranks' partial gradients over 'data': all-reduce into the
+        parameters' ``.grad``, reduce-scatter into the master shards' (a
+        missing gradient counts as zeros). One bucket a kind. A parameter
+        replicated over 'model' needs nothing more: every model rank
+        computes its gradient from the same values in the same way
+        (``__init__``)."""
+        dp = self.spec.data_size
+        group = self.spec.data_group
+        plain: List[Tuple[str, torch.Tensor]] = []
+        sharded: List[Tuple[str, torch.Tensor]] = []
+        for name, p in self.model.named_parameters():
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            (sharded if name in self.shards else plain).append((name, g))
+            p.grad = None
+        params = dict(self.model.named_parameters())
+        if plain:
+            flat = torch.cat([g.reshape(-1) for _, g in plain])
+            if dp > 1:
+                distributed.all_reduce(flat, group)
+            for (name, g), piece in zip(plain, flat.split(
+                    [g.numel() for _, g in plain])):
+                params[name].grad = piece.view_as(g)
+        if sharded:
+            rows = []
+            for name, g in sharded:
+                rows.append(g.movedim(self.fsdp_dim(name), 0).reshape(dp, -1))
+            local = torch.empty(sum(r.shape[1] for r in rows),
+                                dtype=rows[0].dtype, device=rows[0].device)
+            distributed.reduce_scatter_tensor(
+                local, torch.cat(rows, dim=1).reshape(-1), group)
+            for (name, g), piece in zip(sharded, local.split(
+                    [r.shape[1] for r in rows])):
+                shard = self.shards[name]
+                d = self.fsdp_dim(name)
+                moved = shard.movedim(d, 0)
+                shard.grad = piece.view(moved.shape).movedim(0, d).contiguous()
+
+    @torch.no_grad()
+    def publish(self) -> None:
+        """Gather every master shard into its parameter (after an update)."""
+        if not self.shards:
+            return
+        dp = self.spec.data_size
+        names = list(self.shards)
+        flats = [self.shards[n].movedim(self.fsdp_dim(n), 0).reshape(-1)
+                 for n in names]
+        local = torch.cat(flats)
+        out = local.new_empty(dp * local.numel())
+        distributed.all_gather_into_tensor(out, local, self.spec.data_group)
+        rows = out.view(dp, -1).split([f.numel() for f in flats], dim=1)
+        params = dict(self.model.named_parameters())
+        for name, r in zip(names, rows):
+            p = params[name]
+            d = self.fsdp_dim(name)
+            moved_shape = (p.shape[d],) + tuple(
+                s for i, s in enumerate(p.shape) if i != d)
+            p.data.copy_(r.reshape(moved_shape).movedim(0, d))
+
+    # full tensors <-> this rank's --------------------------------------------
+
+    def local(self, name: str, full: torch.Tensor,
+              fsdp: bool = True) -> torch.Tensor:
+        """This rank's block of a full tensor placed like ``name``."""
+        return local_block(full, self.placements[name], self.spec.data_size,
+                           self.spec.model_size, self.spec.data_rank,
+                           self.spec.model_rank, fsdp and self.fsdp)
+
+    @torch.no_grad()
+    def full(self, name: str, t: torch.Tensor,
+             fsdp: bool = True) -> torch.Tensor:
+        """The full tensor from every rank's block ``t`` (collective: every
+        rank calls it, in the same order)."""
+        from mmvqa_tpu_torch.parallel import comm
+
+        pl = self.placements[name]
+        if fsdp and self.fsdp_dim(name) is not None:
+            t = comm.gather_over(t, DATA_AXIS, pl.fsdp_dim)
+        if pl.tp_dim is not None:
+            t = comm.gather_over(t, MODEL_AXIS, pl.tp_dim)
+        return t
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's full state dict, as one process holds it
+        (collective)."""
+        return {k: (self.full(k, v, fsdp=False) if k in self.placements
+                    else v.detach())
+                for k, v in self.model.state_dict().items()}
+
+    @torch.no_grad()
+    def load_full_state_dict(self, state: Mapping[str, torch.Tensor]) -> None:
+        """Load a full state dict into the placed model and its shards."""
+        own = self.model.state_dict()
+        self.model.load_state_dict(
+            {k: (self.local(k, v, fsdp=False) if k in self.placements else v)
+             for k, v in state.items() if k in own}, strict=True)
+        params = dict(self.model.named_parameters())
+        for name, shard in self.shards.items():
+            shard.copy_(block(params[name].detach(), self.fsdp_dim(name),
+                              self.spec.data_size, self.spec.data_rank))

@@ -17,7 +17,13 @@ The reference's three kinds (SURVEY.md §5.4):
 A file written from a model on the card loads on the CPU and the other way
 round: every load maps the tensors to the device of the model they go into.
 A recorder written by the JAX package comes across through
-``mmvqa_tpu_torch.bridge.from_flax_recorder``. Converting the encoder's
+``mmvqa_tpu_torch.bridge.from_flax_recorder``.
+
+Under a layout (``TrainState.layout``) every rank calls the savers, which
+gather the full tensors (parameters, Adam's moments, the accumulator), and
+rank 0 alone writes: the file is the one a single process writes, and it
+loads into a single process or into any layout, where each rank keeps its
+blocks. Converting the encoder's
 layout between sequential and pipeline-stacked (``adapt_encoder_layout``)
 waits for pipeline parallelism (ROADMAP.md Queue 1, item 10): a sequential
 checkpoint loads as it is, a pipeline-stacked one raises.
@@ -30,6 +36,7 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
+from mmvqa_tpu_torch.core import distributed
 from mmvqa_tpu_torch.train.state import TrainState
 
 RECORDER = "recorder_2.pt"
@@ -48,16 +55,37 @@ def recorder_tree(epoch: int, state: TrainState,
             return type(tree)(cpu(v) for v in tree)
         return tree
 
+    layout = state.layout
+    model_state = state.model.state_dict()
+    optimizer = state.optimizer.state_dict()
+    acc = state.acc_grads
+    if layout is not None:  # the full tensors, as one process holds them
+        names = list(layout.opt_params())
+        model_state = layout.full_state_dict()
+        optimizer = dict(optimizer, state={
+            i: {k: (layout.full(names[i], v) if k != "step" else v)
+                for k, v in st.items()}
+            for i, st in optimizer["state"].items()})
+        acc = (None if acc is None else
+               {n: layout.full(n, v) for n, v in acc.items()})
     return {
         "epoch": int(epoch),
-        "model": cpu(state.model.state_dict()),
-        "optimizer": cpu(state.optimizer.state_dict()),
+        "model": cpu(model_state),
+        "optimizer": cpu(optimizer),
         "step": int(state.step),
         "grad_accum": int(state.grad_accum),
         "mini_step": int(state.mini_step),
-        "acc_grads": cpu(state.acc_grads),
+        "acc_grads": cpu(acc),
         "scheduler": dict(scheduler_state),
     }
+
+
+def _writes() -> bool:
+    """Rank 0 writes (every rank where no world is initialised)."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def load_recorder_tree(tree: Mapping, state: TrainState
@@ -70,15 +98,26 @@ def load_recorder_tree(tree: Mapping, state: TrainState
             f"the state over {state.grad_accum}: resume with the original "
             "--grad_accum")
     model = state.model
-    check_compatible(model.state_dict(), tree["model"], what="recorder")
-    model.load_state_dict(tree["model"], strict=True)
+    layout = state.layout
+    optimizer, acc = tree["optimizer"], tree["acc_grads"]
+    if layout is None:
+        check_compatible(model.state_dict(), tree["model"], what="recorder")
+        model.load_state_dict(tree["model"], strict=True)
+    else:  # each rank keeps its blocks of the full tensors
+        layout.load_full_state_dict(tree["model"])
+        names = list(layout.opt_params())
+        optimizer = dict(optimizer, state={
+            i: {k: (layout.local(names[int(i)], v) if k != "step" else v)
+                for k, v in st.items()}
+            for i, st in optimizer["state"].items()})
+        acc = (None if acc is None else
+               {n: layout.local(n, v) for n, v in acc.items()})
     # Adam's moments go to their parameter's device (its load_state_dict
     # casts them); the step counts stay on the CPU, as torch keeps them
-    state.optimizer.load_state_dict(tree["optimizer"])
+    state.optimizer.load_state_dict(optimizer)
     dev = next(model.parameters()).device
     state.step = int(tree["step"])
     state.mini_step = int(tree["mini_step"])
-    acc = tree["acc_grads"]
     state.acc_grads = (None if acc is None else
                        {k: v.to(dev, torch.float32, copy=True)
                         for k, v in acc.items()})
@@ -89,9 +128,11 @@ def save_recorder(save_dir: str, epoch: int, state: TrainState,
                   scheduler_state: Mapping) -> None:
     """Full-state recorder (epoch, model, optimizer, step, accumulator,
     scheduler): ``<save_dir>/recorder_2.pt``."""
-    os.makedirs(save_dir, exist_ok=True)
-    torch.save(recorder_tree(epoch, state, scheduler_state),
-               os.path.join(save_dir, RECORDER))
+    tree = recorder_tree(epoch, state, scheduler_state)
+    if _writes():
+        os.makedirs(save_dir, exist_ok=True)
+        torch.save(tree, os.path.join(save_dir, RECORDER))
+    distributed.barrier()  # no rank reads the file before it is written
 
 
 def restore_recorder(save_dir: str, state: TrainState
@@ -106,11 +147,16 @@ def restore_recorder(save_dir: str, state: TrainState
 
 
 def save_weights(path: str, state: TrainState) -> None:
-    """Model-only checkpoint: parameters and BatchNorm running statistics."""
-    parent = os.path.dirname(os.path.abspath(path))
-    os.makedirs(parent, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in
-                state.model.state_dict().items()}, path)
+    """Model-only checkpoint: parameters and BatchNorm running statistics
+    (under a layout the full ones, written by rank 0)."""
+    tensors = (state.model.state_dict() if state.layout is None
+               else state.layout.full_state_dict())
+    tensors = {k: v.detach().cpu() for k, v in tensors.items()}
+    if _writes():
+        parent = os.path.dirname(os.path.abspath(path))
+        os.makedirs(parent, exist_ok=True)
+        torch.save(tensors, path)
+    distributed.barrier()
 
 
 def load_weights(path: str) -> Dict[str, torch.Tensor]:

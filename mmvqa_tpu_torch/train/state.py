@@ -15,6 +15,15 @@ from it. Adam's count moves only on those real updates; ``step`` counts
 micro-steps, as the JAX ``TrainState.step`` does; ``with_lr`` works between
 micro-steps. The BatchNorm statistics are no optimizer state: they move in
 every forward, so on every micro-step.
+
+Under a layout (``parallel.sharding.Layout``, ``layout=`` of
+``create_train_state``) the optimizer steps the layout's tensors: each
+micro-step first sums the ranks' gradients over 'data' (all-reduced, or
+reduce-scattered into the master shards under FSDP), the accumulation and
+the clip work on those, and under FSDP the updated shards are gathered
+into the parameters. The clip's norm is the global one: each rank's
+squares, each value counted once (``Layout.replication``), summed over the
+world.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 from torch import nn
 
 CLIP_NORM = 1.0
+ADAM_EPS = 1e-8
 
 
 @dataclass
@@ -40,6 +50,15 @@ class TrainState:
     mini_step: int = 0
     acc_grads: Optional[Dict[str, torch.Tensor]] = field(default=None,
                                                          repr=False)
+    layout: Optional[object] = field(default=None, repr=False)
+    # the global gradient norm the last clip measured (None without a clip)
+    clip_norm: Optional[torch.Tensor] = field(default=None, repr=False)
+
+    def _targets(self) -> Dict[str, torch.Tensor]:
+        """What the optimizer steps, by parameter name, in order."""
+        if self.layout is None:
+            return dict(self.model.named_parameters())
+        return self.layout.opt_params()
 
     def apply_gradients(self) -> None:
         """One micro-step from the ``.grad`` of the model's parameters: an
@@ -47,36 +66,47 @@ class TrainState:
         mean of the accumulated gradients. The gradients are dropped
         afterwards."""
         self.step += 1
+        if self.layout is not None:
+            self.layout.reduce_gradients()
+        targets = self._targets()
         if self.grad_accum > 1:
-            self._accumulate()
+            self._accumulate(targets)
             self.mini_step += 1
             if self.mini_step < self.grad_accum:
                 self.optimizer.zero_grad(set_to_none=True)
                 return
             self.mini_step = 0
-            for name, p in self.model.named_parameters():
+            for name, p in targets.items():
                 p.grad = self.acc_grads[name].to(p.dtype)
             self.acc_grads = None
         if self.clip:
-            params = [p for p in self.model.parameters() if p.grad is not None]
+            named = [(n, p) for n, p in targets.items() if p.grad is not None]
             # optax's rule: untouched below the limit, g / norm * limit
             # above it (torch.nn.utils.clip_grad_norm_ adds 1e-6 to the norm)
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(p.grad.float()) for p in params]))
+            if self.layout is None:
+                norm = torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(p.grad.float())
+                     for _, p in named]))
+            else:
+                norm = self.layout.global_norm(
+                    {n: p.grad for n, p in named})
+            self.clip_norm = norm.detach()
             scale = torch.where(norm > CLIP_NORM, CLIP_NORM / norm,
                                 torch.ones_like(norm))
-            torch._foreach_mul_([p.grad for p in params], scale)
+            torch._foreach_mul_([p.grad for _, p in named], scale)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        if self.layout is not None:
+            self.layout.publish()
 
-    def _accumulate(self) -> None:
+    def _accumulate(self, targets: Dict[str, torch.Tensor]) -> None:
         """acc += (g - acc) / (n + 1); a parameter without a gradient counts
         as a zero gradient, as in the JAX tree."""
         if self.acc_grads is None:
             self.acc_grads = {name: torch.zeros_like(p, dtype=torch.float32)
-                              for name, p in self.model.named_parameters()}
+                              for name, p in targets.items()}
         n = float(self.mini_step + 1)
-        for name, p in self.model.named_parameters():
+        for name, p in targets.items():
             acc = self.acc_grads[name]
             g = torch.zeros_like(acc) if p.grad is None else p.grad.float()
             acc.add_((g - acc) / n)
@@ -94,11 +124,15 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, lr: float, clip: bool = False,
-                       grad_accum: int = 1) -> TrainState:
-    """Adam over every parameter of ``model``, on the model's device."""
+                       grad_accum: int = 1, layout=None) -> TrainState:
+    """Adam over every parameter of ``model``, on the model's device, or
+    over what ``layout`` (a ``parallel.sharding.Layout`` of the model) says
+    the optimizer steps."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=0.0)
+    params = (model.parameters() if layout is None
+              else layout.opt_params().values())
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+                                 eps=ADAM_EPS, weight_decay=0.0)
     return TrainState(step=0, model=model, optimizer=optimizer, clip=clip,
-                      grad_accum=grad_accum)
+                      grad_accum=grad_accum, layout=layout)

@@ -9,6 +9,15 @@ per-parameter histograms (``grad_weight_histograms``, :87-115).
 The steps run eagerly and update the train state in place. Metrics come
 back as tensors on the model's device, so that a loop can pull them once at
 its end.
+
+Under a layout (``core.mesh.CURRENT``, the state's ``parallel.sharding.
+Layout``) each rank's batch is its rows of the global batch
+(``parallel.sharding.place_batch``), and a step is the single process's on
+the global batch: the augmentation draws are the global batch's, from the
+step's generator, and each rank keeps its rows; the losses and metric
+counters are the global batch's (``ops/losses.py``); SupCon contrasts the
+gathered global batch; the VQA steps return the predictions, logits,
+answers and weights of the global batch.
 """
 
 from __future__ import annotations
@@ -20,12 +29,14 @@ import torch
 
 from mmvqa_tpu_torch.bridge import flax_names
 from mmvqa_tpu_torch.core.config import Config
+from mmvqa_tpu_torch.core.mesh import DATA_AXIS
 from mmvqa_tpu_torch.data.images import (
     FINETUNE_AUG,
     PRETRAIN_AUG,
     AugmentDraws,
     AugmentSpec,
     process_batch,
+    sample_draws,
 )
 from mmvqa_tpu_torch.ops.losses import (
     asl_per_sample,
@@ -37,6 +48,7 @@ from mmvqa_tpu_torch.ops.losses import (
     weighted_token_nll,
 )
 from mmvqa_tpu_torch.ops.supcon import split_two_views, supcon_loss
+from mmvqa_tpu_torch.parallel.comm import axis_info, gather_over
 from mmvqa_tpu_torch.train.state import TrainState
 
 BATCH_KEYS = ("image", "tokens", "segment_ids", "input_mask", "answer", "weights")
@@ -114,6 +126,40 @@ def _own_generators(cfg: Config) -> Callable[[torch.device], torch.Generator]:
     return get
 
 
+def _augment(images: torch.Tensor, generator: Optional[torch.Generator],
+             aug: AugmentSpec, draws: Optional[AugmentDraws]) -> torch.Tensor:
+    """``process_batch`` with augmentation. The draws (given, or from
+    ``generator``) are the global batch's; under data parallelism this rank
+    keeps its rows of them."""
+    _, dp, d = axis_info(DATA_AXIS)
+    b = images.shape[0]
+    if draws is None:
+        draws = sample_draws(b * dp, images.shape[1], generator, aug)
+    if draws.crop.shape[0] != b:
+        draws = AugmentDraws(draws.crop[d * b:(d + 1) * b],
+                             draws.jitter[d * b:(d + 1) * b])
+    return process_batch(images, None, aug, True, draws)
+
+
+def _layout_rows(b: Mapping, batch: Mapping) -> Dict[str, torch.Tensor]:
+    """Under data parallelism the answers, weights and (where the loader
+    gives them) dataset indices of the global batch come back with its
+    predictions (``trainer.vqa_epoch`` reads them)."""
+    if axis_info(DATA_AXIS)[1] == 1:
+        return {}
+    rows = {"answer": b["answer"], "weights": b["weights"]}
+    if "index" in batch:
+        rows["index"] = torch.as_tensor(batch["index"]).to(b["answer"].device)
+    return rows
+
+
+def _global_rows(metrics: Dict, **rows: torch.Tensor) -> Dict:
+    """Per-row outputs of the global batch: gathered over 'data'."""
+    for k, v in rows.items():
+        metrics[k] = gather_over(v, DATA_AXIS, 0)
+    return metrics
+
+
 def _mlm_eval_step(model: torch.nn.Module) -> Callable:
     """The MLM eval step: loss, ``correct`` and ``total`` without
     augmentation, dropout or any update (on a SupCon model, of its MLM
@@ -166,7 +212,7 @@ def make_mlm_steps(
         b = _to_device(batch, MLM_BATCH_KEYS, dev)
         generator = own_generator(dev) if draws is None else None
         with torch.no_grad():
-            img = process_batch(b["image"], generator, aug, True, draws)
+            img = _augment(b["image"], generator, aug, draws)
         model.set_mode(deterministic=False)
         logits = model(img, b["tokens"], b["segment_ids"], b["input_mask"])
         loss = weighted_token_nll(logits, b["labels"], b["weights"])
@@ -215,7 +261,7 @@ def make_distill_steps(
         b = _to_device(batch, MLM_BATCH_KEYS, dev)
         generator = own_generator(dev) if draws is None else None
         with torch.no_grad():
-            img = process_batch(b["image"], generator, aug, True, draws)
+            img = _augment(b["image"], generator, aug, draws)
         model.set_mode(deterministic=False)
         h = model(img, b["tokens"], b["segment_ids"], b["input_mask"])
         loss = weighted_mean(distill_per_sample(h, b["labels"]),
@@ -278,8 +324,8 @@ def make_supcon_steps(
         generator = own_generator(dev) if draws is None else None
         d1, d2 = (None, None) if draws is None else draws
         with torch.no_grad():
-            img = torch.cat([process_batch(b["image"], generator, aug, True, d1),
-                             process_batch(b["image"], generator, aug, True, d2)])
+            img = torch.cat([_augment(b["image"], generator, aug, d1),
+                             _augment(b["image"], generator, aug, d2)])
         ids = torch.cat([b["tokens"], b["aug_tokens"]])
         seg = torch.cat([b["segment_ids"]] * 2)
         mask = torch.cat([b["input_mask"]] * 2)
@@ -290,7 +336,9 @@ def make_supcon_steps(
         model.set_mode(deterministic=False)
         logits, feat = model(img, ids, seg, mask)
         nll = weighted_token_nll(logits, labels, w)
-        con = supcon_loss(split_two_views(feat), mask=positives)
+        con = supcon_loss(split_two_views(feat), mask=positives,
+                          axis_name=(DATA_AXIS if axis_info(DATA_AXIS)[1] > 1
+                                     else None))
         loss = nll + con
         loss.backward()
         metrics = {"loss": loss.detach(), "mlm_loss": nll.detach(),
@@ -372,14 +420,16 @@ def make_vqa_steps(
                       if "category" in batch else torch.zeros_like(answers))
         generator = own_generator(dev) if draws is None else None
         with torch.no_grad():
-            img = process_batch(b["image"], generator, aug, True, draws)
+            img = _augment(b["image"], generator, aug, draws)
         model.set_mode(deterministic=False, train_cnn=True)
         logits = model(img, b["tokens"], b["segment_ids"], b["input_mask"])
         loss = weighted_mean(criterion(logits, answers, categories),
                              b["weights"])
         loss.backward()
-        metrics = {"loss": loss.detach(),
-                   "preds": torch.argmax(logits.detach(), dim=-1)}
+        metrics = {"loss": loss.detach()}
+        with torch.no_grad():
+            _global_rows(metrics, preds=torch.argmax(logits.detach(), dim=-1),
+                         **_layout_rows(b, batch))
         if histograms:
             metrics.update(grad_weight_histograms(model))
         state.apply_gradients()
@@ -393,8 +443,8 @@ def make_vqa_steps(
                        b["segment_ids"], b["input_mask"])
         loss = weighted_mean(eval_criterion(logits, b["answer"]),
                              b["weights"])
-        return {"loss": loss, "preds": torch.argmax(logits, dim=-1),
-                "logits": logits}
+        return _global_rows({"loss": loss}, preds=torch.argmax(logits, dim=-1),
+                            logits=logits, **_layout_rows(b, batch))
 
     return train_step, eval_step
 
@@ -442,7 +492,7 @@ def make_img_only_steps(
         b = _to_device(batch, IMG_ONLY_BATCH_KEYS, dev)
         generator = own_generator(dev) if draws is None else None
         with torch.no_grad():
-            img = process_batch(b["image"], generator, aug, True, draws)
+            img = _augment(b["image"], generator, aug, draws)
         model.train()
         logits = model(img, keyword_of(batch, dev))
         loss = weighted_mean(cross_entropy_per_sample(logits, b["answer"]),

@@ -106,22 +106,27 @@ def vqa_epoch(step_fn: Callable, state: TrainState,
     """Run ``step_fn`` (a train or eval step of ``make_vqa_steps``) over the
     batches of ``loader``. Returns the state and ``loss`` (the mean of the
     per-batch means), ``preds`` and ``targets`` (numpy, the real samples in
-    dataset order), ``logits`` (eval steps, with ``collect_logits``) and
+    dataset order; the global batch's, under data parallelism), ``logits`` (eval steps, with ``collect_logits``) and
     ``items_per_sec`` (real samples over the epoch's wall time)."""
-    losses, preds, logits, targets, weights = [], [], [], [], []
+    losses, preds, logits, targets, weights, index = [], [], [], [], [], []
     n_items = 0
     t0 = time.perf_counter()
     for batch in loader:
-        w = np.asarray(batch["weights"])
-        n_items += int(w.sum())
-        weights.append(w.copy())
-        targets.append(np.asarray(batch["answer"]).copy())
         if train:
             state, m = step_fn(state, batch)
         else:
             m = step_fn(state, batch)
             if collect_logits:
                 logits.append(m["logits"].detach())
+        # a data-parallel step returns the global batch's rows
+        w = np.asarray(m["weights"].cpu() if "weights" in m
+                       else batch["weights"])
+        n_items += int(w.sum())
+        weights.append(w.copy())
+        targets.append(np.asarray(m["answer"].cpu() if "answer" in m
+                                  else batch["answer"]).copy())
+        if "index" in m:
+            index.append(m["index"].cpu().numpy())
         losses.append(m["loss"])
         preds.append(m["preds"])
     # one pull for each kind of output (waits for the device), then the clock
@@ -139,4 +144,9 @@ def vqa_epoch(step_fn: Callable, state: TrainState,
            "items_per_sec": n_items / max(dt, 1e-9)}
     if host_logits is not None:
         out["logits"] = host_logits[real]
+    if index:  # the shards' rows back in dataset order
+        order = np.argsort(np.concatenate(index)[real], kind="stable")
+        for k in ("preds", "targets", "logits"):
+            if k in out:
+                out[k] = out[k][order]
     return state, out

@@ -29,6 +29,13 @@ def seed_everything(seed: int) -> None:
     torch.manual_seed(seed)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
+            else 0)
+
+
 class MetricSink:
     def __init__(
         self,
@@ -39,10 +46,13 @@ class MetricSink:
         config: Optional[Dict] = None,
     ):
         self.run_name = run_name
-        os.makedirs(save_dir, exist_ok=True)
         self.jsonl_path = os.path.join(save_dir, f"{run_name}_metrics.jsonl")
         self._wandb = None
-        if use_wandb:
+        # under a layout rank 0 alone logs (mmvqa_tpu_torch/cli/common.py)
+        self.enabled = _rank() == 0
+        if self.enabled:
+            os.makedirs(save_dir, exist_ok=True)
+        if use_wandb and self.enabled:
             try:
                 import wandb
 
@@ -52,6 +62,8 @@ class MetricSink:
                 self._wandb = None
 
     def log(self, metrics: Dict, step: Optional[int] = None) -> None:
+        if not self.enabled:
+            return
         rec = {"ts": time.time(), **metrics}
         if step is not None:
             rec["step"] = step
@@ -65,6 +77,8 @@ class MetricSink:
         the --watch_histograms payload (wandb.watch(model, log='all')
         fidelity, roco_train.py:80). JSONL gets compact count lists;
         wandb gets native Histogram objects."""
+        if not self.enabled:
+            return
         rec = {}
         wlog = {}
         for name, (counts, lo, hi) in hists.items():

@@ -86,7 +86,9 @@ def test_supcon_loss_and_its_gradient_match_jax(rng, case):
 
 def test_supcon_loss_takes_bf16_features_and_refuses_what_jax_refuses(rng):
     """bf16 features (the model's compute dtype) give the loss of their
-    fp32 values: the loss casts first. A mesh axis waits for multi-GPU."""
+    fp32 values: the loss casts first. Over a mesh axis of one rank the
+    gathered loss is the local one (tests/test_torch_layouts.py gathers
+    over two)."""
     feats = torch.from_numpy(_features(rng)).bfloat16()
     got = supcon_loss(feats)
     assert got.dtype == torch.float32
@@ -95,8 +97,11 @@ def test_supcon_loss_takes_bf16_features_and_refuses_what_jax_refuses(rng):
         supcon_loss(feats, labels=torch.zeros(6), mask=torch.eye(6))
     with pytest.raises(ValueError, match=r"\[bsz, n_views"):
         supcon_loss(feats[:, 0])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        supcon_loss(feats, axis_name="data")
+    assert float(supcon_loss(feats, axis_name="data")) == float(got)
+    mask = torch.eye(6)
+    mask[0, 1] = mask[1, 0] = 0.5
+    assert float(supcon_loss(feats, mask=mask, axis_name="data")) == float(
+        supcon_loss(feats, mask=mask))
 
 
 def test_split_two_views_matches_jax(rng):
