@@ -105,15 +105,16 @@
    batch and loader threads. (a) SupCon pretraining through
    ``cli.roco_supcon_train.main`` (``--con_task supcon --similarity
    jaccard``, the loader at B // 2, two views a sample) on the CLI slice's
-   fixture: two epochs in bf16 with the mask passed (``--use_sim_mask``),
+   fixture: one epoch in bf16 with the mask passed (``--use_sim_mask``),
    one in fp32 without; finite MLM, SupCon and validation losses and the
    weights file. (b) One fp32 SupCon step at 4 pairs with the Jaccard mask,
    card against the CPU plain path, held as the MLM step is, the projection
    head's gradients among the leaves. (c) Fine-tuning through
    ``cli.vqa_train.main`` on a VQA-Med fixture the port writes (65 train,
    30 val, 30 test questions at 512x416 px) from the CLI slice's bf16
-   weights with its vocabulary: exactly ``classifier_2`` stays fresh; two
-   epochs in bf16 with the category smoothing and ``--watch_histograms``
+   weights with its vocabulary: exactly ``classifier_2`` stays fresh; one
+   epoch in bf16 with the category smoothing and
+   ``--watch_histograms``
    (the histograms computed on the card), one in fp32 with ASL; the
    per-category keys of every metric line and both best checkpoints (the one
    by accuracy where a validation accuracy beat 0). (d) Evaluation through
@@ -153,8 +154,8 @@
    model and the flagship: one fp32 ``make_distill_steps`` step at B=8
    (labels (B, 75, 768), seeded), the bf16 main path at B=16 (the loss
    falls; traced), then ``roco_train.main --task distillation
-   --watch_histograms`` on the CLI slice's fixture, two epochs in bf16 and
-   two in fp32, a seeded stand-in in place of the dataset's ClinicalBERT
+   --watch_histograms`` on the CLI slice's fixture, AUX_EPOCHS epochs in bf16
+   and in fp32, a seeded stand-in in place of the dataset's ClinicalBERT
    teacher. (b) ``ImageOnlyClassifier`` with its keyword pathway on each
    trunk: an eval step at B=4, a fp32 step at B=8, the bf16 main path at
    B=16; K1 and K2 never launch. (c) ``MMBert`` with the feedback encoder
@@ -182,6 +183,23 @@
    its file decoding to 224 x 224, its wall time. The summary line's
    ``launches_explain`` holds the counts of (c), and
    ``explain_max_abs_err`` the errors of (a).
+
+11. Layouts: NCCL's collectives with one rank, then every multi-GPU layout's
+   fp32 step of the full-width models at the CLIs' global B=16 on ranks that
+   share the card over gloo, in two stages: data, FSDP and tensor
+   parallelism and their composition (the flagship, the default model,
+   SupCon, VQA with the clip), pipeline parallelism (pp=2 on both models,
+   dp=2 x pp=2: K2 on each stage's microbatches), context parallelism (cp=3
+   with the ring at T=75, cp=3 with the gathered encoder on both models: K2
+   at full length on the flagship, VQA at cp=2 with the ring at T=28), each
+   held to the single process's step on the card (``check_layout``: loss,
+   leaves, norms, each parameter's change, equal replicas, local kernel
+   shapes, exact launches a rank); ``roco_train`` under torchrun with
+   ``--dp_size 2 --fsdp`` and with ``--pp_size 2``, whose stacked weights a
+   single-process ``vqa_train`` takes up through ``adapt_encoder_layout``.
+   The first stage runs beside phase 9 and the second beside phase 10 (their
+   own processes; the host times those phases print are shared with them).
+   The summary line's ``launches_layouts`` holds the checked steps' counts.
 
 Every phase that traces with torch.profiler fails where the profiler saw no
 device time twice (once more after a synchronise): a trace without device
@@ -2701,7 +2719,7 @@ def drivers_phase(torch, work: str) -> dict:
     steps = -(-CLI_TRAIN // (CLI_B // 2))
     evals = -(-CLI_VAL // CLI_B)
     for label, extra, n_epochs in (
-            ("bf16", ["--mixed_precision", "--use_sim_mask"], 2),
+            ("bf16", ["--mixed_precision", "--use_sim_mask"], 1),
             ("fp32", [], 1)):
         run = f"supcon_{label}"
         save = os.path.join(work, run)
@@ -2759,7 +2777,7 @@ def drivers_phase(torch, work: str) -> dict:
     checkpoints = {}
     for label, extra, n_epochs in (
             ("bf16", ["--mixed_precision", "--smoothing", str(FT_SMOOTHING),
-                      "--watch_histograms"], 2),
+                      "--watch_histograms"], 1),
             ("fp32", ["--loss", "ASLSingleLabel"], 1)):
         run = f"vqa_{label}"
         save = os.path.join(work, run)
@@ -4037,12 +4055,15 @@ def aux_phase(torch, work: str) -> dict:
     the feedback encoder and the SupCon encoder. Returns their launches."""
     t0 = time.perf_counter()
     launches: dict = {}
-    for part in (lambda: distill_phase(torch, work),
-                 lambda: img_only_phase(torch),
-                 lambda: feedback_phase(torch, work),
-                 lambda: supcon_encoder_phase(torch)):
+    for name, part in (("distill", lambda: distill_phase(torch, work)),
+                       ("img_only", lambda: img_only_phase(torch)),
+                       ("feedback", lambda: feedback_phase(torch, work)),
+                       ("supcon_encoder",
+                        lambda: supcon_encoder_phase(torch))):
+        t_part = time.perf_counter()
         add_counts(launches, part())
         torch.cuda.empty_cache()
+        print(f"aux {name}: {time.perf_counter() - t_part:.1f} s")
     print(f"aux phase: {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -4297,9 +4318,18 @@ def explain_launches(trunks: int, k1: int, k1_bwd: int, k2: int, k2_bwd: int,
     return want
 
 
+# the methods also run with --cnn_only: a gradient method (its gradients are
+# tensor code there), EigenCAM, ScoreCAM (its trunk passes) and AblationCAM
+# (its own ablation target, cli/grad_cam.py's --cnn_only branch); the other
+# two gradient methods' --cnn_only runs, the same branch as gradcam's, were
+# cut to keep the smoke within its time
+CNN_ONLY_METHODS = ("gradcam", "eigencam", "scorecam", "ablationcam")
+
+
 def explain_runs() -> list:
     """(model, method, --cnn_only, expected launches) of the CLI runs: each
-    of the six methods on each model, with and without --cnn_only. Derived
+    of the six methods on each model, and CNN_ONLY_METHODS with
+    --cnn_only too. Derived
     from the code, with n the deepest map's channels over the chunk of 32
     (flagship 512 -> 16, default 2048 -> 64). A gradient method (gradcam,
     gradcam++, xgradcam) or eigencam: the trunk once (42 K3 on the
@@ -4322,8 +4352,9 @@ def explain_runs() -> list:
             runs.append((model, method, False, explain_launches(
                 1 + score, 5 + 5 * score + ablate, 1,
                 k2 * (1 + score + ablate), k2, effnet)))
-            runs.append((model, method, True, explain_launches(
-                1 + score, 0, 0, 0, 0, effnet)))
+            if method in CNN_ONLY_METHODS:
+                runs.append((model, method, True, explain_launches(
+                    1 + score, 0, 0, 0, 0, effnet)))
     return runs
 
 
@@ -4429,10 +4460,22 @@ VQA_LEAVES = CHECK_LEAVES[:-1] + ["fc1.weight", "classifier_0.weight",
                                   "classifier_2.weight"]
 
 
+def stacked_keys(keys):
+    """The pipelined model's names of the sequential model's keys
+    (``parallel.pipeline.stacked_key``), each once."""
+    from mmvqa_tpu_torch.parallel.pipeline import stacked_key
+
+    return list(dict.fromkeys(stacked_key(k) for k in keys))
+
+
 def layout_jobs(torch):
-    """(world of 2, world of 4): name -> ``parallel.world.layout_step`` job,
-    the flagship's and the default model's full-width fp32 steps at the
-    CLIs' B=LAYOUT_B, T=75 (VQA: 28), 224 px."""
+    """{world size: {name: ``parallel.world.layout_step`` job}}: the
+    flagship's and the default model's full-width fp32 steps at the CLIs'
+    B=LAYOUT_B, T=75 (VQA: 28), 224 px. Two worlds of two ranks run side by
+    side with the worlds of three and four. A job's ``ref`` names the
+    layout whose single-process step is its reference too (the same model
+    and batch: the ring and the gathered encoder run as one process at
+    cp = 1)."""
     import numpy as np
 
     from mmvqa_tpu_torch.core.config import pretrain_config, supcon_config
@@ -4451,22 +4494,45 @@ def layout_jobs(torch):
     vqa = vqa_batches(vqa_cfg, 1, NUM_CLASSES, SEED, pad_last=LAYOUT_PAD)[0]
     def_cfg = pretrain_config(**over)
     keep = CHECK_LEAVES + CHECK_STATS
+    def_keep = DEF_CHECK_LEAVES + DEF_CHECK_STATS
     flag = dict(cfg=mlm_cfg, kind="mlm", batch=mlm, keep=keep)
+    default = dict(cfg=def_cfg, kind="mlm", batch=mlm, keep=def_keep,
+                   bn3_scale=DEF_CHECK_BN3_SCALE)
+    pp_flag = dict(flag, cfg=flagship_mlm_config(pp_size=2, **over),
+                   keep=stacked_keys(keep))
+    ring = dict(attention_impl="ring")
     two = {
         "dp2": dict(flag, dp=2, tp=1, fsdp=False),
         "dp2 fsdp": dict(flag, dp=2, tp=1, fsdp=True),
         "tp2": dict(flag, dp=1, tp=2, fsdp=False),
-        "default dp2": dict(cfg=def_cfg, kind="mlm", batch=mlm, dp=2, tp=1,
-                            fsdp=False, keep=DEF_CHECK_LEAVES + DEF_CHECK_STATS,
-                            bn3_scale=DEF_CHECK_BN3_SCALE),
+        "default dp2": dict(default, dp=2, tp=1, fsdp=False),
         "supcon dp2": dict(cfg=sup_cfg, kind="supcon", batch=sup, dp=2, tp=1,
                            fsdp=False, keep=SUPCON_LEAVES + CHECK_STATS),
         "vqa tp2 clip": dict(cfg=vqa_cfg, kind="vqa", batch=vqa, dp=1, tp=2,
                              fsdp=False, clip=True,
                              keep=VQA_LEAVES + CHECK_STATS),
     }
-    four = {"dp2 x tp2 fsdp": dict(flag, dp=2, tp=2, fsdp=True)}
-    return two, four
+    two_more = {
+        "pp2": dict(pp_flag, dp=1, tp=1, pp=2, fsdp=False),
+        "default pp2": dict(default, cfg=pretrain_config(pp_size=2, **over),
+                            keep=stacked_keys(def_keep), dp=1, tp=1, pp=2,
+                            fsdp=False),
+        "vqa cp2 ring clip": dict(
+            cfg=flagship_vqa_config(**over, **ring), kind="vqa", batch=vqa,
+            dp=1, tp=1, cp=2, fsdp=False, clip=True,
+            keep=VQA_LEAVES + CHECK_STATS, ref="vqa tp2 clip"),
+    }
+    three = {
+        "cp3 ring": dict(flag, cfg=flagship_mlm_config(**over, **ring), dp=1,
+                         tp=1, cp=3, fsdp=False, ref="dp2"),
+        "cp3": dict(flag, dp=1, tp=1, cp=3, fsdp=False, ref="dp2"),
+        "default cp3": dict(default, dp=1, tp=1, cp=3, fsdp=False,
+                            ref="default dp2"),
+    }
+    four = {"dp2 x tp2 fsdp": dict(flag, dp=2, tp=2, fsdp=True),
+            "dp2 x pp2": dict(pp_flag, dp=2, tp=1, pp=2, fsdp=False,
+                              ref="pp2")}
+    return {"2": two, "2b": two_more, "3": three, "4": four}
 
 
 def layout_reference(torch, job, nudge=False, device="cuda"):
@@ -4506,7 +4572,11 @@ def check_layout(torch, name, job, ranks, ref, allow) -> None:
     rank, the kernel sites' local shapes and the exact launch counts."""
     import numpy as np
 
-    from mmvqa_tpu_torch.parallel.world import site_problems, update_problems
+    from mmvqa_tpu_torch.parallel.world import (
+        expected_launches as rank_launches,
+        site_problems,
+        update_problems,
+    )
     from mmvqa_tpu_torch.train.state import CLIP_NORM
 
     r0 = ranks[0]
@@ -4562,11 +4632,11 @@ def check_layout(torch, name, job, ranks, ref, allow) -> None:
         want.update(conv1x1_stats=k4_sites, conv1x1_stats_tf32x3=k4_sites,
                     conv1x1_stats_tma=0)
     for r in ranks:
-        problems = site_problems(ref["sites"], r["sites"], dp, tp)
+        problems = site_problems(ref["sites"], r["sites"], dp, tp, job)
         if problems:
             fail(f"layouts {name} rank {r['rank']}: {problems[0]}")
         check_launches(f"layouts {name} rank {r['rank']}", r["launches"],
-                       want)
+                       rank_launches(want, job, r["coords"]))
     print(f"layouts {name}: loss {r0['loss']:.6f} (single process "
           f"{ref['loss']:.6f}, err {err:.2e}); {len(worst)} leaves held, the "
           f"closest to its limit {kind} {k} at {e:.2e} ({ratio:.2f} of it); "
@@ -4574,7 +4644,9 @@ def check_layout(torch, name, job, ranks, ref, allow) -> None:
           f"the update held at {held} entries, {dropped} dropped; "
           f"every rank's state equal; K1 C={r0['sites']['K1'][0][1][1]}, "
           f"K2 H={r0['sites']['K2'][0][2] if r0['sites']['K2'] else '-'}, "
-          f"K4 sites {k4_sites}; launches a rank {r0['launches']}")
+          f"K4 sites {k4_sites}; launches by rank coordinates (data, model, "
+          f"context, pipe): "
+          f"{ {tuple(r['coords']): {k: v for k, v in r['launches'].items() if v} for r in ranks} }")
 
 
 def layout_costs(name, ranks, ref, card) -> None:
@@ -4594,83 +4666,125 @@ def layout_costs(name, ranks, ref, card) -> None:
           "checked step)")
 
 
-def layouts_cli_start(work: str):
-    """Start ``cli/roco_train.py --dp_size 2 --fsdp`` under torchrun on the
-    CLI phase's fixture, two ranks sharing the card, one epoch; returns
-    (process, save dir, log paths, start time)."""
-    save = os.path.join(work, "layouts_cli")
+def layouts_cli_start(work: str, name: str, flags: list):
+    """Start ``cli/roco_train.py`` with ``flags`` under torchrun on the CLI
+    phase's fixture, two ranks sharing the card, one epoch; returns
+    (process, save dir, log paths, start time, name)."""
+    save = os.path.join(work, f"layouts_{name}")
     os.makedirs(save, exist_ok=True)
     logs = (os.path.join(save, "stdout.txt"), os.path.join(save, "stderr.txt"))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "2", "-m", "mmvqa_tpu_torch.cli.roco_train",
            "-r", "layouts", "--data_dir", os.path.join(work, "roco"),
-           "--save_dir", save, "--epochs", "1", *CLI_ARGS, "--dp_size", "2",
-           "--fsdp"]
+           "--save_dir", save, "--epochs", "1", *CLI_ARGS, *flags,
+           # two loader workers a rank: the worlds share the host's cores
+           "--num_workers", "2"]
     with open(logs[0], "w") as out, open(logs[1], "w") as err:
         proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err)
-    return proc, save, logs, time.perf_counter()
+    return proc, save, logs, time.perf_counter(), name
 
 
-def layouts_cli_finish(started) -> None:
-    """Wait for the CLI run: rank 0 alone logged one epoch and saved the
-    weights, which load into one process's model."""
+def layouts_cli_finish(torch, started, work: str) -> None:
+    """Wait for a CLI run: rank 0 alone logged one epoch and saved the
+    weights, which are one process's file of that layout. The pipeline's
+    (pp2) stack the encoder's four layers; a single-process ``vqa_train``
+    (bf16, one epoch) takes them up through ``adapt_encoder_layout`` into
+    its sequential encoder: every tensor but ``classifier_2``."""
+    from mmvqa_tpu_torch.cli import vqa_train
     from mmvqa_tpu_torch.models import MMBert
     from mmvqa_tpu_torch.train import checkpoint
 
-    proc, save, logs, t0 = started
+    proc, save, logs, t0, name = started
     try:
         code = proc.wait(timeout=LAYOUT_TIMEOUT)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
-        fail(f"layouts cli: torchrun still running after {LAYOUT_TIMEOUT} s")
+        fail(f"layouts cli {name}: torchrun still running after "
+             f"{LAYOUT_TIMEOUT} s")
     wall = time.perf_counter() - t0
     stdout, stderr = (open(path).read() for path in logs)
     if code != 0:
-        fail(f"layouts cli: torchrun exited {code}:\n{stdout[-2000:]}\n"
-             f"{stderr[-3000:]}")
+        fail(f"layouts cli {name}: torchrun exited {code}:\n"
+             f"{stdout[-2000:]}\n{stderr[-3000:]}")
     lines = metric_lines(save, "layouts")
     weights = os.path.join(save, "MLM", "layouts")
     if len(lines) != 1 or not os.path.exists(weights):
-        fail(f"layouts cli: {len(lines)} metric lines, weights "
+        fail(f"layouts cli {name}: {len(lines)} metric lines, weights "
              f"{os.path.exists(weights)}")
     line = lines[0]
     if not all(math.isfinite(line[k]) for k in ("epoch_train_loss",
                                                 "epoch_val_loss")):
-        fail(f"layouts cli: non-finite metric in {line}")
+        fail(f"layouts cli {name}: non-finite metric in {line}")
     loaded = checkpoint.load_weights(weights)
-    cfg = flagship_mlm_config(vocab_size=len(
+    pp = 2 if name == "pp2" else 1
+    cfg = flagship_mlm_config(pp_size=pp, vocab_size=len(
         loaded["bert_embedding.word_embeddings.weight"]))
     checkpoint.check_compatible(MMBert(cfg, device="cpu").state_dict(),
-                                loaded, what="layouts cli")
+                                loaded, what=f"layouts cli {name}")
     shown = [ln for ln in stdout.splitlines() if "[mmvqa]" in ln]
-    print(f"layouts cli: torchrun roco_train --dp_size 2 --fsdp, 1 epoch at "
-          f"global B={CLI_B}, {wall:.1f} s beside the worlds; train loss "
+    print(f"layouts cli {name}: torchrun roco_train, 1 epoch at global "
+          f"B={CLI_B}, {wall:.1f} s beside the worlds; train loss "
           f"{line['epoch_train_loss']:.4f}, val loss "
           f"{line['epoch_val_loss']:.4f}; rank 0's lines {shown[:3]}")
+    if pp == 1:
+        return
+    stacked = loaded["encoder.pp_layers.kqv.weight"]
+    if stacked.shape[0] != cfg.n_layers:
+        fail(f"layouts cli {name}: the file stacks {stacked.shape[0]} "
+             f"layers, not {cfg.n_layers}")
+    vqa = os.path.join(work, "vqa")
+    n_train, n_val, n_test = (5 * n for n in DRV_VQA_PER_CAT)
+    tr, va, te = (-(-n // CLI_B) for n in (n_train, n_val, n_test))
+    run = "vqa_from_pp2"
+    reset_counts()
+    t0 = time.perf_counter()
+    with TF32Off(torch, f"layouts cli {run}"), Tee() as out:
+        vqa_train.main(["--run_name", run, "--save_dir",
+                        os.path.join(work, run), "--epochs", "1",
+                        "--use_pretrained", "--model_dir", weights,
+                        "--data_dir", vqa, "--num_vis", "5", "--hidden_size",
+                        "768", *CLI_ARGS[2:], "--vocab_file",
+                        os.path.join(work, "roco", "vocab.txt"),
+                        "--mixed_precision"])
+    got = read_counts()
+    check_launches(f"layouts cli {run}", got,
+                   expected_launches(tr, va + te, True))
+    moved = [x for x in out.text.splitlines()
+             if x.startswith("[mmvqa] transferred ")]
+    n_ok, n_all = (int(x) for x in moved[0].split()[2].split("/"))
+    by_loss = checkpoint.load_weights(os.path.join(work, run, "MLM",
+                                                   run + "_loss"))
+    if n_all - n_ok != 2 or "encoder.block_3.kqv.weight" not in by_loss:
+        fail(f"layouts cli {run}: {moved[0]}; want every tensor but "
+             "classifier_2 taken up by a sequential encoder")
+    # the sequential model's first training step began at the stacked
+    # file's layers (the update moved them by about lr)
+    moved_by = float((by_loss["encoder.block_3.kqv.weight"]
+                      - stacked[3]).abs().max())
+    if not moved_by < 0.05:
+        fail(f"layouts cli {run}: block_3.kqv moved {moved_by:.3e} from the "
+             "pipelined file's layer 3")
+    print(f"layouts cli {run}: single-process vqa_train took up the "
+          f"pipeline-stacked file ({n_ok}/{n_all} tensors through "
+          f"adapt_encoder_layout; block_3.kqv within {moved_by:.2e} of the "
+          f"file's layer 3 after the epoch), "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
-def layouts_phase(torch, work: str, device: str = "cuda:0") -> dict:
-    """(11) The multi-GPU layouts on ranks that share the card (gloo; NCCL
-    refuses two ranks on one device): the NCCL path's collectives once with
-    one rank; then the world of two, the world of four and the pretraining
-    CLI under torchrun run side by side while this process takes the single
-    process's steps on the card; each layout's step is held to those
-    (``check_layout``) and its memory and staged bytes printed. Nothing
-    here is timed (``mmvqa_tpu_torch/tools/time_layouts.py`` times the
-    layouts one at a time). Returns the ranks' launches of the checked
-    steps, summed."""
-    import numpy as np
+# the layouts phase's two stages: the worlds that run side by side and the
+# pretraining CLI started with them under torchrun
+LAYOUT_STAGES = ((("2", "3"), ("dp2 fsdp", ["--dp_size", "2", "--fsdp"])),
+                 (("2b", "4"), ("pp2", ["--pp_size", "2"])))
 
-    from mmvqa_tpu_torch.parallel.world import (
-        collectives_probe,
-        run_jobs,
-        run_world,
-        start_world,
-    )
+
+def layouts_start(torch, work: str, device: str = "cuda:0") -> dict:
+    """The layouts phase's start: NCCL's collectives with one rank, then
+    the first stage's worlds and CLI started (they run on while this process
+    goes on with other work, the explain phase in ``main``)."""
+    from mmvqa_tpu_torch.parallel.world import collectives_probe, run_world
 
     t_phase = time.perf_counter()
-    card = card_line()
     folder = os.path.join(work, "layouts")
     os.makedirs(folder, exist_ok=True)
     if device != "cpu":
@@ -4682,48 +4796,125 @@ def layouts_phase(torch, work: str, device: str = "cuda:0") -> dict:
             fail(f"layouts: the NCCL collectives with one rank: {nccl}")
         print(f"layouts: NCCL's three collectives with one rank on the card "
               f"are right and staged nothing ({nccl})")
-    two, four = layout_jobs(torch)
-    worlds = [(jobs, start_world(run_jobs, size, (list(jobs.values()),),
-                                 os.path.join(folder, f"world{size}"),
-                                 device))
-              for size, jobs in ((2, two), (4, four))]
-    cli = layouts_cli_start(work) if device != "cpu" else None
-    t0 = time.perf_counter()
-    refs, by_step = {}, {}
-    for name, job in {**two, **four}.items():
-        # the flagship's MLM layouts share one single-process step
-        key = (job["kind"], id(job["cfg"]), id(job["batch"]))
-        if key not in by_step:
-            by_step[key] = layout_reference(torch, job, device=device)
-        refs[name] = by_step[key]
-    twin = layout_reference(torch, two["default dp2"], nudge=True,
-                            device=device)
-    allow = {k: DEF_CHECK_FLIPS * float(np.abs(
-                 twin["grads"][k].numpy() - g.numpy()).max())
-             for k, g in refs["default dp2"]["grads"].items()
-             if k.startswith("trans.trunk.")}
-    print(f"layouts: {len(by_step) + 1} single-process references on the "
-          f"card, {time.perf_counter() - t0:.1f} s beside the worlds")
-    launches: dict = {}
+    worlds_jobs = layout_jobs(torch)
+    return {"t_phase": t_phase, "folder": folder, "jobs": worlds_jobs,
+            "device": device,
+            "stages": [layouts_stage_start(worlds_jobs, LAYOUT_STAGES[0],
+                                           work, folder, device)]}
+
+
+def layouts_next(started: dict, work: str) -> None:
+    """Start the next stage of ``layouts_start``'s phase, once the card's
+    memory has room for it (the previous stage's ranks have ended)."""
+    stages = started["stages"]
+    worlds, cli_run = stages[-1]
     for jobs, world in worlds:
-        outs = world.results(LAYOUT_TIMEOUT)
-        print(f"layouts: world of {world.size} ranks on {device} (gloo), "
-              f"{len(jobs)} layouts, done {time.perf_counter() - t_phase:.1f}"
-              " s into the phase")
-        for i, (name, job) in enumerate(jobs.items()):
-            ranks = [o[i] for o in outs]
-            if any(r["jax_modules"] for r in ranks):
-                fail(f"layouts {name}: a rank imported "
-                     f"{ranks[0]['jax_modules']}")
-            check_layout(torch, name, job, ranks, refs[name],
-                         allow if name == "default dp2" else {})
-            layout_costs(name, ranks, refs[name], card)
-            for r in ranks:
-                add_counts(launches, r["launches"])
-    if cli is not None:
-        layouts_cli_finish(cli)
-    print(f"layouts phase: {time.perf_counter() - t_phase:.1f} s")
+        world.wait_done()
+    if cli_run is not None:
+        try:
+            cli_run[0].wait(timeout=LAYOUT_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            pass  # layouts_cli_finish fails it
+    stages.append(layouts_stage_start(
+        started["jobs"], LAYOUT_STAGES[len(stages)], work, started["folder"],
+        started["device"]))
+
+
+def layouts_stage_start(worlds_jobs, stage, work, folder, device):
+    """Start a stage's worlds and its CLI: (worlds, CLI run or None)."""
+    from mmvqa_tpu_torch.parallel.world import run_jobs, start_world
+
+    keys, cli = stage
+    worlds = [(worlds_jobs[key], start_world(
+                  run_jobs, int(key[0]), (list(worlds_jobs[key].values()),),
+                  os.path.join(folder, f"world{key}"), device))
+              for key in keys]
+    return worlds, (layouts_cli_start(work, *cli) if device != "cpu"
+                    else None)
+
+
+def layouts_phase(torch, work: str, device: str = "cuda:0",
+                  started=None) -> dict:
+    """(11) The multi-GPU layouts on ranks that share the card (gloo; NCCL
+    refuses two ranks on one device): the NCCL path's collectives once with
+    one rank; then, in two stages, the two worlds of two, the world of
+    three, the world of four and two pretraining CLIs under torchrun
+    (``--dp_size 2 --fsdp``, then ``--pp_size 2``) run side by side while
+    this process takes the single process's steps on the card (the stages
+    may have been started by ``layouts_start`` and ``layouts_next`` beside
+    other phases); each layout's step is held to those (``check_layout``) and its
+    memory and staged bytes printed; the pipeline's checkpoint is taken up
+    by a single-process ``vqa_train``. Nothing here is timed
+    (``mmvqa_tpu_torch/tools/time_layouts.py`` times the layouts one at a
+    time). Returns the ranks' launches of the checked steps, summed."""
+    import numpy as np
+
+    t_rest = time.perf_counter()
+    started = started or layouts_start(torch, work, device)
+    t_phase, folder = started["t_phase"], started["folder"]
+    card = card_line()
+    worlds_jobs = started["jobs"]
+    every = {name: job for jobs in worlds_jobs.values()
+             for name, job in jobs.items()}
+    refs, by_step, launches = {}, {}, {}
+    allow = {}
+    # two stages, so that the card's memory holds every rank's step: the
+    # worlds of two and three and the FSDP CLI, then the second world of
+    # two, the world of four and the pipeline's CLI; this process takes the
+    # single-process steps of each stage's layouts beside its worlds
+    for i_stage, (stage, _) in enumerate(LAYOUT_STAGES):
+        if len(started["stages"]) <= i_stage:
+            layouts_next(started, work)
+        worlds, cli_run = started["stages"][i_stage]
+        t0 = time.perf_counter()
+        for key in stage:
+            for name, job in worlds_jobs[key].items():
+                # layouts of one model and batch share one single-process
+                # step
+                base = job.get("ref", name)
+                k = (job["kind"], id(every[base]["cfg"]), id(job["batch"]))
+                if k not in by_step:
+                    by_step[k] = layout_reference(torch, every[base],
+                                                  device=device)
+                refs[name] = by_step[k]
+        if not allow:
+            twin = layout_reference(torch, every["default dp2"], nudge=True,
+                                    device=device)
+            allow = {k: DEF_CHECK_FLIPS * float(np.abs(
+                         twin["grads"][k].numpy() - g.numpy()).max())
+                     for k, g in refs["default dp2"]["grads"].items()
+                     if k.startswith("trans.trunk.")}
+        print(f"layouts: single-process references of worlds {stage} on "
+              f"the card, {time.perf_counter() - t0:.1f} s beside them")
+        for jobs, world in worlds:
+            outs = world.results(LAYOUT_TIMEOUT)
+            print(f"layouts: world of {world.size} ranks on {device} (gloo), "
+                  f"{len(jobs)} layouts, done "
+                  f"{time.perf_counter() - t_phase:.1f} s into the phase")
+            for i, (name, job) in enumerate(jobs.items()):
+                ranks = [o[i] for o in outs]
+                if any(r["jax_modules"] for r in ranks):
+                    fail(f"layouts {name}: a rank imported "
+                         f"{ranks[0]['jax_modules']}")
+                check_layout(torch, name, job, ranks, refs[name],
+                             allow if name.startswith("default") else {})
+                layout_costs(name, ranks, refs[name], card)
+                for r in ranks:
+                    add_counts(launches, r["launches"])
+        if cli_run is not None:
+            layouts_cli_finish(torch, cli_run, work)
+        torch.cuda.empty_cache()
+    print(f"layouts phase: {time.perf_counter() - t_phase:.1f} s since its "
+          f"start, {time.perf_counter() - t_rest:.1f} s after the phases "
+          "it ran beside")
     return launches
+
+
+def phase_time(name: str, t0: float) -> float:
+    """Print a phase's seconds since ``t0``; returns the clock now."""
+    now = time.perf_counter()
+    print(f"{name} phase: {now - t0:.1f} s")
+    return now
 
 
 def main() -> None:
@@ -4750,30 +4941,42 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     kernels = kernel_phase(torch)
+    t0 = phase_time("kernel", t0)
     eval_launches = slice_phase(torch)
+    t0 = phase_time("slice", t0)
     train_launches = train_phase(torch)
     torch.cuda.empty_cache()
+    t0 = phase_time("train", t0)
     finetune_launches = finetune_phase(torch)
     torch.cuda.empty_cache()
+    phase_time("finetune", t0)
     import shutil
 
     work = os.path.join(ROOT, "_checkpoints", "cli")
     shutil.rmtree(work, ignore_errors=True)
     try:
+        t0 = time.perf_counter()
         cli_launches = cli_phase(torch, work)
+        phase_time("cli", t0)
         t0 = time.perf_counter()
         driver_launches = drivers_phase(torch, work)
         print(f"drivers phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         default_launches_ = default_phase(torch, kernels, work)
         torch.cuda.empty_cache()
+        # the layouts' stages run in their own processes beside the remaining
+        # paths' phase and the explain phase (the smoke's time; nothing
+        # there is timed for a claim)
+        layouts = layouts_start(torch, work)
         aux_launches = aux_phase(torch, work)
         torch.cuda.empty_cache()
+        layouts_next(layouts, work)
         explain_launches_, explain_errors = explain_phase(torch, kernels,
                                                           work)
         torch.cuda.empty_cache()
-        layout_launches = layouts_phase(torch, work)
+        layout_launches = layouts_phase(torch, work, started=layouts)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -18,7 +18,10 @@ and a leaf name and layout fixed by the module type:
 * BatchNorm statistics ``batch_stats/.../mean|var`` -> ``running_mean|var``;
 * ``token_conv_<i>/kernel`` (1, 1, K, C) -> the K1 weight (K, C);
 * ``bias`` and raw params (``position_embeddings``, the feedback
-  encoder's ``layer_weight``) as they are.
+  encoder's ``layer_weight``) as they are;
+* a pipelined encoder's stacked layers (``encoder.pp_layers.*``, the JAX
+  package's ``encoder/pp_layers`` tree): each leaf's rule applied to every
+  row of its leading layer axis (``Stacked``).
 
 ``to_flax`` is the way back, for parameters and running statistics after a
 train step; ``grads_to_flax`` carries the parameters' gradients the same way.
@@ -76,7 +79,25 @@ def _token_weight(a: Array) -> Array:
     return a[None, None]
 
 
+class Stacked:
+    """A transform applied to each row of a stacked leaf's leading layer
+    axis; ``base`` is the one-layer transform."""
+
+    def __init__(self, base: Callable[[Array], Array]):
+        self.base = base
+
+    def __call__(self, a: Array) -> Array:
+        return np.stack([self.base(x) for x in a])
+
+
 def _entry(key: str, module: nn.Module) -> Entry:
+    e = _entry_of(key, module)
+    if "pp_layers" in key.split("."):
+        return Entry(e.key, e.path, Stacked(e.to_torch), Stacked(e.to_flax))
+    return e
+
+
+def _entry_of(key: str, module: nn.Module) -> Entry:
     mod_path, leaf = key.rsplit(".", 1) if "." in key else ("", key)
     flax = tuple(mod_path.split(".")) if mod_path else ()
     if leaf in ("running_mean", "running_var"):

@@ -145,7 +145,7 @@ def main(argv: Optional[list] = None,
         enc.tokens, enc.segment_ids, enc.input_mask))
 
     loaded = checkpoint.adapt_encoder_layout(
-        checkpoint.load_weights(args.model_dir))
+        model.state_dict(), checkpoint.load_weights(args.model_dir))
     checkpoint.check_compatible(model.state_dict(), loaded,
                                 what=args.model_dir)
     model.load_state_dict(loaded, strict=True)

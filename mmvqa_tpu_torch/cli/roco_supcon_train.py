@@ -17,10 +17,11 @@ the loss (supcon_utils.py:286-287) unless ``--use_sim_mask`` is set. It runs
 on the CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the
 host (tests). Without encoder flags the model is the reference's default,
 ResNet-152 and the pre-norm BERT encoder; ``--transformer_model
-feedback-transformer`` selects the feedback encoder. What the port lacks
-raises: the mesh flags and a pipeline-layout checkpoint (ROADMAP.md Queue 1,
-item 10); the similarity backends other than ``jaccard`` need their packages
-and local weights.
+feedback-transformer`` selects the feedback encoder. Under ``torchrun`` the
+mesh flags lay the run out over the ranks (``cli/common.py``), and a
+checkpoint of either encoder layout loads (``adapt_encoder_layout``). The
+similarity backends other than ``jaccard`` need their packages and local
+weights.
 """
 
 from __future__ import annotations
@@ -118,7 +119,7 @@ def main(argv: Optional[list] = None,
         print("Resuming training")
         if cfg.no_recorder:
             loaded = checkpoint.adapt_encoder_layout(
-            checkpoint.load_weights(cfg.resume_dir))
+            model.state_dict(), checkpoint.load_weights(cfg.resume_dir))
             load_full_weights(model, layout, loaded, what=cfg.resume_dir)
         else:
             state, sstate, epoch = checkpoint.restore_recorder(cfg.save_dir,

@@ -17,10 +17,10 @@ The reference's flags and epoch protocol: train -> validate -> plateau LR
 on the validation loss -> the recorder every 5 epochs -> the weights at
 each better validation loss, with the same metric names. It runs on the
 CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the host
-(tests). Under ``torchrun`` with ``--dp_size``, ``--tp_size`` and ``--fsdp``
-each rank trains its layout of the model on its shard of the data
-(``cli/common.py``); ``--cp_size`` and ``--pp_size`` raise (ROADMAP.md
-Queue 1, item 10).
+(tests). Under ``torchrun`` with ``--dp_size``, ``--tp_size``, ``--fsdp``,
+``--cp_size`` (with ``--attention_impl ring`` or without) and ``--pp_size``
+(``--pp_microbatches``) each rank trains its layout of the model on its
+shard of the data (``cli/common.py``).
 """
 
 from __future__ import annotations

@@ -14,9 +14,8 @@ where ``--model_dirs`` names several, final_test of utils.py:845-872),
 per-category accuracy and BLEU, and ``<model>_preds.csv`` and the
 pipe-separated ImageCLEF ``<model>_res.txt`` in ``--save_dir``. It runs on
 the CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the host
-(tests). ``--task`` is taken and not used, as by the JAX CLI. What the port
-lacks raises as in ``cli/vqa_train.py``: the mesh flags and a
-pipeline-layout checkpoint (ROADMAP.md Queue 1, item 10).
+(tests). ``--task`` is taken and not used, as by the JAX CLI. The mesh flags
+and checkpoints of either encoder layout as in ``cli/vqa_train.py``.
 """
 
 from __future__ import annotations
@@ -95,7 +94,7 @@ def main(argv: Optional[list] = None,
     for path in model_paths:
         print("Loading model at ", path)
         loaded = checkpoint.adapt_encoder_layout(
-            checkpoint.load_weights(path))
+            model.state_dict(), checkpoint.load_weights(path))
         load_full_weights(model, layout, loaded, what=path)
         _, sm = vqa_epoch(eval_step, None, test_loader, False,
                           collect_logits=True)

@@ -18,8 +18,10 @@ on the CUDA card; ``main(argv, device="cpu")`` runs the plain paths on the
 host (tests). Without encoder flags the model is the reference's default,
 ResNet-152 and the pre-norm BERT encoder; ``--transformer_model
 feedback-transformer`` selects the feedback encoder. ``--task`` only names
-the save subdirectory, as in the JAX CLI. What the port lacks raises: the
-mesh flags and a pipeline-layout checkpoint (ROADMAP.md Queue 1, item 10).
+the save subdirectory, as in the JAX CLI. Under ``torchrun`` the mesh flags
+lay the run out over the ranks (``cli/common.py``); a checkpoint of either
+encoder layout, sequential or pipeline-stacked, loads into the model's
+(``train.checkpoint.adapt_encoder_layout``).
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ def main(argv: Optional[list] = None,
         print("loading model from roco")
         print(cfg.model_dir)
         loaded = checkpoint.adapt_encoder_layout(
-            checkpoint.load_weights(cfg.model_dir))
+            model.state_dict(), checkpoint.load_weights(cfg.model_dir))
         merged, n_ok, n_all = checkpoint.filtered_restore(
             model.state_dict(), loaded)
         model.load_state_dict(merged, strict=True)
@@ -110,7 +112,7 @@ def main(argv: Optional[list] = None,
     elif cfg.resume_training:
         print("resume training", cfg.resume_dir)
         loaded = checkpoint.adapt_encoder_layout(
-            checkpoint.load_weights(cfg.resume_dir))
+            model.state_dict(), checkpoint.load_weights(cfg.resume_dir))
         checkpoint.check_compatible(model.state_dict(), loaded,
                                     what=cfg.resume_dir)
         model.load_state_dict(loaded, strict=True)

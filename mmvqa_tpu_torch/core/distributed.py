@@ -9,11 +9,16 @@ the CPU. The backend rule, printed at start: NCCL where every rank of the
 host has a card of its own, gloo where ranks share a card (NCCL refuses two
 ranks on one device) or run on the CPU.
 
-The layouts use three collectives and no others, each over a given group:
-``all_reduce`` (sum), ``all_gather_into_tensor`` and
-``reduce_scatter_tensor`` (sum), each along dim 0. Under gloo, PyTorch's
+The layouts use three collectives and one point-to-point exchange, and no
+others: ``all_reduce`` (sum), ``all_gather_into_tensor`` and
+``reduce_scatter_tensor`` (sum), each along dim 0 over a given group, and
+``exchange``, which sends tensors to some ranks and receives tensors from
+others in one step (the ring's shift between context neighbours, the
+pipeline's hop between stages): every receive and every send is posted at
+once (``batch_isend_irecv``) and all of them are waited on, so a ring in
+which each rank sends and receives cannot deadlock. Under gloo, PyTorch's
 documentation gives CUDA tensors broadcast and all_reduce only; for the
-other two a CUDA buffer is staged through pinned host memory and back. The
+other ops a CUDA buffer is staged through pinned host memory and back. The
 choice is made from the group's backend and the tensor's device, never by
 catching an error; ``STAGED`` counts the calls and the bytes copied each
 way. NCCL never stages.
@@ -26,7 +31,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -37,6 +42,9 @@ import torch.distributed as dist
 GLOO_CUDA_OPS = frozenset({"all_reduce"})
 
 STAGED = {"calls": 0, "bytes": 0}
+
+# the groups this process has made an exchange on (``exchange``)
+_EXCHANGED: set = set()
 
 
 @dataclass(frozen=True)
@@ -166,14 +174,59 @@ def reduce_scatter_tensor(out: torch.Tensor, t: torch.Tensor,
     return out
 
 
-def barrier() -> None:
-    """Every rank waits for the others (an all-reduce of one number on the
-    backend's device; no-op without a world)."""
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
+             recvs: Sequence[Tuple[torch.Tensor, int]], group) -> None:
+    """Send each ``(tensor, rank)`` of ``sends`` and receive into each
+    ``(buffer, rank)`` of ``recvs`` (global ranks of ``group``), all posted
+    together and all waited on. The i-th tensor one rank sends to another
+    arrives in the i-th buffer that rank posts for it (each pair's messages
+    carry their position as tag). The first exchange on a group, which every
+    rank of the group makes, all-reduces over the group before it: NCCL
+    leaves ``batch_isend_irecv`` undefined where its first call on a group
+    involves only some of the group's ranks, as a pipeline's first tick does
+    from pp = 3 on."""
+    if (group not in _EXCHANGED and dist.is_available()
+            and dist.is_initialized()):
+        _EXCHANGED.add(group)
+        barrier(group)
+    if not sends and not recvs:
+        return
+    staged = any(_staged("exchange", t, group)
+                 for t, _ in list(sends) + list(recvs))
+    if staged:
+        STAGED["calls"] += 1
+    ops, back = [], []
+    tags: Dict[Tuple[str, int], int] = {}
+
+    def tag(kind: str, peer: int) -> int:
+        n = tags.get((kind, peer), 0)
+        tags[(kind, peer)] = n + 1
+        return n
+
+    for t, peer in sends:
+        h = _to_host(t) if staged else t.contiguous()
+        ops.append(dist.P2POp(dist.isend, h, peer, group, tag("s", peer)))
+    for buf, peer in recvs:
+        h = (torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+             if staged else buf)
+        back.append((buf, h))
+        ops.append(dist.P2POp(dist.irecv, h, peer, group, tag("r", peer)))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if staged:
+        for buf, h in back:
+            _from_host(buf, h)
+
+
+def barrier(group=None) -> None:
+    """Every rank of ``group`` (the world by default) waits for the others
+    (an all-reduce of one number on the backend's device; no-op without a
+    world)."""
     if not (dist.is_available() and dist.is_initialized()):
         return
     dev = (torch.device("cuda", torch.cuda.current_device())
-           if dist.get_backend() == "nccl" else torch.device("cpu"))
-    all_reduce(torch.zeros(1, device=dev), dist.group.WORLD)
+           if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    all_reduce(torch.zeros(1, device=dev), group or dist.group.WORLD)
 
 
 def process_shard() -> Tuple[int, int]:

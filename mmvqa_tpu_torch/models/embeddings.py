@@ -36,13 +36,16 @@ class BertEmbeddings(nn.Module):
         self.layer_norm = LayerNorm(hidden_size, eps=1e-12)
         self.dropout = Dropout(dropout_rate, rng or DropoutRng(0))
 
-    def forward(self, input_ids: torch.Tensor,
-                token_type_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
+                position_offset: int = 0) -> torch.Tensor:
+        """``position_offset``: the global position of the first token (a
+        context rank's block of the token axis starts at c T / cp)."""
         T = input_ids.shape[-1]
         words = self.word_embeddings
         x = ((vocab_parallel_embedding(input_ids.long(), words.weight)
               if getattr(words, "tp_mode", None) == "vocab"
               else words(input_ids.long()))
-             + self.position_embeddings[:T][None]
+             + self.position_embeddings[position_offset:position_offset + T][
+                 None]
              + self.token_type_embeddings(token_type_ids.long()))
         return self.dropout(self.layer_norm(x))

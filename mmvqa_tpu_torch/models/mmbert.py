@@ -6,8 +6,26 @@ the pre-norm ``BertEncoder`` with ``cfg.heads`` heads and dropout
 ``hidden_dropout_prob``; ``realformer`` the RealFormer with 8 heads;
 ``feedback-transformer`` the ``FeedbackEncoder`` (8 heads of 64 whatever
 ``cfg.heads`` says, a memory of 256, dropout 0.1 on its attention and in its
-feed-forward). The pipeline-parallel encoders (ROADMAP.md Queue 1, item 10)
-raise.
+feed-forward). With ``cfg.pp_size`` above 1 the encoder is the pipelined one
+(``parallel/pipeline.py``: the layers stacked under ``encoder.pp_layers``),
+drawn as the sequential encoder is and then stacked, so a seed gives the
+same weights in either layout; ``cfg.attention_impl == 'ring'`` makes the
+RealFormer's and the BERT encoder's attention core the ring over a context
+group (``ops/ring_attention.py``).
+
+Context parallelism (a mesh with a 'context' axis of cp > 1 ranks): each
+rank holds one block of T / cp tokens (``parallel.sharding.place_batch``).
+Its embeddings take their global positions, and the visual tokens overwrite
+positions 0..num_vis-1, which lie in context rank 0's block (T / cp >=
+num_vis, else it raises); on the other ranks the trunk's output reaches no
+loss, and the trunk runs there without a graph (as on a pipeline stage
+other than 0, whose encoder drops its input). With the ring the encoder
+runs on the block; without it the token axis is gathered at the encoder's
+entry (its backward a reduce-scatter), the encoder runs at full length as
+one process runs it (K2 unchanged) and each rank keeps its block of the
+output. ``mean_pooling`` sums its
+numerator and its mask over 'context' before it divides, so the pooled
+heads see the whole sequence on every rank (``replicated_heads``).
 
 Text tokens are embedded BERT-style; the visual tokens then OVERWRITE
 embedded positions 0..num_vis-1, [CLS] included (the reference's fusion
@@ -54,6 +72,7 @@ import torch
 from torch import nn
 
 from mmvqa_tpu_torch.core.config import Config
+from mmvqa_tpu_torch.core.mesh import CONTEXT_AXIS, PIPE_AXIS
 from mmvqa_tpu_torch.models.effnetv2 import BatchNorm2d
 from mmvqa_tpu_torch.models.embeddings import BertEmbeddings
 from mmvqa_tpu_torch.models.feedback import FeedbackEncoder, FeedbackSegment
@@ -62,12 +81,30 @@ from mmvqa_tpu_torch.models.realformer import RealFormerEncoder
 from mmvqa_tpu_torch.models.transformer import BertEncoder
 from mmvqa_tpu_torch.models.visual_tokens import TokenHead, VisualTokenizer
 from mmvqa_tpu_torch.ops.activations import serf
+from mmvqa_tpu_torch.parallel.comm import (
+    axis_info,
+    gather_over,
+    gather_weight,
+    keep_block,
+    reduce_from,
+    sum_over,
+)
+
+# the modules that compute on the encoder's output (or its pooled mean)
+HEADS = ("fc1", "classifier_0", "classifier_ln", "classifier_2", "head_0",
+         "head_2")
 
 
 def mean_pooling(h: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean over the sequence axis."""
+    """Masked mean over the sequence axis (under context parallelism over
+    the whole sequence: the numerator and the mask are summed over
+    'context', the numerator's gradient reaching each rank's block)."""
     m = attention_mask[..., None].to(h.dtype)
-    return (h * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1e-9)
+    num, den = (h * m).sum(dim=1), m.sum(dim=1)
+    if axis_info(CONTEXT_AXIS)[1] > 1:
+        num = reduce_from(num, CONTEXT_AXIS)
+        den = sum_over(den, CONTEXT_AXIS)
+    return num / torch.clamp(den, min=1e-9)
 
 
 @torch.no_grad()
@@ -96,13 +133,6 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(mod, FeedbackSegment):  # Flax's N(0, 1) and ones
             normal(mod.rel_bias.weight, 1.0)
             mod.layer_weight.fill_(1.0)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mmvqa_tpu_torch yet (ROADMAP.md Queue 1, "
-        f"item {item})"
-    )
 
 
 def compute_dtype_of(cfg: Config) -> torch.dtype:
@@ -137,7 +167,7 @@ class MMBert(nn.Module):
         if cfg.dataset not in ("roco", "VQA-Med"):
             raise NotImplementedError(cfg.dataset)
         if cfg.pp_size > 1:
-            raise _not_ported("pipeline parallelism", "10")
+            cfg.validate()  # the pipeline's compositions, with their messages
         device = default_device() if device is None else torch.device(device)
         self.cfg = cfg
         self.compute_dtype = compute_dtype
@@ -157,18 +187,23 @@ class MMBert(nn.Module):
             cnn_encoder=cfg.cnn_encoder, num_vis=cfg.num_vis, hidden_size=H,
             use_relu=cfg.use_relu, tiny=cfg.tiny_cnn,
         )
-        if "feedback-transformer" in cfg.transformer_model:
+        feedback = "feedback-transformer" in cfg.transformer_model
+        # the ring replaces the attention core; the feedback encoder has none
+        self.ring = cfg.attention_impl == "ring" and not feedback
+        impl = cfg.attention_impl
+        if feedback:
             self.encoder = FeedbackEncoder(
                 H, cfg.n_layers, attn_dropout=dp(0.1), ff_dropout=dp(0.1),
                 rng=self.dropout_rng)
         elif "realformer" in cfg.transformer_model:
             self.encoder = RealFormerEncoder(
                 H, cfg.n_layers, head_cnt=cfg.head_count, dp1=dp(0.1),
-                dp2=dp(0.1), rng=self.dropout_rng)
+                dp2=dp(0.1), rng=self.dropout_rng, impl=impl)
         else:
             self.encoder = BertEncoder(
                 H, cfg.n_layers, cfg.heads, dp(cfg.hidden_dropout_prob),
-                share="none", norm_pos="pre", rng=self.dropout_rng)
+                share="none", norm_pos="pre", rng=self.dropout_rng,
+                impl=impl)
         # Flax makes a module's parameters where a call reaches it: the
         # distillation model returns h and has no heads
         self.distill = cfg.dataset == "roco" and cfg.task == "distillation"
@@ -191,8 +226,45 @@ class MMBert(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         init_weights(self, generator)
+        if cfg.pp_size > 1:
+            self._pipeline(cfg, dp(0.1), dp(cfg.hidden_dropout_prob), impl)
         self.to(device=device, dtype=dtype)
         self.eval()
+
+    def _pipeline(self, cfg: Config, rf_rate: float, bert_rate: float,
+                  impl: str) -> None:
+        """The sequential encoder as drawn, stacked into the pipelined
+        one."""
+        from mmvqa_tpu_torch.parallel import pipeline
+
+        drawn = self.encoder.state_dict()
+        if "realformer" in cfg.transformer_model:
+            self.encoder = pipeline.PipelinedRealFormerEncoder(
+                cfg.hidden_size, cfg.n_layers, head_cnt=cfg.head_count,
+                dp1=rf_rate, dp2=rf_rate, n_microbatches=cfg.pp_microbatches,
+                rng=self.dropout_rng, impl=impl)
+        else:
+            self.encoder = pipeline.PipelinedBertEncoder(
+                cfg.hidden_size, cfg.n_layers, cfg.heads, bert_rate,
+                norm_pos="pre", n_microbatches=cfg.pp_microbatches,
+                rng=self.dropout_rng, impl=impl)
+        self.encoder.load_state_dict(
+            pipeline.stack_encoder_state(drawn, prefix=""), strict=True)
+
+    def replicated_heads(self, axis: str) -> tuple:
+        """The modules whose gradient every rank of ``axis`` computes whole,
+        from values the axis replicates (the others' gradients are each
+        rank's part of the sum): under 'pipe' every head, which each stage
+        computes on the broadcast encoder output; under 'context' the heads
+        on the pooled mean (the VQA heads, the SupCon head)."""
+        have = tuple(n for n in HEADS if hasattr(self, n))
+        if axis == PIPE_AXIS:
+            return have
+        if axis == CONTEXT_AXIS:
+            pooled = (("fc1", "classifier_") if self.cfg.dataset == "VQA-Med"
+                      else ("head_",))
+            return tuple(n for n in have if n.startswith(pooled))
+        return ()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -218,18 +290,38 @@ class MMBert(nn.Module):
                segment_ids: torch.Tensor, input_mask: torch.Tensor,
                perturb: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The encoder's output (B, T, H); ``perturb`` (B, h, w, C) is added
-        to the deepest tapped map (``VisualTokenizer.features``)."""
-        tokens, _ = self.trans.features(img.to(self.dtype), perturb)
+        to the deepest tapped map (``VisualTokenizer.features``). On a pipe
+        rank or a context rank other than 0 the trunk's output reaches no
+        loss: its forward runs there without a graph, for the BatchNorm
+        statistics and their sums over 'data' alone."""
+        reaches = axis_info(CONTEXT_AXIS)[2] == 0 == axis_info(PIPE_AXIS)[2]
+        with torch.set_grad_enabled(torch.is_grad_enabled() and reaches):
+            tokens, _ = self.trans.features(img.to(self.dtype), perturb)
         return self.encode_tokens(tokens, input_ids, segment_ids, input_mask)
 
     def encode_tokens(self, tokens, input_ids: torch.Tensor,
                       segment_ids: torch.Tensor,
                       input_mask: torch.Tensor) -> torch.Tensor:
         """The encoder over the visual ``tokens`` (one (B, H) tensor a tap)
-        written over the embedded text's first positions."""
-        h = self.bert_embedding(input_ids, segment_ids).to(self.dtype)
-        vis = torch.stack([t.to(h.dtype) for t in tokens], dim=1)
-        h = torch.cat([vis, h[:, vis.shape[1]:]], dim=1)
+        written over the embedded text's first positions (under context
+        parallelism the rank's token block; see the module docstring)."""
+        _, cp, c = axis_info(CONTEXT_AXIS)
+        t = input_ids.shape[-1]
+        h = self.bert_embedding(input_ids, segment_ids, c * t).to(self.dtype)
+        vis = torch.stack([v.to(h.dtype) for v in tokens], dim=1)
+        if t < vis.shape[1]:
+            raise ValueError(
+                f"context parallelism: a rank's block of {t} tokens is "
+                f"shorter than the {vis.shape[1]} visual tokens; lower "
+                "--cp_size")
+        if c == 0:
+            h = torch.cat([vis, h[:, vis.shape[1]:]], dim=1)
+        if cp > 1 and not self.ring:
+            # each rank's gradient of the whole sequence is its own part:
+            # the gather's backward sums them and keeps this rank's block
+            full = self.encoder(gather_weight(h, CONTEXT_AXIS, 1),
+                                gather_over(input_mask, CONTEXT_AXIS, 1))
+            return keep_block(full, CONTEXT_AXIS, 1)
         return self.encoder(h, input_mask)
 
     def vqa_head(self, h: torch.Tensor, input_mask: torch.Tensor

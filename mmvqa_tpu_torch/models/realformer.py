@@ -14,7 +14,11 @@ Quirks kept from the reference:
 
 Under tensor parallelism a block runs K2 on its rank's H/tp heads and
 carries their (B, H/tp, T, T) scores; the output projection and the FFN are
-Megatron's row and column splits (``models/layers.py::Linear``).
+Megatron's row and column splits (``models/layers.py::Linear``). With
+``impl='ring'`` and a context group of more than one rank the block's core
+is the ring over the rank's query block (``ops/ring_attention.py``), which
+carries that block's rows of the scores, (B, H, T/cp, T); K2 does not run
+there.
 """
 
 from __future__ import annotations
@@ -33,14 +37,19 @@ from mmvqa_tpu_torch.models.layers import (
 from mmvqa_tpu_torch.core.mesh import MODEL_AXIS
 from mmvqa_tpu_torch.ops.activations import serf
 from mmvqa_tpu_torch.parallel.comm import scatter_to
-from mmvqa_tpu_torch.ops.attention import realformer_attention_packed
+from mmvqa_tpu_torch.ops.attention import (
+    realformer_attention_packed,
+    ring_size,
+)
 
 
 class ResEncoderBlock(nn.Module):
     def __init__(self, hidden_size: int, head_cnt: int = 8, dp1: float = 0.1,
-                 dp2: float = 0.1, rng: Optional[DropoutRng] = None):
+                 dp2: float = 0.1, rng: Optional[DropoutRng] = None,
+                 impl: str = "auto"):
         super().__init__()
         rng = rng or DropoutRng(0)
+        self.impl = impl
         self.head_cnt = head_cnt
         self.emb_s = hidden_size // head_cnt
         self.kqv = Linear(self.emb_s, 3 * self.emb_s, bias=False)
@@ -76,7 +85,15 @@ class ResEncoderBlock(nn.Module):
             heads = scatter_to(heads, MODEL_AXIS, 2)
         # (k, q, v) side by side; the kernels read the slices by strides
         kqv = self.kqv(heads)
-        ctx, new_prev = realformer_attention_packed(kqv, prev, mask)
+        if self.impl == "ring" and ring_size() > 1:
+            from mmvqa_tpu_torch.ops.ring_attention import (
+                ring_realformer_attention,
+            )
+
+            k, q, v = kqv.split(self.emb_s, dim=-1)
+            ctx, new_prev = ring_realformer_attention(q, k, v, prev, mask)
+        else:
+            ctx, new_prev = realformer_attention_packed(kqv, prev, mask)
         x = self.ln1(x + self.drop1(self.proj(ctx.reshape(B, T, -1))))
         x = self.ln2(x + self.drop2(self.ff2(serf(self.ff1(x)))))
         return x, new_prev
@@ -88,12 +105,12 @@ class RealFormerEncoder(nn.Module):
 
     def __init__(self, hidden_size: int, n_layers: int, head_cnt: int = 8,
                  dp1: float = 0.1, dp2: float = 0.1,
-                 rng: Optional[DropoutRng] = None):
+                 rng: Optional[DropoutRng] = None, impl: str = "auto"):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"block_{i}", ResEncoderBlock(
-                hidden_size, head_cnt, dp1, dp2, rng))
+                hidden_size, head_cnt, dp1, dp2, rng, impl))
 
     def forward(self, h: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:

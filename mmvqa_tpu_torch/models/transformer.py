@@ -21,7 +21,11 @@ Module names follow the Flax tree (``attention_<i>/proj_{q,k,v}``,
 ``feedforward`` where ``share`` shares them), so ``bridge.py`` maps one onto
 the other. Dropout draws from the model's ``DropoutRng``. Under tensor
 parallelism the q, k, v projections and ``fc1`` are column-parallel (a rank
-attends over its heads), ``proj_<i>`` and ``fc2`` row-parallel.
+attends over its heads), ``proj_<i>`` and ``fc2`` row-parallel. With
+``impl='ring'`` and a context group of more than one rank, the attention
+core is the ring over the rank's token block (``ops/ring_attention.py``).
+``bert_layer`` is one layer's arithmetic, which the pipelined encoder
+(``parallel/pipeline.py``) applies to its stacked layers.
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ class MultiHeadedSelfAttention(nn.Module):
     ``n_heads`` heads with dropout on the probabilities."""
 
     def __init__(self, hidden_size: int, n_heads: int, dropout_rate: float,
-                 rng: DropoutRng):
+                 rng: DropoutRng, impl: str = "auto"):
         super().__init__()
+        self.impl = impl
         self.n_heads = n_heads
         self.head_dim = hidden_size // n_heads
         self.proj_q = Linear(hidden_size, hidden_size)
@@ -69,7 +74,7 @@ class MultiHeadedSelfAttention(nn.Module):
 
         ctx = vanilla_attention(split(self.proj_q(x)), split(self.proj_k(x)),
                                 split(self.proj_v(x)), mask,
-                                dropout=self.drop)
+                                dropout=self.drop, impl=self.impl)
         return ctx.transpose(1, 2).reshape(B, T, -1)
 
 
@@ -84,13 +89,26 @@ class PositionWiseFeedForward(nn.Module):
         return self.fc2(gelu_erf(self.fc1(x)))
 
 
+def bert_layer(h: torch.Tensor, mask: Optional[torch.Tensor], att, proj, ffn,
+               norm1, norm2, drop, norm_pos: str) -> torch.Tensor:
+    """One layer: attention -> proj -> residual, FFN -> residual, with the
+    reference's norm placement (the pre-norm path applies ``norm1`` twice
+    and never ``norm2``)."""
+    if norm_pos == "pre":
+        h = h + drop(proj(att(norm1(h), mask)))
+        return h + drop(ffn(norm1(h)))  # norm1 again: quirk
+    out = norm1(h + drop(proj(att(h, mask))))
+    return norm2(out + drop(ffn(out)))
+
+
 class BertEncoder(nn.Module):
     """``n_layers`` of (attention -> proj -> residual, FFN -> residual) with
     the reference's share modes and norm placement."""
 
     def __init__(self, hidden_size: int, n_layers: int, n_heads: int,
                  dropout_rate: float, share: str = "none",
-                 norm_pos: str = "pre", rng: Optional[DropoutRng] = None):
+                 norm_pos: str = "pre", rng: Optional[DropoutRng] = None,
+                 impl: str = "auto"):
         super().__init__()
         if share not in SHARE_MODES:
             raise ValueError(f"unknown share {share!r}")
@@ -112,7 +130,7 @@ class BertEncoder(nn.Module):
                      for i in range(n_layers)]
         for name in dict.fromkeys(self._att):
             self.add_module(name, MultiHeadedSelfAttention(
-                hidden_size, n_heads, dropout_rate, rng))
+                hidden_size, n_heads, dropout_rate, rng, impl))
         for name in dict.fromkeys(self._proj):
             self.add_module(name, Linear(hidden_size, hidden_size))
             getattr(self, name).tp_capable = True  # row-parallel
@@ -123,13 +141,9 @@ class BertEncoder(nn.Module):
     def forward(self, h: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
         for i in range(self.n_layers):
-            att = getattr(self, self._att[i])
-            proj = getattr(self, self._proj[i])
-            ffn = getattr(self, self._ffn[i])
-            if self.norm_pos == "pre":
-                h = h + self.drop(proj(att(self.norm1(h), mask)))
-                h = h + self.drop(ffn(self.norm1(h)))  # norm1 again: quirk
-            else:
-                out = self.norm1(h + self.drop(proj(att(h, mask))))
-                h = self.norm2(out + self.drop(ffn(out)))
+            h = bert_layer(h, mask, getattr(self, self._att[i]),
+                           getattr(self, self._proj[i]),
+                           getattr(self, self._ffn[i]), self.norm1,
+                           getattr(self, "norm2", None), self.drop,
+                           self.norm_pos)
         return h

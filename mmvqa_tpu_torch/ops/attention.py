@@ -434,6 +434,15 @@ realformer_attention.backward_mma_launches = 0
 realformer_attention.backward_tf32x3_launches = 0
 
 
+def ring_size() -> int:
+    """The context group's size in ``core.mesh.CURRENT`` (1 without one):
+    where it is above 1, ``impl='ring'`` runs the ring."""
+    from mmvqa_tpu_torch.core.mesh import CONTEXT_AXIS
+    from mmvqa_tpu_torch.parallel.comm import axis_size
+
+    return axis_size(CONTEXT_AXIS)
+
+
 def vanilla_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key_mask: Optional[torch.Tensor], *,
@@ -449,14 +458,24 @@ def vanilla_attention(
     cast back; ``dropout`` (the layer's ``models.layers.Dropout``, which
     draws from the model's generator) on the probabilities; then ``p v``.
     The JAX package computes this outside any Pallas kernel, so these are
-    plain tensor operations on every device. ``impl='ring'`` (blockwise
-    ring attention over a context group) is not ported."""
-    if impl == "ring":
-        raise NotImplementedError(
-            "vanilla_attention impl='ring' is not ported to mmvqa_tpu_torch "
-            "yet (ROADMAP.md Queue 1, item 10)")
-    if impl not in ("auto", "xla"):
+    plain tensor operations on every device. ``impl='ring'`` takes
+    ``ops.ring_attention.ring_vanilla_attention`` over the context group of
+    ``core.mesh.CURRENT`` where it has more than one rank: q, k, v and the
+    mask are then this rank's token block, and the dropout masks come from a
+    seed drawn from ``dropout``'s generator. With one context rank the ring
+    is the whole sequence and this path computes it. 'xla' and 'pallas'
+    name this path too, as in the JAX package."""
+    if impl not in ("auto", "xla", "pallas", "ring"):
         raise ValueError(f"vanilla_attention: unknown impl {impl!r}")
+    if impl == "ring" and ring_size() > 1:
+        from mmvqa_tpu_torch.ops.ring_attention import ring_vanilla_attention
+
+        active = dropout is not None and dropout.training and dropout.p > 0
+        return ring_vanilla_attention(
+            q, k, v, key_mask,
+            dropout_rng=dropout.rng.generator(q.device) if active else None,
+            dropout_rate=dropout.p if active else 0.0,
+            deterministic=not active)
     scale = float(torch.tensor(float(q.shape[-1])).sqrt().to(q.dtype))
     scores = torch.matmul(q, k.to(q.dtype).transpose(-1, -2)) / scale
     if key_mask is not None:

@@ -10,7 +10,10 @@ and the per-sample form of ``make_distill_steps`` (``steps.py:245-252``).
 Every loss is taken in fp32. Plain PyTorch: the
 JAX package computes these outside any Pallas kernel. Batch means and
 counts are the global batch's under data parallelism (``weighted_mean``,
-``mlm_metrics``), as in the JAX package's one program over the mesh."""
+``mlm_metrics``), as in the JAX package's one program over the mesh; under
+context parallelism a mean over the token axis is the rank's block's sum,
+summed over 'context' and divided by the global length (``token_mean``),
+and the MLM counts are summed over 'context' too."""
 
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from mmvqa_tpu_torch.core.mesh import DATA_AXIS
-from mmvqa_tpu_torch.parallel.comm import reduce_from, sum_over
+from mmvqa_tpu_torch.core.mesh import CONTEXT_AXIS, DATA_AXIS
+from mmvqa_tpu_torch.parallel.comm import axis_size, reduce_from, sum_over
 
 
 def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -98,11 +101,24 @@ def mse_distillation(pred: torch.Tensor, target: torch.Tensor,
                                            min=1.0)
 
 
+def token_mean(x: torch.Tensor, dims=(1,)) -> torch.Tensor:
+    """The mean of ``x`` over ``dims``, the first of them the token axis:
+    under context parallelism the rank's block's sum, summed over 'context'
+    (each rank's gradient that of its block), over the global count."""
+    cp = axis_size(CONTEXT_AXIS)
+    if cp == 1:
+        return x.mean(dim=dims)
+    count = cp
+    for d in dims:
+        count *= x.shape[d]
+    return reduce_from(x.sum(dim=dims), CONTEXT_AXIS) / count
+
+
 def distill_per_sample(h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """(B,) mean over (T, H) of ``(h - labels)^2`` in fp32, padded positions
     included: the loss ``make_distill_steps`` weights by the batch's
     ``weights``."""
-    return torch.square(h.float() - labels.float()).mean(dim=(1, 2))
+    return token_mean(torch.square(h.float() - labels.float()), (1, 2))
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -180,7 +196,7 @@ def weighted_token_nll(logits: torch.Tensor, targets: torch.Tensor,
                        w: torch.Tensor) -> torch.Tensor:
     """``masked_mlm_nll`` with per-sample weights, exact for a padded last
     batch (mmvqa_tpu/train/steps.py::_weighted_token_nll)."""
-    return weighted_mean(_token_nll(logits, targets).mean(dim=-1), w)
+    return weighted_mean(token_mean(_token_nll(logits, targets), (1,)), w)
 
 
 def mlm_metrics(logits: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):
@@ -189,7 +205,8 @@ def mlm_metrics(logits: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):
     masked = (labels > 0) & (w[:, None] > 0)
     counts = torch.stack([torch.sum(masked & (pred == labels)),
                           torch.sum(masked)])
-    correct, total = sum_over(counts, DATA_AXIS)  # the global batch's
+    # the global batch's
+    correct, total = sum_over(sum_over(counts, DATA_AXIS), CONTEXT_AXIS)
     return correct, total
 
 

@@ -1,5 +1,6 @@
 """The layouts' collectives as differentiable operations on plain tensors,
-over an axis of ``core.mesh.CURRENT`` ('data' or 'model').
+over an axis of ``core.mesh.CURRENT`` ('data', 'model', 'context' or
+'pipe').
 
 The kernels take plain local tensors (none is a registered operator, so a
 DTensor could not dispatch through them): a layout is written as the
@@ -17,10 +18,17 @@ each of them.
   backward gathers the blocks, so that every rank holds the whole gradient.
 * ``gather_weight``: gathers a sharded parameter for use; the backward sums
   the ranks' partial gradients and keeps this rank's block
-  (reduce-scatter), as FSDP does.
+  (reduce-scatter), as FSDP does; the same pair serves an activation that
+  every rank uses in its own way (the token axis gathered over 'context'
+  at the entry of an encoder that runs at full length);
+* ``keep_block``: its inverse, this rank's block of such a tensor; the
+  backward puts the gradient at the block's place and zeros elsewhere;
+* ``ring_shift``: each rank sends its tensors to the next rank of the axis
+  and takes the previous rank's (``core.distributed.exchange``); the
+  backward shifts the gradients the other way.
 
-On an axis of size 1 each is the identity. ``sum_over`` and ``gather_over``
-are the same collectives without a gradient.
+On an axis of size 1 each is the identity. ``sum_over``, ``gather_over``
+and ``shift_over`` are the same collectives without a gradient.
 """
 
 from __future__ import annotations
@@ -43,6 +51,10 @@ def axis_info(axis: str) -> Tuple[object, int, int]:
         return spec.data_group, spec.data_size, spec.data_rank
     if axis == mesh.MODEL_AXIS:
         return spec.model_group, spec.model_size, spec.model_rank
+    if axis == mesh.CONTEXT_AXIS:
+        return spec.context_group, spec.context_size, spec.context_rank
+    if axis == mesh.PIPE_AXIS:
+        return spec.pipe_group, spec.pipe_size, spec.pipe_rank
     raise ValueError(f"unknown mesh axis {axis!r}")
 
 
@@ -150,6 +162,48 @@ class _GatherWeight(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, group, n), None, None
 
 
+class _KeepBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        _, n, i = axis_info(axis)
+        ctx.axis, ctx.dim, ctx.size = axis, dim, x.shape[dim]
+        return block(x, dim, n, i)
+
+    @staticmethod
+    def backward(ctx, g):
+        _, n, i = axis_info(ctx.axis)
+        size = ctx.size // n
+        d = ctx.dim % g.dim()
+        pad = [0, 0] * (g.dim() - 1 - d) + [i * size, ctx.size - (i + 1) * size]
+        return F.pad(g, pad), None, None
+
+
+def _shift(tensors, axis: str, step: int):
+    """Each tensor of this rank to the rank ``step`` places on along
+    ``axis`` (cyclically), and the one ``step`` places back into a new
+    tensor of its shape."""
+    spec = mesh.CURRENT
+    group, n, i = axis_info(axis)
+    ranks = spec.axis_ranks(axis)
+    dst, src = ranks[(i + step) % n], ranks[(i - step) % n]
+    outs = [torch.empty_like(t, memory_format=torch.contiguous_format)
+            for t in tensors]
+    distributed.exchange([(t, dst) for t in tensors],
+                         [(o, src) for o in outs], group)
+    return outs
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, *tensors):
+        ctx.axis = axis
+        return tuple(_shift(tensors, axis, 1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_shift(grads, ctx.axis, -1))
+
+
 def copy_to(x: torch.Tensor, axis: str) -> torch.Tensor:
     return x if axis_size(axis) == 1 else _CopyTo.apply(x, axis)
 
@@ -168,6 +222,25 @@ def scatter_to(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
 
 def gather_weight(w: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     return w if axis_size(axis) == 1 else _GatherWeight.apply(w, axis, dim)
+
+
+def keep_block(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    return x if axis_size(axis) == 1 else _KeepBlock.apply(x, axis, dim)
+
+
+def ring_shift(*tensors: torch.Tensor, axis: str):
+    """The previous rank's ``tensors`` along ``axis``, as a tuple."""
+    if axis_size(axis) == 1:
+        return tensors
+    return _RingShift.apply(axis, *tensors)
+
+
+@torch.no_grad()
+def shift_over(*tensors: torch.Tensor, axis: str, step: int = 1):
+    """The tensors of the rank ``step`` places back along ``axis``."""
+    if axis_size(axis) == 1:
+        return tensors
+    return tuple(_shift(tensors, axis, step))
 
 
 @torch.no_grad()

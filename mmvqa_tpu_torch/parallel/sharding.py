@@ -1,5 +1,5 @@
-"""Parameter and batch placement over the ('data', 'model') mesh
-(counterpart of mmvqa_tpu/parallel/sharding.py).
+"""Parameter and batch placement over the ('data', 'model', 'context',
+'pipe') mesh (counterpart of mmvqa_tpu/parallel/sharding.py).
 
 The rule is the JAX package's, copied, and read on the Flax tree: each of
 the port's parameters names its Flax leaf through the bridge
@@ -19,6 +19,12 @@ embedding tables on their row dimension only, the token heads' kernels on
 their output channels only (``_with_fsdp`` and the cases of
 ``infer_param_shardings``, :89-175).
 
+Pipeline parallelism: a leaf of the stacked layers (``pp_layers``, a
+pipelined encoder's) shards its leading layer axis over 'pipe' where the
+layer count divides, before and instead of any other rule
+(``sharding.py:120-131``). Nothing is sharded over 'context': context
+parallelism splits the batch's token axis (``place_batch``).
+
 ``Layout`` applies the rule to a model on a rank: the model keeps the
 'model' blocks of its tensor-parallel leaves as its parameters (its modules
 learn how they are split: ``tp_mode`` 'col', 'row' or 'vocab'), and under
@@ -27,6 +33,19 @@ master shard), whose whole parameter is gathered again after each update.
 Adam's moments are made for what the optimizer steps, so they follow their
 parameter's placement (``place_state`` of the JAX package). Running
 statistics are replicated.
+
+Its gradient reduction (``reduce_gradients``) sums each replicated
+parameter's gradient over the axes that replicate it, with one exception.
+Over 'data' every rank holds its rows' part of the loss, so the ranks'
+gradients are parts of the whole and are summed. Over 'context' and 'pipe'
+most parameters are the same: a rank's token block, or stage 0's trunk and
+embeddings, gives its part. But the heads on values that the axis
+replicates (``MMBert.replicated_heads``: every head under 'pipe', which each
+stage computes on the broadcast encoder output; the pooled heads under
+'context') are computed whole by every rank from the same loss, which
+counts once: their gradients are averaged over the axis, which keeps one
+copy. A single sum over the group would count those cp or pp times.
+Over 'model' a replicated parameter is computed alike on every rank.
 
 ``shard_state`` and ``gather_state`` turn a full state dict into a rank's
 shards and back without a process group; ``Layout.full_state_dict`` and
@@ -43,7 +62,14 @@ from torch import nn
 
 from mmvqa_tpu_torch import bridge
 from mmvqa_tpu_torch.core import distributed
-from mmvqa_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, MeshSpec
+from mmvqa_tpu_torch.core.mesh import (
+    CONTEXT_AXIS,
+    DATA_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    MeshSpec,
+    coords_of,
+)
 from mmvqa_tpu_torch.parallel.comm import block
 
 FSDP_MIN_SIZE = 2 ** 15
@@ -102,10 +128,17 @@ def _with_fsdp(spec: tuple, shape: Tuple[int, ...], dp: int,
     return tuple(entries)
 
 
+STACKED_KEY = "pp_layers"
+
+
 def flax_spec(names: Sequence[str], shape: Tuple[int, ...], dp: int, tp: int,
-              fsdp: bool) -> tuple:
+              fsdp: bool, pp: int = 1) -> tuple:
     """The spec ``infer_param_shardings`` gives the Flax leaf ``names`` of
-    ``shape`` on a (dp, tp) mesh, as a tuple of axis names or None."""
+    ``shape`` on a (dp, tp, cp, pp) mesh, as a tuple of axis names or
+    None."""
+    if pp > 1 and STACKED_KEY in names and len(shape) >= 1 \
+            and shape[0] % pp == 0:
+        return (PIPE_AXIS,)
     spec = _spec_for(names, shape, tp)
     if fsdp and dp > 1 and int(np.prod(shape)) >= FSDP_MIN_SIZE \
             and len(shape) >= 2:
@@ -130,18 +163,29 @@ _TORCH_DIM = {
 }
 
 
+def _torch_dim(to_torch, d: int, n: int) -> int:
+    """The port's dimension of Flax dimension ``d`` of an n-dimensional
+    leaf, through the bridge's transform (a stacked leaf's layer axis is
+    dimension 0 in both)."""
+    if isinstance(to_torch, bridge.Stacked):
+        return 0 if d == 0 else 1 + _TORCH_DIM[to_torch.base](d - 1, n - 1)
+    return _TORCH_DIM[to_torch](d, n)
+
+
 class Placement(NamedTuple):
     """Where a parameter of the port lies: its Flax path and spec, and the
-    port's dimensions split over 'model' and over 'data' (None: whole)."""
+    port's dimensions split over 'model', over 'data' and over 'pipe'
+    (None: whole)."""
 
     flax_path: str
     spec: tuple
     tp_dim: Optional[int]
     fsdp_dim: Optional[int]
+    pipe_dim: Optional[int] = None
 
 
 def param_placements(model: nn.Module, dp: int, tp: int,
-                     fsdp: bool = False) -> Dict[str, Placement]:
+                     fsdp: bool = False, pp: int = 1) -> Dict[str, Placement]:
     """One ``Placement`` a parameter of ``model`` (full shapes), by the JAX
     rule on the Flax tree."""
     shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
@@ -151,20 +195,23 @@ def param_placements(model: nn.Module, dp: int, tp: int,
             continue
         flax_shape = np.shape(e.to_flax(np.broadcast_to(
             np.float32(0), shapes[e.key])))
-        spec = flax_spec(e.path[1:], flax_shape, dp, tp, fsdp)
-        to_torch = _TORCH_DIM[e.to_torch]
-        dims = {axis: to_torch(d, len(flax_shape))
+        spec = flax_spec(e.path[1:], flax_shape, dp, tp, fsdp, pp)
+        dims = {axis: _torch_dim(e.to_torch, d, len(flax_shape))
                 for d, axis in enumerate(spec) if axis is not None}
         out[e.key] = Placement("/".join(e.path[1:]), spec,
-                               dims.get(MODEL_AXIS), dims.get(DATA_AXIS))
+                               dims.get(MODEL_AXIS), dims.get(DATA_AXIS),
+                               dims.get(PIPE_AXIS))
     return out
 
 
 def local_block(t: torch.Tensor, pl: Placement, dp: int, tp: int,
                 data_rank: int, model_rank: int,
-                fsdp: bool = True) -> torch.Tensor:
-    """A rank's block of the full tensor ``t``: its 'model' block, then
-    (with ``fsdp``) its 'data' block of that."""
+                fsdp: bool = True, pp: int = 1,
+                pipe_rank: int = 0) -> torch.Tensor:
+    """A rank's block of the full tensor ``t``: its 'pipe' block, its
+    'model' block, then (with ``fsdp``) its 'data' block of that."""
+    if pl.pipe_dim is not None and pp > 1:
+        t = block(t, pl.pipe_dim, pp, pipe_rank)
     if pl.tp_dim is not None and tp > 1:
         t = block(t, pl.tp_dim, tp, model_rank)
     if fsdp and pl.fsdp_dim is not None and dp > 1:
@@ -174,40 +221,80 @@ def local_block(t: torch.Tensor, pl: Placement, dp: int, tp: int,
 
 def shard_state(state: Mapping[str, torch.Tensor],
                 placements: Mapping[str, Placement], dp: int, tp: int,
-                rank: int) -> Dict[str, torch.Tensor]:
-    """Rank ``rank``'s shards of a full state dict (rank ``d * tp + m``);
-    entries without a placement (running statistics) stay whole."""
-    d, m = divmod(rank, tp)
-    return {k: (local_block(v, placements[k], dp, tp, d, m)
+                rank: int, cp: int = 1,
+                pp: int = 1) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shards of a full state dict (the mesh's rank order,
+    ``((d * tp + m) * cp + c) * pp + p``); entries without a placement
+    (running statistics) stay whole."""
+    d, m, _, p = coords_of(rank, (dp, tp, cp, pp))
+    return {k: (local_block(v, placements[k], dp, tp, d, m, pp=pp,
+                            pipe_rank=p)
                 if k in placements else v.clone())
             for k, v in state.items()}
 
 
 def gather_state(shards: Sequence[Mapping[str, torch.Tensor]],
                  placements: Mapping[str, Placement], dp: int,
-                 tp: int) -> Dict[str, torch.Tensor]:
+                 tp: int, cp: int = 1,
+                 pp: int = 1) -> Dict[str, torch.Tensor]:
     """The full state dict from every rank's shards, in rank order."""
+    from mmvqa_tpu_torch.core.mesh import rank_of
+
     out = {}
     for k, v0 in shards[0].items():
         pl = placements.get(k)
         if pl is None:
             out[k] = v0.clone()
             continue
-        per_model = []
-        for m in range(tp):
-            parts = [shards[d * tp + m][k] for d in range(dp)]
-            per_model.append(torch.cat(parts, pl.fsdp_dim)
-                             if pl.fsdp_dim is not None and dp > 1
-                             else parts[0])
-        out[k] = (torch.cat(per_model, pl.tp_dim)
-                  if pl.tp_dim is not None and tp > 1 else per_model[0])
+        per_pipe = []
+        for p in range(pp):
+            per_model = []
+            for m in range(tp):
+                parts = [shards[rank_of((d, m, 0, p), (dp, tp, cp, pp))][k]
+                         for d in range(dp)]
+                per_model.append(torch.cat(parts, pl.fsdp_dim)
+                                 if pl.fsdp_dim is not None and dp > 1
+                                 else parts[0])
+            per_pipe.append(torch.cat(per_model, pl.tp_dim)
+                            if pl.tp_dim is not None and tp > 1
+                            else per_model[0])
+        out[k] = (torch.cat(per_pipe, pl.pipe_dim)
+                  if pl.pipe_dim is not None and pp > 1 else per_pipe[0])
+    return out
+
+
+# the batch fields with a token axis (B, T, ...), split over 'context'
+# (the JAX package's SEQUENCE_KEYS)
+SEQUENCE_KEYS = frozenset(
+    ("tokens", "aug_tokens", "segment_ids", "input_mask", "labels",
+     "aug_labels"))
+
+
+def context_block(batch: Mapping, spec: MeshSpec) -> Dict:
+    """This rank's block of the token axis of each sequence field (every
+    other field as it is): the context coordinate's T / cp positions."""
+    cp, c = spec.context_size, spec.context_rank
+    if cp == 1:
+        return dict(batch)
+    out = {}
+    for k, v in batch.items():
+        if k not in SEQUENCE_KEYS or isinstance(v, str):
+            out[k] = v
+            continue
+        T = v.shape[1]
+        if T % cp:
+            raise ValueError(f"batch field {k!r} has {T} positions, not "
+                             f"divisible by cp_size {cp}")
+        t = T // cp
+        out[k] = v[:, c * t:(c + 1) * t]
     return out
 
 
 def place_batch(batch: Mapping, spec: MeshSpec) -> Dict:
-    """This rank's contiguous rows of a global batch (``place_batch`` of the
-    JAX package: the batch dimension over 'data'); every model rank of a
-    data group gets the same rows."""
+    """This rank's part of a global batch (``place_batch`` of the JAX
+    package): its data coordinate's contiguous rows, and of the sequence
+    fields its context coordinate's block of the token axis; the model and
+    pipe ranks of a group get the same."""
     dp, d = spec.data_size, spec.data_rank
     out = {}
     for k, v in batch.items():
@@ -220,7 +307,7 @@ def place_batch(batch: Mapping, spec: MeshSpec) -> Dict:
                              f"divisible by dp_size {dp}")
         b = n // dp
         out[k] = v[d * b:(d + 1) * b]
-    return out
+    return context_block(out, spec)
 
 
 def _tp_mode(pl: Placement, module: nn.Module) -> str:
@@ -239,27 +326,37 @@ class Layout:
     def __init__(self, model: nn.Module, spec: MeshSpec, fsdp: bool = False):
         self.spec = spec
         self.fsdp = fsdp and spec.data_size > 1
-        dp, tp = spec.data_size, spec.model_size
-        self.placements = param_placements(model, dp, tp, self.fsdp)
+        dp, tp, pp = spec.data_size, spec.model_size, spec.pipe_size
+        self.placements = param_placements(model, dp, tp, self.fsdp, pp)
         self.model = model
         # the full shapes, for checking a checkpoint against
         self.full_shapes = {k: torch.empty(v.shape, device="meta")
                             for k, v in model.state_dict().items()}
-        if tp > 1:
+        if tp > 1 or spec.context_size > 1 or pp > 1:
             # The model ranks hold the same rows, and the collectives give
             # every rank the same sums, so a replicated parameter's gradient
             # is computed from the same values on each of them; cuDNN's
             # deterministic algorithms make it the same bits too (its
             # default weight gradients may add in another order each call),
             # so the replicas stay equal with no collective of their own.
+            # The context and pipe ranks run the trunk on the same images:
+            # the same algorithms keep their running statistics equal.
             torch.backends.cudnn.deterministic = True
         self._mark(model)
         rng = getattr(model, "dropout_rng", None)
-        if rng is not None:  # one dropout stream a data rank
-            rng.fold_rank(spec.data_rank)
+        if rng is not None:  # one dropout stream a data rank and token block
+            rng.fold_rank(spec.data_rank * spec.context_size
+                          + spec.context_rank)
+        heads = getattr(model, "replicated_heads", lambda axis: ())
+        # the parameters whose gradient each rank of an axis holds whole
+        self.whole = {axis: {name for name in self.placements
+                             if name.split(".")[0] in heads(axis)}
+                      for axis in (CONTEXT_AXIS, PIPE_AXIS)}
         with torch.no_grad():
             for name, p in model.named_parameters():
                 pl = self.placements[name]
+                if pl.pipe_dim is not None:
+                    p.data = block(p.data, pl.pipe_dim, pp, spec.pipe_rank)
                 if pl.tp_dim is not None:
                     p.data = block(p.data, pl.tp_dim, tp, spec.model_rank)
         self.shards: Dict[str, torch.Tensor] = {}
@@ -306,11 +403,13 @@ class Layout:
         """How many ranks hold the same values of ``name``'s optimizer
         tensor (a global norm counts each value once)."""
         pl = self.placements[name]
-        r = 1
+        r = self.spec.context_size
         if pl.tp_dim is None:
             r *= self.spec.model_size
         if self.fsdp_dim(name) is None:
             r *= self.spec.data_size
+        if pl.pipe_dim is None:
+            r *= self.spec.pipe_size
         return r
 
     @torch.no_grad()
@@ -326,13 +425,37 @@ class Layout:
         return total.sqrt()
 
     @torch.no_grad()
+    def _reduce_over(self, axis: str, n: int, group) -> None:
+        """Sum over ``axis`` the gradients of the parameters it replicates,
+        the mean for those each rank holds whole (the module docstring); one
+        bucket."""
+        whole = self.whole[axis]
+        named = [(name, p) for name, p in self.model.named_parameters()
+                 if axis != PIPE_AXIS
+                 or self.placements[name].pipe_dim is None]
+        grads = [(torch.zeros_like(p) if p.grad is None else p.grad)
+                 * (1.0 / n if name in whole else 1.0) for name, p in named]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        distributed.all_reduce(flat, group)
+        for (_, p), piece in zip(named, flat.split(
+                [g.numel() for g in grads])):
+            p.grad = piece.view_as(p)
+
+    @torch.no_grad()
     def reduce_gradients(self) -> None:
-        """Sum the ranks' partial gradients over 'data': all-reduce into the
-        parameters' ``.grad``, reduce-scatter into the master shards' (a
-        missing gradient counts as zeros). One bucket a kind. A parameter
-        replicated over 'model' needs nothing more: every model rank
-        computes its gradient from the same values in the same way
-        (``__init__``)."""
+        """Reduce the ranks' gradients over 'context' and 'pipe' (the module
+        docstring), then sum the ranks' partial gradients over 'data':
+        all-reduce into the parameters' ``.grad``, reduce-scatter into the
+        master shards' (a missing gradient counts as zeros). One bucket a
+        kind. A parameter replicated over 'model' needs nothing more: every
+        model rank computes its gradient from the same values in the same
+        way (``__init__``)."""
+        spec = self.spec
+        if spec.context_size > 1:
+            self._reduce_over(CONTEXT_AXIS, spec.context_size,
+                              spec.context_group)
+        if spec.pipe_size > 1:
+            self._reduce_over(PIPE_AXIS, spec.pipe_size, spec.pipe_group)
         dp = self.spec.data_size
         group = self.spec.data_group
         plain: List[Tuple[str, torch.Tensor]] = []
@@ -392,7 +515,8 @@ class Layout:
         """This rank's block of a full tensor placed like ``name``."""
         return local_block(full, self.placements[name], self.spec.data_size,
                            self.spec.model_size, self.spec.data_rank,
-                           self.spec.model_rank, fsdp and self.fsdp)
+                           self.spec.model_rank, fsdp and self.fsdp,
+                           self.spec.pipe_size, self.spec.pipe_rank)
 
     @torch.no_grad()
     def full(self, name: str, t: torch.Tensor,
@@ -406,6 +530,8 @@ class Layout:
             t = comm.gather_over(t, DATA_AXIS, pl.fsdp_dim)
         if pl.tp_dim is not None:
             t = comm.gather_over(t, MODEL_AXIS, pl.tp_dim)
+        if pl.pipe_dim is not None:
+            t = comm.gather_over(t, PIPE_AXIS, pl.pipe_dim)
         return t
 
     def full_state_dict(self) -> Dict[str, torch.Tensor]:

@@ -34,10 +34,14 @@ import torch
 
 def _rank_main(rank: int, world_size: int, init_method: str, device: str,
                backend: Optional[str], threads: int, fn: Callable,
-               args: Sequence, results) -> None:
+               args_path: str, results) -> None:
     try:
+        import pickle
+
         from mmvqa_tpu_torch.core.distributed import init_from_env
 
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         torch.set_num_threads(threads)
         # the port's fp32 is fp32 (cli/common.py::setup_runtime)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -74,24 +78,48 @@ class World:
     def __init__(self, fn: Callable, world_size: int, args: Sequence,
                  init_file: str, device: str, backend: Optional[str],
                  threads: int):
+        import pickle
+
         import torch.multiprocessing as mp
 
         ctx = mp.get_context("spawn")
         self.size = world_size
         self.queue = ctx.Queue()
+        self._got: Dict[int, Any] = {}  # results read by ``wait_done``
         init_method = "file://" + os.path.abspath(init_file)
+        # the arguments go by file: a start would otherwise wait for its
+        # rank to read them from the pipe, one rank's start-up after another
+        args_path = os.path.abspath(init_file) + ".args"
+        with open(args_path, "wb") as f:
+            pickle.dump(tuple(args), f)
         self.procs = [ctx.Process(target=_rank_main,
                                   args=(r, world_size, init_method, device,
-                                        backend, threads, fn, args,
+                                        backend, threads, fn, args_path,
                                         self.queue), daemon=True)
                       for r in range(world_size)]
         for p in self.procs:
             p.start()
 
+    def wait_done(self) -> None:
+        """Wait until every rank has sent its result or ended (the results
+        stay queued for ``results``)."""
+        while len(self._got) < self.size:
+            if all(p.exitcode is not None for p in self.procs):
+                return
+            try:
+                rank, ok, out = self.queue.get(timeout=5.0)
+            except queue_mod.Empty:
+                continue
+            self._got[rank] = (ok, out)
+
     def results(self, timeout: float) -> List[Any]:
         """The ranks' results in rank order; raises on a rank's error, a
         rank's death or the timeout, and stops every rank in any case."""
         got: Dict[int, Any] = {}
+        for rank, (ok, out) in self._got.items():
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{out}")
+            got[rank] = out
         deadline = time.monotonic() + timeout
         try:
             while len(got) < self.size:
@@ -247,16 +275,38 @@ def collectives_probe(rt) -> Dict:
             "staged_bytes": distributed.STAGED["bytes"] - before["bytes"]}
 
 
+def microbatches(job: Dict) -> int:
+    """The job's GPipe microbatches M (1 without a pipeline)."""
+    from mmvqa_tpu_torch.parallel.pipeline import pick_microbatches
+
+    pp = job.get("pp", 1)
+    if pp == 1:
+        return 1
+    rows = len(job["batch"]["weights"]) // job["dp"]
+    if job["kind"] == "supcon":
+        rows *= 2  # the two views
+    return pick_microbatches(job["cfg"].pp_microbatches, rows, pp)
+
+
+def _ring(job: Dict) -> bool:
+    return job.get("cp", 1) > 1 and job["cfg"].attention_impl == "ring"
+
+
 def site_problems(ref: Dict[str, List[tuple]], got: Dict[str, List[tuple]],
-                  dp: int, tp: int) -> List[str]:
+                  dp: int, tp: int, job: Optional[Dict] = None) -> List[str]:
     """What is wrong with a rank's kernel sites (``got``) against the single
     process's (``ref``) under (dp, tp): K1 must run on (B / dp, P, K) x
     (K, C / tp), K2 on H / tp heads of B / dp, K3 on B / dp and the local
     channels (every stride-1 depthwise site lies between a column-parallel
     ``pw_exp`` and its row-parallel ``pw_proj``), and K4 at every site at
     tp = 1 but, under tp > 1, only at the column-parallel ``pw_exp`` sites
-    (those that widen, C > K) on C / tp channels."""
+    (those that widen, C > K) on C / tp channels. Under context parallelism
+    (``job``'s cp) K2 runs at full T where the encoder gathers the sequence
+    and not at all under the ring; under a pipeline (pp) each stage runs its
+    L / pp layers on each of M microbatches of B / dp / M rows."""
     out = []
+    job = job or {}
+    pp, M = job.get("pp", 1), microbatches(job) if job else 1
 
     def want(name, a, b):
         if a != b:
@@ -264,12 +314,40 @@ def site_problems(ref: Dict[str, List[tuple]], got: Dict[str, List[tuple]],
 
     want("K1", got["K1"], [((x[0] // dp,) + x[1:], (w[0], w[1] // tp))
                            for x, w in ref["K1"]])
-    want("K2", got["K2"], [(k[0] // dp, k[1], k[2] // tp, k[3])
-                           for k in ref["K2"]])
+    k2 = [(k[0] // dp, k[1], k[2] // tp, k[3]) for k in ref["K2"]]
+    if _ring(job):
+        k2 = []
+    elif pp > 1:
+        k2 = [(k[0] // M,) + k[1:] for k in k2[:len(k2) // pp]] * M
+    want("K2", got["K2"], k2)
     want("K3", got["K3"], [(x[0] // dp,) + x[1:3] + (x[3] // tp,)
                            for x in ref["K3"]])
     want("K4", got["K4"], [((x[0] // dp, x[1]), (w[0], w[1] // tp))
                            for x, w in ref["K4"] if tp == 1 or w[1] > w[0]])
+    return out
+
+
+# the counters of the trunk's backward kernels, and of K2's
+TRUNK_BACKWARD = ("token_head_bwd", "token_head_bwd_tf32x3",
+                  "depthwise3x3_bwd", "bn_backward_sums")
+
+
+def expected_launches(ref: Dict[str, int], job: Dict,
+                      coords: Sequence[int]) -> Dict[str, int]:
+    """A rank's launch counts in the checked step against the single
+    process's (``ref``), for the counters a context or pipe axis changes:
+    the trunk runs its forward on every rank but its backward only where
+    its output reaches the loss (context rank 0, stage 0); K2 runs the
+    single process's launches where the encoder gathers the sequence, none
+    under the ring, and M / pp of them on each stage of a pipeline."""
+    _, _, c, p = coords
+    out = dict(ref)
+    if c or p:
+        out.update({k: 0 for k in TRUNK_BACKWARD})
+    pp, M = job.get("pp", 1), microbatches(job)
+    for k in out:
+        if k.startswith("realformer_attention"):
+            out[k] = 0 if _ring(job) else out[k] * M // pp
     return out
 
 
@@ -347,7 +425,11 @@ def run_jobs(rt, jobs: Sequence[Dict]) -> List[Dict]:
     the JAX packages (it must not)."""
     import sys
 
-    out = [layout_step(rt, job) for job in jobs]
+    out = []
+    for job in jobs:
+        out.append(layout_step(rt, job))
+        if rt.device.type == "cuda":  # the card is shared with other ranks
+            torch.cuda.empty_cache()
     jax_modules = [m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                           "mmvqa_tpu")]
@@ -364,14 +446,15 @@ def single_step(job: Dict, device) -> Dict:
 
     with mesh.using(None):
         return layout_step(Runtime(0, 1, 0, torch.device(device), None),
-                           dict(job, dp=1, tp=1, fsdp=False))
+                           dict(job, dp=1, tp=1, cp=1, pp=1, fsdp=False))
 
 
 def layout_step(rt, job: Dict) -> Dict:
     """One train step of ``job`` on this rank; see the module docstring.
 
     ``job``: ``cfg`` (the port's Config; the model is the one it seeds),
-    ``kind`` ('mlm', 'supcon', 'vqa'), ``dp``, ``tp``, ``fsdp``, ``batch``
+    ``kind`` ('mlm', 'supcon', 'vqa'), ``dp``, ``tp``, ``cp`` and ``pp``
+    (1 where absent), ``fsdp``, ``batch``
     (the global batch, numpy), ``clip``, ``lr``, ``aug`` (an
     ``AugmentSpec``, None for the step's default; the draws come from the
     step's own generator), ``keep`` (the state dict keys whose tensors and
@@ -392,8 +475,9 @@ def layout_step(rt, job: Dict) -> Dict:
 
     t_setup = time.perf_counter()
     cfg = job["cfg"]
-    spec = mesh.make_mesh(job["dp"], job["tp"]) if rt.world_size > 1 else \
-        mesh.MeshSpec(1, 1)
+    spec = (mesh.make_mesh(job["dp"], job["tp"], job.get("cp", 1),
+                           job.get("pp", 1))
+            if rt.world_size > 1 else mesh.MeshSpec(1, 1))
     dev = rt.device
     with mesh.using(spec if rt.world_size > 1 else None):
         model = _seeded_model(cfg)
@@ -475,7 +559,8 @@ def layout_step(rt, job: Dict) -> Dict:
         timed = (_timed_step(train_step, state, batch, dev)
                  if job.get("timed") and dev.type == "cuda" else {})
         out = {
-            "rank": rt.rank, "loss": loss, "setup_s": setup_s,
+            "rank": rt.rank, "coords": spec.coords, "loss": loss,
+            "setup_s": setup_s,
             "digest": _digest(full) if keep is None else _digest(
                 {**full, **_replicated(model, layout)}),
             "grad_digest": _digest(grads),
@@ -550,10 +635,11 @@ def _after_step(model, layout, keep,
 
 def _replicated(model, layout) -> Dict[str, torch.Tensor]:
     """This rank's entries that every rank holds whole (each must be equal
-    on every rank): all but the tensor-parallel blocks."""
+    on every rank): all but the tensor-parallel and the pipe blocks."""
     return {k: v.detach() for k, v in model.state_dict().items()
             if layout is None or k not in layout.placements
-            or layout.placements[k].tp_dim is None}
+            or (layout.placements[k].tp_dim is None
+                and layout.placements[k].pipe_dim is None)}
 
 
 def _checkpoint_round_trip(state, save_dir: str) -> Dict:

@@ -8,8 +8,11 @@ Builds the kernels, then takes the flagship's fp32 MLM step at full width
 (EfficientNetV2-M + RealFormer), the CLIs' global B=16 with three padded
 samples, T=75, 224 px: once in this process, then under each layout on
 ranks spawned on cuda:0 over gloo, one world at a time (dp=2, dp=2 with
-FSDP, tp=2, the default model at dp=2, then dp=2 x tp=2 with FSDP on four
-ranks). For each it prints a second step's wall ms and the card's busy ms
+FSDP, tp=2, the default model at dp=2, the pipeline pp=2 on the flagship and
+on the default model, the flagship's VQA step at T=28 with the ring at
+cp=2; cp=3 with the ring on the flagship and cp=3 with the gathered encoder
+on the flagship and the default model on three ranks; dp=2 x tp=2 with FSDP and dp=2 x pp=2
+on four ranks). For each it prints a second step's wall ms and the card's busy ms
 in it (torch.profiler, the card's activity only) for every rank, the step's
 peak memory above what the rank held before it, and the bytes its first
 step staged through host memory, beside the single process's, with the
@@ -18,7 +21,8 @@ same steps against the single process; it runs its worlds side by side and
 times none of them.
 
 LAYOUT names the layouts to time (``dp2``, ``dp2-fsdp``, ``tp2``,
-``default-dp2``, ``dp2-tp2-fsdp``; all by default); ``--no_single`` skips
+``default-dp2``, ``pp2``, ``default-pp2``, ``vqa-cp2-ring``, ``cp3-ring``,
+``cp3``, ``default-cp3``, ``dp2-tp2-fsdp``, ``dp2-pp2``; all by default); ``--no_single`` skips
 the single process; ``--root DIR`` times the port of another checkout
 (a parent commit unpacked beside this one, for runs A B B A), whose kernels
 are built there.
@@ -48,8 +52,8 @@ def main() -> None:
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from mmvqa_tpu_torch.core.config import pretrain_config
-    from mmvqa_tpu_torch.data.synthetic import mlm_batches
+    from mmvqa_tpu_torch.core.config import pretrain_config, vqa_config
+    from mmvqa_tpu_torch.data.synthetic import mlm_batches, vqa_batches
     from mmvqa_tpu_torch.native import loader
     from mmvqa_tpu_torch.parallel.world import (
         run_jobs,
@@ -74,12 +78,29 @@ def main() -> None:
     batch = mlm_batches(flag_cfg, 1, 0, pad_last=PAD)[0]
     flag = dict(cfg=flag_cfg, kind="mlm", batch=batch, keep=[], timed=True)
     deft = dict(flag, cfg=def_cfg)
+    vqa_cfg = vqa_config(cnn_encoder="tf_efficientnetv2_m",
+                         transformer_model="realformer", num_classes=10,
+                         batch_size=B, dropout_override=0.0)
+    vqa = dict(flag, cfg=vqa_cfg, kind="vqa", clip=True,
+               batch=vqa_batches(vqa_cfg, 1, 10, 0, pad_last=PAD)[0])
+    pp_flag = dict(flag, cfg=flag_cfg.replace(pp_size=2))
+    ring = dict(attention_impl="ring")
     worlds = (
         (2, {"dp2": dict(flag, dp=2, tp=1, fsdp=False),
              "dp2 fsdp": dict(flag, dp=2, tp=1, fsdp=True),
              "tp2": dict(flag, dp=1, tp=2, fsdp=False),
-             "default dp2": dict(deft, dp=2, tp=1, fsdp=False)}),
-        (4, {"dp2 x tp2 fsdp": dict(flag, dp=2, tp=2, fsdp=True)}),
+             "default dp2": dict(deft, dp=2, tp=1, fsdp=False),
+             "pp2": dict(pp_flag, dp=1, tp=1, pp=2, fsdp=False),
+             "default pp2": dict(deft, cfg=def_cfg.replace(pp_size=2), dp=1,
+                                 tp=1, pp=2, fsdp=False),
+             "vqa cp2 ring": dict(vqa, cfg=vqa_cfg.replace(**ring), dp=1,
+                                  tp=1, cp=2, fsdp=False)}),
+        (3, {"cp3 ring": dict(flag, cfg=flag_cfg.replace(**ring), dp=1, tp=1,
+                              cp=3, fsdp=False),
+             "cp3": dict(flag, dp=1, tp=1, cp=3, fsdp=False),
+             "default cp3": dict(deft, dp=1, tp=1, cp=3, fsdp=False)}),
+        (4, {"dp2 x tp2 fsdp": dict(flag, dp=2, tp=2, fsdp=True),
+             "dp2 x pp2": dict(pp_flag, dp=2, tp=1, pp=2, fsdp=False)}),
     )
     if args.layouts:
         worlds = tuple((size, {n: j for n, j in jobs.items()
@@ -89,7 +110,8 @@ def main() -> None:
     mib = 2.0 ** 20
     singles = ({} if args.no_single else
                {"flagship": single_step(flag, "cuda"),
-                "default": single_step(deft, "cuda")})
+                "default": single_step(deft, "cuda"),
+                "flagship vqa": single_step(vqa, "cuda")})
     for name, r in singles.items():
         print(f"single process, {name}: a second step {r['step_ms']:.1f} ms, "
               f"the card busy {r['busy_ms']:.2f} ms; the step's peak "

@@ -23,10 +23,11 @@ Under a layout (``TrainState.layout``) every rank calls the savers, which
 gather the full tensors (parameters, Adam's moments, the accumulator), and
 rank 0 alone writes: the file is the one a single process writes, and it
 loads into a single process or into any layout, where each rank keeps its
-blocks. Converting the encoder's
-layout between sequential and pipeline-stacked (``adapt_encoder_layout``)
-waits for pipeline parallelism (ROADMAP.md Queue 1, item 10): a sequential
-checkpoint loads as it is, a pipeline-stacked one raises.
+blocks. A pipelined encoder's stacked layers are gathered over 'pipe' as
+FSDP shards are over 'data', so the file is the one a single process with
+that ``--pp_size`` writes. ``adapt_encoder_layout`` converts a checkpoint
+between the sequential and the pipeline-stacked encoder layouts, exactly,
+in either direction.
 """
 
 from __future__ import annotations
@@ -165,19 +166,31 @@ def load_weights(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def adapt_encoder_layout(loaded: Dict[str, torch.Tensor]
+def adapt_encoder_layout(model_state: Mapping[str, torch.Tensor],
+                         loaded: Dict[str, torch.Tensor]
                          ) -> Dict[str, torch.Tensor]:
-    """The JAX package converts a checkpoint between the sequential and the
-    pipeline-stacked encoder layouts here. The port's encoder is
-    sequential: a sequential checkpoint comes back as it is, one with
-    pipeline-stacked layers (``pp_layers``) raises."""
-    stacked = sorted(k for k in loaded if "pp_layers" in k.split("."))
-    if stacked:
-        raise NotImplementedError(
-            f"the checkpoint's encoder is pipeline-stacked ({stacked[0]}, "
-            "...): pipeline layouts are not ported to mmvqa_tpu_torch yet "
-            "(ROADMAP.md Queue 1, item 10)")
-    return loaded
+    """Convert a weights checkpoint between the sequential and the
+    pipeline-stacked encoder layouts (``parallel/pipeline.py``) to the
+    layout of ``model_state`` (the model's state dict, or any mapping with
+    its keys), as ``mmvqa_tpu/train/checkpoint.py::adapt_encoder_layout``
+    does: ``--pp_size`` above 1 stacks the encoder's layers under
+    ``encoder.pp_layers``. The conversion is exact (stacking and unstacking
+    copy the tensors bit for bit); a checkpoint whose layout agrees comes
+    back as it is."""
+    from mmvqa_tpu_torch.parallel.pipeline import (
+        STACKED_KEY,
+        stack_encoder_state,
+        unstack_encoder_state,
+    )
+
+    def stacked(keys) -> bool:
+        return any(k.startswith(f"encoder.{STACKED_KEY}.") for k in keys)
+
+    want, have = stacked(model_state), stacked(loaded)
+    if want == have or not any(k.startswith("encoder.") for k in loaded):
+        return loaded
+    return (stack_encoder_state(loaded) if want
+            else unstack_encoder_state(loaded))
 
 
 def filtered_restore(model_state: Mapping[str, torch.Tensor],

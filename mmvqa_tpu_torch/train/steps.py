@@ -17,7 +17,13 @@ the global batch: the augmentation draws are the global batch's, from the
 step's generator, and each rank keeps its rows; the losses and metric
 counters are the global batch's (``ops/losses.py``); SupCon contrasts the
 gathered global batch; the VQA steps return the predictions, logits,
-answers and weights of the global batch.
+answers and weights of the global batch. Under context parallelism each
+rank's sequence fields are its block of the token axis (the token losses
+and the MLM counts are summed over 'context', ``ops/losses.py``; the VQA
+head sees the whole sequence's pooled mean, so its predictions are every
+context rank's alike), and under a pipeline every stage computes the heads
+and the loss on the broadcast encoder output: either way the per-row
+outputs are gathered over 'data' alone.
 """
 
 from __future__ import annotations

@@ -42,7 +42,8 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEPT = {"vocab_file", "cache_images", "image_cache_dir", "image_size",
         "watch", "watch_histograms", "profile_dir", "grad_accum", "tiny_cnn",
-        "steps_per_call", "dp_size", "tp_size", "cp_size", "fsdp", "pp_size"}
+        "steps_per_call", "dp_size", "tp_size", "cp_size", "fsdp", "pp_size",
+        "pp_microbatches", "attention_impl"}
 
 
 def test_parser_matches_the_reference_surface():
@@ -74,27 +75,26 @@ BASE = ["-r", "t", "--mlm_prob", "0.15"]
 @pytest.mark.parametrize("flag", ["--dp_size 2", "--tp_size 2",
                                   "--cp_size 2", "--fsdp", "--pp_size 2"])
 def test_mesh_flags_wait_for_multi_gpu(flag):
-    """--dp_size, --tp_size and --fsdp lay a run out over its ranks: in one
-    process a two-rank mesh fails with the JAX mesh's own error, a world of
-    two builds it, and --fsdp alone runs. Context and pipeline parallelism
-    still wait for Queue 1, item 10."""
+    """The mesh flags lay a run out over its ranks: in one process a
+    two-rank mesh fails with the JAX mesh's own error, a world of two
+    builds it (context and pipeline parallelism as data and tensor
+    parallelism), and --fsdp alone runs."""
     from mmvqa_tpu_torch.core import mesh
 
     cfg = common.config_from_args(
         common.pretrain_parser().parse_args(BASE + flag.split()))
-    if flag in ("--cp_size 2", "--pp_size 2"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-            common.setup_runtime(cfg, "cpu")
-    elif flag == "--fsdp":
+    if flag == "--fsdp":
         assert cfg.fsdp
         assert common.setup_runtime(cfg, "cpu")[0] == torch.device("cpu")
         assert mesh.CURRENT is None  # one process: nothing to shard
     else:
         with pytest.raises(ValueError, match="device count 1|1 devices not"):
             common.setup_runtime(cfg, "cpu")
-        spec = mesh.make_mesh(cfg.dp_size, cfg.tp_size, world_size=2, rank=1)
-        assert (spec.data_size, spec.model_size) == (
-            (2, 1) if flag == "--dp_size 2" else (1, 2))
+        spec = mesh.make_mesh(cfg.dp_size, cfg.tp_size, cfg.cp_size,
+                              cfg.pp_size, world_size=2, rank=1)
+        want = {"--dp_size 2": (2, 1, 1, 1), "--tp_size 2": (1, 2, 1, 1),
+                "--cp_size 2": (1, 1, 2, 1), "--pp_size 2": (1, 1, 1, 2)}
+        assert spec.sizes == want[flag]
 
 
 def test_steps_per_call_takes_only_1_and_the_runtime_its_device():

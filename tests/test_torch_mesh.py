@@ -67,9 +67,21 @@ def test_make_mesh_matches_jax(n, dp, tp, cp, pp):
 
 @pytest.mark.parametrize("cp,pp", [(2, 1), (1, 2)])
 def test_context_and_pipeline_meshes_wait_for_item_10(cp, pp):
-    jax_make_mesh(-1, 1, cp, pp, devices=jax.devices()[:4])  # JAX builds it
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        make_mesh(-1, 1, cp, pp, world_size=4)
+    """The context and pipe axes (ported with Queue 1, item 10): every
+    rank's coordinates and each axis's ranks are the JAX mesh's device
+    layout, ``reshape(dp, tp, cp, pp)``."""
+    want = jax_make_mesh(-1, 1, cp, pp, devices=jax.devices()[:4])
+    devices = np.asarray(want.mesh.devices)
+    for rank in range(4):
+        spec = make_mesh(-1, 1, cp, pp, world_size=4, rank=rank)
+        assert spec.sizes == (want.data_size, want.model_size,
+                              want.context_size, want.pipe_size)
+        assert devices[spec.coords] == jax.devices()[rank]
+        for i, axis in enumerate(("data", "model", "context", "pipe")):
+            index = list(spec.coords)
+            index[i] = slice(None)
+            assert spec.axis_ranks(axis) == [
+                d.id for d in devices[tuple(index)].reshape(-1)]
 
 
 def _models(name):

@@ -121,9 +121,17 @@ def test_vanilla_attention_dropout_draws_from_the_models_generator(rng):
 
 
 def test_vanilla_attention_ring_waits_for_the_multi_gpu_item():
-    x = torch.zeros(1, 2, 3, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        vanilla_attention(x, x, x, None, impl="ring")
+    """``impl='ring'`` without a context group of more than one rank (one
+    process) is the ring over the whole sequence: this path's values; an
+    impl the JAX package does not name raises."""
+    rng = np.random.default_rng(3)
+    q, k, v = (_t(rng.normal(size=(2, 3, 8, 4)).astype(np.float32))
+               for _ in range(3))
+    mask = _t(_key_mask(rng)[:2, :8])
+    assert torch.equal(vanilla_attention(q, k, v, mask, impl="ring"),
+                       vanilla_attention(q, k, v, mask))
+    with pytest.raises(ValueError, match="unknown impl"):
+        vanilla_attention(q, k, v, None, impl="flash")
 
 
 # ------------------------------------------------------ the encoder ----

@@ -370,13 +370,22 @@ def test_resume_training_takes_up_the_weights_and_refuses_others(runs,
             str(tmp_path), *TRAIN, "--resume_training", "--resume_dir"]
     with pytest.raises(ValueError, match="incompatible"):
         _quiet(vqa_train.main, argv + [other], device="cpu")
-    # a pipeline-stacked encoder waits for the multi-GPU layouts
-    stacked = checkpoint.load_weights(os.path.join(runs["save"], "MLM",
+    # a pipeline-stacked file of these weights is taken up through
+    # adapt_encoder_layout; one whose stacked layers do not fit is refused
+    from mmvqa_tpu_torch.parallel.pipeline import stack_encoder_state
+
+    weights = checkpoint.load_weights(os.path.join(runs["save"], "MLM",
                                                    "p_loss"))
-    stacked["encoder.pp_layers.kqv.weight"] = torch.zeros(1)
+    stacked = stack_encoder_state(weights)
+    assert "encoder.pp_layers.kqv.weight" in stacked
     torch.save(stacked, str(tmp_path / "stacked"))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        _quiet(vqa_train.main, argv + [str(tmp_path / "stacked")],
+    back = checkpoint.adapt_encoder_layout(weights, stacked)
+    assert back.keys() == weights.keys() and all(
+        torch.equal(back[k], weights[k]) for k in weights)
+    stacked["encoder.pp_layers.kqv.weight"] = torch.zeros(1)
+    torch.save(stacked, str(tmp_path / "bad_stacked"))
+    with pytest.raises(ValueError, match="incompatible"):
+        _quiet(vqa_train.main, argv + [str(tmp_path / "bad_stacked")],
                device="cpu")
 
 
