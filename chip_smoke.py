@@ -4458,6 +4458,13 @@ LAYOUT_PAD = 3  # the global batch's padded samples: the data ranks hold
 # different sums of weights
 VQA_LEAVES = CHECK_LEAVES[:-1] + ["fc1.weight", "classifier_0.weight",
                                   "classifier_2.weight"]
+# the feedback encoder's split and replicated leaves in place of the
+# RealFormer's
+FEEDBACK_TP_LEAVES = [k for k in CHECK_LEAVES if ".block_" not in k] + [
+    f"encoder.segment.{k}" for k in (
+        "shared_kv.weight", "to_q_0.weight", "to_out_3.weight",
+        "ff_0.w_in.weight", "ff_3.w_out.weight", "rel_bias.weight",
+        "layer_weight")]
 
 
 def stacked_keys(keys):
@@ -4481,7 +4488,8 @@ def layout_jobs(torch):
     from mmvqa_tpu_torch.core.config import pretrain_config, supcon_config
     from mmvqa_tpu_torch.data.synthetic import mlm_batches, vqa_batches
 
-    over = dict(batch_size=LAYOUT_B, dropout_override=0.0)
+    # --watch: the per-module norms of the reduced gradient, held per rank
+    over = dict(batch_size=LAYOUT_B, dropout_override=0.0, watch=True)
     mlm_cfg = flagship_mlm_config(**over)
     mlm = mlm_batches(mlm_cfg, 1, SEED, pad_last=LAYOUT_PAD)[0]
     sup_cfg = supcon_config(cnn_encoder="tf_efficientnetv2_m",
@@ -4532,7 +4540,15 @@ def layout_jobs(torch):
     four = {"dp2 x tp2 fsdp": dict(flag, dp=2, tp=2, fsdp=True),
             "dp2 x pp2": dict(pp_flag, dp=2, tp=1, pp=2, fsdp=False,
                               ref="pp2")}
-    return {"2": two, "2b": two_more, "3": three, "4": four}
+    # the flagship's trunk with the feedback encoder (4 layers, 8 heads of
+    # 64, T=75 in 38 windows), its heads and memory split over 'model'
+    feedback = {"feedback tp2": dict(
+        flag, cfg=pretrain_config(cnn_encoder="tf_efficientnetv2_m",
+                                  transformer_model="feedback-transformer",
+                                  **over),
+        keep=FEEDBACK_TP_LEAVES + CHECK_STATS, dp=1, tp=2, fsdp=False)}
+    return {"2": two, "2b": two_more, "2f": feedback, "3": three,
+            "4": four}
 
 
 def layout_reference(torch, job, nudge=False, device="cuda"):
@@ -4591,6 +4607,24 @@ def check_layout(torch, name, job, ranks, ref, allow) -> None:
             if not e <= LAYOUT_NORM_TOL * ref[what]:
                 fail(f"layouts {name} rank {r['rank']}: {what} {r[what]:.6e}"
                      f", single process {ref[what]:.6e}")
+    # --watch: each module's norm of the reduced gradient, on every rank
+    watched = {k: float(v) for k, v in ref["metrics"].items()
+               if k.startswith("gnorm/")}
+    if job["kind"] != "vqa" and len(watched) < 7:
+        fail(f"layouts {name}: the single process logged {sorted(watched)}")
+    module_err = 0.0
+    for r in ranks:
+        got = {k: float(v) for k, v in r["metrics"].items()
+               if k.startswith("gnorm/")}
+        if got.keys() != watched.keys():
+            fail(f"layouts {name} rank {r['rank']}: gnorm {sorted(got)}, "
+                 f"single process {sorted(watched)}")
+        for k, want in watched.items():
+            e = abs(got[k] - want) / want
+            if not e <= LAYOUT_NORM_TOL:
+                fail(f"layouts {name} rank {r['rank']}: {k} {got[k]:.6e}, "
+                     f"single process {want:.6e}")
+            module_err = max(module_err, e)
     worst, grad_tol = [], {}
     for kind in ("grads", "state"):
         for k, want in ref[kind].items():
@@ -4635,13 +4669,23 @@ def check_layout(torch, name, job, ranks, ref, allow) -> None:
         problems = site_problems(ref["sites"], r["sites"], dp, tp, job)
         if problems:
             fail(f"layouts {name} rank {r['rank']}: {problems[0]}")
+        if r["rest_problems"]:  # FSDP: the blocks alone at rest
+            fail(f"layouts {name} rank {r['rank']}: at rest "
+                 f"{r['rest_problems'][:2]}")
+        memory = [m[:2] + (m[2] // tp,) for m in ref["sites"]["memory"]]
+        if r["sites"]["memory"] != [(m[0] // dp,) + m[1:] for m in memory]:
+            fail(f"layouts {name} rank {r['rank']}: the feedback memory "
+                 f"{r['sites']['memory'][:1]}, single process "
+                 f"{ref['sites']['memory'][:1]}")
         check_launches(f"layouts {name} rank {r['rank']}", r["launches"],
                        rank_launches(want, job, r["coords"]))
     print(f"layouts {name}: loss {r0['loss']:.6f} (single process "
           f"{ref['loss']:.6f}, err {err:.2e}); {len(worst)} leaves held, the "
           f"closest to its limit {kind} {k} at {e:.2e} ({ratio:.2f} of it); "
           f"{', '.join(f'{w} {r0[w]:.6e} ({ref[w]:.6e})' for w in norms)}; "
-          f"the update held at {held} entries, {dropped} dropped; "
+          + (f"{len(watched)} module norms on every rank within "
+             f"{module_err:.1e} relative; " if watched else "")
+          + f"the update held at {held} entries, {dropped} dropped; "
           f"every rank's state equal; K1 C={r0['sites']['K1'][0][1][1]}, "
           f"K2 H={r0['sites']['K2'][0][2] if r0['sites']['K2'] else '-'}, "
           f"K4 sites {k4_sites}; launches by rank coordinates (data, model, "
@@ -4657,9 +4701,14 @@ def layout_costs(name, ranks, ref, card) -> None:
     mib = 2.0 ** 20
     peaks = ", ".join(f"{r['peak_bytes'] / mib:.0f}" for r in ranks)
     held = ", ".join(f"{r['held_bytes'] / mib:.0f}" for r in ranks)
+    rest = ", ".join(f"{r['rest_bytes'] / mib:.0f}" for r in ranks)
+    fsdp = sum(n for n, _, _ in ranks[0]["fsdp_leaves"].values())
     print(f"layouts {name} [{card}]: the step's peak above what a rank held "
           f"before it, MiB {peaks} (single process "
-          f"{ref['peak_bytes'] / mib:.0f}), held before it {held}; staged "
+          f"{ref['peak_bytes'] / mib:.0f}), held before it {held}, at rest "
+          f"after it (with Adam's moments) {rest} (single process "
+          f"{ref['rest_bytes'] / mib:.0f}); FSDP blocks a rank "
+          f"{fsdp * 4 / mib:.0f} MiB of parameters; staged "
           f"through host memory "
           f"{sum(r['staged_bytes'] for r in ranks) / 1e6:.1f} MB in "
           f"{sum(r['staged_calls'] for r in ranks)} calls (all ranks, the "
@@ -4677,6 +4726,7 @@ def layouts_cli_start(work: str, name: str, flags: list):
            "--nproc_per_node", "2", "-m", "mmvqa_tpu_torch.cli.roco_train",
            "-r", "layouts", "--data_dir", os.path.join(work, "roco"),
            "--save_dir", save, "--epochs", "1", *CLI_ARGS, *flags,
+           *LAYOUT_CLI_WATCH,
            # two loader workers a rank: the worlds share the host's cores
            "--num_workers", "2"]
     with open(logs[0], "w") as out, open(logs[1], "w") as err:
@@ -4684,12 +4734,43 @@ def layouts_cli_start(work: str, name: str, flags: list):
     return proc, save, logs, time.perf_counter(), name
 
 
+def cli_watch_check(what: str, line: dict, hists: dict, cfg) -> dict:
+    """A CLI run's watch output under a layout: rank 0's epoch ``line``
+    holds each module's norm (``--watch``), finite and positive, and its
+    one histogram pass (``--watch_histograms``) an entry a parameter's
+    gradient and weight under the single process's name (the sequential
+    encoder's layers where ``cfg`` stacks them), each counting the full
+    tensor's elements. Returns the norms."""
+    from mmvqa_tpu_torch.bridge import flax_names
+    from mmvqa_tpu_torch.models import MMBert
+
+    gnorms = {k: v for k, v in line.items() if k.startswith("gnorm/")}
+    if len(gnorms) < 7 or not all(math.isfinite(v) and v > 0
+                                  for v in gnorms.values()):
+        fail(f"{what}: rank 0 logged {gnorms}")
+    seq = MMBert(cfg.replace(pp_size=1), device="cpu")
+    names = flax_names(seq)
+    want = {f"{kind}/{names[k]}": p.numel()
+            for k, p in seq.named_parameters() for kind in ("ghist", "whist")}
+    if hists.keys() != want.keys():
+        fail(f"{what}: {len(hists)} histograms, names "
+             f"{sorted(set(hists) ^ set(want))[:4]} differ")
+    bad = [k for k, h in hists.items() if sum(h["counts"]) != want[k]]
+    if bad:
+        fail(f"{what}: {bad[0]} counts {sum(hists[bad[0]]['counts'])} "
+             f"elements, not {want[bad[0]]}")
+    return gnorms
+
+
 def layouts_cli_finish(torch, started, work: str) -> None:
     """Wait for a CLI run: rank 0 alone logged one epoch and saved the
     weights, which are one process's file of that layout. The pipeline's
     (pp2) stack the encoder's four layers; a single-process ``vqa_train``
     (bf16, one epoch) takes them up through ``adapt_encoder_layout`` into
-    its sequential encoder: every tensor but ``classifier_2``."""
+    its sequential encoder: every tensor but ``classifier_2``. Each run
+    also logs the module norms (``--watch``) and writes one histogram
+    pass (``--watch_histograms``), each entry counting its full tensor's
+    elements."""
     from mmvqa_tpu_torch.cli import vqa_train
     from mmvqa_tpu_torch.models import MMBert
     from mmvqa_tpu_torch.train import checkpoint
@@ -4709,10 +4790,12 @@ def layouts_cli_finish(torch, started, work: str) -> None:
              f"{stdout[-2000:]}\n{stderr[-3000:]}")
     lines = metric_lines(save, "layouts")
     weights = os.path.join(save, "MLM", "layouts")
-    if len(lines) != 1 or not os.path.exists(weights):
-        fail(f"layouts cli {name}: {len(lines)} metric lines, weights "
-             f"{os.path.exists(weights)}")
-    line = lines[0]
+    epochs = [x for x in lines if "histograms" not in x]
+    hists = [x["histograms"] for x in lines if "histograms" in x]
+    if len(epochs) != 1 or len(hists) != 1 or not os.path.exists(weights):
+        fail(f"layouts cli {name}: {len(epochs)} epoch lines, {len(hists)} "
+             f"histogram lines, weights {os.path.exists(weights)}")
+    line = epochs[0]
     if not all(math.isfinite(line[k]) for k in ("epoch_train_loss",
                                                 "epoch_val_loss")):
         fail(f"layouts cli {name}: non-finite metric in {line}")
@@ -4722,11 +4805,15 @@ def layouts_cli_finish(torch, started, work: str) -> None:
         loaded["bert_embedding.word_embeddings.weight"]))
     checkpoint.check_compatible(MMBert(cfg, device="cpu").state_dict(),
                                 loaded, what=f"layouts cli {name}")
+    gnorms = cli_watch_check(f"layouts cli {name}", line, hists[0], cfg)
     shown = [ln for ln in stdout.splitlines() if "[mmvqa]" in ln]
-    print(f"layouts cli {name}: torchrun roco_train, 1 epoch at global "
-          f"B={CLI_B}, {wall:.1f} s beside the worlds; train loss "
-          f"{line['epoch_train_loss']:.4f}, val loss "
-          f"{line['epoch_val_loss']:.4f}; rank 0's lines {shown[:3]}")
+    print(f"layouts cli {name}: torchrun roco_train {' '.join(LAYOUT_CLI_WATCH)}"
+          f", 1 epoch at global B={CLI_B}, {wall:.1f} s beside the worlds; "
+          f"train loss {line['epoch_train_loss']:.4f}, val loss "
+          f"{line['epoch_val_loss']:.4f}; {len(gnorms)} module norms "
+          f"{ {k: round(v, 4) for k, v in gnorms.items()} }; {len(hists[0])} "
+          f"histograms, each of its full tensor's elements; rank 0's lines "
+          f"{shown[:3]}")
     if pp == 1:
         return
     stacked = loaded["encoder.pp_layers.kqv.weight"]
@@ -4774,8 +4861,12 @@ def layouts_cli_finish(torch, started, work: str) -> None:
 
 # the layouts phase's two stages: the worlds that run side by side and the
 # pretraining CLI started with them under torchrun
-LAYOUT_STAGES = ((("2", "3"), ("dp2 fsdp", ["--dp_size", "2", "--fsdp"])),
+LAYOUT_STAGES = ((("2", "2f", "3"), ("dp2 fsdp", ["--dp_size", "2",
+                                                  "--fsdp"])),
                  (("2b", "4"), ("pp2", ["--pp_size", "2"])))
+# the CLI runs' watch flags: the module norms in the epoch's line and one
+# histogram pass under the layout
+LAYOUT_CLI_WATCH = ["--watch", "--watch_histograms"]
 
 
 def layouts_start(torch, work: str, device: str = "cuda:0") -> dict:

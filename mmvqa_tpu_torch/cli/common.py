@@ -376,10 +376,15 @@ class KeepFirst:
 
 
 class _NoStep:
-    """A train state whose update does nothing: the histogram pass's."""
+    """A train state whose update does nothing: the histogram pass's. Under
+    a layout it reduces the gradients, as the train state does."""
 
-    def __init__(self, model: torch.nn.Module):
-        self.model = model
+    def __init__(self, model: torch.nn.Module, layout=None):
+        self.model, self.layout = model, layout
+
+    def reduce_gradients(self) -> None:
+        if self.layout is not None:
+            self.layout.reduce_gradients()
 
     def apply_gradients(self) -> None:
         pass
@@ -387,8 +392,8 @@ class _NoStep:
 
 def make_hist_logger(cfg: Config, model: torch.nn.Module, aug, batch,
                      kind: str = "mlm",
-                     smoothing_table: Optional[np.ndarray] = None
-                     ) -> Optional[Callable]:
+                     smoothing_table: Optional[np.ndarray] = None,
+                     layout=None) -> Optional[Callable]:
     """--watch_histograms: returns ``fn(epoch) -> {name: (counts, lo, hi)}``
     of per-parameter gradient and weight histograms, or None when off.
 
@@ -402,13 +407,17 @@ def make_hist_logger(cfg: Config, model: torch.nn.Module, aug, batch,
     the parameters, the optimizer, the BatchNorm statistics and the model's
     dropout generators are left as they were, so the training trajectory is
     that of a run without the flag (the reference's extra undonated step,
-    whose state it discards)."""
+    whose state it discards).
+
+    Under ``layout`` (the train state's ``parallel.sharding.Layout``) every
+    rank calls ``fn`` with ``batch`` its part of the pinned global batch
+    (its rows and token block, as ``rank_loader`` or ``place_batch`` give
+    them); the augmentation draws are the global batch's, the gradients are
+    reduced over the ranks and every tensor is binned at its full shape
+    (``steps.grad_weight_histograms``): the histograms are the single
+    process's on the global batch, on every rank."""
     if not cfg.watch_histograms:
         return None
-    if mesh.CURRENT is not None:
-        raise NotImplementedError(
-            "--watch_histograms bins one process's gradients: run it without "
-            "a multi-GPU layout")
     from mmvqa_tpu_torch.data.images import sample_draws
     from mmvqa_tpu_torch.train import steps
 
@@ -433,13 +442,19 @@ def make_hist_logger(cfg: Config, model: torch.nn.Module, aug, batch,
         rng = model.dropout_rng
         saved = rng.get_state()
         rng.manual_seed(cfg.seed + 0x4157 + epoch)
+        dp = 1
+        if layout is not None:  # one stream a data rank and token block
+            spec = layout.spec
+            dp = spec.data_size
+            rng.fold_rank(spec.data_rank * spec.context_size
+                          + spec.context_rank)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed + epoch)
         n, size = np.shape(batch["image"])[:2]
-        draws = sample_draws(n, size, gen, aug)
+        draws = sample_draws(n * dp, size, gen, aug)
         if kind == "supcon":
-            draws = (draws, sample_draws(n, size, gen, aug))
+            draws = (draws, sample_draws(n * dp, size, gen, aug))
         try:
-            _, m = train_step(_NoStep(model), batch, draws)
+            _, m = train_step(_NoStep(model, layout), batch, draws)
             return {k: tuple(x.cpu() for x in v) for k, v in m.items()
                     if k.startswith(("ghist/", "whist/"))}
         finally:

@@ -165,7 +165,8 @@ def main(argv: Optional[list] = None,
             # run's first train batch; the training state is left as it was
             if hist_logger is None:
                 hist_logger = make_hist_logger(cfg, model, PRETRAIN_AUG,
-                                               train_loader.batch, "supcon")
+                                               train_loader.batch, "supcon",
+                                               layout=state.layout)
             sink.log_histograms(hist_logger(epoch), step=epoch)
         print(
             f"Learning rate: {new_lr:.7f}, Train loss: {tm['loss']:.4f}, "

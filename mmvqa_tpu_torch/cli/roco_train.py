@@ -170,7 +170,7 @@ def main(argv: Optional[list] = None,
             if hist_logger is None:
                 hist_logger = make_hist_logger(
                     cfg, model, PRETRAIN_AUG, train_loader.batch,
-                    "mlm" if mlm else "distill")
+                    "mlm" if mlm else "distill", layout=state.layout)
             sink.log_histograms(hist_logger(epoch), step=epoch)
         print(content)
         print(f"[mmvqa] {tm['items_per_sec']:.1f} train items/s")

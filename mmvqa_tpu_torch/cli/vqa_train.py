@@ -218,7 +218,7 @@ def main(argv: Optional[list] = None,
             if hist_logger is None:
                 hist_logger = make_hist_logger(
                     cfg, model, FINETUNE_AUG, train_loader.batch, "vqa",
-                    smoothing_table=smoothing_table)
+                    smoothing_table=smoothing_table, layout=state.layout)
             sink.log_histograms(hist_logger(epoch), step=epoch)
 
         if vm["loss"] < best_loss:

@@ -16,7 +16,15 @@ others: ``all_reduce`` (sum), ``all_gather_into_tensor`` and
 others in one step (the ring's shift between context neighbours, the
 pipeline's hop between stages): every receive and every send is posted at
 once (``batch_isend_irecv``) and all of them are waited on, so a ring in
-which each rank sends and receives cannot deadlock. Under gloo, PyTorch's
+which each rank sends and receives cannot deadlock. Where a step calls
+them: the Megatron pairs' all-reduces and gathers over 'model'
+(``parallel/comm.py``); under FSDP each unit's all-gather over 'data' in
+its forward and again in its backward, and the reduce-scatter of its
+gradients (``parallel/sharding.py``); the gradient reduction's all-reduces
+over 'context', 'pipe' and 'data'; the global norms' one all-reduce over
+the world (the clip's, and ``--watch``'s per-module norms); the
+``--watch_histograms`` pass's gathers of each split tensor to its full
+shape. Under gloo, PyTorch's
 documentation gives CUDA tensors broadcast and all_reduce only; for the
 other ops a CUDA buffer is staged through pinned host memory and back. The
 choice is made from the group's backend and the tensor's device, never by

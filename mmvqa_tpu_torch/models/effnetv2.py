@@ -387,6 +387,12 @@ class EffNetV2Features(nn.Module):
     """Run the trunk once; return all stage outputs, one (B, C, H, W) map
     per stage, channels-last in memory."""
 
+    fsdp_split = True
+
+    def fsdp_groups(self) -> List[List[str]]:
+        """Under FSDP the stem, then each stage, gathers its leaves."""
+        return [["stem_conv", "stem_bn"]] + self.stages
+
     def __init__(self, arch: Sequence = V2_M_ARCH, stem_ch: int = V2_M_STEM):
         super().__init__()
         self.stem_conv = SameConv2d(3, stem_ch, 3, 2)

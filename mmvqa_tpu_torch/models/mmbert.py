@@ -251,6 +251,14 @@ class MMBert(nn.Module):
         self.encoder.load_state_dict(
             pipeline.stack_encoder_state(drawn, prefix=""), strict=True)
 
+    def fsdp_groups(self):
+        """Under FSDP the units of the embeddings, the trunk and the
+        encoder, then the classifier's modules together, then the SupCon
+        head's (``parallel.sharding.fsdp_units``; each in call order)."""
+        return [["bert_embedding"], ["trans"], ["encoder"],
+                ["fc1", "classifier_0", "classifier_ln", "classifier_2"],
+                ["head_0", "head_2"]]
+
     def replicated_heads(self, axis: str) -> tuple:
         """The modules whose gradient every rank of ``axis`` computes whole,
         from values the axis replicates (the others' gradients are each

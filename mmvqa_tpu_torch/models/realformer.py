@@ -103,6 +103,8 @@ class RealFormerEncoder(nn.Module):
     """Stack of ResEncoderBlocks threading (h, prev). 8 heads regardless of
     the --heads flag (Config.head_count)."""
 
+    fsdp_split = True  # under FSDP each block gathers its leaves
+
     def __init__(self, hidden_size: int, n_layers: int, head_cnt: int = 8,
                  dp1: float = 0.1, dp2: float = 0.1,
                  rng: Optional[DropoutRng] = None, impl: str = "auto"):

@@ -29,7 +29,7 @@ momentum 0.9 and the biased variance in the running statistics.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,6 +87,12 @@ class Bottleneck(nn.Module):
 class ResNetFeatures(nn.Module):
     """Runs the trunk once; returns the five tapped (B, C, H, W) maps,
     channels-last in memory, shallowest first."""
+
+    fsdp_split = True
+
+    def fsdp_groups(self) -> List[List[str]]:
+        """Under FSDP the stem, then each stage, gathers its leaves."""
+        return [["conv1", "bn1"]] + self.stages
 
     def __init__(self, stage_sizes: Sequence[int] = RESNET152_STAGES):
         super().__init__()

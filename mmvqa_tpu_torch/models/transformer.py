@@ -105,6 +105,15 @@ class BertEncoder(nn.Module):
     """``n_layers`` of (attention -> proj -> residual, FFN -> residual) with
     the reference's share modes and norm placement."""
 
+    fsdp_split = True
+
+    def fsdp_groups(self):
+        """Under FSDP each layer's attention, projection and feed-forward
+        gather their leaves together (a shared module once)."""
+        groups = [list(dict.fromkeys(g))
+                  for g in zip(self._att, self._proj, self._ffn)]
+        return [g for i, g in enumerate(groups) if g not in groups[:i]]
+
     def __init__(self, hidden_size: int, n_layers: int, n_heads: int,
                  dropout_rate: float, share: str = "none",
                  norm_pos: str = "pre", rng: Optional[DropoutRng] = None,

@@ -86,6 +86,12 @@ class TokenHead(nn.Module):
 
 
 class VisualTokenizer(nn.Module):
+    fsdp_split = True
+
+    def fsdp_groups(self):
+        """Under FSDP the trunk's units, then the token heads together."""
+        return [["trunk"], [f"token_conv_{i}" for i in range(len(self.taps))]]
+
     def __init__(self, cnn_encoder: str = "tf_efficientnetv2_m",
                  num_vis: int = 5, hidden_size: int = 768,
                  use_relu: bool = False, tiny: bool = False):

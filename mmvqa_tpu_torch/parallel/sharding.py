@@ -28,14 +28,22 @@ parallelism splits the batch's token axis (``place_batch``).
 ``Layout`` applies the rule to a model on a rank: the model keeps the
 'model' blocks of its tensor-parallel leaves as its parameters (its modules
 learn how they are split: ``tp_mode`` 'col', 'row' or 'vocab'), and under
-FSDP the optimizer steps this rank's 'data' block of each FSDP leaf (a
-master shard), whose whole parameter is gathered again after each update.
-Adam's moments are made for what the optimizer steps, so they follow their
-parameter's placement (``place_state`` of the JAX package). Running
-statistics are replicated.
+FSDP only this rank's 'data' block of each FSDP leaf, at rest and in the
+optimizer (ZeRO-3's memory, the JAX package's ``--fsdp``). A unit of the
+model (``fsdp_units``: a trunk block, an encoder layer or the whole
+feedback encoder, the embeddings, a token head, a classifier head) gathers
+its blocks over 'data' in one all-gather when its forward starts, puts the
+full tensors where its modules read their parameters for that forward, and
+frees them when it ends (however many times the forward used them); its
+backward gathers them once more and frees them when it ends (``_Unit``).
+The gather's backward reduce-scatters the full gradients over 'data' into
+the blocks' ``.grad`` (``_GatherShards``). Adam's moments are made for what the
+optimizer steps, so they follow their parameter's placement (``place_state``
+of the JAX package). Running statistics are replicated.
 
 Its gradient reduction (``reduce_gradients``) sums each replicated
-parameter's gradient over the axes that replicate it, with one exception.
+parameter's gradient over the axes that replicate it (an FSDP block's over
+'data' is summed by its unit's gather), with one exception.
 Over 'data' every rank holds its rows' part of the loss, so the ranks'
 gradients are parts of the whole and are summed. Over 'context' and 'pipe'
 most parameters are the same: a rank's token block, or stage 0's trunk and
@@ -49,7 +57,10 @@ Over 'model' a replicated parameter is computed alike on every rank.
 
 ``shard_state`` and ``gather_state`` turn a full state dict into a rank's
 shards and back without a process group; ``Layout.full_state_dict`` and
-``Layout.load_full_state_dict`` do the same on a live world.
+``Layout.load_full_state_dict`` do the same on a live world, and
+``Layout.full`` gives any one tensor at its full shape. ``module_norms``
+takes the per-module norms of the reduced gradient (``--watch``), each value
+counted once, in one all-reduce over the world.
 """
 
 from __future__ import annotations
@@ -318,10 +329,177 @@ def _tp_mode(pl: Placement, module: nn.Module) -> str:
     return "col" if pl.tp_dim == 0 else "row"
 
 
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in storage of its own size (a block of dim 0 is a view of the
+    whole tensor, which would stay allocated)."""
+    if t.untyped_storage().nbytes() == t.numel() * t.element_size():
+        return t
+    return t.clone()
+
+
+def fsdp_units(model: nn.Module) -> List[List[Tuple[str, nn.Module]]]:
+    """The units that gather their FSDP blocks together, each a list of
+    (name, module) that a forward calls in that order. A module's
+    ``fsdp_groups()`` names its children's units (``MMBert``: the
+    embeddings, the heads; a trunk: its stem and each stage; the visual
+    tokenizer: its token heads; the BERT encoder: each layer), else each
+    child is one; a unit of one module marked ``fsdp_split`` (the trunks,
+    the visual tokenizer, the layer-by-layer encoders) is replaced by its
+    own units. A unit runs once in a forward, however often it uses its
+    parameters inside (the feedback encoder's windows)."""
+    out = []
+
+    def walk(prefix: str, mod: nn.Module) -> None:
+        groups = (mod.fsdp_groups() if hasattr(mod, "fsdp_groups")
+                  else [[name] for name, _ in mod.named_children()])
+        for names in groups:
+            members = [(f"{prefix}{n}", getattr(mod, n)) for n in names
+                       if hasattr(mod, n)]
+            if len(members) == 1 and getattr(members[0][1], "fsdp_split",
+                                             False):
+                walk(members[0][0] + ".", members[0][1])
+            elif members:
+                out.append(members)
+
+    walk("", model)
+    return out
+
+
+class _GatherShards(torch.autograd.Function):
+    """A unit's FSDP blocks gathered over 'data' in one all-gather (each
+    block moved to its 'data' dimension first); the backward reduce-scatters
+    the full tensors' gradients, a missing one as zeros, into the blocks'
+    gradients, and drops the unit's gathered tensors (``_Unit``)."""
+
+    @staticmethod
+    def forward(ctx, unit, dims, group, dp, *shards):
+        ctx.unit, ctx.dims, ctx.group, ctx.dp = unit, dims, group, dp
+        ctx.shapes = [s.shape for s in shards]
+        ctx.like = shards[0].new_empty(())
+        return _gather_shards(shards, dims, group, dp)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dp = ctx.dp
+        rows = []
+        for g, shape, d in zip(grads, ctx.shapes, ctx.dims):
+            full = list(shape)
+            full[d] *= dp
+            if g is None:
+                g = ctx.like.new_zeros(full)
+            rows.append(g.movedim(d, 0).reshape(dp, -1))
+        local = torch.empty(sum(r.shape[1] for r in rows),
+                            dtype=rows[0].dtype, device=rows[0].device)
+        distributed.reduce_scatter_tensor(
+            local, torch.cat(rows, dim=1).reshape(-1), ctx.group)
+        out = []
+        for piece, shape, d in zip(local.split([r.shape[1] for r in rows]),
+                                   ctx.shapes, ctx.dims):
+            moved = (shape[d],) + tuple(s for i, s in enumerate(shape)
+                                        if i != d)
+            out.append(piece.view(moved).movedim(0, d).contiguous())
+        ctx.unit.again = None  # the unit's backward has ended
+        return (None, None, None, None, *out)
+
+
+def _gather_shards(shards, dims, group, dp) -> Tuple[torch.Tensor, ...]:
+    flats = [s.detach().movedim(d, 0).reshape(-1)
+             for s, d in zip(shards, dims)]
+    local = torch.cat(flats)
+    out = local.new_empty(dp * local.numel())
+    distributed.all_gather_into_tensor(out, local, group)
+    rows = out.view(dp, -1).split([f.numel() for f in flats], dim=1)
+    fulls = []
+    for s, d, r in zip(shards, dims, rows):
+        moved = s.movedim(d, 0)
+        shape = (dp * moved.shape[0],) + tuple(moved.shape[1:])
+        fulls.append(r.reshape(shape).movedim(0, d).contiguous())
+    return tuple(fulls)
+
+
+class _Saved:
+    """A tensor that autograd saved in a unit's forward as a view of one of
+    its gathered tensors: which one, and the view."""
+
+    __slots__ = ("i", "size", "stride", "offset")
+
+    def __init__(self, i, t):
+        self.i, self.size = i, t.size()
+        self.stride, self.offset = t.stride(), t.storage_offset()
+
+
+class _Unit:
+    """One unit's FSDP leaves: (owner module, attribute, parameter, 'data'
+    dimension) each, gathered at the unit's forward (``gather``) and put in
+    the owners' instance dictionaries, where attribute lookup finds them
+    before the module's parameters; ``release`` takes them out.
+
+    With autograd on, what the forward saves of the gathered tensors is
+    saved as a ``_Saved`` view description (a saved-tensor hook), so the
+    gathered tensors are freed when the forward ends; the first saved view
+    the backward asks for gathers them again, once (``again``), and the
+    gather's backward drops them. A unit whose forward uses its parameters
+    many times (the feedback encoder's windows) thus gathers twice a step,
+    however many windows it runs."""
+
+    def __init__(self, leaves, group, dp):
+        self.leaves, self.group, self.dp = leaves, group, dp
+        self.storages: Dict[int, int] = {}
+        self.again: Optional[Tuple[torch.Tensor, ...]] = None
+        self._hooks = None
+
+    def _gather(self) -> Tuple[torch.Tensor, ...]:
+        with torch.no_grad():
+            return _gather_shards([p for _, _, p, _ in self.leaves],
+                                  [d for _, _, _, d in self.leaves],
+                                  self.group, self.dp)
+
+    def gather(self, module, args) -> None:
+        if self._hooks is not None:  # a forward that raised inside the unit
+            self.release(module, args, None)
+        shards = [p for _, _, p, _ in self.leaves]
+        dims = [d for _, _, _, d in self.leaves]
+        self.again = None  # never a tensor gathered before this forward
+        if torch.is_grad_enabled() and any(p.requires_grad for p in shards):
+            fulls = _GatherShards.apply(self, dims, self.group, self.dp,
+                                        *shards)
+            self.storages = {f.untyped_storage().data_ptr(): i
+                             for i, f in enumerate(fulls)}
+            self._hooks = torch.autograd.graph.saved_tensors_hooks(
+                self._pack, self._unpack)
+            self._hooks.__enter__()
+        else:
+            fulls = self._gather()
+        for (owner, attr, _, _), full in zip(self.leaves, fulls):
+            owner.__dict__[attr] = full
+
+    def release(self, module, args, out) -> None:
+        for owner, attr, _, _ in self.leaves:
+            owner.__dict__.pop(attr, None)
+        if self._hooks is not None:
+            self._hooks.__exit__(None, None, None)
+            self._hooks = None
+        self.storages = {}
+
+    def _pack(self, t: torch.Tensor):
+        i = (self.storages.get(t.untyped_storage().data_ptr())
+             if t.numel() else None)
+        return t if i is None else _Saved(i, t)
+
+    def _unpack(self, packed):
+        if not isinstance(packed, _Saved):
+            return packed
+        if self.again is None:
+            self.again = self._gather()
+        return self.again[packed.i].as_strided(packed.size, packed.stride,
+                                               packed.offset)
+
+
 class Layout:
     """A model placed on this rank of ``spec``: tensor-parallel blocks as the
-    model's parameters, FSDP master shards for the optimizer. Build it on
-    every rank from the same full model; see the module docstring."""
+    model's parameters, and under FSDP the 'data' blocks of the FSDP leaves,
+    gathered by their units at use. Build it on every rank from the same
+    full model; see the module docstring."""
 
     def __init__(self, model: nn.Module, spec: MeshSpec, fsdp: bool = False):
         self.spec = spec
@@ -354,19 +532,45 @@ class Layout:
                       for axis in (CONTEXT_AXIS, PIPE_AXIS)}
         with torch.no_grad():
             for name, p in model.named_parameters():
-                pl = self.placements[name]
-                if pl.pipe_dim is not None:
-                    p.data = block(p.data, pl.pipe_dim, pp, spec.pipe_rank)
-                if pl.tp_dim is not None:
-                    p.data = block(p.data, pl.tp_dim, tp, spec.model_rank)
-        self.shards: Dict[str, torch.Tensor] = {}
-        for name, p in model.named_parameters():
-            if self.fsdp_dim(name) is not None:
-                self.shards[name] = block(p.detach(), self.fsdp_dim(name), dp,
-                                          spec.data_rank).requires_grad_()
+                before = p.data
+                p.data = self.local(name, p.data)
+                if p.data is not before:
+                    p.data = _own(p.data)
+        self._hooks = []
+        if self.fsdp:
+            self._units(model)
 
     def fsdp_dim(self, name: str) -> Optional[int]:
         return self.placements[name].fsdp_dim if self.fsdp else None
+
+    def _units(self, model: nn.Module) -> None:
+        """Hook every FSDP unit (``fsdp_units``); refuse a model with an
+        FSDP leaf outside every unit."""
+        params = dict(model.named_parameters())
+        left = {n for n in params if self.fsdp_dim(n) is not None}
+        for members in fsdp_units(model):
+            leaves = []
+            for prefix, member in members:
+                for name, _ in member.named_parameters(prefix=prefix):
+                    if name not in left:
+                        continue
+                    left.discard(name)
+                    owner_name, _, attr = name.rpartition(".")
+                    leaves.append((model.get_submodule(owner_name), attr,
+                                   params[name], self.fsdp_dim(name)))
+            if not leaves:
+                continue
+            # gathered when its first module starts, freed when its last
+            # one ends
+            u = _Unit(leaves, self.spec.data_group, self.spec.data_size)
+            self._hooks += [
+                members[0][1].register_forward_pre_hook(u.gather),
+                members[-1][1].register_forward_hook(u.release,
+                                                     always_call=True)]
+        if left:
+            raise NotImplementedError(
+                f"FSDP: {sorted(left)[:3]} lie in no unit of "
+                f"{type(model).__name__} (parallel.sharding.fsdp_units)")
 
     def _mark(self, model: nn.Module) -> None:
         """Tell each split module how it is split, and refuse a model whose
@@ -393,12 +597,6 @@ class Layout:
 
     # the optimizer's view ------------------------------------------------
 
-    def opt_params(self) -> Dict[str, torch.Tensor]:
-        """What the optimizer steps, by parameter name, in the model's
-        order: the master shard of an FSDP leaf, else the parameter."""
-        return {name: self.shards.get(name, p)
-                for name, p in self.model.named_parameters()}
-
     def replication(self, name: str) -> int:
         """How many ranks hold the same values of ``name``'s optimizer
         tensor (a global norm counts each value once)."""
@@ -413,16 +611,36 @@ class Layout:
         return r
 
     @torch.no_grad()
-    def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """The L2 norm of the whole gradient from every rank's
-        ``grads`` (of ``opt_params``), each value counted once."""
+    def _sums_of_squares(self, groups: Sequence[Sequence[Tuple[
+            str, torch.Tensor]]]) -> torch.Tensor:
+        """One sum a group of (name, gradient) over the whole gradient,
+        each value counted once, in one all-reduce over the world."""
         import torch.distributed as dist
 
-        total = torch.stack([g.float().square().sum() / self.replication(n)
-                             for n, g in grads.items()]).sum()
+        total = torch.stack([torch.stack([
+            g.float().square().sum() / self.replication(n)
+            for n, g in grads]).sum() for grads in groups])
         if self.spec.world_size > 1:
             distributed.all_reduce(total, dist.group.WORLD)
-        return total.sqrt()
+        return total
+
+    def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of the whole gradient from every rank's
+        ``grads`` (of the model's parameters), each value counted once."""
+        return self._sums_of_squares([list(grads.items())])[0].sqrt()
+
+    def module_norms(self) -> Dict[str, torch.Tensor]:
+        """The L2 norm of the reduced gradient of each of the model's
+        top-level modules (the single process's children: a pipeline
+        stage's stacked layers belong to ``encoder``), as one process's
+        gradient gives it (collective)."""
+        children: Dict[str, list] = {}
+        for name, p in self.model.named_parameters():
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            children.setdefault(name.split(".")[0], []).append((name, g))
+        order = [n for n, _ in self.model.named_children() if n in children]
+        sums = self._sums_of_squares([children[n] for n in order])
+        return dict(zip(order, sums.sqrt().unbind()))
 
     @torch.no_grad()
     def _reduce_over(self, axis: str, n: int, group) -> None:
@@ -444,10 +662,10 @@ class Layout:
     @torch.no_grad()
     def reduce_gradients(self) -> None:
         """Reduce the ranks' gradients over 'context' and 'pipe' (the module
-        docstring), then sum the ranks' partial gradients over 'data':
-        all-reduce into the parameters' ``.grad``, reduce-scatter into the
-        master shards' (a missing gradient counts as zeros). One bucket a
-        kind. A parameter replicated over 'model' needs nothing more: every
+        docstring), then sum the ranks' partial gradients over 'data': one
+        all-reduce of the replicated parameters' ``.grad``; an FSDP block's
+        was summed by its unit's gather. A missing gradient counts as
+        zeros. A parameter replicated over 'model' needs nothing more: every
         model rank computes its gradient from the same values in the same
         way (``__init__``)."""
         spec = self.spec
@@ -456,77 +674,54 @@ class Layout:
                               spec.context_group)
         if spec.pipe_size > 1:
             self._reduce_over(PIPE_AXIS, spec.pipe_size, spec.pipe_group)
-        dp = self.spec.data_size
-        group = self.spec.data_group
-        plain: List[Tuple[str, torch.Tensor]] = []
-        sharded: List[Tuple[str, torch.Tensor]] = []
+        plain: List[torch.Tensor] = []
         for name, p in self.model.named_parameters():
-            g = torch.zeros_like(p) if p.grad is None else p.grad
-            (sharded if name in self.shards else plain).append((name, g))
-            p.grad = None
-        params = dict(self.model.named_parameters())
-        if plain:
-            flat = torch.cat([g.reshape(-1) for _, g in plain])
-            if dp > 1:
-                distributed.all_reduce(flat, group)
-            for (name, g), piece in zip(plain, flat.split(
-                    [g.numel() for _, g in plain])):
-                params[name].grad = piece.view_as(g)
-        if sharded:
-            rows = []
-            for name, g in sharded:
-                rows.append(g.movedim(self.fsdp_dim(name), 0).reshape(dp, -1))
-            local = torch.empty(sum(r.shape[1] for r in rows),
-                                dtype=rows[0].dtype, device=rows[0].device)
-            distributed.reduce_scatter_tensor(
-                local, torch.cat(rows, dim=1).reshape(-1), group)
-            for (name, g), piece in zip(sharded, local.split(
-                    [r.shape[1] for r in rows])):
-                shard = self.shards[name]
-                d = self.fsdp_dim(name)
-                moved = shard.movedim(d, 0)
-                shard.grad = piece.view(moved.shape).movedim(0, d).contiguous()
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            if self.fsdp_dim(name) is None:
+                plain.append(p)
+        if plain and spec.data_size > 1:
+            flat = torch.cat([p.grad.reshape(-1) for p in plain])
+            distributed.all_reduce(flat, spec.data_group)
+            for p, piece in zip(plain, flat.split([p.numel()
+                                                   for p in plain])):
+                p.grad = piece.view_as(p)
 
-    @torch.no_grad()
-    def publish(self) -> None:
-        """Gather every master shard into its parameter (after an update)."""
-        if not self.shards:
-            return
-        dp = self.spec.data_size
-        names = list(self.shards)
-        flats = [self.shards[n].movedim(self.fsdp_dim(n), 0).reshape(-1)
-                 for n in names]
-        local = torch.cat(flats)
-        out = local.new_empty(dp * local.numel())
-        distributed.all_gather_into_tensor(out, local, self.spec.data_group)
-        rows = out.view(dp, -1).split([f.numel() for f in flats], dim=1)
-        params = dict(self.model.named_parameters())
-        for name, r in zip(names, rows):
-            p = params[name]
-            d = self.fsdp_dim(name)
-            moved_shape = (p.shape[d],) + tuple(
-                s for i, s in enumerate(p.shape) if i != d)
-            p.data.copy_(r.reshape(moved_shape).movedim(0, d))
+    def rest_problems(self) -> List[str]:
+        """What is wrong with the placed model at rest (between steps): an
+        FSDP leaf that is more than its block, a block whose storage holds
+        more than itself, a gathered tensor left in a module."""
+        out = []
+        for name, p in self.model.named_parameters():
+            want = tuple(self.local(name, self.full_shapes[name]).shape)
+            if tuple(p.shape) != want:
+                out.append(f"{name}: holds {tuple(p.shape)}, its block is "
+                           f"{want}")
+            if p.untyped_storage().nbytes() != p.numel() * p.element_size():
+                out.append(f"{name}: its storage holds "
+                           f"{p.untyped_storage().nbytes()} bytes")
+            owner_name, _, attr = name.rpartition(".")
+            if attr in self.model.get_submodule(owner_name).__dict__:
+                out.append(f"{name}: a gathered tensor stays in its module")
+        return out
 
     # full tensors <-> this rank's --------------------------------------------
 
-    def local(self, name: str, full: torch.Tensor,
-              fsdp: bool = True) -> torch.Tensor:
+    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's block of a full tensor placed like ``name``."""
         return local_block(full, self.placements[name], self.spec.data_size,
                            self.spec.model_size, self.spec.data_rank,
-                           self.spec.model_rank, fsdp and self.fsdp,
+                           self.spec.model_rank, self.fsdp,
                            self.spec.pipe_size, self.spec.pipe_rank)
 
     @torch.no_grad()
-    def full(self, name: str, t: torch.Tensor,
-             fsdp: bool = True) -> torch.Tensor:
+    def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The full tensor from every rank's block ``t`` (collective: every
         rank calls it, in the same order)."""
         from mmvqa_tpu_torch.parallel import comm
 
         pl = self.placements[name]
-        if fsdp and self.fsdp_dim(name) is not None:
+        if self.fsdp_dim(name) is not None:
             t = comm.gather_over(t, DATA_AXIS, pl.fsdp_dim)
         if pl.tp_dim is not None:
             t = comm.gather_over(t, MODEL_AXIS, pl.tp_dim)
@@ -537,18 +732,14 @@ class Layout:
     def full_state_dict(self) -> Dict[str, torch.Tensor]:
         """The model's full state dict, as one process holds it
         (collective)."""
-        return {k: (self.full(k, v, fsdp=False) if k in self.placements
+        return {k: (self.full(k, v) if k in self.placements
                     else v.detach())
                 for k, v in self.model.state_dict().items()}
 
     @torch.no_grad()
     def load_full_state_dict(self, state: Mapping[str, torch.Tensor]) -> None:
-        """Load a full state dict into the placed model and its shards."""
+        """Load a full state dict into the placed model."""
         own = self.model.state_dict()
         self.model.load_state_dict(
-            {k: (self.local(k, v, fsdp=False) if k in self.placements else v)
+            {k: (self.local(k, v) if k in self.placements else v)
              for k, v in state.items() if k in own}, strict=True)
-        params = dict(self.model.named_parameters())
-        for name, shard in self.shards.items():
-            shard.copy_(block(params[name].detach(), self.fsdp_dim(name),
-                              self.spec.data_size, self.spec.data_rank))

@@ -180,10 +180,15 @@ class _Sites:
     names the models call (the kernels' own counters count launches)."""
 
     def __init__(self):
-        from mmvqa_tpu_torch.models import effnetv2, realformer, visual_tokens
+        from mmvqa_tpu_torch.models import (
+            effnetv2,
+            feedback,
+            realformer,
+            visual_tokens,
+        )
 
         self.seen: Dict[str, List[tuple]] = {"K1": [], "K2": [], "K3": [],
-                                             "K4": []}
+                                             "K4": [], "memory": []}
         self._undo = []
 
         def wrap(mod, name, key, shape_of):
@@ -203,6 +208,9 @@ class _Sites:
         wrap(effnetv2, "depthwise3x3", "K3", lambda x, w: tuple(x.shape))
         wrap(effnetv2, "conv1x1_stats", "K4",
              lambda x, w: (tuple(x.shape), tuple(w.shape)))
+        # the feedback encoder's memory of keys a window reads
+        wrap(feedback.FeedbackSegment, "forward", "memory",
+             lambda seg, mem_k, *a: tuple(mem_k.shape))
 
     def close(self) -> Dict[str, List[tuple]]:
         for mod, name, orig in self._undo:
@@ -462,13 +470,25 @@ def layout_step(rt, job: Dict) -> Dict:
     ``bn3_scale`` (every bn3 scale multiplied by it, the card checks'
     conditioning of a deep trunk), ``timed`` (on a card, a second step,
     profiled: its wall and busy ms), ``save_dir`` (the weights and the
-    recorder saved there after the step, and the recorder restored).
+    recorder saved there after the step, and the recorder restored),
+    ``hist`` (the ``--watch_histograms`` pass before the step, as ``hist``,
+    and again after it; ``hist_kept_state`` says whether both left every
+    tensor, gradient and dropout stream of the rank as it was),
+    ``resume_dir`` (the recorder saved there after the step, restored into
+    a new model, layout and state, and a second step taken: its loss, the
+    state after it and, in the single process, its gradients; and whether
+    the same step on the saved state in memory gave the same loss and
+    state, bit for bit).
 
     The single process (no layout) also returns ``before``, its kept
     parameters before the step: every layout starts from the same seeded
     model. ``grad_norm`` is the global norm of the reduced gradient
     (``Layout.global_norm`` under a layout), ``clip_norm`` the norm the
-    clip measured (with ``clip``)."""
+    clip measured (with ``clip``). Under a layout ``rest_problems`` lists
+    what the placed model holds at rest beyond its blocks
+    (``Layout.rest_problems``) and ``fsdp_leaves`` each FSDP leaf's
+    elements on the rank beside its full count; on a card ``rest_bytes``
+    is what the rank holds after the step (parameters, Adam's moments)."""
     from mmvqa_tpu_torch.core import distributed, mesh
     from mmvqa_tpu_torch.parallel import sharding
     from mmvqa_tpu_torch.train.state import create_train_state
@@ -494,6 +514,8 @@ def layout_step(rt, job: Dict) -> Dict:
                                    layout=layout)
         train_step = make_steps(job["kind"], model, cfg, job.get("aug"))
         batch = sharding.place_batch(job["batch"], spec)
+        hist = (_hist_pass(job, model, state, batch) if job.get("hist")
+                else {})
         grads: Dict[str, torch.Tensor] = {}
         norm: Dict[str, float] = {}
         keep = job.get("keep")
@@ -523,7 +545,7 @@ def layout_step(rt, job: Dict) -> Dict:
         else:
             def capture():
                 type(layout).reduce_gradients(layout)
-                opt = layout.opt_params()
+                opt = dict(model.named_parameters())
                 record(opt.items(), layout.full)
                 norm["grad_norm"] = layout.global_norm(
                     {n: t.grad for n, t in opt.items()}).item()
@@ -545,6 +567,7 @@ def layout_step(rt, job: Dict) -> Dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
+        rest = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
         after = kernel_counts()
         moved = {k: distributed.STAGED[k] - staged[k] for k in staged}
         seen = sites.close()
@@ -553,11 +576,17 @@ def layout_step(rt, job: Dict) -> Dict:
                 vars(obj).pop("apply_gradients", None)
                 vars(obj).pop("reduce_gradients", None)
         t_after = time.perf_counter()
+        if job.get("hist"):
+            again = _hist_pass(job, model, state, batch)
+            hist["hist_kept_state"] = (hist["hist_kept_state"]
+                                       and again["hist_kept_state"])
         full = _after_step(model, layout, keep)
         reloaded = (_checkpoint_round_trip(state, job["save_dir"])
                     if job.get("save_dir") else {})
         timed = (_timed_step(train_step, state, batch, dev)
                  if job.get("timed") and dev.type == "cuda" else {})
+        resumed = (_resumed_step(rt, job, spec, batch, state, keep)
+                   if job.get("resume_dir") else {})
         out = {
             "rank": rt.rank, "coords": spec.coords, "loss": loss,
             "setup_s": setup_s,
@@ -566,12 +595,21 @@ def layout_step(rt, job: Dict) -> Dict:
             "grad_digest": _digest(grads),
             "launches": {k: after[k] - before[k] for k in after},
             "sites": seen, "seconds": seconds, **timed, **reloaded,
+            **hist, **resumed,
             "staged_bytes": moved["bytes"], "staged_calls": moved["calls"],
             # the step's peak above what the process held before it (the
             # model's parameters, and in a process that ran more, the rest)
             "peak_bytes": (torch.cuda.max_memory_allocated(dev) - held
                            if dev.type == "cuda" else 0),
             "held_bytes": held if dev.type == "cuda" else 0,
+            "rest_bytes": rest,
+            "rest_problems": ([] if layout is None
+                              else layout.rest_problems()),
+            "fsdp_leaves": ({} if layout is None else {
+                k: (p.numel(), layout.full_shapes[k].numel(),
+                    layout.placements[k].tp_dim is not None)
+                for k, p in model.named_parameters()
+                if layout.fsdp_dim(k) is not None}),
             "metrics": {k: (v.cpu() if torch.is_tensor(v) else v)
                         for k, v in metrics.items()},
             **norm,
@@ -582,7 +620,91 @@ def layout_step(rt, job: Dict) -> Dict:
             out["grads"] = grads
             if layout is None:
                 out["before"] = start
+        else:
+            out.pop("resumed_state", None)
         return out
+
+
+def _snapshot(model, state) -> Dict[str, torch.Tensor]:
+    """Every tensor of a rank's training state: parameters, buffers, Adam's
+    moments, the gradients (a missing one as an empty tensor) and the
+    dropout streams' generator states."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": torch.as_tensor(v).clone()
+                    for k, v in st.items()})
+    for k, p in model.named_parameters():
+        out[f"grad.{k}"] = (torch.empty(0) if p.grad is None
+                            else p.grad.detach().clone())
+    seed, gens = model.dropout_rng.get_state()
+    out["rng.seed"] = torch.tensor(seed)
+    out.update({f"rng.{d}": g for d, g in gens.items()})
+    return out
+
+
+def _hist_pass(job: Dict, model, state, batch) -> Dict:
+    """``cli.common.make_hist_logger``'s pass (epoch 0) on this rank's part
+    of the job's batch: the histograms, and whether the rank's state came
+    out as it went in."""
+    from mmvqa_tpu_torch.cli.common import make_hist_logger
+    from mmvqa_tpu_torch.data.images import FINETUNE_AUG, PRETRAIN_AUG
+
+    cfg = job["cfg"].replace(watch_histograms=True)
+    aug = job.get("aug") or (FINETUNE_AUG if job["kind"] == "vqa"
+                             else PRETRAIN_AUG)
+    before = _snapshot(model, state)
+    hists = make_hist_logger(cfg, model, aug, batch, job["kind"],
+                             layout=state.layout)(0)
+    after = _snapshot(model, state)
+    kept = before.keys() == after.keys() and all(
+        torch.equal(before[k], after[k]) for k in before)
+    return {"hist": hists, "hist_kept_state": kept}
+
+
+def _resumed_step(rt, job: Dict, spec, batch, state, keep) -> Dict:
+    """Save the recorder after the checked step, restore it into a new
+    model, layout and train state, and take a second step there."""
+    from mmvqa_tpu_torch.parallel import sharding
+    from mmvqa_tpu_torch.train import checkpoint
+    from mmvqa_tpu_torch.train.state import create_train_state
+
+    layout = state.layout
+    path = os.path.join(job["resume_dir"],
+                        "single" if layout is None else "layout")
+    checkpoint.save_recorder(path, 0, state, {"lr": state.lr})
+    model = _seeded_model(job["cfg"]).to(rt.device)
+    placed = (None if layout is None
+              else sharding.Layout(model, spec, layout.fsdp))
+    resumed = create_train_state(model, job.get("lr", job["cfg"].lr),
+                                 clip=job.get("clip", False), layout=placed)
+    resumed, _, _ = checkpoint.restore_recorder(path, resumed)
+    grads: Dict[str, torch.Tensor] = {}
+    if placed is None:
+        def capture():
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None})
+            type(resumed).apply_gradients(resumed)
+
+        resumed.apply_gradients = capture
+    _, metrics = make_steps(job["kind"], model, job["cfg"],
+                            job.get("aug"))(resumed, batch)
+    vars(resumed).pop("apply_gradients", None)
+    # the same second step on the state that was saved, in memory
+    _, kept = make_steps(job["kind"], state.model, job["cfg"],
+                         job.get("aug"))(state, batch)
+    mine = _digest(model.state_dict())
+    out = {"resumed_loss": float(metrics["loss"]),
+           "resumed_as_kept": (float(kept["loss"]) == float(metrics["loss"])
+                               and mine == _digest(state.model.state_dict())),
+           "resumed_adam_steps": [int(st["step"]) for st in
+                                  resumed.optimizer.state_dict()[
+                                      "state"].values()][:1],
+           "resumed_state": _after_step(model, placed, keep)}
+    if placed is None:
+        out["resumed_grads"] = grads
+    return out
 
 
 _MODELS: Dict[Any, Any] = {}
@@ -628,18 +750,20 @@ def _after_step(model, layout, keep,
     for k in names:
         v = local[k]
         if layout is not None and k in layout.placements:
-            v = layout.full(k, v, fsdp=False)
+            v = layout.full(k, v)
         out[k] = (v if keep is None else _rows(v)).detach().cpu().clone()
     return out
 
 
 def _replicated(model, layout) -> Dict[str, torch.Tensor]:
     """This rank's entries that every rank holds whole (each must be equal
-    on every rank): all but the tensor-parallel and the pipe blocks."""
+    on every rank): all but the tensor-parallel, the pipe and the FSDP
+    blocks."""
     return {k: v.detach() for k, v in model.state_dict().items()
             if layout is None or k not in layout.placements
             or (layout.placements[k].tp_dim is None
-                and layout.placements[k].pipe_dim is None)}
+                and layout.placements[k].pipe_dim is None
+                and layout.fsdp_dim(k) is None)}
 
 
 def _checkpoint_round_trip(state, save_dir: str) -> Dict:

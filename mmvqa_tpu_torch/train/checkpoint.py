@@ -61,7 +61,7 @@ def recorder_tree(epoch: int, state: TrainState,
     optimizer = state.optimizer.state_dict()
     acc = state.acc_grads
     if layout is not None:  # the full tensors, as one process holds them
-        names = list(layout.opt_params())
+        names = [n for n, _ in state.model.named_parameters()]
         model_state = layout.full_state_dict()
         optimizer = dict(optimizer, state={
             i: {k: (layout.full(names[i], v) if k != "step" else v)
@@ -106,7 +106,7 @@ def load_recorder_tree(tree: Mapping, state: TrainState
         model.load_state_dict(tree["model"], strict=True)
     else:  # each rank keeps its blocks of the full tensors
         layout.load_full_state_dict(tree["model"])
-        names = list(layout.opt_params())
+        names = [n for n, _ in model.named_parameters()]
         optimizer = dict(optimizer, state={
             i: {k: (layout.local(names[int(i)], v) if k != "step" else v)
                 for k, v in st.items()}

@@ -17,13 +17,13 @@ micro-steps. The BatchNorm statistics are no optimizer state: they move in
 every forward, so on every micro-step.
 
 Under a layout (``parallel.sharding.Layout``, ``layout=`` of
-``create_train_state``) the optimizer steps the layout's tensors: each
-micro-step first sums the ranks' gradients over 'data' (all-reduced, or
-reduce-scattered into the master shards under FSDP), the accumulation and
-the clip work on those, and under FSDP the updated shards are gathered
-into the parameters. The clip's norm is the global one: each rank's
-squares, each value counted once (``Layout.replication``), summed over the
-world.
+``create_train_state``) the optimizer steps the layout's tensors (under
+FSDP the parameters' 'data' blocks, which the model holds at rest): each
+micro-step first reduces the ranks' gradients (``reduce_gradients``, which a
+step may call before ``apply_gradients`` to read the reduced gradient; it
+runs once a micro-step), the accumulation and the clip work on those. The
+clip's norm is the global one: each rank's squares, each value counted once
+(``Layout.replication``), summed over the world.
 """
 
 from __future__ import annotations
@@ -53,12 +53,17 @@ class TrainState:
     layout: Optional[object] = field(default=None, repr=False)
     # the global gradient norm the last clip measured (None without a clip)
     clip_norm: Optional[torch.Tensor] = field(default=None, repr=False)
+    # whether this micro-step's gradients have been reduced
+    reduced: bool = field(default=False, repr=False)
 
-    def _targets(self) -> Dict[str, torch.Tensor]:
-        """What the optimizer steps, by parameter name, in order."""
-        if self.layout is None:
-            return dict(self.model.named_parameters())
-        return self.layout.opt_params()
+    def reduce_gradients(self) -> None:
+        """Reduce this micro-step's gradients over the layout's ranks
+        (``Layout.reduce_gradients``; nothing without a layout), once: the
+        step's ``.grad`` is then the global gradient's part this rank
+        holds."""
+        if self.layout is not None and not self.reduced:
+            self.layout.reduce_gradients()
+        self.reduced = True
 
     def apply_gradients(self) -> None:
         """One micro-step from the ``.grad`` of the model's parameters: an
@@ -66,9 +71,9 @@ class TrainState:
         mean of the accumulated gradients. The gradients are dropped
         afterwards."""
         self.step += 1
-        if self.layout is not None:
-            self.layout.reduce_gradients()
-        targets = self._targets()
+        self.reduce_gradients()
+        self.reduced = False
+        targets = dict(self.model.named_parameters())
         if self.grad_accum > 1:
             self._accumulate(targets)
             self.mini_step += 1
@@ -96,8 +101,6 @@ class TrainState:
             torch._foreach_mul_([p.grad for _, p in named], scale)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
-        if self.layout is not None:
-            self.layout.publish()
 
     def _accumulate(self, targets: Dict[str, torch.Tensor]) -> None:
         """acc += (g - acc) / (n + 1); a parameter without a gradient counts
@@ -125,14 +128,12 @@ class TrainState:
 
 def create_train_state(model: nn.Module, lr: float, clip: bool = False,
                        grad_accum: int = 1, layout=None) -> TrainState:
-    """Adam over every parameter of ``model``, on the model's device, or
-    over what ``layout`` (a ``parallel.sharding.Layout`` of the model) says
-    the optimizer steps."""
+    """Adam over every parameter of ``model``, on the model's device (under
+    ``layout``, a ``parallel.sharding.Layout`` of the model, its parameters
+    are this rank's blocks)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    params = (model.parameters() if layout is None
-              else layout.opt_params().values())
-    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+    optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
                                  eps=ADAM_EPS, weight_decay=0.0)
     return TrainState(step=0, model=model, optimizer=optimizer, clip=clip,
                       grad_accum=grad_accum, layout=layout)

@@ -23,7 +23,10 @@ and the MLM counts are summed over 'context', ``ops/losses.py``; the VQA
 head sees the whole sequence's pooled mean, so its predictions are every
 context rank's alike), and under a pipeline every stage computes the heads
 and the loss on the broadcast encoder output: either way the per-row
-outputs are gathered over 'data' alone.
+outputs are gathered over 'data' alone. The watch metrics (``--watch``'s
+per-module norms, the histograms) are taken after the state's
+``reduce_gradients``, of the global batch's gradient, as one process takes
+them.
 """
 
 from __future__ import annotations
@@ -72,9 +75,17 @@ def _to_device(batch: Mapping, keys, dev: torch.device) -> Dict[str, torch.Tenso
             for k in keys}
 
 
-def grad_norms(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+def grad_norms(model: torch.nn.Module,
+               layout=None) -> Dict[str, torch.Tensor]:
     """L2 norm of the gradients of each top-level module, as
-    ``gnorm/<module>`` (mmvqa_tpu/train/steps.py::_grad_norms)."""
+    ``gnorm/<module>`` (mmvqa_tpu/train/steps.py::_grad_norms). Under
+    ``layout`` (a ``parallel.sharding.Layout``) the norms are of the reduced
+    gradient, the global batch's, as one process takes them
+    (``Layout.module_norms``, collective): call it after the state's
+    ``reduce_gradients``."""
+    if layout is not None:
+        return {f"gnorm/{name}": v
+                for name, v in layout.module_norms().items()}
     out = {}
     for name, child in model.named_children():
         grads = [p.grad.float() for p in child.parameters()
@@ -105,18 +116,55 @@ def _histograms(named: Dict[str, torch.Tensor], prefix: str,
     return out
 
 
-def grad_weight_histograms(model: torch.nn.Module
+def grad_weight_histograms(model: torch.nn.Module, layout=None
                            ) -> Dict[str, Tuple[torch.Tensor, ...]]:
     """Histograms of every parameter's gradient (``ghist/<path>``) and value
     (``whist/<path>``), named by the parameter's Flax path through the
     bridge; a parameter without a gradient gives a zero gradient's. Taken
-    before the update, at the parameters the gradients were taken at."""
+    before the update, at the parameters the gradients were taken at.
+
+    Under ``layout`` (collective; after the state's ``reduce_gradients``)
+    each tensor is binned at its full shape (``Layout.full``, one leaf at a
+    time), and a pipeline's stacked leaves are gathered over 'pipe' and cut
+    into the sequential encoder's layers, each under the single process's
+    name: the histograms are the single process's."""
     names = flax_names(model)
     params = dict(model.named_parameters())
-    grads = {names[k]: (torch.zeros_like(p) if p.grad is None else p.grad)
-             for k, p in params.items()}
-    return {**_histograms(grads, "ghist"),
-            **_histograms({names[k]: p for k, p in params.items()}, "whist")}
+    if layout is None:
+        grads = {names[k]: (torch.zeros_like(p) if p.grad is None
+                            else p.grad) for k, p in params.items()}
+        return {**_histograms(grads, "ghist"),
+                **_histograms({names[k]: p for k, p in params.items()},
+                              "whist")}
+    from mmvqa_tpu_torch.parallel.pipeline import (
+        STACKED_KEY,
+        unstack_encoder_state,
+    )
+
+    out = {}
+    for k, p in params.items():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        for prefix, t in (("ghist", g), ("whist", p.detach())):
+            full = layout.full(k, t)
+            if f".{STACKED_KEY}." not in f".{k}":
+                out.update(_histograms({names[k]: full}, prefix))
+                continue
+            leaf = names[k].rpartition("/")[2]
+            for key, row in unstack_encoder_state({k: full}).items():
+                name = key.rpartition(".")[0].replace(".", "/") + "/" + leaf
+                out.update(_histograms({name: row}, prefix))
+    return out
+
+
+def _watched(model: torch.nn.Module, state, norms: bool,
+             histograms: bool) -> Dict:
+    """The watch metrics of a step's reduced gradient: the per-module norms
+    (``norms``, ``cfg.watch``) and the histograms."""
+    layout = getattr(state, "layout", None)
+    out = grad_norms(model, layout) if norms else {}
+    if histograms:
+        out.update(grad_weight_histograms(model, layout))
+    return out
 
 
 def _own_generators(cfg: Config) -> Callable[[torch.device], torch.Generator]:
@@ -223,14 +271,12 @@ def make_mlm_steps(
         logits = model(img, b["tokens"], b["segment_ids"], b["input_mask"])
         loss = weighted_token_nll(logits, b["labels"], b["weights"])
         loss.backward()
+        state.reduce_gradients()
         metrics = {"loss": loss.detach()}
         with torch.no_grad():
             correct, total = mlm_metrics(logits, b["labels"], b["weights"])
             metrics.update(correct=correct, total=total)
-            if cfg.watch:
-                metrics.update(grad_norms(model))
-            if histograms:
-                metrics.update(grad_weight_histograms(model))
+            metrics.update(_watched(model, state, cfg.watch, histograms))
         state.apply_gradients()
         return state, metrics
 
@@ -273,10 +319,10 @@ def make_distill_steps(
         loss = weighted_mean(distill_per_sample(h, b["labels"]),
                              b["weights"])
         loss.backward()
+        state.reduce_gradients()
         metrics = {"loss": loss.detach()}
-        if histograms:
-            with torch.no_grad():
-                metrics.update(grad_weight_histograms(model))
+        with torch.no_grad():
+            metrics.update(_watched(model, state, False, histograms))
         state.apply_gradients()
         return state, metrics
 
@@ -347,15 +393,13 @@ def make_supcon_steps(
                                      else None))
         loss = nll + con
         loss.backward()
+        state.reduce_gradients()
         metrics = {"loss": loss.detach(), "mlm_loss": nll.detach(),
                    "supcon_loss": con.detach()}
         with torch.no_grad():
             correct, total = mlm_metrics(logits, labels, w)
             metrics.update(correct=correct, total=total)
-            if cfg.watch:
-                metrics.update(grad_norms(model))
-            if histograms:
-                metrics.update(grad_weight_histograms(model))
+            metrics.update(_watched(model, state, cfg.watch, histograms))
         state.apply_gradients()
         return state, metrics
 
@@ -432,12 +476,12 @@ def make_vqa_steps(
         loss = weighted_mean(criterion(logits, answers, categories),
                              b["weights"])
         loss.backward()
+        state.reduce_gradients()
         metrics = {"loss": loss.detach()}
         with torch.no_grad():
             _global_rows(metrics, preds=torch.argmax(logits.detach(), dim=-1),
                          **_layout_rows(b, batch))
-        if histograms:
-            metrics.update(grad_weight_histograms(model))
+            metrics.update(_watched(model, state, False, histograms))
         state.apply_gradients()
         return state, metrics
 

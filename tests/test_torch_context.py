@@ -158,7 +158,8 @@ def _batch(kind, seed):
 def _cfg(kind, **kw):
     if kind == "vqa":
         return vqa_config(**_kw(**kw), num_classes=CLASSES, vocab_size=VOCAB)
-    return pretrain_config(**_kw(**kw), vocab_size=VOCAB)
+    # --watch: the per-module gradient norms
+    return pretrain_config(**_kw(**kw), vocab_size=VOCAB, watch=True)
 
 
 JOBS = {
@@ -393,6 +394,24 @@ def test_context_step_equals_the_single_process_step(singles, world, name):
     assert problems == [] and held > 20 * dropped, (problems[:3], held)
     if JOBS[name]["kind"] == "vqa":  # the global batch's predictions
         assert np.array_equal(r0["metrics"]["preds"], ref["metrics"]["preds"])
+
+
+@pytest.mark.parametrize("name", [n for n in JOBS
+                                  if JOBS[n]["kind"] == "mlm"])
+def test_context_module_norms_are_the_single_process_ones(singles, world,
+                                                          name):
+    """--watch under context parallelism (with the ring and without, with
+    tp and with dp): every rank's ``gnorm/<module>`` is the single
+    process's (1e-5 relative)."""
+    want = {k: float(v) for k, v in singles[name]["metrics"].items()
+            if k.startswith("gnorm/")}
+    assert len(want) >= 7
+    for r in world[0][name]:
+        got = {k: float(v) for k, v in r["metrics"].items()
+               if k.startswith("gnorm/")}
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-5), (r["rank"], k)
 
 
 def _jax_step(name, tp, cp, ring):

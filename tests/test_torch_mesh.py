@@ -225,10 +225,11 @@ def test_kernel_wrappers_refuse_a_dtensor(kernel):
 
 @pytest.mark.parametrize("encoder,ok", [("realformer", True),
                                         ("transformer", True),
-                                        ("feedback-transformer", False)])
+                                        ("feedback-transformer", True)])
 def test_tensor_parallelism_marks_what_it_splits(encoder, ok):
-    """A tp=2 layout tells every split module how it is split; the feedback
-    encoder's forward knows no split, so its model refuses tp > 1."""
+    """A tp=2 layout tells every split module how it is split (the feedback
+    encoder's to_q, shared_kv and w_in column-parallel, to_out and w_out
+    row-parallel, its memory this rank's heads)."""
     kw = dict(MODELS["flagship"], transformer_model=encoder, n_layers=1,
               tiny_cnn=True, image_size=S, vocab_size=64,
               max_position_embeddings=T)
@@ -251,3 +252,10 @@ def test_tensor_parallelism_marks_what_it_splits(encoder, ok):
                          for k in split)
     full = layout.full_shapes["classifier_2.weight"].shape
     assert model.classifier_2.weight.shape == (full[0] // 2, full[1])
+    if encoder == "feedback-transformer":
+        seg = model.encoder.segment
+        assert (seg.shared_kv.tp_mode == seg.to_q_0.tp_mode
+                == seg.ff_0.w_in.tp_mode == "col")
+        assert seg.to_out_0.tp_mode == seg.ff_0.w_out.tp_mode == "row"
+        assert seg.tp == 2 and seg.local_inner == 8 * 64 // 2
+        assert seg.shared_kv.weight.shape == (8 * 64, 48)

@@ -104,13 +104,15 @@ def _batch(seed):
     }
 
 
-def _job(name, dp, seed):
-    return dict(cfg=pretrain_config(**_kw(name, pp_size=2)), kind="mlm",
-                dp=dp, tp=1, pp=2, fsdp=False, batch=_batch(seed),
-                aug=AugmentSpec(**NOOP))
+def _job(name, dp, seed, **kw):
+    # --watch: the per-module gradient norms
+    return dict(cfg=pretrain_config(**_kw(name, pp_size=2), watch=True),
+                kind="mlm", dp=dp, tp=1, pp=2, fsdp=False, batch=_batch(seed),
+                aug=AugmentSpec(**NOOP), **kw)
 
 
-WORLD2 = {"realformer-pp2": _job("realformer", 1, 1),
+# ``hist``: the --watch_histograms pass in the world (``world._hist_pass``)
+WORLD2 = {"realformer-pp2": _job("realformer", 1, 1, hist=True),
           "bert-pp2": _job("bert", 1, 2)}
 WORLD4 = {"realformer-dp2-pp2": _job("realformer", 2, 1),
           "bert-dp2-pp2": _job("bert", 2, 2)}
@@ -541,6 +543,59 @@ def test_pipelined_step_equals_the_single_process_step(singles, worlds,
     problems, held, dropped = update_problems(
         ref["before"], r0["state"], ref["state"], ref["grads"], 2e-5)
     assert problems == [] and held > 20 * dropped, (problems[:3], held)
+
+
+@pytest.mark.parametrize("name", STEPS)
+def test_pipelined_module_norms_are_the_single_process_ones(singles, worlds,
+                                                            name):
+    """--watch under a pipeline: every rank's ``gnorm/<module>`` is the
+    single process's (1e-5 relative), the stages' stacked layers counted in
+    ``encoder``."""
+    want = {k: float(v) for k, v in singles[name]["metrics"].items()
+            if k.startswith("gnorm/")}
+    assert "gnorm/encoder" in want and len(want) >= 7
+    for r in worlds[0][name]:
+        got = {k: float(v) for k, v in r["metrics"].items()
+               if k.startswith("gnorm/")}
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-5), (r["rank"], k)
+
+
+def test_pipelined_histograms_are_the_sequential_ones(worlds):
+    """--watch_histograms at pp=2: the stacked leaves are gathered over
+    'pipe' and binned layer by layer under the sequential encoder's names,
+    so the histograms are those of a single process with the sequential
+    encoder (the same seeded weights): rank 0's gathered gradient and the
+    weights bit for bit, the single process's as
+    ``test_torch_layouts.hist_problems`` states; and the pass leaves every
+    rank's state as it was."""
+    from test_torch_layouts import binned, hist_problems
+
+    name = "realformer-pp2"
+    job = _job_of(name)
+    seq = job["cfg"].replace(pp_size=1)
+    ref = single_step(dict(job, cfg=seq), "cpu")
+    torch_name = {v: k for k, v in bridge.flax_names(
+        MMBert(seq, device="cpu")).items()}
+    assert any("block_1" in k for k in torch_name)
+    assert ref["hist_kept_state"] and len(ref["hist"]) == 2 * len(torch_name)
+    ranks = worlds[0][name]
+    grads = pipeline.unstack_encoder_state(ranks[0]["grads"])
+    for r in ranks:
+        assert r["hist_kept_state"], r["rank"]
+        assert r["hist"].keys() == ref["hist"].keys()
+        for key, want in ref["hist"].items():
+            kind, _, path = key.partition("/")
+            k = torch_name[path]
+            mine = grads[k] if kind == "ghist" else ref["before"][k]
+            for a, b in zip(r["hist"][key], binned(mine)):
+                np.testing.assert_array_equal(a, b, err_msg=key)
+            theirs = np.asarray(ref["grads" if kind == "ghist" else
+                                    "before"][k], np.float64)
+            diff = float(np.abs(np.asarray(mine, np.float64) - theirs).max())
+            problems = hist_problems(r["hist"][key], want, theirs, diff)
+            assert problems == [], (r["rank"], key, problems)
 
 
 @pytest.fixture(scope="module")

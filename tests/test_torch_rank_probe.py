@@ -52,8 +52,9 @@ def jobs_and_shards(rt, jobs):
 
 
 def vqa_clis(rt, data, base, flags):
-    """``vqa_train`` at dp=2 with FSDP for one epoch, then ``vqa_eval`` of
-    its weights at dp=2 and at tp=2, each rank a CLI process would be."""
+    """``vqa_train`` at dp=2 with FSDP for one epoch with its histogram
+    pass (``--watch_histograms``), then ``vqa_eval`` of its weights at dp=2
+    and at tp=2, each rank a CLI process would be."""
     import os
 
     from mmvqa_tpu_torch.cli import vqa_eval, vqa_train
@@ -61,7 +62,7 @@ def vqa_clis(rt, data, base, flags):
     save = os.path.join(base, "train")
     vqa_train.main(["--run_name", "p", "--data_dir", data, "--save_dir",
                     save, "--epochs", "1", "--lr", "1e-3", "--dp_size", "2",
-                    "--fsdp", *flags], device="cpu")
+                    "--fsdp", "--watch_histograms", *flags], device="cpu")
     weights = os.path.join(save, "MLM", "p")
     for layout in (["--dp_size", "2"], ["--tp_size", "2"]):
         vqa_eval.main(["--run_name", "e", "--data_dir", data, "--save_dir",
